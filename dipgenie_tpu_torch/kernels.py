@@ -1,0 +1,142 @@
+"""Build and bind the port's CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch
+headers, so the build takes seconds. The library is built at first use,
+from the sources in this checkout only, into
+``build/dipgenie_tpu_torch/<hash of sources and flags>/`` beside the
+package (``.gitignore`` lists ``build/``). Every C entry point launches on
+the stream it is given, allocates nothing, and returns
+``cudaGetLastError()``; the wrappers raise on a non-zero return.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dipgenie_tpu_torch")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB_NAME = "libdgtorch.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every C entry point (csrc/*.cu)
+_SIGNATURES = {
+    # tbl, sbits, chunkbase, tb_bits, tb_bprow, T, nreal, R1,
+    # V, keys, bp256, bp1024, stream
+    "dg_narrow_run": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # dtbl, host chunk bounds [T + 1], T, R1, NB, V, keys, bp, stream
+    "dg_wide_dense_run": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # desc [T, 9], T, R, recs [T, 7], stream
+    "dg_trace": (_P, _I, _I, _P, _P),
+}
+
+
+def _sources() -> list[str]:
+    return sorted(
+        glob.glob(os.path.join(CSRC, "*.cu"))
+        + glob.glob(os.path.join(CSRC, "*.cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels of "
+        "dipgenie_tpu_torch are built from source at first use"
+    )
+
+
+def library_path() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], _LIB_NAME)
+
+
+def build() -> tuple[str, str]:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    Returns ``(path, compiler log)``; the log is empty when nothing was
+    built. Raises with the compiler's output when ``nvcc`` fails."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    path, _ = build()
+    so = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(so, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    so.dg_error_string.argtypes = [ctypes.c_int]
+    so.dg_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().dg_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tensor(t, name, dtype, shape=None, device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape`` / ``device`` when given)."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: want a CUDA tensor, got {type(t)} on "
+                         f"{getattr(t, 'device', None)}")
+    want = torch.device(device) if device is not None else None
+    if want is not None and (
+        t.device.type != want.type
+        or want.index not in (None, t.device.index)
+    ):
+        raise ValueError(f"{name}: on {t.device}, want {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,60 @@
+"""The diploid pair DP on one device: forward over the plan's segments in
+level order, then one traceback.
+
+Counterpart of ``dipgenie_tpu.ops.diploid_pallas.PairDiploidDP`` with the
+same contract: ``run() -> (sink_value, sink_s_het, transitions)``, with
+``transitions`` a list of ``(level, pi, pj, i2, j2, wu, wv)``, level
+ascending 1..L-1. Every segment's backpointers stay resident on the
+device until the traceback (the JAX package re-ran segments to
+rematerialise them); on CUDA tensors every step is a kernel of
+``csrc/``, on CPU tensors its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..device import resolve_device
+from .narrow import narrow_run
+from .plan import DevPlan, PairPlan, initial_v, plan_to_device
+from .trace import trace
+from .wide import wide_dense_run
+
+
+def assemble(sink_value: int, recs: np.ndarray):
+    """(sink_value, s_het, transitions) from the ``[L - 1, 7]`` records."""
+    recs = np.asarray(recs, np.int64)
+    shet = int(recs[:, 6].sum()) if len(recs) else 0
+    transitions = [
+        (t + 1, *(int(x) for x in row[:6])) for t, row in enumerate(recs)
+    ]
+    return sink_value, shet, transitions
+
+
+class PairDiploidDP:
+    def __init__(self, plan: PairPlan | DevPlan, device="cuda"):
+        self.device = resolve_device(device)
+        if isinstance(plan, DevPlan):
+            self.dplan = plan
+        else:
+            self.dplan = plan_to_device(plan, self.device)
+        self.R = self.dplan.R
+
+    def forward(self):
+        """``(V [R+1, 1024] at the last level, per-segment backpointers)``."""
+        V = initial_v(self.R, self.device)
+        bps = []
+        for seg in self.dplan.segments:
+            if seg.kind == "narrow":
+                V, bp256, bp1024 = narrow_run(seg, V)
+                bps.append((bp256, bp1024))
+            else:
+                V, bp = wide_dense_run(seg, V)
+                bps.append((bp,))
+        return V, bps
+
+    def run(self):
+        V, bps = self.forward()
+        recs = trace(self.dplan, bps)
+        sink_value = int(V[self.R, 0])
+        return assemble(sink_value, recs.cpu().numpy())

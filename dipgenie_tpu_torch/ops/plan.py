@@ -1,0 +1,148 @@
+"""The pair plan on the device, and the bit layouts the kernels read.
+
+Planning is ``dipgenie_tpu.ops.diploid_pallas.plan_pairs`` (numpy plus the
+native ``dg_pair_tables``), called and not forked: a ``PairPlan`` is a
+level-ordered list of ``_NarrowRun`` and ``_WideRun`` segments made of
+256-pair chunks. ``plan_to_device`` turns every numpy array of every
+segment into a tensor on one device; nothing else is derived here.
+
+Layouts the port's kernels (and their plain versions) decode:
+
+* Narrow chunk table ``tbl [nchunks, 2, 256] int32``. Row 0 packs
+  ``gidx << 13 | (dst + 1) << 2 | wsum``: ``gidx`` is the source pair lane
+  ``pi * k + pj`` (flat layout, k = source level width), ``dst`` the
+  destination pair lane ``i2 * k2 + j2`` (-1 on padded lanes, whose row 0
+  is all zero), ``wsum`` in {0, 1, 2} the recombinations the pair adds.
+  Row 1 is the pair's score, ``PAD_SC`` on padded lanes.
+* Narrow ``sbits [nchunks] int32``: bits 0-1 the source extent class - 1,
+  bit 2 first chunk of its transition, bit 3 last chunk, bit 4 real (the
+  rest pad the chunk count up a ladder), bits 5-6 the scan class (unused
+  here), bits 7-8 the destination extent class - 1 (the transition writes
+  ``OUT = 256 * (class + 1)`` lanes). The dataclass comment beside
+  ``_NarrowRun.sbits`` predates this layout.
+* Dense wide chunk table ``dtbl [nchunks, 2, 256] int32``. Row 0 packs
+  ``gidx << 17 | win << 12 | rel << 2 | wsum`` with the destination lane
+  ``win * 1024 + rel``; padded lanes are all zero there, which decodes as
+  the real lane 0, so only ``score == PAD_SC`` in row 1 marks them.
+* Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
+* Pair ordinals (the backpointers): a pair's index in its transition's
+  preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``.
+  Narrow runs spill them as int16 to ``bp256 [n256, R+1, 256]`` or
+  ``bp1024 [n1024, R+1, 1024]`` (row ``tb_bprow``; ``tb_bits & 2`` picks
+  bp1024); dense wide runs as int32 to ``bp [T, R+1, NB * 1024]``.
+
+Reduction key. For every destination lane and row the kernels keep the
+best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
+(0xFFFFFFFF - ordinal)``, merged with a max. A larger key is a larger
+value, then a smaller ordinal: the reference tie rule (the earliest pair in
+plan order wins). The max is order-independent, so parallel atomics give
+deterministic results, and 0 means "no valid candidate".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dipgenie_tpu.ops import diploid_pallas
+from dipgenie_tpu.ops.diploid_pallas import (  # noqa: F401  (re-exported)
+    CHUNK,
+    NEG,
+    PAD_SC,
+    REACH_T,
+    PairPlan,
+    _NarrowRun,
+    _WideRun,
+)
+
+from ..utils.native_build import ensure_native
+
+_LOW32 = 0xFFFFFFFF
+
+
+@dataclass
+class DevSegment:
+    """One plan segment on a device: ``host`` is the numpy segment (for
+    its scalar fields and host-side loops), ``t`` maps every numpy array
+    field of it to a tensor on the device."""
+
+    kind: str  # "narrow" | "wide"
+    host: _NarrowRun | _WideRun
+    t: dict
+    nreal: int  # real (non ladder-pad) chunks of the table the port runs
+
+    @property
+    def t0(self) -> int:
+        return self.host.t0
+
+    @property
+    def t1(self) -> int:
+        return self.host.t1
+
+
+@dataclass
+class DevPlan:
+    R: int
+    L: int
+    device: torch.device
+    segments: list
+
+
+def plan_pairs(*args) -> PairPlan:
+    """``dipgenie_tpu``'s ``plan_pairs(*csr_arrays, R)``, once the native
+    runtime (its fast path, ``dg_pair_tables``) is built."""
+    ensure_native()
+    return diploid_pallas.plan_pairs(*args)
+
+
+def plan_to_device(plan: PairPlan, device) -> DevPlan:
+    """Every numpy array of every segment as a tensor on ``device``."""
+    device = torch.device(device)
+    segs = []
+    for seg in plan.segments:
+        t = {}
+        for f in dataclasses.fields(seg):
+            a = getattr(seg, f.name)
+            if isinstance(a, np.ndarray):
+                t[f.name] = torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device
+                )
+        if isinstance(seg, _NarrowRun):
+            kind, nreal = "narrow", int(np.count_nonzero(seg.sbits & 16))
+        else:
+            kind, nreal = "wide", int(np.count_nonzero(seg.dbits & 4))
+        segs.append(DevSegment(kind=kind, host=seg, t=t, nreal=nreal))
+    return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
+
+
+def chunk_bounds(chunkbase: np.ndarray, nreal: int) -> np.ndarray:
+    """[T + 1] int32 chunk boundaries of a run's transitions."""
+    return np.append(np.asarray(chunkbase, np.int32), np.int32(nreal))
+
+
+def initial_v(R: int, device) -> torch.Tensor:
+    """The DP state before level 0: NEG except lane 0 (the source pair)."""
+    v = torch.full((R + 1, 1024), NEG, dtype=torch.int32, device=device)
+    v[:, 0] = 0
+    return v
+
+
+def make_keys(cand: torch.Tensor, ordinal: torch.Tensor) -> torch.Tensor:
+    """int64 reduction keys of candidate values (``>= REACH_T``) and
+    their pair ordinals; callers zero the keys of invalid candidates."""
+    hi = (cand.to(torch.int64) - REACH_T + 1) << 32
+    return hi | (_LOW32 - ordinal.to(torch.int64))
+
+
+def decode_keys(keys: torch.Tensor):
+    """(V, ordinal) of committed keys: V is NEG where no valid candidate
+    reached the lane or the value is not above REACH_T; the ordinal is 0
+    where no candidate reached it."""
+    val = (keys >> 32) - 1 + REACH_T
+    ok = (keys != 0) & (val > REACH_T)
+    v = torch.where(ok, val, torch.full_like(val, NEG)).to(torch.int32)
+    ordv = torch.where(keys != 0, _LOW32 - (keys & _LOW32), 0)
+    return v, ordv

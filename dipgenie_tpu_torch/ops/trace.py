@@ -1,0 +1,119 @@
+"""The traceback (K-T): one sequential walk from the sink back to level 0
+over the resident backpointers of every segment.
+
+Replaces ``_narrow_trace`` (a reverse ``lax.scan``) and the per-segment
+orchestration around it in ``dipgenie_tpu/ops/diploid_pallas.py``. The
+carry is ``(lane, r)``, starting at the sink pair lane 0 with ``r = R``.
+For global transition ``t`` (level ``t`` to ``t + 1``) the walk reads the
+pair ordinal ``slot = bp[r, lane]``, the pair's packed table entry at
+chunk ``chunkbase + slot // 256``, lane ``slot % 256``, and writes the
+record ``(pi, pj, i2, j2, wu, wv, symd)`` to row ``t`` of an
+``[L - 1, 7] int32`` tensor; then ``lane = gidx`` and ``r -= wsum``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .plan import CHUNK, DevPlan
+
+# columns of the per-transition descriptor the CUDA walk reads
+_DESC_COLS = 9
+
+
+def _tables(seg, ti: int):
+    """(which bp array, its row, chunkbase, table, w1, symd, dense) of
+    transition ``ti`` of a segment."""
+    h = seg.host
+    if seg.kind == "narrow":
+        which = 1 if int(h.tb_bits[ti]) & 2 else 0
+        return (which, int(h.tb_bprow[ti]), int(h.tb_chunkbase[ti]),
+                seg.t["tbl"], seg.t["w1"], seg.t["symd"], False)
+    return (0, ti, int(h.tb2_chunkbase[ti]), seg.t["dtbl"], seg.t["dw1"],
+            seg.t["dsymd"], True)
+
+
+def trace_ref(dplan: DevPlan, bps: list) -> torch.Tensor:
+    """Plain PyTorch version. ``bps[i]`` is segment i's backpointers:
+    ``(bp256, bp1024)`` for a narrow run, ``(bp,)`` for a wide one."""
+    recs = torch.zeros((max(dplan.L - 1, 0), 7), dtype=torch.int32)
+    lane, r = 0, dplan.R
+    for seg, bp in zip(reversed(dplan.segments), reversed(bps)):
+        h = seg.host
+        for ti in range(h.t1 - h.t0 - 1, -1, -1):
+            which, row, cb, tbl, w1t, syt, dense = _tables(seg, ti)
+            blk = bp[which][row]
+            slot = int(blk[max(r, 0), min(lane, blk.shape[1] - 1)])
+            crow, lanec = cb + slot // CHUNK, slot % CHUNK
+            packed = int(tbl[crow, 0, lanec])
+            gidx = (packed >> 17) & 32767 if dense else packed >> 13
+            wsum = packed & 3
+            w1 = int(w1t[crow, lanec])
+            sy = int(syt[crow, lanec])
+            bin_, bout = int(h.tb_bin[ti]), int(h.tb_bout[ti])
+            recs[h.t0 + ti] = torch.tensor(
+                [gidx // bin_, gidx % bin_, lane // bout, lane % bout,
+                 w1, wsum - w1, sy], dtype=torch.int32)
+            lane, r = gidx, r - wsum
+    return recs.to(dplan.device)
+
+
+def _descriptors(dplan: DevPlan, bps: list) -> np.ndarray:
+    """[L - 1, 9] int64: per transition the address of its bp block, the
+    block's lane count, its element size, the addresses of its table,
+    w1 and symd rows at the transition's first chunk, the dense flag,
+    bin and bout."""
+    def addr(t, rows):
+        return t.data_ptr() + rows.astype(np.int64) * (
+            t.stride(0) * t.element_size()
+        )
+
+    desc = np.zeros((max(dplan.L - 1, 0), _DESC_COLS), np.int64)
+    for seg, bp in zip(dplan.segments, bps):
+        h = seg.host
+        d = desc[h.t0 : h.t1]
+        if seg.kind == "narrow":
+            wide_bp = (h.tb_bits & 2) != 0
+            d[:, 0] = np.where(wide_bp, addr(bp[1], h.tb_bprow),
+                               addr(bp[0], h.tb_bprow))
+            d[:, 1] = np.where(wide_bp, bp[1].shape[2], bp[0].shape[2])
+            d[:, 2] = bp[0].element_size()
+            cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
+        else:
+            d[:, 0] = addr(bp[0], np.arange(h.t1 - h.t0))
+            d[:, 1] = bp[0].shape[2]
+            d[:, 2] = bp[0].element_size()
+            cb, names, d[:, 6] = h.tb2_chunkbase, ("dtbl", "dw1", "dsymd"), 1
+        for col, name in zip((3, 4, 5), names):
+            d[:, col] = addr(seg.t[name], cb)
+        d[:, 7] = h.tb_bin
+        d[:, 8] = h.tb_bout
+    return desc
+
+
+def trace(dplan: DevPlan, bps: list) -> torch.Tensor:
+    """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
+    the whole plan); backpointers on the CPU take ``trace_ref``."""
+    if all(b.device.type == "cpu" for blocks in bps for b in blocks):
+        return trace_ref(dplan, bps)
+    if len(bps) != len(dplan.segments):
+        raise ValueError(f"trace: {len(bps)} backpointer sets for "
+                         f"{len(dplan.segments)} segments")
+    for seg, blocks in zip(dplan.segments, bps):
+        dtype = torch.int16 if seg.kind == "narrow" else torch.int32
+        for b in blocks:
+            kernels.check_tensor(b, "bp", dtype, None, dplan.device)
+    desc = torch.from_numpy(_descriptors(dplan, bps)).to(dplan.device)
+    recs = torch.zeros((max(dplan.L - 1, 0), 7), dtype=torch.int32,
+                       device=dplan.device)
+    lib = kernels.lib()
+    rc = lib.dg_trace(desc.data_ptr(), desc.shape[0], dplan.R,
+                      recs.data_ptr(), kernels.stream_of(recs))
+    kernels.raise_on_error(rc, "trace")
+    trace.launches += 1
+    return recs
+
+
+trace.launches = 0

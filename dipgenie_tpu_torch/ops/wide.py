@@ -1,0 +1,83 @@
+"""One run of wide transitions over dense chunks (K2): the CUDA kernel
+and its plain twin.
+
+Replaces ``_wide_dense_kernel`` / ``_wide_call`` of
+``dipgenie_tpu/ops/diploid_pallas.py``, and also runs the big runs
+(19..31 windows) that the JAX package sends to ``_wide_split_kernel``:
+the dense tables exist for every wide run. The transition is the one of
+``narrow.py`` over a ``[R+1, NB * 1024]`` state; every lane of every
+window is rewritten at each transition, so lanes no kept pair reaches
+(holes, windows past the extent) become ``NEG``. The run's output state
+is the first 1024 lanes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .narrow import transition_keys
+from .plan import NEG, PAD_SC, DevSegment, chunk_bounds, decode_keys
+
+
+def _alloc(seg: DevSegment, v_in: torch.Tensor):
+    h = seg.host
+    R1 = v_in.shape[0]
+    lanes = h.NB * 1024
+    V = torch.full((R1, lanes), NEG, dtype=torch.int32, device=v_in.device)
+    V[:, :1024] = v_in
+    bp = torch.zeros((h.t1 - h.t0, R1, lanes), dtype=torch.int32,
+                     device=v_in.device)
+    return V, bp
+
+
+def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
+    """Plain PyTorch version: ``(V_out [R+1, 1024] int32, bp [T, R+1,
+    NB * 1024] int32)`` from ``V_in [R+1, 1024] int32``."""
+    h = seg.host
+    V, bp = _alloc(seg, v_in)
+    dtbl = seg.t["dtbl"]
+    bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
+    for ti in range(h.t1 - h.t0):
+        c0, c1 = int(bounds[ti]), int(bounds[ti + 1])
+        packed = dtbl[c0:c1, 0].reshape(-1)
+        score = dtbl[c0:c1, 1].reshape(-1)
+        real = score != PAD_SC
+        ordinal = torch.nonzero(real).reshape(-1)
+        packed, score = packed[real], score[real]
+        keys = transition_keys(
+            V, (packed >> 17) & 32767, packed & 3, score,
+            (packed >> 2) & 32767, ordinal, V.shape[1],
+        )
+        V, bp[ti] = decode_keys(keys)
+    return V[:, :1024].contiguous(), bp
+
+
+def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
+    """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one host
+    call per run, two kernels per transition); a CPU ``v_in`` takes
+    ``wide_dense_run_ref``."""
+    if v_in.device.type == "cpu":
+        return wide_dense_run_ref(seg, v_in)
+    kernels.check_tensor(v_in, "v_in", torch.int32, (v_in.shape[0], 1024))
+    h = seg.host
+    dtbl = seg.t["dtbl"]
+    kernels.check_tensor(dtbl, "dtbl", torch.int32, None, v_in.device)
+    if not 1 <= h.NB <= 31:
+        raise ValueError(f"wide_dense_run: NB = {h.NB}, want 1..31")
+    V, bp = _alloc(seg, v_in)
+    R1 = v_in.shape[0]
+    keys = torch.zeros(V.shape, dtype=torch.int64, device=v_in.device)
+    bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
+    lib = kernels.lib()
+    rc = lib.dg_wide_dense_run(
+        dtbl.data_ptr(), bounds.ctypes.data, h.t1 - h.t0, R1, h.NB,
+        V.data_ptr(), keys.data_ptr(), bp.data_ptr(),
+        kernels.stream_of(v_in),
+    )
+    kernels.raise_on_error(rc, "wide_dense_run")
+    wide_dense_run.launches += 1
+    return V[:, :1024].contiguous(), bp
+
+
+wide_dense_run.launches = 0

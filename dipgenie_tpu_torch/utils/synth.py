@@ -1,0 +1,242 @@
+"""Deterministic synthetic inputs, made from a seed with numpy.
+
+* ``random_leveled_csr``: the random leveled DAGs of the JAX package's
+  tests (``tests/test_device_kernels._random_leveled_graph`` with the
+  colour split of ``tests/test_pallas_dp.py``), emitted directly as the
+  CSR arrays of ``dipgenie_tpu.solver.diploid.csr_arrays`` so that a run
+  without the test tree sees the same instances;
+* ``mhc_shaped_csr``: a leveled DAG at the scale of the MHC expanded
+  graph, the deployment the DP is sized for;
+* ``pangenome``: a GFA v1.1 pangenome (S/L/W lines) plus short reads from
+  two of its walks, for the end-to-end CLI.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+_BASES = np.frombuffer(b"ACGT", np.uint8)
+_COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def _csr(widths, adj, colors, chb):
+    """CSR arrays (level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors,
+    het_ptr, het_colors) of a leveled graph given as per-vertex lists."""
+    level_ptr = np.zeros(len(widths) + 1, np.int64)
+    np.cumsum(widths, out=level_ptr[1:])
+    n = int(level_ptr[-1])
+    adj_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum([len(a) for a in adj], out=adj_ptr[1:])
+    adj_v = np.asarray([v for a in adj for v, _ in a], np.int32)
+    adj_w = np.asarray([w for a in adj for _, w in a], np.int8)
+    hom_ptr = np.zeros(n + 1, np.int64)
+    het_ptr = np.zeros(n + 1, np.int64)
+    hom, het = [], []
+    for v, cs in enumerate(colors):
+        hom += [c for c in cs if chb[c]]
+        het += [c for c in cs if not chb[c]]
+        hom_ptr[v + 1], het_ptr[v + 1] = len(hom), len(het)
+    return (level_ptr, adj_ptr, adj_v, adj_w, hom_ptr,
+            np.asarray(hom, np.int32), het_ptr, np.asarray(het, np.int32))
+
+
+# (seed, L, kmax, R, ncolors) of the random instances in
+# tests/test_pallas_dp.py (CASES): narrow-only, 16/32 layout mixes, flat
+# 512/768 extents, and wide levels (width > 32)
+CASES = (
+    [(s, 12, 5, 5, 8) for s in range(6)]
+    + [(100 + s, 8, 3, 2, 6) for s in range(3)]
+    + [(200 + s, 16, 16, 5, 10) for s in range(3)]
+    + [(300 + s, 10, 30, 4, 12) for s in range(3)]
+    + [(600 + s, 14, 24, 5, 8) for s in range(2)]
+    + [(400 + s, 10, 40, 4, 8) for s in range(3)]
+    + [(500 + s, 14, 36, 6, 9) for s in range(2)]
+)
+
+
+def random_leveled_csr(seed: int, L: int, kmax: int, ncolors: int):
+    """CSR arrays of the test suites' random instance ``(seed, L, kmax,
+    ncolors)``: the same random draws in the same order."""
+    rng = np.random.default_rng(seed)
+    widths = [1] + [int(rng.integers(1, kmax + 1)) for _ in range(L - 2)]
+    widths += [1]
+    starts = np.cumsum([0] + widths)
+    n = int(starts[-1])
+    adj = [[] for _ in range(n)]
+    for l in range(L - 1):
+        for u in range(starts[l], starts[l + 1]):
+            for _ in range(int(rng.integers(1, 3))):
+                v = int(rng.integers(starts[l + 1], starts[l + 2]))
+                adj[u].append((v, int(rng.random() < 0.3)))
+        for v in range(starts[l + 1], starts[l + 2]):
+            if not any(v == t for u in range(starts[l], starts[l + 1])
+                       for t, _ in adj[u]):
+                u = int(rng.integers(starts[l], starts[l + 1]))
+                adj[u].append((v, 0))
+    colors = []
+    for _ in range(n):
+        cs = rng.choice(ncolors, size=rng.integers(0, 4), replace=False)
+        colors.append(sorted(int(c) for c in cs))
+    chb = [bool(x) for x in rng.random(ncolors) < 0.4]
+    return _csr(widths, adj, colors, chb)
+
+
+def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,
+                   band_len: int = 12):
+    """CSR arrays of a leveled DAG shaped like the MHC expanded graph.
+
+    Narrow level widths are Poisson(8) clipped to 2..32 and each vertex
+    has out-degree 1 or 2 (30%), as in ``bench.py:synthetic_csr``. As in
+    an expanded graph, a vertex's first edge follows its haplotype
+    (weight 0) and a second edge is a recombination (weight 1) with
+    probability 0.43, so ~10% of edges weigh 1 and no path is forced to
+    recombine (with uniform weights the optimum needs more than R = 18
+    recombinations past ~1000 levels). ~30% of levels carry a new colour on
+    3 vertices of that level and the next (15% of colours HOM). On top,
+    ``n_bands`` bands of ``band_len`` levels have widths uniform in
+    33..96: the wide runs of MHC, at most 18 1024-lane windows each."""
+    rng = np.random.default_rng(seed)
+    widths = np.clip(rng.poisson(8, L), 2, 32)
+    gap = (L - 2) // max(n_bands, 1)
+    for b in range(n_bands):
+        s = 1 + b * gap + int(rng.integers(0, max(gap - band_len, 1)))
+        e = min(s + band_len, L - 1)
+        widths[s:e] = rng.integers(33, 97, max(e - s, 0))
+    widths[0] = widths[-1] = 1
+    level_ptr = np.zeros(L + 1, np.int64)
+    np.cumsum(widths, out=level_ptr[1:])
+    n = int(level_ptr[-1])
+
+    # edges: every vertex of level l < L-1 to 1-2 uniform vertices of l+1
+    lvl = np.repeat(np.arange(L), widths)
+    deg = np.where(lvl < L - 1, 1 + (rng.random(n) < 0.3), 0)
+    adj_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=adj_ptr[1:])
+    src_lvl = np.repeat(lvl, deg)
+    nxt = src_lvl + 1
+    adj_v = (level_ptr[nxt] + (rng.random(len(nxt)) * widths[nxt]).astype(
+        np.int64)).astype(np.int32)
+    second = np.zeros(len(adj_v), bool)
+    second[adj_ptr[:-1][deg == 2] + 1] = True
+    adj_w = (second & (rng.random(len(adj_v)) < 0.43)).astype(np.int8)
+
+    # colours: 3 vertices of levels l..l+1 for ~30% of levels
+    lv = np.flatnonzero(rng.random(L - 1) < 0.3)
+    span = level_ptr[lv + 2] - level_ptr[lv]
+    verts = level_ptr[lv][:, None] + (
+        rng.random((len(lv), 3)) * span[:, None]).astype(np.int64)
+    col = np.repeat(np.arange(len(lv)), 3)
+    hom = rng.random(max(len(lv), 1)) < 0.15
+    vc = np.unique(np.stack([verts.reshape(-1), col], 1), axis=0)
+    is_h = hom[vc[:, 1]]
+    hom_ptr = np.zeros(n + 1, np.int64)
+    het_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(vc[is_h, 0], minlength=n), out=hom_ptr[1:])
+    np.cumsum(np.bincount(vc[~is_h, 0], minlength=n), out=het_ptr[1:])
+    return (level_ptr, adj_ptr, adj_v, adj_w, hom_ptr,
+            vc[is_h, 1].astype(np.int32), het_ptr,
+            vc[~is_h, 1].astype(np.int32))
+
+
+def dp_states(level_ptr, R: int) -> int:
+    """DP states of the pair DP: (R + 1) * width^2 over levels 1..L-1."""
+    w = np.diff(np.asarray(level_ptr, np.int64))
+    return int(np.sum((R + 1) * w[1:] * w[1:]))
+
+
+def pangenome(out_dir: str, n_bp: int = 1_000_000, n_walks: int = 8,
+              seed: int = 0, coverage: float = 2.0, read_len: int = 150,
+              site_every: int = 120):
+    """Write ``pangenome.gfa`` and ``reads.fq`` under ``out_dir``; returns
+    their paths.
+
+    A random reference of ``n_bp`` bases carries a variant site every
+    ~``site_every`` bases: a SNP (70%), or an insertion or deletion of
+    1-6 bases. Each site is a bubble of two non-empty allele segments
+    between shared segments; each of ``n_walks`` walks (W lines,
+    ``sample{i}`` haplotype 1) takes the alternative allele with a
+    per-site frequency drawn from Beta(0.6, 0.6). Reads of ``read_len``
+    bases are sampled uniformly from walks 0 and 1, both strands, at
+    ``coverage``x each, error-free."""
+    rng = np.random.default_rng(seed)
+    ref = _BASES[rng.integers(0, 4, n_bp)].tobytes().decode()
+    pos = np.cumsum(rng.integers(site_every // 2, site_every * 3 // 2,
+                                 n_bp // site_every + 2))
+    pos = pos[(pos > 10) & (pos < n_bp - 20)]
+    segs = []  # (name, seq)
+    paths = [[] for _ in range(n_walks)]
+    links = set()
+    prev_ends = None  # segment names the previous block ends with
+    cursor = 0
+
+    def add(seq):
+        segs.append((f"s{len(segs) + 1}", seq))
+        return segs[-1][0]
+
+    def link(a_list, b):
+        for a in a_list:
+            links.add((a, b))
+
+    for p in pos.tolist():
+        if p <= cursor:
+            continue
+        kind = rng.random()
+        if kind < 0.7:  # SNP at p
+            ref_al = ref[p]
+            alt_al = "ACGT"[(("ACGT".index(ref_al)) + int(rng.integers(1, 4))) % 4]
+            end = p + 1
+        else:
+            k = int(rng.integers(1, 7))
+            ref_al = ref[p : p + 1 + (k if kind < 0.85 else 0)]
+            if kind < 0.85:  # deletion of k bases after the anchor base
+                alt_al = ref[p]
+            else:  # insertion of k bases after the anchor base
+                alt_al = ref[p] + _BASES[rng.integers(0, 4, k)].tobytes().decode()
+            end = p + len(ref_al)
+        shared = add(ref[cursor:p])
+        if prev_ends is not None:
+            link(prev_ends, shared)
+        a_ref, a_alt = add(ref_al), add(alt_al)
+        link([shared], a_ref)
+        link([shared], a_alt)
+        freq = rng.beta(0.6, 0.6)
+        take_alt = rng.random(n_walks) < freq
+        for w in range(n_walks):
+            paths[w] += [shared, a_alt if take_alt[w] else a_ref]
+        prev_ends = [a_ref, a_alt]
+        cursor = end
+    tail = add(ref[cursor:])
+    if prev_ends is not None:
+        link(prev_ends, tail)
+    for w in range(n_walks):
+        paths[w].append(tail)
+
+    os.makedirs(out_dir, exist_ok=True)
+    seqs = dict(segs)
+    gfa = os.path.join(out_dir, "pangenome.gfa")
+    with open(gfa, "w") as fh:
+        fh.write("H\tVN:Z:1.1\n")
+        for name, seq in segs:
+            fh.write(f"S\t{name}\t{seq}\tLN:i:{len(seq)}\n")
+        for a, b in sorted(links, key=lambda x: (int(x[0][1:]), int(x[1][1:]))):
+            fh.write(f"L\t{a}\t+\t{b}\t+\t0M\n")
+        for w, path in enumerate(paths):
+            length = sum(len(seqs[s]) for s in path)
+            walk = "".join(f">{s}" for s in path)
+            fh.write(f"W\tsample{w}\t1\tchr6\t0\t{length}\t{walk}\n")
+
+    reads = os.path.join(out_dir, "reads.fq")
+    with open(reads, "w") as fh:
+        for w in (0, 1):
+            hap = "".join(seqs[s] for s in paths[w])
+            n_reads = int(len(hap) * coverage / read_len)
+            starts = rng.integers(0, max(len(hap) - read_len, 1), n_reads)
+            flips = rng.random(n_reads) < 0.5
+            for i, (st, fl) in enumerate(zip(starts.tolist(), flips.tolist())):
+                r = hap[st : st + read_len]
+                if fl:
+                    r = r.translate(_COMP)[::-1]
+                fh.write(f"@sim_{w}_{i}\n{r}\n+\n{'I' * len(r)}\n")
+    return gfa, reads

@@ -28,3 +28,7 @@ def ref_fixture(name: str) -> str:
     if not os.path.exists(path):
         pytest.skip(f"reference fixture {name} not available")
     return path
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU")

@@ -1,0 +1,63 @@
+"""The port's pair DP as a whole (forward + traceback + assembly) against
+the JAX package's ``PairDiploidDP`` (interpret mode), the exact numpy tier
+and the baked oracles of the real MHC slices. On the CPU every kernel is
+its plain PyTorch version. Results are integers: exact equality.
+"""
+
+import numpy as np
+import pytest
+
+from dipgenie_tpu.ops.diploid_pallas import PairDiploidDP as JaxPairDiploidDP
+from dipgenie_tpu.solver.diploid import (
+    _forward_exact, build_color_masks, csr_arrays,
+)
+from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
+from dipgenie_tpu_torch.ops.plan import plan_pairs
+from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+from dipgenie_tpu_torch.utils.synth import dp_states, mhc_shaped_csr
+from tests.test_device_kernels import _random_leveled_graph
+from tests.test_pallas_dp import CASES
+from tests.test_torch_kernels_gpu import DATA, case_csr
+
+
+@pytest.mark.parametrize("seed,L,kmax,R,nc", CASES)
+def test_port_dp_matches_jax_and_exact(seed, L, kmax, R, nc):
+    rng = np.random.default_rng(seed)
+    g = _random_leveled_graph(rng, L=L, kmax=kmax, ncolors=nc)
+    chb = [bool(x) for x in rng.random(nc) < 0.4]
+    plan = plan_pairs(*csr_arrays(g, chb), R)
+    got = PairDiploidDP(plan, "cpu").run()
+    Hm, Tm = build_color_masks(g, chb)
+    assert got == _forward_exact(g, R, Hm, Tm)
+    assert got == JaxPairDiploidDP(plan, interpret=True).run()
+
+
+@pytest.mark.parametrize(
+    "name", ["mhc_slice_csr", "mhc_slice500_csr", "mhc_slice_wide_csr"])
+def test_port_dp_matches_mhc_slice_oracle(name):
+    arrs, R = case_csr(name)
+    d = np.load(f"{DATA}/{name}.npz")
+    want = (int(d["oracle_value"]), int(d["oracle_shet"]),
+            [tuple(int(x) for x in row) for row in d["oracle_transitions"]])
+    assert PairDiploidDP(plan_pairs(*arrs, R), "cpu").run() == want
+
+
+def test_mhc_shaped_graph_matches_native_tier():
+    """The scale generator's graph (cut to 3000 levels and 8 wide bands)
+    through the port and the native C++ tier."""
+    from dipgenie_tpu import native
+
+    if not native.available():
+        pytest.skip("native runtime unavailable")
+    arrs = mhc_shaped_csr(L=3000, seed=1, n_bands=8)
+    assert dp_states(arrs[0], 18) > 10**7
+    plan = plan_pairs(*arrs, 18)
+    assert sum(type(s).__name__ == "_WideRun" for s in plan.segments) == 8
+    got = PairDiploidDP(plan, "cpu").run()
+    assert got[0] > 0 and got == native_forward_csr(arrs, 18)
+
+
+def test_assemble_orders_records_by_level():
+    recs = np.array([[1, 2, 3, 4, 1, 0, 5], [0, 1, 0, 0, 0, 1, 2]])
+    assert assemble(9, recs) == (
+        9, 7, [(1, 1, 2, 3, 4, 1, 0), (2, 0, 1, 0, 0, 0, 1)])

@@ -1,0 +1,148 @@
+"""dipgenie_tpu_torch K1 (narrow runs) against the JAX package's
+``_narrow_kernel`` (Pallas, interpret mode on the CPU).
+
+Every segment gets the same input state (the JAX chain's) on both sides;
+on CPU tensors ``narrow_run`` is its plain PyTorch version. All values are
+integers, so the tolerance is exact equality: V over rows 0..R and the
+destination level's live extent (lanes past it are stale by design), and
+backpointers at reachable states (elsewhere the JAX kernel's are
+arbitrary). Reachability comes from an independent numpy propagation.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dipgenie_tpu.ops.diploid_pallas import (
+    NEG, _narrow_call, _NarrowRun, _r1p, _wide_call,
+)
+from dipgenie_tpu_torch.ops.narrow import narrow_run
+from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
+from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
+from tests.test_torch_kernels_gpu import case_csr
+
+# the CASES whose plans hold narrow runs only (seeds 400-501 have wide
+# levels)
+NARROW_CASES = [c for c in CASES if not 400 <= c[0] < 600]
+
+
+def jax_segments(plan):
+    """Each segment through the JAX kernels (interpret mode), chained:
+    yields (segment index, segment, V_in [R1P, 1024], JAX outputs)."""
+    import jax
+
+    R1 = plan.R + 1
+    V = np.full((_r1p(R1), 1024), NEG, np.int32)
+    V[:, 0] = 0
+    for i, seg in enumerate(plan.segments):
+        if isinstance(seg, _NarrowRun):
+            out = jax.jit(_narrow_call(seg, R1, interpret=True))(
+                seg.sbits, seg.sbase, seg.r256, seg.r1024, seg.tbl, V)
+        else:
+            out = jax.jit(_wide_call(seg, R1, interpret=True))(
+                seg.dbits, seg.dfmask, seg.dcmask, seg.dgmask, seg.dpmask,
+                seg.dtrans, seg.dwbase, seg.dtbl, V)
+        out = [np.asarray(o) for o in out]
+        yield i, seg, V, out
+        V = out[-1]
+
+
+def reach_masks(seg, reach, R1):
+    """Per transition of a segment, the reachable states [R1, lanes] after
+    it, from the reachable input states [R1, 1024] (numpy, independent of
+    both DP implementations)."""
+    narrow = isinstance(seg, _NarrowRun)
+    if narrow:
+        tbl, bounds = seg.tbl, np.append(seg.tb_chunkbase,
+                                         np.count_nonzero(seg.sbits & 16))
+        state = reach.copy()
+    else:
+        tbl, bounds = seg.dtbl, np.append(seg.tb2_chunkbase,
+                                          np.count_nonzero(seg.dbits & 4))
+        state = np.zeros((R1, seg.NB * 1024), bool)
+        state[:, :1024] = reach
+    masks = []
+    for ti in range(seg.t1 - seg.t0):
+        c0, c1 = bounds[ti], bounds[ti + 1]
+        packed = tbl[c0:c1, 0].ravel().astype(np.int64)
+        if narrow:
+            dst = ((packed >> 2) & 2047) - 1
+            real = dst >= 0
+            gidx = packed >> 13
+            out = 256 * (((int(seg.sbits[c0]) >> 7) & 3) + 1)
+        else:
+            real = tbl[c0:c1, 1].ravel() != -(2**22)
+            dst = (packed >> 2) & 32767
+            gidx = (packed >> 17) & 32767
+            out = state.shape[1]
+        wsum = packed & 3
+        nxt = np.zeros((R1, out), bool)
+        for w in range(3):
+            sel = real & (wsum == w)
+            for r in range(w, R1):
+                np.logical_or.at(nxt[r], dst[sel], state[r - w, gidx[sel]])
+        state[:, :out] = nxt
+        masks.append(nxt)
+    return masks, state[:, :1024]
+
+
+@pytest.mark.parametrize("case", NARROW_CASES + ["mhc_slice_csr"])
+def test_narrow_run_matches_jax_kernel(case):
+    arrs, R = case_csr(case)
+    R1 = R + 1
+    widths = np.diff(arrs[0])
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, "cpu")
+    reach = np.zeros((R1, 1024), bool)
+    reach[:, 0] = True
+    n_narrow = 0
+    for i, seg, v_in, out in jax_segments(plan):
+        masks, reach_next = reach_masks(seg, reach, R1)
+        if isinstance(seg, _NarrowRun):
+            n_narrow += 1
+            jb256, jb1024, jv = out
+            V, pb256, pb1024 = narrow_run(
+                dplan.segments[i], torch.from_numpy(v_in[:R1].copy()))
+            ext = int(widths[seg.t1]) ** 2
+            assert np.array_equal(V.numpy()[:, :ext], jv[:R1, :ext])
+            assert np.array_equal(V.numpy()[:, :ext] > -(2**18),
+                                  reach_next[:, :ext])
+            for ti, m in enumerate(masks):
+                row = int(seg.tb_bprow[ti])
+                out_l = m.shape[1]
+                jb, pb = ((jb1024, pb1024) if seg.tb_bits[ti] & 2
+                          else (jb256, pb256))
+                assert np.array_equal(jb[row, :R1, :out_l][m],
+                                      pb.numpy()[row, :, :out_l][m]), ti
+        reach = reach_next
+    assert n_narrow
+
+
+@pytest.mark.parametrize("case", [(0, 12, 5, 5, 8), (401, 10, 40, 4, 8),
+                                  "mhc_slice_wide_csr"])
+def test_plan_to_device_round_trips_every_array(case):
+    arrs, R = case_csr(case)
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, "cpu")
+    assert (dplan.R, dplan.L) == (plan.R, plan.L)
+    for seg, dseg in zip(plan.segments, dplan.segments):
+        assert dseg.host is seg
+        names = [f for f, v in vars(seg).items() if isinstance(v, np.ndarray)]
+        assert sorted(names) == sorted(dseg.t)
+        for name in names:
+            a, t = getattr(seg, name), dseg.t[name]
+            assert t.numpy().dtype == a.dtype and np.array_equal(t.numpy(), a)
+
+
+def test_random_leveled_csr_matches_test_generator():
+    """synth.random_leveled_csr draws the instances of the JAX package's
+    tests (graph + colour split) and emits their csr_arrays."""
+    from dipgenie_tpu.solver.diploid import csr_arrays
+    from tests.test_device_kernels import _random_leveled_graph
+
+    for seed, L, kmax, _, nc in NARROW_CASES[::3] + [(401, 10, 40, 4, 8)]:
+        rng = np.random.default_rng(seed)
+        g = _random_leveled_graph(rng, L=L, kmax=kmax, ncolors=nc)
+        chb = [bool(x) for x in rng.random(nc) < 0.4]
+        for a, b in zip(csr_arrays(g, chb), random_leveled_csr(seed, L, kmax, nc)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
