@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Smoke run of dipgenie_tpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of dipgenie_tpu_torch's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
 
-  A. build the CUDA kernels (csrc/*.cu, nvcc, sm_90a) and the native
-     runtime the comparisons use;
+  A. build the CUDA kernels (csrc/*.cu, one nvcc per source, sm_90a), the
+     port's native runtime and the JAX package's (the reference CLI of
+     phase D), all at once;
   B. every kernel against its plain PyTorch version on the card, exact
      integer equality, on every segment of the three real MHC slices
-     (tests/data) and of the random instances of the JAX package's tests;
-     then the DP results against the slices' baked exact-tier oracles and
-     the random instances' native-tier results;
+     (tests/data) and of the random instances of the JAX package's tests,
+     once on the main path's routing and once with K3 forced over every
+     wide run; then the DP results against the slices' baked exact-tier
+     oracles and the random instances' native-tier results;
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
-     graph): launch counts of the main path, forward and traceback times,
-     states/s and peak memory, equality with the native C++ tier, and
-     each kernel's time beside its plain version's on a plan prefix;
-  D. the port's CLI on a synthetic 1 Mbp pangenome, byte-identical FASTA
-     and stdout (apart from the timing line) against the JAX package's
-     CLI on its native tier.
+     graph, wide levels 33-96): launch counts of the main path, forward
+     and traceback times, states/s and peak memory, equality with the
+     native C++ tier, and K1's, K2's and K-T's times beside their plain
+     versions' and their bounds on a plan prefix;
+  E. the big-window DP at full width (the same shape with wide levels
+     141-177, ~1.9e9 states, every wide run 31 windows): the same
+     readings for its main path through K3, K3 beside its plain version
+     and its bound on a prefix, and K2 against K3 on the same big runs
+     (equal V and traceback records, both times);
+  D. the port's CLI with its default flags on two synthetic pangenomes
+     (8 walks over 1 Mbp; 18 walks over 200 kbp, whose plan holds runs of
+     more than 18 windows), byte-identical FASTA and stdout (apart from
+     the timing line) against the JAX package's CLI on its native tier,
+     run as a subprocess.
 
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object of per-kernel results; the last line is
@@ -33,13 +43,24 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
+DEVICE = "cuda"
 SEED = 0
 R = 18
+L_MHC = 120_000
+N_BANDS = L_MHC // 400  # wide bands of 12 levels, as in the MHC graph
 PREFIX_TRANSITIONS = 5000
+BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
+# (n_bp, n_walks) of phase D's pangenomes. The widest expanded-graph
+# level grows with the walks: 16 give no run of more than 18 windows, 24
+# a level of more than 31 windows, which the planner refuses; 18 give
+# runs of 31 windows
+PANGENOMES = ((1_000_000, 8), (200_000, 18))
+PORT_CLI = ["-m", "dipgenie_tpu_torch"]  # the port's CLI, default flags
 
 NPZ = ("mhc_slice_csr", "mhc_slice500_csr", "mhc_slice_wide_csr")
 CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
@@ -49,9 +70,22 @@ KERNELS = {
                    "dipgenie_tpu/ops/diploid_pallas.py:861"),
     "wide_dense_run": ("dipgenie_tpu_torch/csrc/wide_dense_run.cu",
                        "dipgenie_tpu/ops/diploid_pallas.py:1388"),
+    "wide_split_run": ("dipgenie_tpu_torch/csrc/wide_split_run.cu",
+                       "dipgenie_tpu/ops/diploid_pallas.py:1142"),
     "trace": ("dipgenie_tpu_torch/csrc/trace.cu",
               "dipgenie_tpu/ops/diploid_pallas.py:1914"),
 }
+# the kernel wrapper of each plan segment kind (ops/plan.py:segment_kind)
+KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
+               "wide_split": "wide_split_run"}
+# the path whose launch counts the result line reports for each kernel
+MAIN_PATH = {"narrow_run": "C", "wide_dense_run": "C",
+             "wide_split_run": "E", "trace": "C"}
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
+# the float32 rate outside the tensor cores, taken for the kernels' int32
+# adds and compares (the table has no int32 row)
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -63,21 +97,47 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
+    """(bytes, operations) of one run: each table byte of its real chunks
+    read once, V in and out once, each backpointer byte written once; an
+    add and a max per (real pair, row it reaches)."""
+    import numpy as np
+
+    h = seg.host
+    tbl = h.dtbl if seg.kind == "wide" else h.tbl
+    real = tbl[: seg.nreal, 1] != -(2**22)
+    wsum = tbl[: seg.nreal, 0] & 3
+    ops = 2 * int(np.where(real, R1 - wsum, 0).sum())
+    # the chunk's table rows, plus sbits (K1) or wwin and wbase (K3)
+    per_chunk = 4 * 2 * 256 + {"narrow": 4, "wide": 0, "wide_split": 8}[
+        seg.kind]
+    return seg.nreal * per_chunk + 2 * R1 * 1024 * 4 + bp_bytes, ops
+
+
 class Smoke:
-    def __init__(self, torch):
+    def __init__(self, torch, ref_cxx: str):
         self.torch = torch
-        from dipgenie_tpu_torch.ops import narrow, trace, wide
+        self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
+        from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split
 
         self.fns = {
             "narrow_run": (narrow.narrow_run, narrow.narrow_run_ref),
             "wide_dense_run": (wide.wide_dense_run, wide.wide_dense_run_ref),
+            "wide_split_run": (wide_split.wide_split_run,
+                               wide_split.wide_split_run_ref),
             "trace": (trace.trace, trace.trace_ref),
         }
         self.err = {k: 0 for k in KERNELS}
         self.compared = {k: 0 for k in KERNELS}
-        self.launches = {}
-        self.ms = {}
-        self.plain_ms = {}
+        self.launches = {}  # path -> {kernel: launches}
+        self.ms, self.plain_ms, self.bound = {}, {}, {}
 
     def counts(self):
         return {k: f[0].launches for k, f in self.fns.items()}
@@ -85,6 +145,12 @@ class Smoke:
     def reset_counts(self):
         for f, _ in self.fns.values():
             f.launches = 0
+
+    def sync(self):
+        self.torch.cuda.synchronize()
+
+    def events(self, n):
+        return [self.torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
     def compare(self, name, got, want):
         """Exact equality of kernel and plain outputs (tuples of int
@@ -110,11 +176,10 @@ class Smoke:
         from dipgenie_tpu_torch.ops.diploid_pair import assemble
         from dipgenie_tpu_torch.ops.plan import initial_v
 
-        torch = self.torch
-        V = initial_v(dplan.R, "cuda")
+        V = initial_v(dplan.R, DEVICE)
         bps = []
         for seg in dplan.segments:
-            name = "narrow_run" if seg.kind == "narrow" else "wide_dense_run"
+            name = KIND_KERNEL[seg.kind]
             kern, plain = self.fns[name]
             got = kern(seg, V)
             self.compare(name, got, plain(seg, V))
@@ -123,13 +188,22 @@ class Smoke:
         kern, plain = self.fns["trace"]
         recs = kern(dplan, bps)
         self.compare("trace", recs, plain(dplan, bps))
-        torch.cuda.synchronize()
+        self.sync()
         return assemble(int(V[dplan.R, 0]), recs.cpu().numpy())
+
+    def checked_both_routes(self, plan, want, what):
+        """The main path's routing, then K3 over every wide run."""
+        from dipgenie_tpu_torch.ops.plan import plan_to_device
+
+        for nb_max in (18, 0):
+            got = self.run_checked(plan_to_device(plan, DEVICE, nb_max))
+            check(got == want, f"{what} (dense_nb_max={nb_max}): DP result "
+                  f"{got[:2]} differs from {want[:2]}")
 
     def phase_b(self):
         import numpy as np
 
-        from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
+        from dipgenie_tpu_torch.ops.plan import plan_pairs
         from dipgenie_tpu_torch.solver.diploid import native_forward_csr
         from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
 
@@ -139,243 +213,379 @@ class Smoke:
             d = np.load(os.path.join(REPO, "tests", "data", name + ".npz"))
             plan = plan_pairs(*[d[k] for k in CSR_KEYS], int(d["R"]))
             n_seg += len(plan.segments)
-            got = self.run_checked(plan_to_device(plan, "cuda"))
             want = (int(d["oracle_value"]), int(d["oracle_shet"]),
                     [tuple(int(x) for x in r) for r in d["oracle_transitions"]])
-            check(got == want, f"{name}: DP result differs from its oracle")
+            self.checked_both_routes(plan, want, name)
             log(f"B {name}: {plan.L} levels, {len(plan.segments)} segments, "
-                f"value {got[0]} s_het {got[1]} == oracle")
+                f"value {want[0]} s_het {want[1]} == oracle")
         for seed, L, kmax, r, nc in CASES:
             arrs = random_leveled_csr(seed, L, kmax, nc)
             plan = plan_pairs(*arrs, r)
             n_seg += len(plan.segments)
-            got = self.run_checked(plan_to_device(plan, "cuda"))
-            check(got == native_forward_csr(arrs, r),
-                  f"case {seed}: DP result differs from the native tier")
+            self.checked_both_routes(plan, native_forward_csr(arrs, r),
+                                     f"case {seed}")
         log(f"B random cases: {len(CASES)} instances == native tier")
-        log(f"B kernels == plain on {n_seg} segments "
+        log(f"B kernels == plain on {n_seg} segments, each on both routes "
             f"(calls compared: {self.compared}) in {time.time() - t0:.1f}s")
 
-    # ---------------- phase C ----------------
-    def phase_c(self):
+    # ---------------- phases C and E ----------------
+    def main_path(self, tag, arrs):
+        """Plan, ship and run one DP the way the solver does, with the
+        launch counts set to 0 just before the counted pass and read just
+        after it; checks the counts against the plan and the result
+        against the native tier. Returns (plan, dplan)."""
         import numpy as np
 
-        from dipgenie_tpu_torch.ops.diploid_pair import (
-            PairDiploidDP, assemble,
-        )
-        from dipgenie_tpu_torch.ops.plan import (
-            DevPlan, initial_v, plan_pairs, plan_to_device,
-        )
+        from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
+        from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
+        from dipgenie_tpu_torch.ops.trace import trace
         from dipgenie_tpu_torch.solver.diploid import native_forward_csr
-        from dipgenie_tpu_torch.utils.synth import dp_states, mhc_shaped_csr
+        from dipgenie_tpu_torch.utils.synth import dp_states
 
         torch = self.torch
-        arrs = mhc_shaped_csr(L=120_000, seed=SEED)
         states = dp_states(arrs[0], R)
         widths = np.diff(arrs[0])
-        log(f"C workload: synthetic MHC-shaped graph, {len(widths)} levels, "
-            f"{int((widths > 32).sum())} wide levels, {states} DP states "
-            f"(R={R})")
+        log(f"{tag} workload: {len(widths)} levels, "
+            f"{int((widths > 32).sum())} wide levels (widths up to "
+            f"{int(widths.max())}), {states} DP states (R={R})")
         t0 = time.time()
         plan = plan_pairs(*arrs, R)
         plan_s = time.time() - t0
-        kinds = [type(s).__name__ for s in plan.segments]
-        nbs = [s.NB for s in plan.segments if hasattr(s, "NB")]
         t0 = time.time()
-        dplan = plan_to_device(plan, "cuda")
-        torch.cuda.synchronize()
+        dplan = plan_to_device(plan, DEVICE)
+        self.sync()
         ship_s = time.time() - t0
-        log(f"C plan {plan_s:.3f}s ({kinds.count('_NarrowRun')} narrow, "
-            f"{kinds.count('_WideRun')} wide runs, NB <= {max(nbs)}); "
+        kinds = [s.kind for s in dplan.segments]
+        nbs = [s.host.NB for s in dplan.segments if s.kind != "narrow"]
+        log(f"{tag} plan {plan_s:.3f}s ({kinds.count('narrow')} narrow, "
+            f"{kinds.count('wide')} wide runs of <= 18 windows, "
+            f"{kinds.count('wide_split')} of more, NB <= {max(nbs)}); "
             f"ship {ship_s:.3f}s")
-        dp = PairDiploidDP(dplan, "cuda")
+        dp = PairDiploidDP(dplan, DEVICE)
         dp.forward()  # warm pass
-        torch.cuda.synchronize()
+        self.sync()
 
-        # the main path, counted: forward + traceback + assembly
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev = self.events(3)
         torch.cuda.reset_peak_memory_stats()
         self.reset_counts()
         ev[0].record()
         V, bps = dp.forward()
         ev[1].record()
-        from dipgenie_tpu_torch.ops.trace import trace
-
         recs = trace(dplan, bps)
         ev[2].record()
-        torch.cuda.synchronize()
+        self.sync()
         got = assemble(int(V[R, 0]), recs.cpu().numpy())
-        self.launches = self.counts()
+        launches = self.launches[tag] = self.counts()
         fwd_s = ev[0].elapsed_time(ev[1]) / 1e3
         tb_s = ev[1].elapsed_time(ev[2]) / 1e3
         peak = torch.cuda.max_memory_allocated()
-        log(f"C forward {fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA events), "
-            f"{states / fwd_s:.4e} DP states/s, peak memory {peak} B, "
-            f"launches {self.launches}, card {torch.cuda.get_device_name(0)}")
-        for k, n in self.launches.items():
-            check(n > 0, f"{k} was not launched on the main path")
+        log(f"{tag} forward {fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA "
+            f"events), {states / fwd_s:.4e} DP states/s, peak memory {peak} "
+            f"B, launches {launches}, card {torch.cuda.get_device_name(0)}")
+        want = {"trace": 1, **{KIND_KERNEL[k]: kinds.count(k)
+                               for k in KIND_KERNEL}}
+        check(launches == want, f"{tag} launches {launches}, want {want}")
         del bps, recs
-        self.profile_forward(dp)
+        self.profile_forward(tag, dp)
 
         t0 = time.time()
-        want = native_forward_csr(arrs, R)
-        log(f"C native C++ tier {time.time() - t0:.1f}s (host)")
-        check(got == want, "MHC-scale DP differs from the native tier: "
-              f"{got[:2]} vs {want[:2]}")
-        log(f"C value {got[0]} s_het {got[1]} and {len(got[2])} transitions "
-            "== native tier")
+        ref = native_forward_csr(arrs, R)
+        log(f"{tag} native C++ tier {time.time() - t0:.1f}s (host)")
+        check(got == ref, f"{tag} DP differs from the native tier: "
+              f"{got[:2]} vs {ref[:2]}")
+        log(f"{tag} value {got[0]} s_het {got[1]} and {len(got[2])} "
+            "transitions == native tier")
+        return plan, dplan
 
-        # kernels against their plain versions on a plan prefix
-        prefix = []
-        for seg in dplan.segments:
-            if seg.t0 >= PREFIX_TRANSITIONS:
-                break
-            prefix.append(seg)
-        v_ins, bps, V = [], [], initial_v(R, "cuda")
+    def profile_forward(self, tag, dp):
+        """Device busy and idle share of one more forward pass, from a
+        torch.profiler trace (kernel rows only); the table goes to
+        build/chip_smoke/profile_forward_<tag>.txt."""
+        torch = self.torch
+        a, b = self.events(2)
+        self.sync()
+        with self.profiler() as prof:
+            a.record()
+            out = dp.forward()
+            b.record()
+            self.sync()
+        del out
+        wall_us = a.elapsed_time(b) * 1e3
+        rows = self.device_rows(prof, f"profile_forward_{tag}.txt")
+        busy = sum(t for _, t, _ in rows)
+        if not busy:
+            log(f"{tag} profile: no device time in the trace; idle share "
+                "not measured")
+            return
+        log(f"{tag} profiled forward {wall_us / 1e6:.4f}s: device busy "
+            f"{busy / 1e6:.4f}s, idle share {1 - busy / wall_us:.4f}; "
+            + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{n}"
+                        for k, t, n in rows[:5]))
+
+    def profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        return profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+    def device_rows(self, prof, fname):
+        """(kernel name, self device us, count) of a profile, largest
+        first; the full table goes to build/chip_smoke/<fname>."""
+        avg = prof.key_averages()
+        with open(os.path.join(OUT_DIR, fname), "w") as fh:
+            fh.write(avg.table(sort_by="self_device_time_total", row_limit=30))
+        return sorted(
+            ((e.key, e.self_device_time_total, e.count) for e in avg
+             if str(e.device_type).endswith("CUDA")
+             and e.self_device_time_total > 0),
+            key=lambda x: -x[1])
+
+    def timed(self, fn):
+        """(CUDA-event ms, output) of one call."""
+        a, b = self.events(2)
+        self.sync()
+        a.record()
+        out = fn()
+        b.record()
+        self.sync()
+        return a.elapsed_time(b), out
+
+    def time_prefix(self, tag, dplan, names):
+        """Each kernel of ``names`` beside its plain version on the runs
+        of the plan's first PREFIX_TRANSITIONS transitions (the trace on
+        the prefix's traceback), in turns plain, kernel, kernel, plain
+        (CUDA events, min of 2), with the kernel's device time from a
+        profile of one more pass and its bound from the prefix's arrays.
+        Returns the prefix's (segments, inputs, backpointers)."""
+        from dipgenie_tpu_torch.ops.plan import DevPlan, initial_v
+
+        prefix = [s for s in dplan.segments if s.t0 < PREFIX_TRANSITIONS]
+        v_ins, bps, V = [], [], initial_v(R, DEVICE)
         for seg in prefix:
             v_ins.append(V)
-            fn = self.fns["narrow_run" if seg.kind == "narrow"
-                          else "wide_dense_run"][0]
-            V, *bp = fn(seg, V)
+            V, *bp = self.fns[KIND_KERNEL[seg.kind]][0](seg, V)
             bps.append(tuple(bp))
         sub = DevPlan(R=R, L=prefix[-1].t1 + 1, device=dplan.device,
                       segments=prefix)
-
-        def timed(fn):
-            torch.cuda.synchronize()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn()
-            b.record()
-            torch.cuda.synchronize()
-            return a.elapsed_time(b), out
-
-        def loop(name, which):
-            fn = self.fns[name][which]
-            kind = "narrow" if name == "narrow_run" else "wide"
-            return [fn(s, v) for s, v in zip(prefix, v_ins) if s.kind == kind]
-
-        n_tr = {"narrow_run": sum(s.t1 - s.t0 for s in prefix
-                                  if s.kind == "narrow"),
-                "wide_dense_run": sum(s.t1 - s.t0 for s in prefix
-                                      if s.kind == "wide"),
-                "trace": sub.L - 1}
-        for name in KERNELS:
+        R1 = R + 1
+        for name in names:
             if name == "trace":
-                run = {0: lambda: self.fns["trace"][0](sub, bps),
-                       1: lambda: self.fns["trace"][1](sub, bps)}
+                run = {w: (lambda w=w: self.fns["trace"][w](sub, bps))
+                       for w in (0, 1)}
+                n_tr = sub.L - 1
+                recs = run[0]()
+                nbytes = (sub.L - 1) * (11 * 8 + 4 + 4 + 1 + 2 + 7 * 4)
+                nbound = bound(nbytes, 12 * (sub.L - 1))
             else:
-                run = {w: (lambda w=w, n=name: loop(n, w)) for w in (0, 1)}
+                idx = [i for i, s in enumerate(prefix)
+                       if KIND_KERNEL[s.kind] == name]
+                run = {w: (lambda w=w, n=name, idx=idx: [
+                    self.fns[n][w](prefix[i], v_ins[i]) for i in idx])
+                    for w in (0, 1)}
+                n_tr = sum(prefix[i].t1 - prefix[i].t0 for i in idx)
+                b, o = 0, 0
+                for i in idx:
+                    nb, no = work(prefix[i], sum(
+                        t.numel() * t.element_size() for t in bps[i]), R1)
+                    b, o = b + nb, o + no
+                nbound = bound(b, o)
             times = {0: [], 1: []}
             outs = {}
             for which in (1, 0, 0, 1):  # plain, kernel, kernel, plain
-                ms, outs[which] = timed(run[which])
+                ms, outs[which] = self.timed(run[which])
                 times[which].append(ms)
             if name == "trace":
                 self.compare(name, outs[0], outs[1])
             else:
                 for g, w in zip(outs[0], outs[1]):
                     self.compare(name, g, w)
+            del outs
+            with self.profiler() as prof:
+                run[0]()
+                self.sync()
+            rows = self.device_rows(prof, f"profile_{tag}_{name}.txt")
+            dev_ms = sum(t for _, t, _ in rows) / 1e3
             self.ms[name] = min(times[0])
             self.plain_ms[name] = min(times[1])
-            log(f"C {name} on the first {n_tr[name]} transitions of the "
-                f"plan: kernel {times[0]} ms, plain {times[1]} ms")
+            self.bound[name] = nbound
+            log(f"{tag} {name} on the first {n_tr} transitions of the plan: "
+                f"kernel {times[0]} ms (device {dev_ms:.3f} ms by the "
+                f"profiler), plain {times[1]} ms, bound {nbound[0]:.6g} ms "
+                f"({nbound[1]})")
+        return prefix, v_ins, bps
 
-    def profile_forward(self, dp):
-        """Device busy and idle share of one more forward pass, from a
-        torch.profiler trace (kernel rows only); the table goes to
-        build/chip_smoke/profile_forward.txt."""
-        from torch.profiler import ProfilerActivity, profile
+    def phase_c(self):
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
-        torch = self.torch
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            a.record()
-            out = dp.forward()
-            b.record()
-            torch.cuda.synchronize()
-        del out
-        wall_us = a.elapsed_time(b) * 1e3
-        avg = prof.key_averages()
-        with open(os.path.join(OUT_DIR, "profile_forward.txt"), "w") as fh:
-            fh.write(avg.table(sort_by="self_device_time_total", row_limit=30))
-        rows = sorted(
-            ((e.key, e.self_device_time_total, e.count) for e in avg
-             if str(e.device_type).endswith("CUDA")
-             and e.self_device_time_total > 0),
-            key=lambda x: -x[1])
-        busy = sum(t for _, t, _ in rows)
-        if not busy:
-            log("C profile: no device time in the trace; idle share not "
-                "measured")
-            return
-        log(f"C profiled forward {wall_us / 1e6:.4f}s: device busy "
-            f"{busy / 1e6:.4f}s, idle share {1 - busy / wall_us:.4f}; "
-            + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms x{n}"
-                        for k, t, n in rows[:5]))
+        plan, dplan = self.main_path("C", mhc_shaped_csr(
+            L=L_MHC, seed=SEED, n_bands=N_BANDS))
+        self.time_prefix("C", dplan, ("narrow_run", "wide_dense_run", "trace"))
+
+    def phase_e(self):
+        from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
+        from dipgenie_tpu_torch.ops.plan import initial_v, plan_to_device
+        from dipgenie_tpu_torch.ops.trace import trace
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+        t_phase = time.time()
+        wmin, wmax = BIG_WIDTHS
+        plan, dplan = self.main_path(
+            "E", mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
+                                wmin=wmin, wmax=wmax))
+        self.time_prefix("E", dplan, ("wide_split_run",))
+
+        # K2 against K3 on the same big runs: per run from the same input
+        # state (K3, K2, K2, K3), then the whole DP through each
+        dplan2 = plan_to_device(plan, DEVICE, dense_nb_max=31)
+        big = [i for i, s in enumerate(dplan.segments)
+               if s.kind == "wide_split"]
+        k3, k2 = self.fns["wide_split_run"][0], self.fns["wide_dense_run"][0]
+        v_ins = {}
+        V = initial_v(R, DEVICE)
+        for i, seg in enumerate(dplan.segments):
+            if seg.kind == "wide_split":
+                v_ins[i] = V
+            V = self.fns[KIND_KERNEL[seg.kind]][0](seg, V)[0]
+
+        def loop(fn, segs):
+            return [fn(segs[i], v_ins[i])[0] for i in big]
+
+        times = {"K3": [], "K2": []}
+        outs = {}
+        for which in ("K3", "K2", "K2", "K3"):
+            fn, segs = ((k3, dplan.segments) if which == "K3"
+                        else (k2, dplan2.segments))
+            ms, outs[which] = self.timed(lambda: loop(fn, segs))
+            times[which].append(ms)
+        for a, b in zip(outs["K3"], outs["K2"]):
+            check(bool(self.torch.equal(a, b)), "E: K2 and K3 V differ")
+        del outs
+        dev_ms = {}
+        for which, fn, segs in (("K3", k3, dplan.segments),
+                                ("K2", k2, dplan2.segments)):
+            with self.profiler() as prof:
+                loop(fn, segs)
+                self.sync()
+            rows = self.device_rows(prof, f"profile_E_big_runs_{which}.txt")
+            dev_ms[which] = sum(t for _, t, _ in rows) / 1e3
+        n_tr = sum(dplan.segments[i].t1 - dplan.segments[i].t0 for i in big)
+        V3, bps3 = PairDiploidDP(dplan, DEVICE).forward()
+        recs3 = trace(dplan, bps3)
+        del bps3
+        V2, bps2 = PairDiploidDP(dplan2, DEVICE).forward()
+        recs2 = trace(dplan2, bps2)
+        del bps2
+        self.sync()
+        check(bool(self.torch.equal(V3, V2) and self.torch.equal(recs3, recs2)),
+              "E: the DP through K2 and through K3 differ")
+        log(f"E K2 vs K3 on the same {len(big)} big runs ({n_tr} "
+            f"transitions, NB 31): K3 {times['K3']} ms, K2 {times['K2']} ms "
+            "(CUDA events, one host call per run), device K3 "
+            f"{dev_ms['K3']:.3f} ms, K2 {dev_ms['K2']:.3f} ms (profiler); V "
+            "of every run and the whole DP's V and traceback records equal")
+        log(f"E phase {time.time() - t_phase:.1f}s")
 
     # ---------------- phase D ----------------
     def phase_d(self):
         from dipgenie_tpu_torch.utils.synth import pangenome
 
-        work = os.path.join(REPO, "build", "chip_smoke_e2e")
-        t0 = time.time()
-        n_bp = 1_000_000
-        gfa, reads = pangenome(work, n_bp=n_bp, n_walks=8, seed=SEED)
-        log(f"D synthetic pangenome: {n_bp} bp, 8 walks, reads from 2 "
-            f"walks at 2x ({time.time() - t0:.1f}s)")
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
-        runs = {}
-        for tag, cmd in (
-            ("port", ["-m", "dipgenie_tpu_torch", "--dp-backend", "torch",
-                      "--device", "cuda"]),
-            ("native", ["-m", "dipgenie_tpu", "--dp-backend", "native"]),
-        ):
-            cwd = os.path.join(work, tag)
-            os.makedirs(cwd, exist_ok=True)
+        env["CXX"] = self.ref_cxx
+        for n_bp, n_walks in PANGENOMES:
+            tag = f"D {n_walks} walks:"
+            work = os.path.join(REPO, "build", f"chip_smoke_e2e_{n_walks}")
             t0 = time.time()
-            p = subprocess.run(
-                [sys.executable, *cmd, "-p2", "-R18", "-g", gfa, "-r", reads,
-                 "-o", "out.fa"],
-                cwd=cwd, env=env, capture_output=True, text=True,
-            )
-            with open(os.path.join(OUT_DIR, f"d_{tag}.log"), "w") as fh:
-                fh.write(p.stdout + "\n---- stderr ----\n" + p.stderr)
-            check(p.returncode == 0, f"D {tag} CLI exited {p.returncode}: "
-                  f"{p.stderr[-2000:]}")
-            with open(os.path.join(cwd, "out.fa"), "rb") as fh:
-                runs[tag] = (p.stdout, p.stderr, fh.read())
-            log(f"D {tag} CLI {time.time() - t0:.1f}s")
-        (po, pe, pf), (no, _, nf) = runs["port"], runs["native"]
-        check(pf == nf, "D FASTA differs between the port and native tier")
+            gfa, reads = pangenome(work, n_bp=n_bp, n_walks=n_walks, seed=SEED)
+            log(f"{tag} synthetic pangenome of {n_bp} bp, reads from 2 "
+                f"walks at 2x ({time.time() - t0:.1f}s)")
+            runs = {}
+            for name, cmd in (
+                ("port", PORT_CLI),
+                ("native", ["-m", "dipgenie_tpu", "--dp-backend", "native"]),
+            ):
+                cwd = os.path.join(work, name)
+                os.makedirs(cwd, exist_ok=True)
+                t0 = time.time()
+                p = subprocess.run(
+                    [sys.executable, *cmd, "-p2", "-R18", "-g", gfa, "-r",
+                     reads, "-o", "out.fa"],
+                    cwd=cwd, env=env, capture_output=True, text=True,
+                )
+                with open(os.path.join(OUT_DIR, f"d{n_walks}_{name}.log"),
+                          "w") as fh:
+                    fh.write(p.stdout + "\n---- stderr ----\n" + p.stderr)
+                check(p.returncode == 0, f"{tag} {name} CLI exited "
+                      f"{p.returncode}: {p.stderr[-2000:]}")
+                with open(os.path.join(cwd, "out.fa"), "rb") as fh:
+                    runs[name] = (p.stdout, p.stderr, fh.read())
+                log(f"{tag} {name} CLI {time.time() - t0:.1f}s")
+            (po, pe, pf), (no, _, nf) = runs["port"], runs["native"]
+            check(pf == nf, f"{tag} FASTA differs between the port and the "
+                  "native tier")
 
-        def lines(s):
-            return [x for x in s.splitlines() if " took " not in x]
+            def lines(s):
+                return [x for x in s.splitlines() if " took " not in x]
 
-        check(lines(po) == lines(no), "D stdout differs")
-        plan_line = [x for x in pe.splitlines() if "pair plan ready" in x]
-        launch_line = [x for x in pe.splitlines() if "kernel launches" in x]
-        check(bool(plan_line) and bool(launch_line), "D torch tier not run")
-        log("D " + plan_line[0].split("] ", 1)[1])
-        log("D " + launch_line[0].split("] ", 1)[1])
-        counts = {k: int(v) for k, v in (
-            kv.split("=") for kv in
-            launch_line[0].split("launches ", 1)[1].split())}
-        runs = re.search(r"(\d+) narrow and (\d+) wide runs", plan_line[0])
-        check(counts == {"narrow_run": int(runs[1]),
-                         "wide_dense_run": int(runs[2]), "trace": 1},
-              f"D launches {counts} do not match the plan's runs")
-        if int(runs[2]) == 0:
-            log("D note: this graph has no wide level; K2 did not run here")
-        log(f"D FASTA byte-identical ({len(pf)} B) and stdout identical "
-            "apart from the timing line")
+            check(lines(po) == lines(no), f"{tag} stdout differs")
+            plan_line = [x for x in pe.splitlines() if "pair plan ready" in x]
+            launch_line = [x for x in pe.splitlines()
+                           if "kernel launches" in x]
+            check(bool(plan_line) and bool(launch_line),
+                  f"{tag} torch tier not run")
+            log(f"{tag} " + plan_line[0].split("] ", 1)[1])
+            log(f"{tag} " + launch_line[0].split("] ", 1)[1])
+            counts = {k: int(v) for k, v in (
+                kv.split("=") for kv in
+                launch_line[0].split("launches ", 1)[1].split())}
+            m = re.search(r"(\d+) narrow and (\d+) wide runs \((\d+) over",
+                          plan_line[0])
+            n_narrow, n_wide, n_split = (int(x) for x in m.groups())
+            want = {"narrow_run": n_narrow, "wide_dense_run": n_wide - n_split,
+                    "wide_split_run": n_split, "trace": 1}
+            check(counts == want, f"{tag} launches {counts}, want {want}")
+            if n_walks > 8:
+                check(n_split > 0, f"{tag} no run of more than 18 windows")
+            log(f"{tag} FASTA byte-identical ({len(pf)} B) and stdout "
+                "identical apart from the timing line")
+
+
+def build_all():
+    """Phase A: the CUDA kernels, the port's native runtime and the JAX
+    package's (for the reference CLI of phase D), built at once. Returns
+    (kernel library path, nvcc log, the compiler that built the reference
+    runtime)."""
+    from dipgenie_tpu_torch import kernels, native
+
+    out = {}
+
+    def reference_runtime():
+        # native/Makefile with the first compiler that links OpenMP: a
+        # $CXX wrapper may lack libgomp.spec (native.py does the same)
+        for cxx in native.compilers():
+            p = subprocess.run(["make", "-s", "-C",
+                                os.path.join(REPO, "native"), f"CXX={cxx}"],
+                               capture_output=True, text=True)
+            if p.returncode == 0:
+                out["ref_cxx"] = cxx
+                return
+        out["ref_cxx"] = None
+
+    def port_runtime():
+        out["native"] = native.available()
+
+    threads = [threading.Thread(target=f)
+               for f in (reference_runtime, port_runtime)]
+    for t in threads:
+        t.start()
+    path, nvcc_log = kernels.build()
+    for t in threads:
+        t.join()
+    check(out["native"], "the port's native runtime did not build")
+    check(out["ref_cxx"] is not None, "native/Makefile failed")
+    return path, nvcc_log, out["ref_cxx"]
 
 
 def main() -> int:
@@ -387,7 +597,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from dipgenie_tpu_torch import kernels
-    from dipgenie_tpu_torch.utils.native_build import ensure_native
 
     os.makedirs(OUT_DIR, exist_ok=True)
     smi = subprocess.run(
@@ -398,25 +607,28 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.time()
-    path, build_log = kernels.build()
-    log(f"A kernels built in {time.time() - t0:.1f}s: "
-        f"{os.path.relpath(path, REPO)}")
+    path, nvcc_log, ref_cxx = build_all()
+    log(f"A kernels ({os.path.relpath(path, REPO)}), the port's native "
+        f"runtime and native/libdgcore.so ({ref_cxx}) built in "
+        f"{time.time() - t0:.1f}s")
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
-        fh.write(build_log)
+        fh.write(nvcc_log)
     kernels.lib()
-    t0 = time.time()
-    check(ensure_native(), "native runtime did not build")
-    log(f"A native runtime ready in {time.time() - t0:.1f}s")
 
-    smoke = Smoke(torch)
-    smoke.phase_b()
-    smoke.phase_c()
-    smoke.phase_d()
+    smoke = Smoke(torch, ref_cxx)
+    for phase in (smoke.phase_b, smoke.phase_c, smoke.phase_e,
+                  smoke.phase_d):
+        t0 = time.time()
+        phase()
+        torch.cuda.empty_cache()
+        log(f"{phase.__name__} done in {time.time() - t0:.1f}s")
 
     result = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": smoke.launches[name], "max_abs_err": smoke.err[name],
-         "ms": smoke.ms[name], "plain_ms": smoke.plain_ms[name]}
+         "launches": smoke.launches[MAIN_PATH[name]][name],
+         "max_abs_err": smoke.err[name], "ms": smoke.ms[name],
+         "plain_ms": smoke.plain_ms[name], "bound_ms": smoke.bound[name][0],
+         "bound_by": smoke.bound[name][1], "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]}
     print(smi)

@@ -1,17 +1,17 @@
-"""dipgenie_tpu_torch — the diploid pair DP of dipgenie_tpu on an NVIDIA GPU.
+"""dipgenie_tpu_torch — dipgenie_tpu's haplotype inference on an NVIDIA GPU.
 
-A PyTorch + CUDA port of the device tier of ``dipgenie_tpu``. The host
-front end (GFA/FASTQ I/O, sketching, anchors, expanded-graph build,
-levelization), the pair planner (``dipgenie_tpu.ops.diploid_pallas.
-plan_pairs``) and the haplotype stitching are imported from
-``dipgenie_tpu``, which does not import JAX at module level; this package
-replaces only the device forward pass and traceback with hand-written
-CUDA kernels (``csrc/``), each beside a plain PyTorch version of the same
-function. It imports ``torch`` and never ``jax``.
+A PyTorch + CUDA port of ``dipgenie_tpu`` that stands alone: it holds its
+own copies of the host front end (GFA/FASTQ I/O, sketching, anchors,
+expanded-graph build, levelization), the pair planner
+(``ops/pair_plan.py``), the host DP tiers and the haplotype stitching,
+held to the JAX package by the parity tests, and runs the diploid pair
+DP's forward pass and traceback as hand-written CUDA kernels (``csrc/``),
+each beside a plain PyTorch version of the same function. It imports
+``torch`` and never ``jax`` or ``dipgenie_tpu``.
 """
 
-from dipgenie_tpu import PHI_VERSION
-
 __version__ = "0.1.0"
+
+PHI_VERSION = "1.0"  # reference version string parity (src/PHI.h:9)
 
 __all__ = ["PHI_VERSION", "__version__"]

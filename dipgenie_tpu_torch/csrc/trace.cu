@@ -10,15 +10,20 @@
 // pair entry -> next bp row), ~4 L2/HBM latencies per transition, with
 // no parallelism to exploit: the walk is inherently serial. Design: one
 // thread; each transition's addresses come from a descriptor row built
-// on the host (ops/trace.py), so narrow (int16 bp, `gidx << 13` packing)
-// and dense wide (int32 bp, `gidx << 17` packing) segments share one loop.
+// on the host (ops/trace.py), so narrow (int16 bp, `gidx << 13` packing),
+// dense wide (int32 bp, `gidx << 17` packing) and window-split wide
+// (int32 bp, one row per 1024-lane window, `gidx << 13` packing) segments
+// share one loop. As in `_narrow_trace`, a lane of a 1024-class block is
+// row `lane / lanes`, column `lane % lanes` from the block's row (a split
+// run's lane `win * 1024 + rel` lies in its window's row); a 256-class
+// block clamps the column.
 #include "dg_common.cuh"
 
 namespace {
 
 // descriptor columns (ops/trace.py `_descriptors`)
 enum { D_BP, D_LANES, D_ESIZE, D_TBL, D_W1, D_SY, D_DENSE, D_BIN, D_BOUT,
-       D_COLS };
+       D_ROWSTEP, D_ROWS, D_COLS };
 
 __global__ void trace_kernel(const long long* __restrict__ desc, int T, int R,
                              int32_t* recs) {
@@ -29,9 +34,14 @@ __global__ void trace_kernel(const long long* __restrict__ desc, int T, int R,
     const long long* d = desc + (size_t)t * D_COLS;
     const int lanes = (int)d[D_LANES];
     // clamped like the reference's dynamic_slice: only a walk from an
-    // unreachable sink leaves [0, R] x [0, lanes)
-    const size_t off = (size_t)(r < 0 ? 0 : r) * lanes +
-                       (lane < lanes ? lane : lanes - 1);
+    // unreachable sink leaves [0, R] or the bp array
+    int row = 0, col = lane < lanes ? lane : lanes - 1;
+    if (d[D_ROWSTEP]) {
+      row = lane / lanes;
+      if (row > (int)d[D_ROWS] - 1) row = (int)d[D_ROWS] - 1;
+      col = lane % lanes;
+    }
+    const size_t off = ((size_t)row * (R + 1) + (r < 0 ? 0 : r)) * lanes + col;
     const int slot = d[D_ESIZE] == 2
                          ? (int)((const int16_t*)d[D_BP])[off]
                          : ((const int32_t*)d[D_BP])[off];

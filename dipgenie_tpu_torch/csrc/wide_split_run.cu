@@ -1,0 +1,101 @@
+// K3: one run of wide pair-DP transitions over window-split 256-pair
+// chunks (every chunk's pairs land in one 1024-lane destination window).
+//
+// Replaces dipgenie_tpu/ops/diploid_pallas.py `_wide_split_kernel`
+// (launched by `_wide_split_call`), which the JAX package runs for wide
+// runs of more than 18 windows (NB 19-31, level widths ~136-177). On the
+// TPU a chunk gathered with block-masked one-hot matmuls over the source
+// windows in its gather mask, extracted the per-destination winner with a
+// segmented scan, and read-modify-wrote its one destination window with a
+// strict `>` so that earlier chunks won ties; a presence mask then reset
+// absent windows to NEG. Here a chunk's lanes gather by indexed load from
+// anywhere in the [R+1, NB * 1024] state and max-reduce straight into the
+// global destination lane `wwin * 1024 + rel` with a 64-bit atomicMax on
+// the order-independent key of dg_common.cuh (value, then the smallest
+// pair ordinal `wbase + lane`): the same winner as the strict `>` RMW. The
+// commit rewrites every lane of every window, so lanes no kept pair
+// reaches (holes, windows past the extent) become NEG with no presence
+// mask, and writes the int32 backpointers of the windows below the
+// transition's extent to rows `tb_bprow[t] + win` of bp [nrows, R+1, 1024]
+// (hole windows get ordinal 0; the JAX kernel leaves them unwritten).
+//
+// What bounds it on the H100: at NB = 31 a transition has ~40k pairs x
+// (R+1) rows of candidates, gathered from and reduced into a state of at
+// most 19 x 31 x 4 KB = 2.4 MB (keys twice that), all L2-resident; the
+// bytes that must reach device memory are the backpointers, ~2 MB per
+// transition. So a transition costs the latency of L2 gathers and atomics
+// plus one pass writing its backpointers, and two launches. Design (K2's):
+// a host loop over the run's transitions launches (1) one block per chunk,
+// one thread per pair lane, looping over rows, and (2) a commit grid over
+// the whole state that swaps the keys back to 0. A persistent launch per
+// run is later work.
+#include "dg_common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(dg::CHUNK)
+split_candidates(const int32_t* __restrict__ tbl,
+                 const int32_t* __restrict__ wwin,
+                 const int32_t* __restrict__ wbase, int c0, int R1, int lanes,
+                 const int32_t* __restrict__ V, dg::Key* keys) {
+  using namespace dg;
+  const int chunk = c0 + blockIdx.x;
+  const int32_t* row0 = tbl + ((size_t)chunk * 2) * CHUNK;
+  const int packed = row0[threadIdx.x];
+  const int rel = ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
+  if (rel < 0) return;
+  const int score = row0[CHUNK + threadIdx.x];
+  const int gidx = packed >> 13;
+  const int wsum = packed & 3;
+  const int dst = wwin[chunk] * 1024 + rel;
+  const int ordinal = wbase[chunk] + threadIdx.x;
+  for (int r = wsum; r < R1; ++r) {
+    const int c = V[(size_t)(r - wsum) * lanes + gidx];
+    if (c < REACH_T) continue;
+    atomicMax(&keys[(size_t)r * lanes + dst], make_key(c + score, ordinal));
+  }
+}
+
+// bp points at row tb_bprow[t]; lanes below ext_lanes have a bp row
+__global__ void split_commit(int n, int lanes, int ext_lanes, int32_t* V,
+                             dg::Key* keys, int32_t* bp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const dg::Key k = keys[i];
+  keys[i] = 0;
+  V[i] = dg::key_value(k);
+  const int r = i / lanes;
+  const int l = i - r * lanes;
+  if (l < ext_lanes) {
+    const int R1 = n / lanes;
+    bp[((size_t)(l >> 10) * R1 + r) * 1024 + (l & 1023)] = dg::key_ordinal(k);
+  }
+}
+
+}  // namespace
+
+// bounds: HOST array [T + 1] of the transitions' chunk ranges; bprow and
+// ext: HOST arrays [T], each transition's first bp row and its extent in
+// windows.
+extern "C" int dg_wide_split_run(const int32_t* tbl, const int32_t* wwin,
+                                 const int32_t* wbase, const int32_t* bounds,
+                                 const int32_t* bprow, const int32_t* ext,
+                                 int T, int R1, int NB, int32_t* V,
+                                 dg::Key* keys, int32_t* bp,
+                                 cudaStream_t stream) {
+  const int lanes = NB * 1024;
+  const int n = R1 * lanes;
+  const int commit_blocks = (n + 255) / 256;
+  for (int t = 0; t < T; ++t) {
+    const int nch = bounds[t + 1] - bounds[t];
+    if (nch > 0) {
+      split_candidates<<<nch, dg::CHUNK, 0, stream>>>(
+          tbl, wwin, wbase, bounds[t], R1, lanes, V, keys);
+    }
+    split_commit<<<commit_blocks, 256, 0, stream>>>(
+        n, lanes, ext[t] * 1024, V, keys, bp + (size_t)bprow[t] * R1 * 1024);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``: no PyTorch
-headers, so the build takes seconds. The library is built at first use,
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and link into one shared library with a
+plain C interface, loaded with ``ctypes``: no PyTorch headers, so the
+build takes seconds. The library is built at first use,
 from the sources in this checkout only, into
 ``build/dipgenie_tpu_torch/<hash of sources and flags>/`` beside the
 package (``.gitignore`` lists ``build/``). Every C entry point launches on
@@ -27,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dipgenie_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libdgtorch.so"
 
@@ -40,7 +41,11 @@ _SIGNATURES = {
     "dg_narrow_run": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # dtbl, host chunk bounds [T + 1], T, R1, NB, V, keys, bp, stream
     "dg_wide_dense_run": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # desc [T, 9], T, R, recs [T, 7], stream
+    # tbl, wwin, wbase, host chunk bounds [T + 1], host bp rows [T],
+    # host extents [T], T, R1, NB, V, keys, bp, stream
+    "dg_wide_split_run": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                          _P),
+    # desc [T, 11], T, R, recs [T, 7], stream
     "dg_trace": (_P, _I, _I, _P, _P),
 }
 
@@ -76,6 +81,18 @@ def library_path() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], _LIB_NAME)
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their output, or raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=CSRC)
+             for c in cmds]
+    outs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    for c, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(c)}\n{out}")
+    return "".join(out for _, out, _ in outs)
+
+
 def build() -> tuple[str, str]:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
     Returns ``(path, compiler log)``; the log is empty when nothing was
@@ -84,17 +101,19 @@ def build() -> tuple[str, str]:
     if os.path.exists(path):
         return path, ""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objs = {src: f"{path}.{os.path.basename(src)}.{tag}.o"
+            for src in _sources() if src.endswith(".cu")}
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in objs.items()])
+    tmp = f"{path}.{tag}"
+    log += _run_all([[nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp,
+                      *objs.values()]])
+    for obj in objs.values():
+        os.remove(obj)
     os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    return path, log
 
 
 @functools.cache

@@ -1,0 +1,328 @@
+"""Histogram mixture-model fitter: full grid search, vectorized.
+
+Reproduces the reference fallback grid fitter (reference: src/Fitter.hpp:
+361-407) which evaluates ~2.1M parameter combinations
+[u_v, sd_v, var_w, zp_copy, zp_copy_het, p_d, p_e, err_shape] against the
+k-mer multiplicity histogram NLL (Fitter.hpp:127-144), with bounds/grids
+from KGFitOptions (Fitter.hpp:25-46) and the strict ``<`` first-minimum
+tie rule of the nested loops (Fitter.hpp:391-405).
+
+Strategy here (vectorized instead of 8 nested scalar loops):
+  1. factorized vectorized NLL over the whole grid (numpy float64):
+     FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are
+     precomputed, then combined per (p_d,p_e,s) slice;
+  2. the top-K candidates by vectorized NLL are re-evaluated with a
+     scalar float64 routine replicating the C++ operation order exactly,
+     and the winner is chosen with the loop-order tie-break — making the
+     fitted parameters bit-identical to the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .classifier import KGParams, zeta_weights, derr_old_val, val_hom, val_het
+
+
+@dataclass
+class KGFitOptions:
+    """Fitter options (Fitter.hpp:25-46 defaults)."""
+
+    max_copy: int = 20
+    max_x_use: int = 200
+    smooth_win: int = 7
+    fit_error: bool = True
+    fit_varw: bool = True
+    u_lo: float = 1.0
+    u_hi: float = 20.0
+    sd_lo: float = 0.5
+    sd_hi: float = 2.0
+    varw_lo: float = 0.71
+    varw_hi: float = 4.0
+    pd_lo: float = 0.1
+    pd_hi: float = 1.0
+    pe_lo: float = 0.0
+    pe_hi: float = 0.1
+    s_lo: float = 1.01
+    s_hi: float = 4.0
+    zp_lo: float = 1.01
+    zp_hi: float = 4.0
+    grid_u: int = 7
+    grid_sd: int = 7
+    grid_varw: int = 5
+    grid_pd: int = 7
+    grid_pe: int = 5
+    grid_s: int = 5
+    grid_zp: int = 7
+
+
+@dataclass
+class KGFitResult:
+    P: KGParams
+    nll: float
+    valley_x: int
+    peak_x: int
+
+
+def _moving_avg(y: list[float], w: int) -> list[float]:
+    """Fitter.hpp:56-67."""
+    if w < 1:
+        return list(y)
+    n = len(y)
+    h = w // 2
+    z = [0.0] * n
+    for i in range(n):
+        lo, hi = max(0, i - h), min(n - 1, i + h)
+        s = sum(y[lo : hi + 1])
+        z[i] = s / max(hi - lo + 1, 1)
+    return z
+
+
+def estimate_valley_peak(hist: list[float], smooth_w: int) -> tuple[int, int]:
+    """Fitter.hpp:147-159: valley then peak on the smoothed histogram."""
+    n = len(hist)
+    ys = _moving_avg(hist, smooth_w)
+    valley_x = 2
+    vmin = ys[2] if n > 2 else 0.0
+    for i in range(2, min(n - 2, 50)):
+        if ys[i] < vmin:
+            vmin = ys[i]
+            valley_x = i
+        if i > 5 and ys[i] > ys[i - 1] and ys[i - 1] > ys[i - 2]:
+            break
+    # argmax over [valley+1, min(n-1, valley + 6*(valley+1))]
+    lo = max(valley_x + 1, 0)
+    hi = min(min(n - 1, valley_x + 6 * (valley_x + 1)), n - 1)
+    peak_x = lo
+    best = -1.0
+    for i in range(lo, hi + 1):
+        if ys[i] > best:
+            best = ys[i]
+            peak_x = i
+    return valley_x, peak_x
+
+
+def _linspace(lo: float, hi: float, k: int) -> np.ndarray:
+    """Fitter.hpp:364-372 linspace (lo + t*(hi-lo))."""
+    if k <= 1:
+        return np.array([(lo + hi) / 2.0])
+    t = np.arange(k, dtype=np.float64) / (k - 1)
+    return lo + t * (hi - lo)
+
+
+def _nll_exact(
+    u: float, sd: float, vw: float, zp: float, zph: float,
+    pd: float, pe: float, s: float,
+    max_copy: int, xs: np.ndarray, ys: np.ndarray,
+) -> float:
+    """Scalar NLL replicating Fitter.hpp:127-144 operation order."""
+    P = KGParams(
+        zp_copy=zp, zp_copy_het=zph, u_v=u, sd_v=sd, var_w=vw,
+        p_d=pd, max_copy=max_copy, p_e=pe, err_shape=s,
+    )
+    zh = zeta_weights(zp, max_copy)
+    zt = zeta_weights(zph, max_copy)
+    nll = 0.0
+    for x, y in zip(xs.tolist(), ys.tolist()):
+        fe = derr_old_val(x, s)
+        fhet = val_het(x, P, zt)
+        fhom = val_hom(x, P, zh)
+        mix = pe * fe + (1.0 - pe) * (pd * fhet + (1.0 - pd) * fhom)
+        nll += -y * math.log(mix + 1e-300)
+    return nll
+
+
+def _grid_nll_numpy(
+    U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys
+) -> np.ndarray:
+    """Vectorized NLL over the full grid, float64. Shape
+    (|U|,|SD|,|VW|,|ZP|,|ZPH|,|PD|,|PE|,|SS|) in C order = loop order."""
+    X = xs.astype(np.float64)
+
+    copies = np.arange(1, max_copy + 1, dtype=np.float64)
+
+    def zeta(zps):
+        w = 1.0 / np.power(copies[None, :], zps[:, None])
+        return w / w.sum(axis=1, keepdims=True)
+
+    zw_hom = zeta(ZP)  # [zp, copy]
+    zw_het = zeta(ZPH)  # [zph, copy]
+    inv_s2pi = 0.3989422804014327
+
+    # FHOM[u, sd, zp, x]
+    mu = U[:, None] * copies[None, :]  # [u, copy]
+    sdc = SD[:, None] * np.sqrt(copies)[None, :]  # [sd, copy]
+    z = (X[None, None, None, :] - mu[:, None, :, None]) / sdc[None, :, :, None]
+    pdf = inv_s2pi / sdc[None, :, :, None] * np.exp(-0.5 * z * z)
+    fhom = np.einsum("zc,uscx->uszx", zw_hom, pdf)
+    fhom = np.maximum(fhom, 1e-300)
+
+    # FHET[u, vw, zph, x]
+    mu_h = (0.5 * U)[:, None] * copies[None, :]
+    sd_base = 0.5 * np.sqrt(np.maximum(VW, 1e-12))
+    sdc_h = sd_base[:, None] * np.sqrt(copies)[None, :]  # [vw, copy]
+    z = (X[None, None, None, :] - mu_h[:, None, :, None]) / sdc_h[None, :, :, None]
+    pdf = inv_s2pi / sdc_h[None, :, :, None] * np.exp(-0.5 * z * z)
+    fhet = np.einsum("zc,uvcx->uvzx", zw_het, pdf)
+    fhet = np.maximum(fhet, 1e-300)
+
+    # FERR[s, x]
+    ferr = np.power(X[None, :], -SS[:, None]) - np.power(X[None, :] + 1.0, -SS[:, None])
+    ferr = np.where(ferr > 0.0, ferr, 1e-300)
+
+    nU, nSD, nVW, nZP, nZPH = len(U), len(SD), len(VW), len(ZP), len(ZPH)
+    out = np.empty((nU, nSD, nVW, nZP, nZPH, len(PD), len(PE), len(SS)))
+    for ipd, pd in enumerate(PD):
+        for ipe, pe in enumerate(PE):
+            for isx, _s in enumerate(SS):
+                # mix[u,sd,vw,zp,zph,x]; fhet axes [u,vw,zph,x], fhom [u,sd,zp,x]
+                b = (1.0 - pe) * pd * fhet[:, None, :, None, :, :]
+                c = (1.0 - pe) * (1.0 - pd) * fhom[:, :, None, :, None, :]
+                mix = pe * ferr[isx][None, None, None, None, None, :] + b + c
+                out[:, :, :, :, :, ipd, ipe, isx] = -(
+                    np.log(mix + 1e-300) * ys[None, None, None, None, None, :]
+                ).sum(axis=-1)
+    return out
+
+
+def fit_histogram(
+    hist_pairs: list[tuple[int, float]],
+    opt: KGFitOptions | None = None,
+    exact_topk: int = 256,
+    backend: str = "numpy",
+) -> KGFitResult:
+    """Fit the 8-parameter mixture to a {multiplicity: freq} histogram.
+
+    Matches KGFitterBO::fit (Fitter.hpp:207-407) with the grid backend.
+    """
+    if backend != "numpy":
+        raise ValueError(
+            f"fit_histogram backend {backend!r}: only 'numpy' is ported; the "
+            "device grid NLL is ROADMAP queue 1, item 7"
+        )
+    if opt is None:
+        opt = KGFitOptions()
+    nmax = max((m for m, _ in hist_pairs), default=0)
+    n = min(nmax, opt.max_x_use)
+    dense = [0.0] * (n + 1)
+    for m, f in hist_pairs:
+        if m <= n:
+            dense[m] += f
+    valley, peak = estimate_valley_peak(dense, opt.smooth_win)
+
+    # seeds (only used for frozen entries; Fitter.hpp:219-247)
+    def fwhm(cx: int) -> float:
+        # guarded reads: the reference reads H[cx] unchecked (UB when the
+        # histogram is shorter than the probe range); seeds only matter for
+        # frozen parameters, so clamped reads are safe here.
+        def at(i: int) -> float:
+            return dense[i] if 0 <= i < len(dense) else 0.0
+
+        pk = at(cx)
+        half = pk / 2.0
+        L = R = cx
+        for i in range(cx, max(1, cx - 10) - 1, -1):
+            if at(i) <= half:
+                L = i
+                break
+        for i in range(cx, min(n, cx + 10) + 1):
+            if at(i) <= half:
+                R = i
+                break
+        return max(2, R - L) / 2.35
+
+    sd_seed = min(max(fwhm(peak), opt.sd_lo), opt.sd_hi)
+    varw_seed = min(max(2.0 * sd_seed * sd_seed, opt.varw_lo), opt.varw_hi)
+    total = sum(dense[1 : n + 1])
+    left = sum(dense[1 : min(valley, n) + 1])
+    pe_seed = left / total if total > 0 else 0.05
+    pe_seed = min(max(pe_seed, opt.pe_lo), opt.pe_hi)
+    s_seed = 2.0
+
+    # bounds with freezing (Fitter.hpp:289-293)
+    lo = [opt.u_lo, opt.sd_lo, opt.varw_lo, opt.zp_lo, opt.zp_lo, opt.pd_lo, opt.pe_lo, opt.s_lo]
+    hi = [opt.u_hi, opt.sd_hi, opt.varw_hi, opt.zp_hi, opt.zp_hi, opt.pd_hi, opt.pe_hi, opt.s_hi]
+    if not opt.fit_varw:
+        lo[2] = hi[2] = varw_seed
+    if not opt.fit_error:
+        lo[6] = hi[6] = pe_seed
+        lo[7] = hi[7] = s_seed
+
+    def grid_or_freeze(l, h, k):
+        if abs(h - l) < 1e-12:
+            return np.array([l])
+        return _linspace(l, h, k)
+
+    U = grid_or_freeze(lo[0], hi[0], opt.grid_u)
+    SD = grid_or_freeze(lo[1], hi[1], opt.grid_sd)
+    VW = grid_or_freeze(lo[2], hi[2], opt.grid_varw)
+    ZP = grid_or_freeze(lo[3], hi[3], opt.grid_zp)
+    ZPH = grid_or_freeze(lo[4], hi[4], opt.grid_zp)
+    PD = grid_or_freeze(lo[5], hi[5], opt.grid_pd)
+    PE = grid_or_freeze(lo[6], hi[6], opt.grid_pe)
+    SS = grid_or_freeze(lo[7], hi[7], opt.grid_s)
+
+    xs_all = np.arange(1, n + 1, dtype=np.int64)
+    ysd = np.asarray(dense[1:], np.float64)
+    mask = ysd > 0
+    xs, ys = xs_all[mask], ysd[mask]
+
+    if len(xs) == 0:
+        P = KGParams(
+            zp_copy=float(ZP[0]), zp_copy_het=float(ZPH[0]), u_v=float(U[0]),
+            sd_v=float(SD[0]), var_w=float(VW[0]), p_d=float(PD[0]),
+            max_copy=opt.max_copy, p_e=float(PE[0]), err_shape=float(SS[0]),
+        )
+        return KGFitResult(P, 0.0, valley, peak)
+
+    nll = _grid_nll_numpy(U, SD, VW, ZP, ZPH, PD, PE, SS, opt.max_copy, xs, ys)
+    flat = nll.reshape(-1)
+    k = min(exact_topk, flat.size)
+    cand = np.argpartition(flat, k - 1)[:k] if k < flat.size else np.arange(flat.size)
+    cand = np.sort(cand)  # loop order for tie-break
+
+    shape = nll.shape
+
+    def exact_of(ci: int) -> float:
+        iu, isd, ivw, izp, izph, ipd, ipe, iss = np.unravel_index(ci, shape)
+        return _nll_exact(
+            float(U[iu]), float(SD[isd]), float(VW[ivw]), float(ZP[izp]),
+            float(ZPH[izph]), float(PD[ipd]), float(PE[ipe]), float(SS[iss]),
+            opt.max_copy, xs, ys,
+        )
+
+    # Adaptive exact-re-eval window: the fixed top-K seed is only a
+    # heuristic when the vectorized grid ranks near-ties
+    # wrongly. Grow the window until every unevaluated grid point's
+    # vectorized NLL exceeds the best exact NLL by more than the
+    # empirically observed approx-vs-exact error (x4 safety margin), at
+    # which point no excluded point can beat the current winner.
+    evaluated: dict[int, float] = {int(ci): exact_of(int(ci)) for ci in cand}
+    while True:
+        best_nll = math.inf
+        best_idx = -1
+        err_emp = 0.0
+        for ci in sorted(evaluated):  # ascending ci == loop-order ties
+            e = evaluated[ci]
+            err_emp = max(err_emp, abs(float(flat[ci]) - e))
+            if e < best_nll:
+                best_nll = e
+                best_idx = ci
+        bound = 4.0 * err_emp + 1e-9 * max(1.0, abs(best_nll))
+        need = np.nonzero(flat <= best_nll + bound)[0]
+        new = [int(ci) for ci in need.tolist() if int(ci) not in evaluated]
+        if not new:
+            break
+        for ci in new:
+            evaluated[ci] = exact_of(ci)
+
+    iu, isd, ivw, izp, izph, ipd, ipe, iss = np.unravel_index(best_idx, shape)
+    P = KGParams(
+        zp_copy=float(ZP[izp]), zp_copy_het=float(ZPH[izph]), u_v=float(U[iu]),
+        sd_v=float(SD[isd]), var_w=float(VW[ivw]), p_d=float(PD[ipd]),
+        max_copy=opt.max_copy, p_e=float(PE[ipe]), err_shape=float(SS[iss]),
+    )
+    return KGFitResult(P, best_nll, valley, peak)

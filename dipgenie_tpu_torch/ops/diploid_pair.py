@@ -7,7 +7,8 @@ same contract: ``run() -> (sink_value, sink_s_het, transitions)``, with
 ascending 1..L-1. Every segment's backpointers stay resident on the
 device until the traceback (the JAX package re-ran segments to
 rematerialise them); on CUDA tensors every step is a kernel of
-``csrc/``, on CPU tensors its plain PyTorch version.
+``csrc/``, on CPU tensors its plain PyTorch version. Narrow runs go to K1,
+wide runs to K2 or, beyond ``DENSE_NB_MAX`` windows, K3.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from .narrow import narrow_run
 from .plan import DevPlan, PairPlan, initial_v, plan_to_device
 from .trace import trace
 from .wide import wide_dense_run
+from .wide_split import wide_split_run
+
+# the kernel wrapper of each segment kind (ops/plan.py:segment_kind)
+RUNS = {"narrow": narrow_run, "wide": wide_dense_run,
+        "wide_split": wide_split_run}
 
 
 def assemble(sink_value: int, recs: np.ndarray):
@@ -41,16 +47,13 @@ class PairDiploidDP:
         self.R = self.dplan.R
 
     def forward(self):
-        """``(V [R+1, 1024] at the last level, per-segment backpointers)``."""
+        """``(V [R+1, 1024] at the last level, per-segment backpointers)``:
+        ``(bp256, bp1024)`` of a narrow run, ``(bp,)`` of a wide one."""
         V = initial_v(self.R, self.device)
         bps = []
         for seg in self.dplan.segments:
-            if seg.kind == "narrow":
-                V, bp256, bp1024 = narrow_run(seg, V)
-                bps.append((bp256, bp1024))
-            else:
-                V, bp = wide_dense_run(seg, V)
-                bps.append((bp,))
+            V, *bp = RUNS[seg.kind](seg, V)
+            bps.append(tuple(bp))
         return V, bps
 
     def run(self):

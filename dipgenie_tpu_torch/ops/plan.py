@@ -1,10 +1,11 @@
 """The pair plan on the device, and the bit layouts the kernels read.
 
-Planning is ``dipgenie_tpu.ops.diploid_pallas.plan_pairs`` (numpy plus the
-native ``dg_pair_tables``), called and not forked: a ``PairPlan`` is a
-level-ordered list of ``_NarrowRun`` and ``_WideRun`` segments made of
-256-pair chunks. ``plan_to_device`` turns every numpy array of every
-segment into a tensor on one device; nothing else is derived here.
+Planning is ``ops/pair_plan.plan_pairs`` (numpy plus the native
+``dg_pair_tables``): a ``PairPlan`` is a level-ordered list of
+``_NarrowRun`` and ``_WideRun`` segments made of 256-pair chunks.
+``plan_to_device`` turns every numpy array of every segment into a tensor
+on one device and picks each segment's kernel; nothing else is derived
+here.
 
 Layouts the port's kernels (and their plain versions) decode:
 
@@ -20,16 +21,29 @@ Layouts the port's kernels (and their plain versions) decode:
   here), bits 7-8 the destination extent class - 1 (the transition writes
   ``OUT = 256 * (class + 1)`` lanes). The dataclass comment beside
   ``_NarrowRun.sbits`` predates this layout.
+* Window-split wide chunk table ``tbl [nchunks, 2, 256] int32`` (every
+  wide run has one): the narrow packing with ``dst`` relative to the
+  chunk's destination window ``wwin``, so the global destination lane is
+  ``wwin * 1024 + rel``; ``wbase`` is the chunk's first pair ordinal in
+  its transition, ``wbits & 4`` marks real chunks. A transition's
+  backpointers go to rows ``tb_bprow[t] + win`` of ``bp [nrows, R+1,
+  1024]``, one per window below its extent.
 * Dense wide chunk table ``dtbl [nchunks, 2, 256] int32``. Row 0 packs
   ``gidx << 17 | win << 12 | rel << 2 | wsum`` with the destination lane
   ``win * 1024 + rel``; padded lanes are all zero there, which decodes as
   the real lane 0, so only ``score == PAD_SC`` in row 1 marks them.
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
 * Pair ordinals (the backpointers): a pair's index in its transition's
-  preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``.
+  preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``
+  (window-split and dense chunks number the same pairs differently).
   Narrow runs spill them as int16 to ``bp256 [n256, R+1, 256]`` or
   ``bp1024 [n1024, R+1, 1024]`` (row ``tb_bprow``; ``tb_bits & 2`` picks
-  bp1024); dense wide runs as int32 to ``bp [T, R+1, NB * 1024]``.
+  bp1024); dense wide runs as int32 to ``bp [T, R+1, NB * 1024]``,
+  window-split wide runs as int32 to ``bp [nrows, R+1, 1024]``.
+
+Kernel of a segment: narrow runs K1 (``narrow.py``); wide runs of at
+most ``DENSE_NB_MAX`` windows K2 (``wide.py``), wider ones K3
+(``wide_split.py``).
 
 Reduction key. For every destination lane and row the kernels keep the
 best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
@@ -47,8 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dipgenie_tpu.ops import diploid_pallas
-from dipgenie_tpu.ops.diploid_pallas import (  # noqa: F401  (re-exported)
+from .pair_plan import (  # noqa: F401  (re-exported)
     CHUNK,
     NEG,
     PAD_SC,
@@ -56,11 +69,25 @@ from dipgenie_tpu.ops.diploid_pallas import (  # noqa: F401  (re-exported)
     PairPlan,
     _NarrowRun,
     _WideRun,
+    plan_pairs,
 )
 
-from ..utils.native_build import ensure_native
+# The JAX package sends wide runs of more than 18 windows to its
+# window-split kernel (diploid_pallas.py:1140, :2193): there the dense
+# kernel's state no longer fit the TPU's VMEM. The H100 has no such limit
+# (K2 runs any NB <= 31), but the port keeps the rule so that its path is
+# the reference's path.
+DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
+
+
+def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX) -> str:
+    """``narrow`` (K1), ``wide`` (K2, dense chunks) or ``wide_split`` (K3,
+    window-split chunks): the kernel that runs a plan segment."""
+    if isinstance(seg, _NarrowRun):
+        return "narrow"
+    return "wide_split" if seg.NB > dense_nb_max else "wide"
 
 
 @dataclass
@@ -69,10 +96,10 @@ class DevSegment:
     its scalar fields and host-side loops), ``t`` maps every numpy array
     field of it to a tensor on the device."""
 
-    kind: str  # "narrow" | "wide"
+    kind: str  # "narrow" | "wide" | "wide_split"
     host: _NarrowRun | _WideRun
     t: dict
-    nreal: int  # real (non ladder-pad) chunks of the table the port runs
+    nreal: int  # real (non ladder-pad) chunks of the table the kernel runs
 
     @property
     def t0(self) -> int:
@@ -91,15 +118,15 @@ class DevPlan:
     segments: list
 
 
-def plan_pairs(*args) -> PairPlan:
-    """``dipgenie_tpu``'s ``plan_pairs(*csr_arrays, R)``, once the native
-    runtime (its fast path, ``dg_pair_tables``) is built."""
-    ensure_native()
-    return diploid_pallas.plan_pairs(*args)
+_REAL_BITS = {"narrow": ("sbits", 16), "wide": ("dbits", 4),
+              "wide_split": ("wbits", 4)}
 
 
-def plan_to_device(plan: PairPlan, device) -> DevPlan:
-    """Every numpy array of every segment as a tensor on ``device``."""
+def plan_to_device(plan: PairPlan, device,
+                   dense_nb_max: int = DENSE_NB_MAX) -> DevPlan:
+    """Every numpy array of every segment as a tensor on ``device``.
+    ``dense_nb_max`` picks K2 or K3 for each wide run (0: K3 for all,
+    31: K2 for all); the default is the reference's rule."""
     device = torch.device(device)
     segs = []
     for seg in plan.segments:
@@ -110,10 +137,9 @@ def plan_to_device(plan: PairPlan, device) -> DevPlan:
                 t[f.name] = torch.from_numpy(np.ascontiguousarray(a)).to(
                     device
                 )
-        if isinstance(seg, _NarrowRun):
-            kind, nreal = "narrow", int(np.count_nonzero(seg.sbits & 16))
-        else:
-            kind, nreal = "wide", int(np.count_nonzero(seg.dbits & 4))
+        kind = segment_kind(seg, dense_nb_max)
+        bits, real = _REAL_BITS[kind]
+        nreal = int(np.count_nonzero(getattr(seg, bits) & real))
         segs.append(DevSegment(kind=kind, host=seg, t=t, nreal=nreal))
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 

@@ -2,9 +2,10 @@
 and its plain twin.
 
 Replaces ``_wide_dense_kernel`` / ``_wide_call`` of
-``dipgenie_tpu/ops/diploid_pallas.py``, and also runs the big runs
-(19..31 windows) that the JAX package sends to ``_wide_split_kernel``:
-the dense tables exist for every wide run. The transition is the one of
+``dipgenie_tpu/ops/diploid_pallas.py``. The main path sends it the wide
+runs of at most ``DENSE_NB_MAX`` windows; it also runs the bigger ones
+(up to 31 windows) when asked (``plan_to_device(..., dense_nb_max=31)``),
+since the dense tables exist for every wide run. The transition is the one of
 ``narrow.py`` over a ``[R+1, NB * 1024]`` state; every lane of every
 window is rewritten at each transition, so lanes no kept pair reaches
 (holes, windows past the extent) become ``NEG``. The run's output state

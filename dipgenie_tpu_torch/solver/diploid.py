@@ -1,13 +1,15 @@
-"""The diploid solver with the port's device tier.
+"""The diploid solver of the port.
 
-Counterpart of ``dipgenie_tpu.solver.diploid.diploid_dp_solver``:
+Counterpart of ``dipgenie_tpu.solver.diploid.diploid_dp_solver``, with
+its own copies of ``build_color_masks``, ``_forward_exact``, ``csr_arrays``
+and ``_forward_native`` (``dipgenie_tpu/solver/diploid.py:50-245``):
 
-* ``torch``: ``csr_arrays`` and ``plan_pairs`` (shared), then the pair DP
+* ``torch``: ``csr_arrays`` and the port's ``plan_pairs``, then the pair DP
   of ``ops/diploid_pair.py`` on ``device``. A ``ValueError`` from the
   planner (R > 31, the packed-value bound, more than 31 windows) is
   raised: there is no fallback tier;
-* ``native`` / ``exact``: the shared ``_forward_native`` /
-  ``_forward_exact``.
+* ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
+  the host.
 
 The haplotype stitching and the approximation certificate after the DP
 are copied from ``dipgenie_tpu/solver/diploid.py:347-531`` unchanged, so
@@ -21,32 +23,199 @@ import sys
 import time
 from collections import deque
 
-from dipgenie_tpu import native
-from dipgenie_tpu.graph.expanded import AnchorRec, ExpandedGraph
-from dipgenie_tpu.graph.pangenome import PangenomeIndex
-from dipgenie_tpu.solver.diploid import (
-    _forward_exact,
-    _forward_native,
-    build_color_masks,
-    csr_arrays,
-)
-from dipgenie_tpu.solver.haploid import _fmt
-from dipgenie_tpu.utils.timing import log_stage
+import numpy as np
 
-from ..ops.diploid_pair import PairDiploidDP
-from ..ops.narrow import narrow_run
-from ..ops.plan import _WideRun, plan_pairs
+from .. import native
+from ..graph.expanded import AnchorRec, ExpandedGraph, FlatAnchors
+from ..graph.pangenome import PangenomeIndex
+from ..ops.diploid_pair import RUNS, PairDiploidDP
+from ..ops.plan import DENSE_NB_MAX, plan_pairs, segment_kind
 from ..ops.trace import trace
-from ..ops.wide import wide_dense_run
 from ..utils.synth import dp_states
+from ..utils.timing import log_stage
+from .haploid import _fmt
 
 BACKENDS = ("torch", "native", "exact")
 
+NEG_INF = -(2**31) // 4
 
-def native_forward_csr(arrs, R: int, n_threads: int = 0):
-    """(sink_value, sink_s_het, transitions) of the native C++ tier on CSR
-    arrays: ``_forward_native`` without the graph object."""
-    val, shet, trans = native.diploid_dp(*arrs, R, n_threads, False)
+
+def build_color_masks(
+    g: ExpandedGraph, color_homo_bv: list[bool]
+) -> tuple[list[int], list[int]]:
+    """Per-vertex HOM/HET colour bitsets (approximator.cpp:430-453)."""
+    H = [0] * len(g.adj_list)
+    T = [0] * len(g.adj_list)
+    for v, colors in enumerate(g.color):
+        hm = tm = 0
+        for c in colors:
+            if color_homo_bv[c]:
+                hm |= 1 << c
+            else:
+                tm |= 1 << c
+        H[v], T[v] = hm, tm
+    return H, T
+
+
+def _forward_exact(g: ExpandedGraph, R: int, Hm, Tm, progress: bool = False):
+    """Exact numpy forward DP; returns (sink_val, sink_shet, transitions).
+
+    transitions[t] = (level, pred_i, pred_j, i2, j2, wu, wv) along the
+    backtracked optimal path, level ascending 1..L-1."""
+    L = len(g.vertices_in_level)
+    n = len(g.adj_list)
+    pos_in_level = [-1] * n
+    for l in range(L):
+        for i, v in enumerate(g.vertices_in_level[l]):
+            pos_in_level[v] = i
+
+    # rolling state at current level: [(R+1), k, k]
+    val = np.zeros((R + 1, 1, 1), np.int64)
+    shet = np.zeros((R + 1, 1, 1), np.int64)
+    # per-level backpointer tables, filled for levels 1..L-1
+    back: list[dict[str, np.ndarray] | None] = [None] * L
+
+    from ..utils.progress import ProgressThrottle
+
+    bar = ProgressThrottle(L) if progress else None
+    rs = np.arange(R + 1)
+    for l in range(L - 1):
+        lnow = g.vertices_in_level[l]
+        lnext = g.vertices_in_level[l + 1]
+        k, k2 = len(lnow), len(lnext)
+        nval = np.full((R + 1, k2, k2), NEG_INF, np.int64)
+        nsh = np.zeros((R + 1, k2, k2), np.int64)
+        pi = np.full((R + 1, k2, k2), np.iinfo(np.int32).max, np.int64)
+        pj = np.full((R + 1, k2, k2), np.iinfo(np.int32).max, np.int64)
+        pr = np.full((R + 1, k2, k2), -1, np.int64)
+        wub = np.zeros((R + 1, k2, k2), np.int8)
+        wvb = np.zeros((R + 1, k2, k2), np.int8)
+
+        HL: dict[tuple[int, int], int] = {}
+        TL: dict[tuple[int, int], int] = {}
+        for i in range(k):
+            u1 = lnow[i]
+            au = g.adj_list[u1]
+            for j in range(k):
+                v1 = lnow[j]
+                src = val[:, i, j]
+                if not (src != NEG_INF).any():
+                    continue
+                hl = Hm[u1] | Hm[v1]
+                tl = Tm[u1] | Tm[v1]
+                ssrc = shet[:, i, j]
+                for u2, wu in au:
+                    iu2 = pos_in_level[u2]
+                    for v2, wv in g.adj_list[v1]:
+                        jv2 = pos_in_level[v2]
+                        w = wu + wv
+                        if w > R:
+                            continue
+                        symd = (tl ^ (Tm[u2] | Tm[v2])).bit_count()
+                        score = (hl & (Hm[u2] | Hm[v2])).bit_count() + symd
+                        lim = R + 1 - w
+                        cand = src[:lim] + score
+                        dv = nval[w:, iu2, jv2]
+                        valid = src[:lim] != NEG_INF
+                        better = valid & (
+                            (cand > dv)
+                            | ((cand == dv) & (i < pi[w:, iu2, jv2]))
+                            | (
+                                (cand == dv)
+                                & (i == pi[w:, iu2, jv2])
+                                & (j < pj[w:, iu2, jv2])
+                            )
+                        )
+                        if not better.any():
+                            continue
+                        bidx = np.nonzero(better)[0]
+                        nval[w + bidx, iu2, jv2] = cand[bidx]
+                        nsh[w + bidx, iu2, jv2] = ssrc[bidx] + symd
+                        pi[w + bidx, iu2, jv2] = i
+                        pj[w + bidx, iu2, jv2] = j
+                        pr[w + bidx, iu2, jv2] = bidx
+                        wub[w + bidx, iu2, jv2] = wu
+                        wvb[w + bidx, iu2, jv2] = wv
+        back[l + 1] = {"pi": pi, "pj": pj, "pr": pr, "wu": wub, "wv": wvb}
+        val, shet = nval, nsh
+        if bar is not None:
+            bar.update(l + 1)
+    if bar is not None:
+        bar.update(L)
+
+    best_r = R
+    sink_val = int(val[best_r, 0, 0])
+    sink_shet = int(shet[best_r, 0, 0])
+
+    i2, j2, r2 = 0, 0, best_r
+    transitions: list[tuple[int, int, int, int, int, int, int]] = []
+    for l in range(L - 1, 0, -1):
+        b = back[l]
+        bi = int(b["pi"][r2, i2, j2])
+        bj = int(b["pj"][r2, i2, j2])
+        br = int(b["pr"][r2, i2, j2])
+        wu = int(b["wu"][r2, i2, j2])
+        wv = int(b["wv"][r2, i2, j2])
+        transitions.append((l, bi, bj, i2, j2, wu, wv))
+        i2, j2, r2 = bi, bj, br
+    transitions.reverse()
+    return sink_val, sink_shet, transitions
+
+
+def csr_arrays(g, color_homo_bv):
+    """Dense CSR arrays of the levelized graph for the native/device DPs:
+    (level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors, het_ptr,
+    het_colors). Accepts an ExpandedGraph or a LeveledGraph CSR view."""
+    if hasattr(g, "color_csr"):  # LeveledGraph: already CSR
+        hom_ptr, hom_colors, het_ptr, het_colors = g.color_csr(color_homo_bv)
+        adj_ptr, adj_v, adj_w = g.csr
+        return (g.level_ptr, adj_ptr, adj_v, adj_w,
+                hom_ptr, hom_colors, het_ptr, het_colors)
+
+    L = len(g.vertices_in_level)
+    n = len(g.adj_list)
+    level_ptr = np.zeros(L + 1, np.int64)
+    widths = np.fromiter(
+        (len(lv) for lv in g.vertices_in_level), np.int64, L
+    )
+    np.cumsum(widths, out=level_ptr[1:])
+    # levelized ids are consecutive per level
+    assert all(
+        len(lv) == 0 or lv[0] == level_ptr[l]
+        for l, lv in enumerate(g.vertices_in_level)
+    )
+
+    deg = np.fromiter((len(a) for a in g.adj_list), np.int64, n)
+    adj_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=adj_ptr[1:])
+    ne = int(adj_ptr[-1])
+    flat = np.fromiter(
+        (x for a in g.adj_list for vw in a for x in vw), np.int64, 2 * ne
+    )
+    adj_v = flat[0::2].astype(np.int32)
+    adj_w = flat[1::2].astype(np.int8)
+
+    ccnt = np.fromiter((len(c) for c in g.color), np.int64, n)
+    nc = int(ccnt.sum())
+    col_vals = np.fromiter((c for cs in g.color for c in cs), np.int64, nc)
+    rows = np.repeat(np.arange(n, dtype=np.int64), ccnt)
+    chb = np.asarray(color_homo_bv, bool)
+    is_h = chb[col_vals] if nc else np.zeros(0, bool)
+    hom_ptr = np.zeros(n + 1, np.int64)
+    het_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows[is_h], minlength=n), out=hom_ptr[1:])
+    np.cumsum(np.bincount(rows[~is_h], minlength=n), out=het_ptr[1:])
+    hom_colors = col_vals[is_h].astype(np.int32)
+    het_colors = col_vals[~is_h].astype(np.int32)
+    return (level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors,
+            het_ptr, het_colors)
+
+
+def native_forward_csr(arrs, R: int, n_threads: int = 0,
+                       progress: bool = False):
+    """(sink_value, sink_s_het, transitions) of the native C++ tier
+    (dgcore) on the CSR arrays of a levelized graph."""
+    val, shet, trans = native.diploid_dp(*arrs, R, n_threads, progress)
     transitions = []
     i2, j2 = 0, 0
     for l in range(len(arrs[0]) - 2, 0, -1):
@@ -56,19 +225,29 @@ def native_forward_csr(arrs, R: int, n_threads: int = 0):
     return val, shet, transitions[::-1]
 
 
+def _forward_native(g: ExpandedGraph, R: int, color_homo_bv, n_threads: int = 0,
+                    progress: bool = False):
+    """Native (dgcore) forward DP; same return contract as _forward_exact."""
+    return native_forward_csr(csr_arrays(g, color_homo_bv), R, n_threads,
+                              progress)
+
+
 def torch_forward(arrs, R: int, device):
     """(sink_value, sink_s_het, transitions) of the port's device tier on
     the CSR arrays of a levelized graph."""
     t0 = time.time()
     plan = plan_pairs(*arrs, R)
-    n_wide = sum(isinstance(s, _WideRun) for s in plan.segments)
+    kinds = [segment_kind(s) for s in plan.segments]
+    n_split = kinds.count("wide_split")
+    n_wide = kinds.count("wide") + n_split
     log_stage(
         "diploid_dp",
         f"pair plan ready in {time.time() - t0:.1f}s: {plan.L} levels, "
         f"{dp_states(arrs[0], R)} DP states, "
-        f"{len(plan.segments) - n_wide} narrow and {n_wide} wide runs",
+        f"{kinds.count('narrow')} narrow and {n_wide} wide runs "
+        f"({n_split} over {DENSE_NB_MAX} windows)",
     )
-    wrappers = (narrow_run, wide_dense_run, trace)
+    wrappers = (*RUNS.values(), trace)
     before = [w.launches for w in wrappers]
     t0 = time.time()
     result = PairDiploidDP(plan, device).run()
@@ -91,7 +270,7 @@ def diploid_dp_solver(
     index: PangenomeIndex,
     out=sys.stdout,
     progress: bool = False,
-    backend: str = "exact",
+    backend: str = "torch",
     n_threads: int = 0,
     device="cuda",
 ):
@@ -158,36 +337,32 @@ def diploid_dp_solver(
         return -1
 
     # per-hap anchor arrays for vectorized colour collection
-    import numpy as _np
-
-    anc_so: list[_np.ndarray] = []
-    anc_eo: list[_np.ndarray] = []
-    anc_cptr: list[_np.ndarray] = []
-    anc_cvals: list[_np.ndarray] = []
-    from dipgenie_tpu.graph.expanded import FlatAnchors
-
+    anc_so: list[np.ndarray] = []
+    anc_eo: list[np.ndarray] = []
+    anc_cptr: list[np.ndarray] = []
+    anc_cvals: list[np.ndarray] = []
     if isinstance(anchors_by_hap, FlatAnchors):
         fa = anchors_by_hap
         for h in range(len(fa.anc_ptr) - 1):
             a0, a1 = int(fa.anc_ptr[h]), int(fa.anc_ptr[h + 1])
-            anc_so.append(fa.so[a0:a1].astype(_np.int64))
-            anc_eo.append(fa.eo[a0:a1].astype(_np.int64))
-            cp = fa.cptr[a0 : a1 + 1].astype(_np.int64)
+            anc_so.append(fa.so[a0:a1].astype(np.int64))
+            anc_eo.append(fa.eo[a0:a1].astype(np.int64))
+            cp = fa.cptr[a0 : a1 + 1].astype(np.int64)
             anc_cptr.append(cp - cp[0])
             anc_cvals.append(
-                fa.cv[int(cp[0]) : int(cp[-1])].astype(_np.int64)
+                fa.cv[int(cp[0]) : int(cp[-1])].astype(np.int64)
             )
     else:
         for vec in anchors_by_hap:
-            anc_so.append(_np.asarray([a.startOrg for a in vec], _np.int64))
-            anc_eo.append(_np.asarray([a.endOrg for a in vec], _np.int64))
-            cp = _np.zeros(len(vec) + 1, _np.int64)
+            anc_so.append(np.asarray([a.startOrg for a in vec], np.int64))
+            anc_eo.append(np.asarray([a.endOrg for a in vec], np.int64))
+            cp = np.zeros(len(vec) + 1, np.int64)
             for ai, a in enumerate(vec):
                 cp[ai + 1] = cp[ai] + len(a.colours)
             anc_cptr.append(cp)
             anc_cvals.append(
-                _np.fromiter(
-                    (c for a in vec for c in a.colours), _np.int64, int(cp[-1])
+                np.fromiter(
+                    (c for a in vec for c in a.colours), np.int64, int(cp[-1])
                 )
             )
 
@@ -223,20 +398,20 @@ def diploid_dp_solver(
                     activated = False
                     break
             # vectorized: anchors strictly inside (start_org, end_org)
-            hit = _np.nonzero((anc_so[h] > start_org) & (anc_eo[h] < end_org))[0]
+            hit = np.nonzero((anc_so[h] > start_org) & (anc_eo[h] < end_org))[0]
             if len(hit):
                 cp = anc_cptr[h]
                 lens = cp[hit + 1] - cp[hit]
                 total = int(lens.sum())
                 if total:
-                    cum = _np.cumsum(lens) - lens
-                    within = _np.arange(total) - _np.repeat(cum, lens)
-                    cs = anc_cvals[h][_np.repeat(cp[hit], lens) + within]
-                    uniq, first, counts = _np.unique(
+                    cum = np.cumsum(lens) - lens
+                    within = np.arange(total) - np.repeat(cum, lens)
+                    cs = anc_cvals[h][np.repeat(cp[hit], lens) + within]
+                    uniq, first, counts = np.unique(
                         cs, return_index=True, return_counts=True
                     )
                     # preserve first-appearance order for new colours
-                    order = _np.argsort(first, kind="stable")
+                    order = np.argsort(first, kind="stable")
                     for c, n in zip(uniq[order].tolist(), counts[order].tolist()):
                         if c not in color_freq:
                             color_freq[c] = n

@@ -1,75 +1,143 @@
-"""End-to-end pipeline with the port's DP tier.
+"""End-to-end inference pipeline of the port.
 
-The shared ``dipgenie_tpu.solver.pipeline.Pipeline`` (GFA, index, reads,
-anchors) with only ``solve`` overridden, in the flow of
-``dipgenie_tpu/solver/pipeline.py:110-185``. Backends: ``torch`` (the
-CUDA kernels on ``device``, or their plain PyTorch versions on
-``cpu``), ``native`` and ``exact``; ``auto`` is ``torch`` on the card
-when ``device`` is ``cuda`` and a card is present, else ``native`` (or
-``exact`` without the native runtime), as the JAX package does without a
-TPU. This module never imports JAX.
+A copy of ``dipgenie_tpu/solver/pipeline.py`` (load GFA → build index →
+read reads → anchors/classification → expanded graph → haploid or diploid
+DP → FASTA output) with the port's DP tiers. ``dp_backend``:
+
+* ``auto`` (the default) and ``torch``: the pair DP of ``ops/`` on
+  ``device``: the CUDA kernels on ``cuda``, their plain PyTorch versions
+  on ``cpu``. With ``device="cuda"`` and no card, ``run()`` raises
+  ``NoCudaDevice`` before any host work: the port never moves to the CPU
+  unless asked to;
+* ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
+  the host.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass
 
-import torch
+from .. import native
+from ..device import resolve_device
+from ..graph.expanded import build_expanded_graph, build_expanded_graph_native
+from ..graph.leveled import levelize_native
+from ..graph.pangenome import PangenomeIndex
+from ..io.fasta import write_fasta
+from ..io.fastx import read_fastx
+from ..io.gfa import read_gfa
+from ..solver.anchors import (
+    AnchorData,
+    compute_and_classify_anchors,
+    materialize_hits,
+)
+from ..solver.diploid import diploid_dp_solver
+from ..solver.haploid import dp_approximation_solver
+from ..utils import checkpoint
+from ..utils.timing import log_stage
 
-from dipgenie_tpu.graph.expanded import build_expanded_graph
-from dipgenie_tpu.io.fasta import write_fasta
-from dipgenie_tpu.solver.haploid import dp_approximation_solver
-from dipgenie_tpu.solver.pipeline import Pipeline, PipelineConfig
+BACKENDS = ("auto", "torch", "native", "exact")
 
-from ..utils.native_build import ensure_native
-from .diploid import diploid_dp_solver
+
+def get_hap_name(gfa_name: str, reads_name: str) -> str:
+    """Reference filename munging (misc.cpp:73-101)."""
+    hap_name = os.path.basename(gfa_name)
+    dot = hap_name.rfind(".")
+    if dot != -1:
+        hap_name = hap_name[:dot]
+    hap_name += "_" + os.path.basename(reads_name)
+    dot = hap_name.rfind(".")
+    if dot != -1:
+        hap_name = hap_name[:dot]
+    return hap_name
 
 
 @dataclass
-class TorchPipelineConfig(PipelineConfig):
+class PipelineConfig:
+    k: int = 31  # options.cpp:7
+    w: int = 25  # options.cpp:8
+    recombination_limit: int = 18  # main.cpp:44
+    recombination_penalty: int = 100  # main.cpp:45
+    ploidy: int = 2  # main.cpp:50
+    threshold: float = 1.0  # main.cpp:48
+    num_threads: int = 4
+    debug: bool = False
+    verbose: bool = True
+    progress: bool = False
     dp_backend: str = "auto"  # auto | torch | native | exact
-    device: str = "cuda"  # cuda | cpu
+    device: str = "cuda"  # cuda | cpu: where the torch tier runs
+    # optional checkpoint directory: the anchor stage (sketch + join +
+    # classify) resumes from disk on rerun (utils/checkpoint.py)
+    checkpoint_dir: str | None = None
+
+    @property
+    def backend(self) -> str:
+        """The DP tier that runs: ``auto`` is ``torch``."""
+        if self.dp_backend not in BACKENDS:
+            raise ValueError(
+                f"unknown DP backend {self.dp_backend!r}: {BACKENDS}")
+        return "torch" if self.dp_backend == "auto" else self.dp_backend
 
 
-def resolve_backend(cfg: TorchPipelineConfig, have_native: bool) -> str:
-    backend = cfg.dp_backend
-    if backend == "auto":
-        if torch.device(cfg.device).type == "cuda" and (
-            torch.cuda.is_available()
-        ):
-            return "torch"
-        backend = "native" if have_native else "exact"
-        print(
-            f"[M::solve] no CUDA device for the torch tier; using the "
-            f"{backend} DP tier",
-            file=sys.stderr,
-        )
-    return backend
-
-
-class TorchPipeline(Pipeline):
+class Pipeline:
     def __init__(self, gfa_file: str, reads_file: str, hap_file: str,
-                 cfg: TorchPipelineConfig | None = None):
-        super().__init__(gfa_file, reads_file, hap_file,
-                         cfg or TorchPipelineConfig())
+                 cfg: PipelineConfig | None = None):
+        self.gfa_file = gfa_file
+        self.reads_file = reads_file
+        self.hap_file = hap_file
+        self.cfg = cfg or PipelineConfig()
+        self.hap_name = get_hap_name(gfa_file, reads_file)
+        self.index: PangenomeIndex | None = None
+        self.anchors: AnchorData | None = None
+
+    def load(self) -> None:
+        g = read_gfa(self.gfa_file)
+        if self.cfg.verbose:
+            log_stage("main", f"Loaded graph from: {self.gfa_file}")
+        self.index = PangenomeIndex.from_gfa(g)
+
+    def run(self, out=sys.stdout) -> None:
+        cfg = self.cfg
+        if cfg.backend == "torch":
+            resolve_device(cfg.device)  # fail before any host work
+        if self.index is None:
+            self.load()
+        ck_key = None
+        anchors = None
+        if cfg.checkpoint_dir:
+            ck_key = checkpoint.anchors_key(
+                self.gfa_file, self.reads_file, cfg.k, cfg.w, cfg.threshold
+            )
+            anchors = checkpoint.load_anchors(cfg.checkpoint_dir, ck_key)
+            if anchors is not None and cfg.verbose:
+                log_stage(
+                    "main",
+                    f"Resumed anchors from checkpoint {ck_key}",
+                )
+        if anchors is None:
+            reads = read_fastx(self.reads_file)
+            anchors = compute_and_classify_anchors(
+                self.index, reads, cfg.k, cfg.w, cfg.threshold,
+                verbose=cfg.verbose,
+            )
+            if ck_key is not None:
+                checkpoint.save_anchors(cfg.checkpoint_dir, ck_key, anchors)
+        self.anchors = anchors
+        self.solve(diploid=(cfg.ploidy == 2), out=out)
 
     def solve(self, diploid: bool, out=sys.stdout) -> None:
         cfg = self.cfg
-        have_native = ensure_native()
-        backend = resolve_backend(cfg, have_native)
+        backend = cfg.backend
         # native C++ graph build unless the exact tier was requested, which
         # exercises the Python graph path
-        use_native_build = have_native and backend in ("native", "torch")
+        use_native_build = native.available() and backend in (
+            "native", "torch")
         if use_native_build:
-            from dipgenie_tpu.graph.expanded import build_expanded_graph_native
-
             build = build_expanded_graph_native(self.index, self.anchors)
             g = build.graph
         else:
             if self.anchors.occ_sp is not None and not self.anchors.anchor_hits:
-                from dipgenie_tpu.solver.anchors import materialize_hits
-
                 self.anchors.anchor_hits = materialize_hits(
                     self.anchors, self.index.num_walks
                 )
@@ -88,8 +156,6 @@ class TorchPipeline(Pipeline):
                     color_homo_bv[c] = True
             if use_native_build:
                 # C++ levelizer + CSR view (no Python list rebuild)
-                from dipgenie_tpu.graph.leveled import levelize_native
-
                 g = levelize_native(g)
             else:
                 g.strict_bfs_levelize_and_reorder()

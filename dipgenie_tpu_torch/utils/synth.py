@@ -84,7 +84,7 @@ def random_leveled_csr(seed: int, L: int, kmax: int, ncolors: int):
 
 
 def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,
-                   band_len: int = 12):
+                   band_len: int = 12, wmin: int = 33, wmax: int = 96):
     """CSR arrays of a leveled DAG shaped like the MHC expanded graph.
 
     Narrow level widths are Poisson(8) clipped to 2..32 and each vertex
@@ -96,14 +96,16 @@ def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,
     recombinations past ~1000 levels). ~30% of levels carry a new colour on
     3 vertices of that level and the next (15% of colours HOM). On top,
     ``n_bands`` bands of ``band_len`` levels have widths uniform in
-    33..96: the wide runs of MHC, at most 18 1024-lane windows each."""
+    ``wmin..wmax``: by default 33..96, the wide runs of MHC, at most 18
+    1024-lane windows each; 141..177 gives the big-window runs (31
+    windows) of a graph built from about twice as many haplotypes."""
     rng = np.random.default_rng(seed)
     widths = np.clip(rng.poisson(8, L), 2, 32)
     gap = (L - 2) // max(n_bands, 1)
     for b in range(n_bands):
         s = 1 + b * gap + int(rng.integers(0, max(gap - band_len, 1)))
         e = min(s + band_len, L - 1)
-        widths[s:e] = rng.integers(33, 97, max(e - s, 0))
+        widths[s:e] = rng.integers(wmin, wmax + 1, max(e - s, 0))
     widths[0] = widths[-1] = 1
     level_ptr = np.zeros(L + 1, np.int64)
     np.cumsum(widths, out=level_ptr[1:])

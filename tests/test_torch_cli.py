@@ -2,8 +2,10 @@
 the explicit device, rejected TPU flags, and byte-identical output against
 the JAX package's CLI on a synthetic pangenome."""
 
+import glob
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -32,34 +34,65 @@ def tiny_pangenome(tmp_path_factory):
 
 
 def test_port_imports_no_jax(tmp_path):
+    """Every module of the port imports in a fresh process without JAX or
+    any module of the JAX package landing in ``sys.modules``."""
     code = (
-        "import sys\n"
-        "import dipgenie_tpu_torch, dipgenie_tpu_torch.cli\n"
-        "import dipgenie_tpu_torch.kernels, dipgenie_tpu_torch.device\n"
-        "import dipgenie_tpu_torch.ops.diploid_pair\n"
-        "import dipgenie_tpu_torch.solver.pipeline\n"
-        "import dipgenie_tpu_torch.utils.synth\n"
-        "import dipgenie_tpu_torch.utils.native_build\n"
+        "import importlib, pkgutil, sys\n"
+        "import dipgenie_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    dipgenie_tpu_torch.__path__, 'dipgenie_tpu_torch.')\n"
+        "    if not m.name.endswith('__main__')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert len(names) > 30, names\n"
         "rc = dipgenie_tpu_torch.cli.main(['--version'])\n"
         "assert rc == 0\n"
-        "assert not [m for m in sys.modules if m.split('.')[0] == 'jax'], "
-        "'jax imported'\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'dipgenie_tpu')]\n"
+        "assert not bad, bad\n"
     )
     p = _run(["-c", code], tmp_path)
     assert p.returncode == 0, p.stderr
     assert "PHI version: 1.0" in p.stderr
 
 
-def test_cuda_device_without_card_fails_clearly(tmp_path, tiny_pangenome):
+def test_port_sources_do_not_import_jax_package():
+    """A static scan: no ``import dipgenie_tpu`` / ``from dipgenie_tpu``
+    in the port's sources or in chip_smoke.py (which runs the JAX
+    package's CLI only as a subprocess, as its reference)."""
+    pattern = re.compile(
+        r"^\s*(from\s+dipgenie_tpu(\.|\s)|import\s+dipgenie_tpu(\.|\s|$))",
+        re.M)
+    files = glob.glob(os.path.join(REPO, "dipgenie_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    hits = [f for f in files if pattern.search(open(f).read())]
+    assert not hits, hits
+
+
+def _assert_stops_without_card(tmp_path, gfa, reads, flags):
+    """Without a card the torch tier on cuda stops with exit code 1
+    before any host work, and writes no FASTA."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    gfa, reads = tiny_pangenome
-    p = _run(["-m", "dipgenie_tpu_torch", "--dp-backend", "torch",
-              "--device", "cuda", "-g", gfa, "-r", reads, "-o", "out.fa"],
-             tmp_path)
-    assert p.returncode != 0
+    p = _run(["-m", "dipgenie_tpu_torch", *flags, "-p2", "-g", gfa, "-r",
+              reads, "-o", "out.fa"], tmp_path)
+    assert p.returncode == 1
     assert "torch.cuda.is_available() is false" in p.stderr
+    assert "Loaded graph" not in p.stderr
     assert not (tmp_path / "out.fa").exists()
+
+
+def test_cuda_device_without_card_fails_clearly(tmp_path, tiny_pangenome):
+    _assert_stops_without_card(tmp_path, *tiny_pangenome,
+                               ["--dp-backend", "torch", "--device", "cuda"])
+
+
+def test_default_flags_without_card_do_not_fall_back(tmp_path,
+                                                     tiny_pangenome):
+    """The defaults (--dp-backend auto --device cuda) mean the torch tier
+    on the card: no CPU tier runs unless asked for."""
+    _assert_stops_without_card(tmp_path, *tiny_pangenome, [])
 
 
 @pytest.mark.parametrize("flags,msg", [
@@ -102,18 +135,15 @@ def test_torch_cpu_cli_matches_jax_exact_cli(tmp_path, tiny_pangenome):
 
 
 def test_toy_diploid_torch_cpu_matches_golden(tmp_path):
-    from dipgenie_tpu_torch.solver.pipeline import (
-        TorchPipeline, TorchPipelineConfig,
-    )
+    from dipgenie_tpu_torch.solver.pipeline import Pipeline, PipelineConfig
     from tests.test_e2e_toy import TOY_DIP_GOLDEN
 
     gfa, reads = ref_fixture("test.gfa"), ref_fixture("read.fa")
     out = tmp_path / "dip.fa"
-    cfg = TorchPipelineConfig(k=5, w=3, recombination_limit=4, ploidy=2,
-                              verbose=False, dp_backend="torch",
-                              device="cpu")
+    cfg = PipelineConfig(k=5, w=3, recombination_limit=4, ploidy=2,
+                         verbose=False, dp_backend="torch", device="cpu")
     buf = io.StringIO()
-    TorchPipeline(gfa, reads, str(out), cfg).run(out=buf)
+    Pipeline(gfa, reads, str(out), cfg).run(out=buf)
     assert out.read_text() == TOY_DIP_GOLDEN
     assert "DP value: 14" in buf.getvalue()
 

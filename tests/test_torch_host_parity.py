@@ -1,0 +1,138 @@
+"""The port's copies of the host modules against the JAX package's.
+
+``dipgenie_tpu_torch`` holds its own copies of the front end, the pair
+planner and the host DP tiers. Each case feeds the same numpy-seeded
+inputs through both packages and asserts equal outputs: equal types by
+name, equal fields, arrays equal in dtype and value (the outputs are
+integers, strings and float64 values computed in the same order, so the
+tolerance is exact equality).
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+from tests.test_torch_kernels_gpu import case_csr
+from tests.test_torch_narrow import assert_same_plan
+
+
+def same(a, b, path="out"):
+    """Recursive exact equality of two packages' outputs."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray), path
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert np.array_equal(a, b), path
+    elif isinstance(a, (list, tuple)):
+        assert type(a).__name__ == type(b).__name__ and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{path}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            same(a[k], b[k], f"{path}[{k!r}]")
+    elif dataclasses.is_dataclass(a) or hasattr(a, "__dict__"):
+        assert type(a).__name__ == type(b).__name__, path
+        assert vars(a).keys() == vars(b).keys(), path
+        for k in vars(a):
+            same(getattr(a, k), getattr(b, k), f"{path}.{k}")
+    else:
+        assert type(a) is type(b) and a == b, (path, a, b)
+
+
+@functools.cache
+def _pangenome(tmp_root):
+    from dipgenie_tpu_torch.utils.synth import pangenome
+
+    return pangenome(tmp_root, n_bp=20_000, n_walks=8, seed=3)
+
+
+def _front_end(pkg, gfa, reads_path):
+    """GFA -> index -> anchors -> expanded graph -> levelize -> CSR, in the
+    pipeline's order, through one package."""
+    read_gfa = pkg("io.gfa").read_gfa
+    index = pkg("graph.pangenome").PangenomeIndex.from_gfa(read_gfa(gfa))
+    reads = pkg("io.fastx").read_fastx(reads_path)
+    anchors = pkg("solver.anchors").compute_and_classify_anchors(
+        index, reads, 31, 25, 1.0, verbose=False)
+    build = pkg("graph.expanded").build_expanded_graph_native(index, anchors)
+    chb = [bool(anchors.homo_bv[build.color_to_anchor[c]])
+           for c in range(build.num_colors)]
+    g = pkg("graph.leveled").levelize_native(build.graph)
+    return index, anchors, pkg("solver.diploid").csr_arrays(g, chb)
+
+
+def _pkg(name):
+    import importlib
+
+    return lambda mod: importlib.import_module(f"{name}.{mod}")
+
+
+JAX, PORT = _pkg("dipgenie_tpu"), _pkg("dipgenie_tpu_torch")
+
+
+def case_murmur_and_minimizers(rng, tmp_path):
+    data = rng.integers(0, 256, (64, 31), dtype=np.uint8)
+    seq = "".join(rng.choice(list("ACGTN"), 3000, p=[.24, .24, .24, .24, .04]))
+    for pkg in (JAX, PORT):
+        yield (pkg("sketch.murmur").murmur3_x64_128_fold64(data, seed=7),
+               pkg("sketch.minimizers").sketch_sequence(seq, 15, 10))
+
+
+def case_fit_histogram(rng, tmp_path):
+    mult = np.concatenate([np.ones(5000), rng.poisson(3, 1500) + 1,
+                           rng.poisson(9, 400) + 1]).astype(int)
+    uniq, freq = np.unique(mult, return_counts=True)
+    pairs = [(int(m), float(f)) for m, f in zip(uniq, freq)]
+    mm = int(uniq.max())
+    for pkg in (JAX, PORT):
+        fitter = pkg("models.fitter")
+        opt = fitter.KGFitOptions(max_copy=10, max_x_use=mm, u_hi=float(mm))
+        yield fitter.fit_histogram(pairs, opt, backend="numpy")
+
+
+def case_std_sort(rng, tmp_path):
+    n = 500
+    k1, k2, k3 = (rng.integers(0, m, n).tolist() for m in (40, 3, 2))
+    for pkg in (JAX, PORT):
+        mod = pkg("utils.stdsort")
+        idx = list(range(n))
+        mod.std_sort(idx, lambda a, b: (k1[a], k2[a]) < (k1[b], k2[b]))
+        yield mod.std_sort_by_keys3(list(range(n)), k1, k2, k3), idx
+
+
+def case_gfa_index(rng, tmp_path):
+    gfa, _ = _pangenome(str(tmp_path))
+    for pkg in (JAX, PORT):
+        g = pkg("io.gfa").read_gfa(gfa)
+        yield g, pkg("graph.pangenome").PangenomeIndex.from_gfa(g)
+
+
+def case_anchors_expanded_csr(rng, tmp_path):
+    gfa, reads = _pangenome(str(tmp_path))
+    for pkg in (JAX, PORT):
+        yield _front_end(pkg, gfa, reads)
+
+
+def case_plan_pairs(rng, tmp_path):
+    from dipgenie_tpu.ops.diploid_pallas import plan_pairs as jax_plan
+    from dipgenie_tpu_torch.ops.pair_plan import plan_pairs as port_plan
+    from dipgenie_tpu_torch.utils.synth import CASES
+
+    for case in CASES + ["mhc_slice_wide_csr"]:
+        arrs, R = case_csr(case)
+        assert_same_plan(jax_plan(*arrs, R), port_plan(*arrs, R))
+    return ()
+
+
+@pytest.mark.parametrize("case", [
+    case_murmur_and_minimizers, case_fit_histogram, case_std_sort,
+    case_gfa_index, case_anchors_expanded_csr, case_plan_pairs,
+], ids=lambda f: f.__name__[5:])
+def test_port_host_module_matches_jax_package(case, tmp_path_factory):
+    rng = np.random.default_rng(17)
+    outs = list(case(rng, str(tmp_path_factory.getbasetemp())))
+    if outs:
+        jax_out, port_out = outs
+        same(jax_out, port_out)

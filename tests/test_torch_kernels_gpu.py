@@ -12,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from dipgenie_tpu_torch.ops import narrow, trace, wide
+from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import initial_v, plan_pairs, plan_to_device
-from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
+from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+from dipgenie_tpu_torch.utils.synth import (
+    CASES, mhc_shaped_csr, random_leveled_csr,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,15 +28,45 @@ CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
             "hom_colors", "het_ptr", "het_colors")
 
 
+# each segment kind's kernel wrapper and plain version
+RUNS = {"narrow": (narrow.narrow_run, narrow.narrow_run_ref),
+        "wide": (wide.wide_dense_run, wide.wide_dense_run_ref),
+        "wide_split": (wide_split.wide_split_run,
+                       wide_split.wide_split_run_ref)}
+# the CASES with wide levels, and a graph with big-window (NB 31) runs
+WIDE = [c for c in CASES if 400 <= c[0] < 600] + ["mhc_slice_wide_csr",
+                                                  "big_window"]
+
+
 def case_csr(case):
-    """(CSR arrays, R) of a CASES tuple or a tests/data npz name. This
-    module imports nothing from the test tree, so it also collects where
-    an installed package named ``tests`` shadows this directory."""
+    """(CSR arrays, R) of a CASES tuple, a tests/data npz name, or
+    ``big_window`` (an MHC-shaped graph with two bands of widths
+    141..177). This module imports nothing from the test tree, so it also
+    collects where an installed package named ``tests`` shadows this
+    directory."""
+    if case == "big_window":
+        return mhc_shaped_csr(L=300, seed=2, n_bands=2, wmin=141,
+                              wmax=177), 18
     if isinstance(case, str):
         d = np.load(f"{DATA}/{case}.npz")
         return [d[k] for k in CSR_KEYS], int(d["R"])
     seed, L, kmax, R, nc = case
     return random_leveled_csr(seed, L, kmax, nc), R
+
+
+def _run_checked(dplan, device):
+    """Forward and traceback with every kernel call held against its
+    plain version: (V, recs)."""
+    V, bps = initial_v(dplan.R, device), []
+    for seg in dplan.segments:
+        kern, plain = RUNS[seg.kind]
+        got, want = kern(seg, V), plain(seg, V)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (seg.kind, seg.t0)
+        V, bps = got[0], bps + [got[1:]]
+    recs = trace.trace(dplan, bps)
+    assert torch.equal(recs, trace.trace_ref(dplan, bps))
+    return V, recs
 
 
 @pytest.fixture
@@ -46,17 +79,24 @@ def cuda():
 @pytest.mark.parametrize("case", CASES + NPZ)
 def test_kernels_match_plain_versions(case, cuda):
     arrs, R = case_csr(case)
-    dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
-    V, bps = initial_v(R, cuda), []
-    for seg in dplan.segments:
-        mod, name = (narrow, "narrow_run") if seg.kind == "narrow" else (
-            wide, "wide_dense_run")
-        got = getattr(mod, name)(seg, V)
-        want = getattr(mod, name + "_ref")(seg, V)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), (case, seg.kind, seg.t0)
-        V, bps = got[0], bps + [got[1:]]
-    assert torch.equal(trace.trace(dplan, bps), trace.trace_ref(dplan, bps))
+    _run_checked(plan_to_device(plan_pairs(*arrs, R), cuda), cuda)
+
+
+@pytest.mark.parametrize("case", WIDE)
+def test_wide_split_kernel_matches_plain_version_and_k2(case, cuda):
+    """K3 on every wide run (``dense_nb_max=0``) against its plain version;
+    its V and traceback records against K2's on the same runs (their
+    backpointers number pairs differently), and the DP against the native
+    tier."""
+    arrs, R = case_csr(case)
+    plan = plan_pairs(*arrs, R)
+    v3, r3 = _run_checked(plan_to_device(plan, cuda, dense_nb_max=0), cuda)
+    v2, r2 = _run_checked(plan_to_device(plan, cuda, dense_nb_max=31), cuda)
+    assert torch.equal(v3, v2) and torch.equal(r3, r2)
+    if case == "big_window":
+        dplan = plan_to_device(plan, cuda)
+        assert {s.kind for s in dplan.segments} == {"narrow", "wide_split"}
+        assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
 
 
 @pytest.mark.parametrize("name", NPZ)
@@ -70,9 +110,12 @@ def test_cuda_dp_matches_mhc_slice_oracle(name, cuda):
 
 def test_wrappers_reject_bad_inputs(cuda):
     arrs, R = case_csr("mhc_slice_wide_csr")
-    dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, cuda)
     seg_n = next(s for s in dplan.segments if s.kind == "narrow")
-    seg_w = next(s for s in dplan.segments if s.kind == "wide")
+    i_w = next(i for i, s in enumerate(dplan.segments) if s.kind == "wide")
+    seg_w = dplan.segments[i_w]
+    seg_s = plan_to_device(plan, cuda, dense_nb_max=0).segments[i_w]
     v = initial_v(R, cuda)
     with pytest.raises(ValueError, match="dtype"):
         narrow.narrow_run(seg_n, v.to(torch.int64))
@@ -80,3 +123,7 @@ def test_wrappers_reject_bad_inputs(cuda):
         wide.wide_dense_run(seg_w, v[:, :512].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         narrow.narrow_run(seg_n, v.t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        wide_split.wide_split_run(seg_s, v[:, :512].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        wide_split.wide_split_run(seg_s, v.to(torch.int16))

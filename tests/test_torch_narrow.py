@@ -9,13 +9,16 @@ backpointers at reachable states (elsewhere the JAX kernel's are
 arbitrary). Reachability comes from an independent numpy propagation.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from dipgenie_tpu.ops.diploid_pallas import (
-    NEG, _narrow_call, _NarrowRun, _r1p, _wide_call,
+    NEG, _narrow_call, _NarrowRun, _r1p, _wide_call, _wide_split_call,
 )
+from dipgenie_tpu.ops.diploid_pallas import plan_pairs as jax_plan_pairs
 from dipgenie_tpu_torch.ops.narrow import narrow_run
 from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
 from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
@@ -26,18 +29,49 @@ from tests.test_torch_kernels_gpu import case_csr
 NARROW_CASES = [c for c in CASES if not 400 <= c[0] < 600]
 
 
-def jax_segments(plan):
-    """Each segment through the JAX kernels (interpret mode), chained:
-    yields (segment index, segment, V_in [R1P, 1024], JAX outputs)."""
+def assert_same_plan(jplan, plan):
+    """The JAX planner's plan and the port's are equal field for field:
+    same segment classes (by name), scalars and arrays (dtype and value)."""
+    assert (jplan.R, jplan.L, jplan.max_abs_value) == (
+        plan.R, plan.L, plan.max_abs_value)
+    assert len(jplan.segments) == len(plan.segments)
+    for js, ps in zip(jplan.segments, plan.segments):
+        assert type(js).__name__ == type(ps).__name__
+        names = [f.name for f in dataclasses.fields(ps)]
+        assert names == [f.name for f in dataclasses.fields(js)]
+        for name in names:
+            a, b = getattr(js, name), getattr(ps, name)
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b), name
+            else:
+                assert a == b, name
+
+
+def plans(arrs, R):
+    """(JAX plan, port plan) of the same CSR arrays, asserted equal."""
+    jplan, plan = jax_plan_pairs(*arrs, R), plan_pairs(*arrs, R)
+    assert_same_plan(jplan, plan)
+    return jplan, plan
+
+
+def jax_segments(jplan, split=False):
+    """Each segment of a JAX plan through the JAX kernels (interpret
+    mode), chained: yields (segment index, segment, V_in [R1P, 1024], JAX
+    outputs). ``split`` runs every wide run through the window-split
+    kernel, whatever its NB (every wide run has window-split tables)."""
     import jax
 
-    R1 = plan.R + 1
+    R1 = jplan.R + 1
     V = np.full((_r1p(R1), 1024), NEG, np.int32)
     V[:, 0] = 0
-    for i, seg in enumerate(plan.segments):
+    for i, seg in enumerate(jplan.segments):
         if isinstance(seg, _NarrowRun):
             out = jax.jit(_narrow_call(seg, R1, interpret=True))(
                 seg.sbits, seg.sbase, seg.r256, seg.r1024, seg.tbl, V)
+        elif split:
+            out = jax.jit(_wide_split_call(seg, R1, interpret=True))(
+                seg.wbits, seg.wwin, seg.wpmask, seg.wbase, seg.wgmask,
+                seg.wrow, seg.tbl, V)
         else:
             out = jax.jit(_wide_call(seg, R1, interpret=True))(
                 seg.dbits, seg.dfmask, seg.dcmask, seg.dgmask, seg.dpmask,
@@ -50,8 +84,9 @@ def jax_segments(plan):
 def reach_masks(seg, reach, R1):
     """Per transition of a segment, the reachable states [R1, lanes] after
     it, from the reachable input states [R1, 1024] (numpy, independent of
-    both DP implementations)."""
-    narrow = isinstance(seg, _NarrowRun)
+    both DP implementations; wide runs are read from their dense
+    tables)."""
+    narrow = type(seg).__name__ == "_NarrowRun"
     if narrow:
         tbl, bounds = seg.tbl, np.append(seg.tb_chunkbase,
                                          np.count_nonzero(seg.sbits & 16))
@@ -91,12 +126,12 @@ def test_narrow_run_matches_jax_kernel(case):
     arrs, R = case_csr(case)
     R1 = R + 1
     widths = np.diff(arrs[0])
-    plan = plan_pairs(*arrs, R)
+    jplan, plan = plans(arrs, R)
     dplan = plan_to_device(plan, "cpu")
     reach = np.zeros((R1, 1024), bool)
     reach[:, 0] = True
     n_narrow = 0
-    for i, seg, v_in, out in jax_segments(plan):
+    for i, seg, v_in, out in jax_segments(jplan):
         masks, reach_next = reach_masks(seg, reach, R1)
         if isinstance(seg, _NarrowRun):
             n_narrow += 1
@@ -137,7 +172,7 @@ def test_plan_to_device_round_trips_every_array(case):
 def test_random_leveled_csr_matches_test_generator():
     """synth.random_leveled_csr draws the instances of the JAX package's
     tests (graph + colour split) and emits their csr_arrays."""
-    from dipgenie_tpu.solver.diploid import csr_arrays
+    from dipgenie_tpu_torch.solver.diploid import csr_arrays
     from tests.test_device_kernels import _random_leveled_graph
 
     for seed, L, kmax, _, nc in NARROW_CASES[::3] + [(401, 10, 40, 4, 8)]:

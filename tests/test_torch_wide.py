@@ -1,26 +1,28 @@
 """dipgenie_tpu_torch K2 (dense wide runs) against the JAX package's
 ``_wide_dense_kernel`` (Pallas, interpret mode on the CPU).
 
-As in test_torch_narrow.py: same input state on both sides, the plain
-PyTorch version on CPU tensors, exact equality (integers) of V over rows
-0..R and the live extent and of backpointers at reachable states. The
-big-window run (NB 31, which the JAX package sends to its window-split
-kernel) is held end to end against the exact tier instead.
+As in test_torch_narrow.py: the JAX plan and the port's plan are asserted
+equal, each side runs on its own plan from the same input state, the
+plain PyTorch version runs on CPU tensors, and the tolerance is exact
+equality (integers) of V over rows 0..R and the live extent and of
+backpointers at reachable states. The wide runs of more than 18 windows,
+which go to K3, are in test_torch_wide_split.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dipgenie_tpu.ops.diploid_pallas import _WideRun
 from dipgenie_tpu.solver.diploid import (
     _forward_exact, build_color_masks, csr_arrays,
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
-from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
+from dipgenie_tpu_torch.ops.plan import _WideRun, plan_pairs, plan_to_device
 from dipgenie_tpu_torch.ops.wide import wide_dense_run
 from tests.test_pallas_dp import _dense_graph, _hand_graph
-from tests.test_torch_narrow import case_csr, jax_segments, reach_masks
+from tests.test_torch_narrow import (
+    case_csr, jax_segments, plans, reach_masks,
+)
 
 WIDE_CASES = ([(400 + s, 10, 40, 4, 8) for s in range(3)]
               + [(500 + s, 14, 36, 6, 9) for s in range(2)])
@@ -78,14 +80,14 @@ def test_wide_dense_run_matches_jax_kernel(case):
     arrs, R = _csr_of(case)
     R1 = R + 1
     widths = np.diff(arrs[0])
-    plan = plan_pairs(*arrs, R)
+    jplan, plan = plans(arrs, R)
     dplan = plan_to_device(plan, "cpu")
     reach = np.zeros((R1, 1024), bool)
     reach[:, 0] = True
     n_wide = 0
-    for i, seg, v_in, out in jax_segments(plan):
+    for i, seg, v_in, out in jax_segments(jplan):
         masks, reach_next = reach_masks(seg, reach, R1)
-        if isinstance(seg, _WideRun):
+        if type(seg).__name__ == "_WideRun":
             n_wide += 1
             jbp, jv = out
             V, pbp = wide_dense_run(
@@ -101,15 +103,20 @@ def test_wide_dense_run_matches_jax_kernel(case):
 
 
 def test_big_window_run_matches_exact_tier():
-    """tests/test_pallas_dp.py:119: width 140 needs 31 windows; the port's
-    dense kernel runs it (the JAX package uses its split kernel)."""
+    """tests/test_pallas_dp.py:119: width 140 needs 31 windows. The main
+    path sends the run to K3, as the JAX package does; K2 runs it too when
+    asked to (``dense_nb_max=31``). Both equal the exact tier."""
     rng = np.random.default_rng(11)
     g = _dense_graph(rng, [1, 140, 140, 1], deg=2, pw=0.2)
     chb = [bool(x) for x in rng.random(6) < 0.5]
     plan = plan_pairs(*csr_arrays(g, chb), 2)
-    assert max(s.NB for s in plan.segments if isinstance(s, _WideRun)) > 18
+    assert plan.segments[0].NB > 18
     Hm, Tm = build_color_masks(g, chb)
-    assert PairDiploidDP(plan, "cpu").run() == _forward_exact(g, 2, Hm, Tm)
+    want = _forward_exact(g, 2, Hm, Tm)
+    for nb_max, kind in ((18, "wide_split"), (31, "wide")):
+        dplan = plan_to_device(plan, "cpu", dense_nb_max=nb_max)
+        assert [s.kind for s in dplan.segments] == [kind]
+        assert PairDiploidDP(dplan, "cpu").run() == want
 
 
 def test_dense_pad_tail_on_lane_zero_matches_exact_tier():
