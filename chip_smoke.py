@@ -25,11 +25,24 @@ result line):
      readings for its main path through K3, K3 beside its plain version
      and its bound on a prefix, and K2 against K3 on the same big runs
      (equal V and traceback records, both times);
+  F. the tp-sharded wide path (every wide run through K4 on this rank's
+     destination windows, merged by all_reduce(MAX) after each
+     transition) on phase E's plan, reused: F1 in a one-rank gloo mesh in
+     this process (K4's launches, forward and traceback times, peak
+     memory, K4's device time beside K3's on the same runs, K4 beside its
+     plain version and its bound on a prefix; the DP equal to phase E's,
+     which equals the native tier); F2 in F_RANKS gloo ranks spawned on
+     the one card (each rank's DP equal to F1's; forward, merge and
+     traceback seconds per rank). The merges of ranks that share a card
+     are gloo's, staged through host memory: not a multi-card number;
   D. the port's CLI with its default flags on two synthetic pangenomes
      (8 walks over 1 Mbp; 18 walks over 200 kbp, whose plan holds runs of
      more than 18 windows), byte-identical FASTA and stdout (apart from
      the timing line) against the JAX package's CLI on its native tier,
-     run as a subprocess.
+     run as a subprocess;
+  F3. the port's pipeline with a mesh of F_RANKS gloo ranks on the card on
+     phase D's 18-walk pangenome: each rank's FASTA byte-identical to
+     phase D's native-tier FASTA, every wide run through K4.
 
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object of per-kernel results; the last line is
@@ -74,13 +87,17 @@ KERNELS = {
                        "dipgenie_tpu/ops/diploid_pallas.py:1142"),
     "trace": ("dipgenie_tpu_torch/csrc/trace.cu",
               "dipgenie_tpu/ops/diploid_pallas.py:1914"),
+    "wide_step": ("dipgenie_tpu_torch/csrc/wide_step.cu",
+                  "dipgenie_tpu/ops/diploid_pallas.py:1673"),
 }
 # the kernel wrapper of each plan segment kind (ops/plan.py:segment_kind)
 KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
-               "wide_split": "wide_split_run"}
+               "wide_split": "wide_split_run", "wide_tp": "wide_step"}
 # the path whose launch counts the result line reports for each kernel
 MAIN_PATH = {"narrow_run": "C", "wide_dense_run": "C",
-             "wide_split_run": "E", "trace": "C"}
+             "wide_split_run": "E", "trace": "C", "wide_step": "F1"}
+TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
+F_RANKS = 2  # ranks sharing the card in phases F2 and F3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
 # the float32 rate outside the tensor cores, taken for the kernels' int32
 # adds and compares (the table has no int32 row)
@@ -125,7 +142,9 @@ class Smoke:
     def __init__(self, torch, ref_cxx: str):
         self.torch = torch
         self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
-        from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split
+        from dipgenie_tpu_torch.ops import (
+            narrow, trace, wide, wide_split, wide_step,
+        )
 
         self.fns = {
             "narrow_run": (narrow.narrow_run, narrow.narrow_run_ref),
@@ -133,11 +152,14 @@ class Smoke:
             "wide_split_run": (wide_split.wide_split_run,
                                wide_split.wide_split_run_ref),
             "trace": (trace.trace, trace.trace_ref),
+            "wide_step": (wide_step.wide_step, wide_step.wide_step_ref),
         }
         self.err = {k: 0 for k in KERNELS}
         self.compared = {k: 0 for k in KERNELS}
         self.launches = {}  # path -> {kernel: launches}
         self.ms, self.plain_ms, self.bound = {}, {}, {}
+        self.big = {}  # phase E's plan and result, for phase F
+        self.d18 = None  # phase D's 18-walk pangenome and native FASTA
 
     def counts(self):
         return {k: f[0].launches for k, f in self.fns.items()}
@@ -216,6 +238,7 @@ class Smoke:
             want = (int(d["oracle_value"]), int(d["oracle_shet"]),
                     [tuple(int(x) for x in r) for r in d["oracle_transitions"]])
             self.checked_both_routes(plan, want, name)
+            self.tp_shards_checked(plan)
             log(f"B {name}: {plan.L} levels, {len(plan.segments)} segments, "
                 f"value {want[0]} s_het {want[1]} == oracle")
         for seed, L, kmax, r, nc in CASES:
@@ -224,16 +247,53 @@ class Smoke:
             n_seg += len(plan.segments)
             self.checked_both_routes(plan, native_forward_csr(arrs, r),
                                      f"case {seed}")
+            self.tp_shards_checked(plan)
         log(f"B random cases: {len(CASES)} instances == native tier")
         log(f"B kernels == plain on {n_seg} segments, each on both routes "
             f"(calls compared: {self.compared}) in {time.time() - t0:.1f}s")
+
+    def tp_shards_checked(self, plan):
+        """K4 on every (transition, rank) shard of every wide run for each
+        n_tp of TP_SHARDS, each call against its plain version, from the
+        single-device path's states; the ranks' partials merged as their
+        all_reduce(MAX) would merge them give the single-device run's
+        output state."""
+        from dipgenie_tpu_torch.ops.plan import (
+            initial_v, plan_to_device, shard_to_device,
+        )
+        from dipgenie_tpu_torch.ops.wide_split import _state
+        from dipgenie_tpu_torch.ops.wide_step import commit
+
+        torch = self.torch
+        kern, plain = self.fns["wide_step"]
+        dplan = plan_to_device(plan, DEVICE)
+        V = initial_v(plan.R, DEVICE)
+        for seg, dseg in zip(plan.segments, dplan.segments):
+            out = self.fns[KIND_KERNEL[dseg.kind]][0](dseg, V)[0]
+            for n_tp in TP_SHARDS if dseg.kind != "narrow" else ():
+                segs = [shard_to_device(seg, n_tp, d, DEVICE)
+                        for d in range(n_tp)]
+                W = _state(segs[0], V)
+                bp = torch.empty(W.shape, dtype=torch.int32, device=DEVICE)
+                for ti in range(seg.t1 - seg.t0):
+                    parts = []
+                    for sg in segs:
+                        got = kern(sg, ti, W)
+                        self.compare("wide_step", got, plain(sg, ti, W))
+                        parts.append(got)
+                    W = commit(torch.stack(parts).amax(dim=0),
+                               segs[0].t["present"][ti], bp)
+                check(bool(torch.equal(W[:, :1024], out)),
+                      f"B: K4's merged partials (n_tp {n_tp}) differ from "
+                      "the single-device run")
+            V = out
 
     # ---------------- phases C and E ----------------
     def main_path(self, tag, arrs):
         """Plan, ship and run one DP the way the solver does, with the
         launch counts set to 0 just before the counted pass and read just
         after it; checks the counts against the plan and the result
-        against the native tier. Returns (plan, dplan)."""
+        against the native tier. Returns (plan, dplan, result)."""
         import numpy as np
 
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
@@ -295,7 +355,7 @@ class Smoke:
               f"{got[:2]} vs {ref[:2]}")
         log(f"{tag} value {got[0]} s_het {got[1]} and {len(got[2])} "
             "transitions == native tier")
-        return plan, dplan
+        return plan, dplan, got
 
     def profile_forward(self, tag, dp):
         """Device busy and idle share of one more forward pass, from a
@@ -334,10 +394,13 @@ class Smoke:
         avg = prof.key_averages()
         with open(os.path.join(OUT_DIR, fname), "w") as fh:
             fh.write(avg.table(sort_by="self_device_time_total", row_limit=30))
+        # gloo's collective annotation carries the device time of its copy
+        # back to the card, which the copy's own row already counts
         return sorted(
             ((e.key, e.self_device_time_total, e.count) for e in avg
              if str(e.device_type).endswith("CUDA")
-             and e.self_device_time_total > 0),
+             and e.self_device_time_total > 0
+             and not e.key.startswith("gloo:")),
             key=lambda x: -x[1])
 
     def timed(self, fn):
@@ -417,7 +480,7 @@ class Smoke:
     def phase_c(self):
         from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
-        plan, dplan = self.main_path("C", mhc_shaped_csr(
+        _, dplan, _ = self.main_path("C", mhc_shaped_csr(
             L=L_MHC, seed=SEED, n_bands=N_BANDS))
         self.time_prefix("C", dplan, ("narrow_run", "wide_dense_run", "trace"))
 
@@ -429,9 +492,10 @@ class Smoke:
 
         t_phase = time.time()
         wmin, wmax = BIG_WIDTHS
-        plan, dplan = self.main_path(
+        plan, dplan, got = self.main_path(
             "E", mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
                                 wmin=wmin, wmax=wmax))
+        self.big = {"plan": plan, "dplan": dplan, "want": got}
         self.time_prefix("E", dplan, ("wide_split_run",))
 
         # K2 against K3 on the same big runs: per run from the same input
@@ -484,6 +548,231 @@ class Smoke:
             f"{dev_ms['K3']:.3f} ms, K2 {dev_ms['K2']:.3f} ms (profiler); V "
             "of every run and the whole DP's V and traceback records equal")
         log(f"E phase {time.time() - t_phase:.1f}s")
+
+    # ---------------- phase F ----------------
+    def phase_f1(self):
+        """The tp path in a one-rank gloo mesh in this process: K4 on the
+        main path with a merge that moves nothing between ranks."""
+        import torch.distributed as dist
+
+        from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
+        from dipgenie_tpu_torch.ops.plan import plan_to_device
+        from dipgenie_tpu_torch.ops.trace import trace
+        from dipgenie_tpu_torch.ops.wide_step import wide_tp_run
+        from dipgenie_tpu_torch.parallel.mesh import make_mesh
+
+        torch = self.torch
+        plan, want = self.big["plan"], self.big["want"]
+        dist.init_process_group("gloo", init_method=pg_file("f1"),
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(n_tp=1)
+            t0 = time.time()
+            dplan = plan_to_device(plan, DEVICE, mesh=mesh)
+            self.sync()
+            ship_s = time.time() - t0
+            kinds = [s.kind for s in dplan.segments]
+            n_wide_tr = sum(s.t1 - s.t0 for s in dplan.segments
+                            if s.kind == "wide_tp")
+            dp = PairDiploidDP(dplan, DEVICE, mesh=mesh)
+            dp.forward()  # warm pass
+            self.sync()
+            ev = self.events(3)
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            wide_tp_run.merge_seconds = 0.0
+            ev[0].record()
+            V, bps = dp.forward()
+            ev[1].record()
+            recs = trace(dplan, bps)
+            ev[2].record()
+            self.sync()
+            got = assemble(int(V[R, 0]), recs.cpu().numpy())
+            launches = self.launches["F1"] = self.counts()
+            fwd_s = ev[0].elapsed_time(ev[1]) / 1e3
+            tb_s = ev[1].elapsed_time(ev[2]) / 1e3
+            merge_s = wide_tp_run.merge_seconds
+            log(f"F1 one-rank tp mesh (gloo): ship {ship_s:.3f}s, forward "
+                f"{fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA events), of the "
+                f"forward {merge_s:.4f}s in {n_wide_tr} merges (host timer), "
+                f"peak memory {torch.cuda.max_memory_allocated()} B, launches "
+                f"{launches}")
+            want_l = {"narrow_run": kinds.count("narrow"), "wide_dense_run": 0,
+                      "wide_split_run": 0, "trace": 1, "wide_step": n_wide_tr}
+            check(launches == want_l, f"F1 launches {launches}, want {want_l}")
+            check(got == want, f"F1 DP {got[:2]} differs from phase E's "
+                  f"{want[:2]}")
+            log(f"F1 value {got[0]} s_het {got[1]} and {len(got[2])} "
+                "transitions == phase E == native tier")
+            del V, bps, recs
+            self.profile_forward("F1", dp)
+            self.k4_beside_k3(dplan, mesh)
+            self.time_k4_prefix(dplan, mesh)
+        finally:
+            dist.destroy_process_group()
+        self.big.pop("dplan")
+
+    def wide_inputs(self, dplan, mesh):
+        """{segment index: input state} of the wide_tp runs of a plan."""
+        from dipgenie_tpu_torch.ops.plan import initial_v
+        from dipgenie_tpu_torch.ops.wide_step import wide_tp_run
+
+        v_ins, V = {}, initial_v(R, DEVICE)
+        for i, seg in enumerate(dplan.segments):
+            if seg.kind == "wide_tp":
+                v_ins[i] = V
+                V = wide_tp_run(seg, V, mesh.tp)[0]
+            else:
+                V = self.fns[KIND_KERNEL[seg.kind]][0](seg, V)[0]
+        return v_ins
+
+    def k4_beside_k3(self, dplan, mesh):
+        """Device time (profiler) of the big runs through the tp path (K4,
+        merge, commit) and through K3, from the same input states."""
+        from dipgenie_tpu_torch.ops.wide_step import wide_tp_run
+
+        v_ins = self.wide_inputs(dplan, mesh)
+        k3 = self.fns["wide_split_run"][0]
+        e_segs = self.big["dplan"].segments
+        loops = {
+            "K4": lambda: [wide_tp_run(dplan.segments[i], v, mesh.tp)[0]
+                           for i, v in v_ins.items()],
+            "K3": lambda: [k3(e_segs[i], v)[0] for i, v in v_ins.items()],
+        }
+        outs, msg = {}, []
+        for name in ("K3", "K4", "K4", "K3"):
+            ms, outs[name] = self.timed(loops[name])
+            msg.append(f"{name} {ms:.2f} ms")
+        for a, b in zip(outs["K3"], outs["K4"]):
+            check(bool(self.torch.equal(a, b)), "F1: K3 and K4 runs differ")
+        del outs
+        for name in ("K4", "K3"):
+            with self.profiler() as prof:
+                loops[name]()
+                self.sync()
+            rows = self.device_rows(prof, f"profile_F1_big_runs_{name}.txt")
+            total = sum(t for _, t, _ in rows) / 1e3
+            kern = sum(t for k, t, _ in rows if any(
+                x in k for x in ("window_candidates", "step_partial",
+                                 "split_commit"))) / 1e3
+            msg.append(f"device {name} kernels {kern:.3f} ms of {total:.3f} "
+                       "ms")
+        n_tr = sum(dplan.segments[i].t1 - dplan.segments[i].t0 for i in v_ins)
+        log(f"F1 the {len(v_ins)} big runs ({n_tr} transitions, NB 31) "
+            "from the same states through the tp path and through K3: "
+            + ", ".join(msg) + " (CUDA events over one host call per run "
+            "or transition; device time by the profiler); V of every run "
+            "equal")
+
+    def time_k4_prefix(self, dplan, mesh):
+        """K4 beside its plain version on the wide transitions of the plan's
+        first PREFIX_TRANSITIONS transitions, each from its own input state
+        (in turns plain, kernel, kernel, plain; CUDA events, min of 2),
+        with its device time and its bound."""
+        import numpy as np
+        import torch.distributed as dist
+
+        from dipgenie_tpu_torch.ops.plan import initial_v
+        from dipgenie_tpu_torch.ops.wide_split import _state
+        from dipgenie_tpu_torch.ops.wide_step import commit
+
+        torch = self.torch
+        kern, plain = self.fns["wide_step"]
+        steps, V = [], initial_v(R, DEVICE)
+        for seg in dplan.segments:
+            if seg.t0 >= PREFIX_TRANSITIONS:
+                break
+            if seg.kind != "wide_tp":
+                V = self.fns[KIND_KERNEL[seg.kind]][0](seg, V)[0]
+                continue
+            W = _state(seg, V)
+            bp = torch.empty(W.shape, dtype=torch.int32, device=DEVICE)
+            for ti in range(seg.t1 - seg.t0):
+                steps.append((seg, ti, W))
+                part = kern(seg, ti, W)
+                dist.all_reduce(part, op=dist.ReduceOp.MAX, group=mesh.tp)
+                W = commit(part, seg.t["present"][ti], bp)
+            V = W[:, :1024].contiguous()
+        keys = {W.shape: torch.zeros(W.shape, dtype=torch.int64,
+                                     device=DEVICE) for _, _, W in steps}
+        run = {0: lambda: [kern(s, ti, W, keys[W.shape])
+                           for s, ti, W in steps],
+               1: lambda: [plain(s, ti, W) for s, ti, W in steps]}
+        nbytes = ops = 0
+        R1 = R + 1
+        for s, ti, W in steps:
+            c0, c1 = int(s.bounds[ti]), int(s.bounds[ti + 1])
+            tbl = s.t["stbl"][c0:c1].cpu().numpy()
+            real = ((tbl[:, 0] >> 2) & 2047) > 0
+            ops += 2 * int(np.where(real, R1 - (tbl[:, 0] & 3), 0).sum())
+            nbytes += (c1 - c0) * (4 * 2 * 256 + 8) + 3 * W.numel() * 4
+        nbound = bound(nbytes, ops)
+        times, outs = {0: [], 1: []}, {}
+        for which in (1, 0, 0, 1):
+            ms, outs[which] = self.timed(run[which])
+            times[which].append(ms)
+        for g, w in zip(outs[0], outs[1]):
+            self.compare("wide_step", g, w)
+        del outs
+        with self.profiler() as prof:
+            run[0]()
+            self.sync()
+        rows = self.device_rows(prof, "profile_F1_wide_step.txt")
+        dev_ms = sum(t for _, t, _ in rows) / 1e3
+        self.ms["wide_step"] = min(times[0])
+        self.plain_ms["wide_step"] = min(times[1])
+        self.bound["wide_step"] = nbound
+        log(f"F1 wide_step on the {len(steps)} wide transitions of the first "
+            f"{PREFIX_TRANSITIONS} transitions of the plan: kernel "
+            f"{times[0]} ms (device {dev_ms:.3f} ms by the profiler), plain "
+            f"{times[1]} ms, bound {nbound[0]:.6g} ms ({nbound[1]})")
+
+    def phase_f2(self):
+        """F_RANKS gloo ranks spawned on the one card, each running the tp
+        DP on phase E's plan (pickled once here, loaded by each rank)."""
+        import pickle
+
+        want = self.big["want"]
+        path = os.path.join(OUT_DIR, "phase_f_plan.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump(self.big.pop("plan"), fh, protocol=5)
+        self.torch.cuda.empty_cache()
+        try:
+            results = spawn_ranks("f2", {"kind": "dp", "plan": path})
+        finally:
+            os.remove(path)
+        for r, res in enumerate(results):
+            check(res["result"] == want, f"F2 rank {r}: DP "
+                  f"{res['result'][:2]} differs from F1's {want[:2]}")
+            log(f"F2 rank {r} of {F_RANKS} (gloo, one card): load + ship "
+                f"{res['ship_s']:.3f}s, forward {res['forward_s']:.4f}s "
+                f"(CUDA events), of it {res['merge_s']:.4f}s in "
+                f"{res['launches']['wide_step']} merges (host timer), "
+                f"traceback {res['trace_s']:.4f}s, peak memory {res['peak']} "
+                f"B, launches {res['launches']}; value {want[0]} == F1")
+
+    def phase_f3(self):
+        """The port's pipeline with a mesh of F_RANKS gloo ranks on the
+        card, on phase D's 18-walk pangenome (not cut)."""
+        gfa, reads, native_fa, n_narrow = self.d18
+        results = spawn_ranks("f3", {"kind": "pipeline", "gfa": gfa,
+                                     "reads": reads})
+        for r, res in enumerate(results):
+            check(res["fasta"] == native_fa, f"F3 rank {r}: FASTA differs "
+                  "from phase D's native tier")
+            line = [x for x in res["log"].splitlines()
+                    if "kernel launches" in x]
+            check(bool(line), f"F3 rank {r}: torch tier not run")
+            counts = {k: int(v) for k, v in (kv.split("=") for kv in
+                      line[0].split("launches ", 1)[1].split())}
+            check(counts["wide_step"] > 0 and counts["wide_dense_run"] == 0
+                  and counts["wide_split_run"] == 0
+                  and counts["narrow_run"] == n_narrow
+                  and counts["trace"] == 1,
+                  f"F3 rank {r}: launches {counts}")
+            log(f"F3 rank {r} of {F_RANKS}: pipeline {res['seconds']:.1f}s, "
+                f"FASTA byte-identical to the native tier ({len(native_fa)} "
+                f"B), launches {counts}")
 
     # ---------------- phase D ----------------
     def phase_d(self):
@@ -544,12 +833,119 @@ class Smoke:
                           plan_line[0])
             n_narrow, n_wide, n_split = (int(x) for x in m.groups())
             want = {"narrow_run": n_narrow, "wide_dense_run": n_wide - n_split,
-                    "wide_split_run": n_split, "trace": 1}
+                    "wide_split_run": n_split, "wide_step": 0, "trace": 1}
             check(counts == want, f"{tag} launches {counts}, want {want}")
             if n_walks > 8:
                 check(n_split > 0, f"{tag} no run of more than 18 windows")
+                self.d18 = (gfa, reads, nf, n_narrow)
             log(f"{tag} FASTA byte-identical ({len(pf)} B) and stdout "
                 "identical apart from the timing line")
+
+
+def pg_file(tag: str) -> str:
+    """A fresh file:// rendezvous of a gloo group (no TCP port)."""
+    path = os.path.join(OUT_DIR, f"pg_{tag}")
+    if os.path.exists(path):
+        os.remove(path)
+    return f"file://{path}"
+
+
+def spawn_ranks(tag: str, job: dict) -> list:
+    """Run ``job`` in F_RANKS ranks spawned on the card, in one gloo group;
+    their results in rank order. A rank that fails raises here."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    init = pg_file(tag)
+    out = os.path.join(OUT_DIR, f"rank_{tag}")
+    mp.spawn(rank_main, args=(F_RANKS, job, init, out), nprocs=F_RANKS,
+             join=True)
+    results = []
+    for r in range(F_RANKS):
+        with open(f"{out}{r}.pkl", "rb") as fh:
+            results.append(pickle.load(fh))
+        os.remove(f"{out}{r}.pkl")
+    return results
+
+
+def rank_main(rank: int, world: int, job: dict, init: str, out: str) -> None:
+    """One spawned rank of phase F2 or F3 on the card (cuda:0)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from dipgenie_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        mesh = make_mesh(n_dp=1, n_tp=world)
+        fn = rank_dp if job["kind"] == "dp" else rank_pipeline
+        res = fn(torch, mesh, job, f"{out}{rank}")
+        with open(f"{out}{rank}.pkl", "wb") as fh:
+            pickle.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_dp(torch, mesh, job, out):
+    """F2: the tp DP on the pickled plan, timed."""
+    import pickle
+
+    from dipgenie_tpu_torch.ops import (
+        narrow, trace, wide, wide_split, wide_step,
+    )
+    from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
+    from dipgenie_tpu_torch.ops.plan import plan_to_device
+
+    t0 = time.time()
+    with open(job["plan"], "rb") as fh:
+        plan = pickle.load(fh)
+    dplan = plan_to_device(plan, DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    ship_s = time.time() - t0
+    wrappers = {"narrow_run": narrow.narrow_run,
+                "wide_dense_run": wide.wide_dense_run,
+                "wide_split_run": wide_split.wide_split_run,
+                "trace": trace.trace, "wide_step": wide_step.wide_step}
+    for w in wrappers.values():
+        w.launches = 0
+    wide_step.wide_tp_run.merge_seconds = 0.0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    ev[0].record()
+    V, bps = PairDiploidDP(dplan, DEVICE, mesh=mesh).forward()
+    ev[1].record()
+    recs = trace.trace(dplan, bps)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {"result": assemble(int(V[R, 0]), recs.cpu().numpy()),
+            "ship_s": ship_s, "forward_s": ev[0].elapsed_time(ev[1]) / 1e3,
+            "trace_s": ev[1].elapsed_time(ev[2]) / 1e3,
+            "merge_s": wide_step.wide_tp_run.merge_seconds,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": {k: w.launches for k, w in wrappers.items()}}
+
+
+def rank_pipeline(torch, mesh, job, out):
+    """F3: the port's pipeline with the mesh; its log (stderr) and FASTA."""
+    import io
+
+    from dipgenie_tpu_torch.solver.pipeline import Pipeline, PipelineConfig
+
+    t0 = time.time()
+    with open(f"{out}.log", "w") as fh:
+        os.dup2(fh.fileno(), 2)  # the launch line goes to stderr
+        Pipeline(job["gfa"], job["reads"], f"{out}.fa",
+                 PipelineConfig(mesh=mesh)).run(out=io.StringIO())
+        sys.stderr.flush()
+    with open(f"{out}.log") as fh, open(f"{out}.fa", "rb") as fa:
+        return {"log": fh.read(), "fasta": fa.read(),
+                "seconds": time.time() - t0}
 
 
 def build_all():
@@ -617,7 +1013,8 @@ def main() -> int:
 
     smoke = Smoke(torch, ref_cxx)
     for phase in (smoke.phase_b, smoke.phase_c, smoke.phase_e,
-                  smoke.phase_d):
+                  smoke.phase_f1, smoke.phase_f2, smoke.phase_d,
+                  smoke.phase_f3):
         t0 = time.time()
         phase()
         torch.cuda.empty_cache()

@@ -6,8 +6,9 @@ expanded-graph build, levelization), the pair planner
 (``ops/pair_plan.py``), the host DP tiers and the haplotype stitching,
 held to the JAX package by the parity tests, and runs the diploid pair
 DP's forward pass and traceback as hand-written CUDA kernels (``csrc/``),
-each beside a plain PyTorch version of the same function. It imports
-``torch`` and never ``jax`` or ``dipgenie_tpu``.
+each beside a plain PyTorch version of the same function. ``parallel/``
+shards the DP's wide runs over the tp ranks of a ``torch.distributed``
+mesh. It imports ``torch`` and never ``jax`` or ``dipgenie_tpu``.
 """
 
 __version__ = "0.1.0"

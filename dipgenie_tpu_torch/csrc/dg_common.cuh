@@ -1,4 +1,5 @@
-// Constants and the 64-bit reduction key shared by the pair-DP kernels.
+// Constants, the 64-bit reduction key and the window-split candidate pass
+// shared by the pair-DP kernels.
 // The values mirror dipgenie_tpu/ops/diploid_pallas.py (NEG, REACH_T,
 // PAD_SC, CHUNK) and dipgenie_tpu_torch/ops/plan.py (the key layout).
 #pragma once
@@ -35,6 +36,35 @@ static __device__ __forceinline__ int key_value(Key k) {
 // Winner's pair ordinal (0 where no candidate reached the lane).
 static __device__ __forceinline__ int key_ordinal(Key k) {
   return k == 0 ? 0 : (int)(0xFFFFFFFFu - (unsigned)(k & 0xFFFFFFFFull));
+}
+
+// One block per window-split chunk (row c0 + blockIdx.x of tbl), one
+// thread per pair lane, looping over rows: max-reduces the key of every
+// valid candidate V[r - wsum, gidx] + score into the global destination
+// lane win[chunk] * 1024 + rel with ordinal base[chunk] + lane. Chunks of
+// a transition are in pair order, so the key's ordinal rule is the TPU
+// kernels' strict `>` across chunks. Shared by K3 (the run's chunks) and
+// K4 (one tp rank's share of a transition's chunks).
+static __global__ void __launch_bounds__(CHUNK)
+window_candidates(const int32_t* __restrict__ tbl,
+                  const int32_t* __restrict__ win,
+                  const int32_t* __restrict__ base, int c0, int R1,
+                  int lanes, const int32_t* __restrict__ V, Key* keys) {
+  const int chunk = c0 + blockIdx.x;
+  const int32_t* row0 = tbl + ((size_t)chunk * 2) * CHUNK;
+  const int packed = row0[threadIdx.x];
+  const int rel = ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
+  if (rel < 0) return;
+  const int score = row0[CHUNK + threadIdx.x];
+  const int gidx = packed >> 13;
+  const int wsum = packed & 3;
+  const int dst = win[chunk] * 1024 + rel;
+  const int ordinal = base[chunk] + threadIdx.x;
+  for (int r = wsum; r < R1; ++r) {
+    const int c = V[(size_t)(r - wsum) * lanes + gidx];
+    if (c < REACH_T) continue;
+    atomicMax(&keys[(size_t)r * lanes + dst], make_key(c + score, ordinal));
+  }
 }
 
 }  // namespace dg

@@ -26,35 +26,12 @@
 // transition. So a transition costs the latency of L2 gathers and atomics
 // plus one pass writing its backpointers, and two launches. Design (K2's):
 // a host loop over the run's transitions launches (1) one block per chunk,
-// one thread per pair lane, looping over rows, and (2) a commit grid over
-// the whole state that swaps the keys back to 0. A persistent launch per
-// run is later work.
+// one thread per pair lane, looping over rows (dg::window_candidates,
+// shared with K4), and (2) a commit grid over the whole state that swaps
+// the keys back to 0. A persistent launch per run is later work.
 #include "dg_common.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(dg::CHUNK)
-split_candidates(const int32_t* __restrict__ tbl,
-                 const int32_t* __restrict__ wwin,
-                 const int32_t* __restrict__ wbase, int c0, int R1, int lanes,
-                 const int32_t* __restrict__ V, dg::Key* keys) {
-  using namespace dg;
-  const int chunk = c0 + blockIdx.x;
-  const int32_t* row0 = tbl + ((size_t)chunk * 2) * CHUNK;
-  const int packed = row0[threadIdx.x];
-  const int rel = ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
-  if (rel < 0) return;
-  const int score = row0[CHUNK + threadIdx.x];
-  const int gidx = packed >> 13;
-  const int wsum = packed & 3;
-  const int dst = wwin[chunk] * 1024 + rel;
-  const int ordinal = wbase[chunk] + threadIdx.x;
-  for (int r = wsum; r < R1; ++r) {
-    const int c = V[(size_t)(r - wsum) * lanes + gidx];
-    if (c < REACH_T) continue;
-    atomicMax(&keys[(size_t)r * lanes + dst], make_key(c + score, ordinal));
-  }
-}
 
 // bp points at row tb_bprow[t]; lanes below ext_lanes have a bp row
 __global__ void split_commit(int n, int lanes, int ext_lanes, int32_t* V,
@@ -89,7 +66,7 @@ extern "C" int dg_wide_split_run(const int32_t* tbl, const int32_t* wwin,
   for (int t = 0; t < T; ++t) {
     const int nch = bounds[t + 1] - bounds[t];
     if (nch > 0) {
-      split_candidates<<<nch, dg::CHUNK, 0, stream>>>(
+      dg::window_candidates<<<nch, dg::CHUNK, 0, stream>>>(
           tbl, wwin, wbase, bounds[t], R1, lanes, V, keys);
     }
     split_commit<<<commit_blocks, 256, 0, stream>>>(

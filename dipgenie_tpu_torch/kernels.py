@@ -45,6 +45,8 @@ _SIGNATURES = {
     # host extents [T], T, R1, NB, V, keys, bp, stream
     "dg_wide_split_run": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                           _P),
+    # stbl, swin, sbase, c0, nch, R1, NB, V, keys, part, stream
+    "dg_wide_step": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # desc [T, 11], T, R, recs [T, 7], stream
     "dg_trace": (_P, _I, _I, _P, _P),
 }

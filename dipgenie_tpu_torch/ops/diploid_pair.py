@@ -9,6 +9,12 @@ device until the traceback (the JAX package re-ran segments to
 rematerialise them); on CUDA tensors every step is a kernel of
 ``csrc/``, on CPU tensors its plain PyTorch version. Narrow runs go to K1,
 wide runs to K2 or, beyond ``DENSE_NB_MAX`` windows, K3.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``, one process per rank) every
+wide run goes to K4 on this rank's destination windows, merged over the tp
+group after each transition (``wide_step.py:wide_tp_run``); narrow runs
+and the traceback run on every rank, so every rank returns the same
+result, equal to the single-device path's.
 """
 
 from __future__ import annotations
@@ -21,10 +27,12 @@ from .plan import DevPlan, PairPlan, initial_v, plan_to_device
 from .trace import trace
 from .wide import wide_dense_run
 from .wide_split import wide_split_run
+from .wide_step import wide_step, wide_tp_run
 
-# the kernel wrapper of each segment kind (ops/plan.py:segment_kind)
+# the kernel wrapper of each segment kind (ops/plan.py:segment_kind); a
+# wide_tp run calls its wrapper once per transition, in wide_tp_run
 RUNS = {"narrow": narrow_run, "wide": wide_dense_run,
-        "wide_split": wide_split_run}
+        "wide_split": wide_split_run, "wide_tp": wide_step}
 
 
 def assemble(sink_value: int, recs: np.ndarray):
@@ -38,12 +46,16 @@ def assemble(sink_value: int, recs: np.ndarray):
 
 
 class PairDiploidDP:
-    def __init__(self, plan: PairPlan | DevPlan, device="cuda"):
+    def __init__(self, plan: PairPlan | DevPlan, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         if isinstance(plan, DevPlan):
             self.dplan = plan
         else:
-            self.dplan = plan_to_device(plan, self.device)
+            self.dplan = plan_to_device(plan, self.device, mesh=mesh)
+        if mesh is None and any(s.kind == "wide_tp"
+                                for s in self.dplan.segments):
+            raise ValueError("a plan of wide_tp segments needs its mesh")
         self.R = self.dplan.R
 
     def forward(self):
@@ -52,7 +64,10 @@ class PairDiploidDP:
         V = initial_v(self.R, self.device)
         bps = []
         for seg in self.dplan.segments:
-            V, *bp = RUNS[seg.kind](seg, V)
+            if seg.kind == "wide_tp":
+                V, *bp = wide_tp_run(seg, V, self.mesh.tp)
+            else:
+                V, *bp = RUNS[seg.kind](seg, V)
             bps.append(tuple(bp))
         return V, bps
 

@@ -750,3 +750,31 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
     )
 
 
+def shard_wide_tables(seg: _WideRun, n_tp: int):
+    """A wide run's window-split chunks divided among ``n_tp`` devices,
+    as ``_shard_wide_tables`` (``diploid_pallas.py:1866``) divides them:
+    destination windows are owned round-robin (``wwin % n_tp``), so a
+    window's chunks all land on one device, in plan order. Without the
+    TPU's compile-shape padding: returns ``(shards, present)``, where
+    ``shards[d] = (rows, bounds)`` gives device ``d``'s chunk rows of the
+    run's tables (int64, plan order) and transition ``ti``'s share
+    ``rows[bounds[ti]:bounds[ti + 1]]`` (``bounds`` [T + 1] int32), and
+    ``present`` [T, NB] int32 is 1 on the windows the transition's kept
+    pairs reach (``wpmask`` of its first chunk; 0 for a transition with
+    no chunk)."""
+    nreal = int(np.count_nonzero(seg.wbits & 4))
+    chunkbase = np.asarray(seg.tb_chunkbase, np.int64)
+    owner = seg.wwin[:nreal] % n_tp
+    shards = []
+    for d in range(n_tp):
+        rows = np.flatnonzero(owner == d)
+        bounds = np.searchsorted(rows, np.append(chunkbase, nreal))
+        shards.append((rows, bounds.astype(np.int32)))
+    T = seg.t1 - seg.t0
+    first = np.minimum(chunkbase, max(nreal - 1, 0))
+    has = chunkbase < np.append(chunkbase[1:], nreal)
+    pmask = np.where(has, seg.wpmask[first], 0).astype(np.int64)
+    present = (pmask[:, None] >> np.arange(seg.NB)) & 1
+    return shards, present.astype(np.int32).reshape(T, seg.NB)
+
+

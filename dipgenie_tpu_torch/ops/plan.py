@@ -43,7 +43,15 @@ Layouts the port's kernels (and their plain versions) decode:
 
 Kernel of a segment: narrow runs K1 (``narrow.py``); wide runs of at
 most ``DENSE_NB_MAX`` windows K2 (``wide.py``), wider ones K3
-(``wide_split.py``).
+(``wide_split.py``). Under a tp mesh (``parallel/mesh.py``) every wide
+run, whatever its NB, is a ``wide_tp`` segment run by K4 (``wide_step.py``)
+transition by transition, as the JAX package does (``diploid_pallas.py:
+2178``): the segment holds this rank's share of the window-split chunks
+(``shard_wide_tables``) as ``stbl``, ``swin`` and ``sbase``, each
+transition's share of them in ``bounds``, ``present`` [T, NB] bool, and
+the run's whole ``tbl``, ``w1`` and ``symd`` for the traceback. Its merged
+backpointers are one int32 ``[R+1, NB * 1024]`` block per transition,
+``bp [T, R+1, NB * 1024]``, in the window-split numbering.
 
 Reduction key. For every destination lane and row the kernels keep the
 best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
@@ -70,6 +78,7 @@ from .pair_plan import (  # noqa: F401  (re-exported)
     _NarrowRun,
     _WideRun,
     plan_pairs,
+    shard_wide_tables,
 )
 
 # The JAX package sends wide runs of more than 18 windows to its
@@ -82,11 +91,14 @@ DENSE_NB_MAX = 18
 _LOW32 = 0xFFFFFFFF
 
 
-def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX) -> str:
-    """``narrow`` (K1), ``wide`` (K2, dense chunks) or ``wide_split`` (K3,
-    window-split chunks): the kernel that runs a plan segment."""
+def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None) -> str:
+    """``narrow`` (K1), ``wide`` (K2, dense chunks), ``wide_split`` (K3,
+    window-split chunks) or, under a tp ``mesh``, ``wide_tp`` (K4): the
+    kernel that runs a plan segment."""
     if isinstance(seg, _NarrowRun):
         return "narrow"
+    if mesh is not None:
+        return "wide_tp"
     return "wide_split" if seg.NB > dense_nb_max else "wide"
 
 
@@ -96,10 +108,13 @@ class DevSegment:
     its scalar fields and host-side loops), ``t`` maps every numpy array
     field of it to a tensor on the device."""
 
-    kind: str  # "narrow" | "wide" | "wide_split"
+    kind: str  # "narrow" | "wide" | "wide_split" | "wide_tp"
     host: _NarrowRun | _WideRun
     t: dict
     nreal: int  # real (non ladder-pad) chunks of the table the kernel runs
+    # wide_tp: [T + 1] host chunk bounds of the transitions in this rank's
+    # share (stbl)
+    bounds: np.ndarray | None = None
 
     @property
     def t0(self) -> int:
@@ -122,21 +137,43 @@ _REAL_BITS = {"narrow": ("sbits", 16), "wide": ("dbits", 4),
               "wide_split": ("wbits", 4)}
 
 
-def plan_to_device(plan: PairPlan, device,
-                   dense_nb_max: int = DENSE_NB_MAX) -> DevPlan:
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def shard_to_device(seg: _WideRun, n_tp: int, rank: int, device) -> DevSegment:
+    """The ``wide_tp`` segment of tp rank ``rank`` of ``n_tp`` for a wide
+    run (see the module docstring)."""
+    shards, present = shard_wide_tables(seg, n_tp)
+    rows, bounds = shards[rank]
+    t = {name: _tensor(getattr(seg, name), device)
+         for name in ("tbl", "w1", "symd")}
+    t["stbl"] = _tensor(seg.tbl[rows], device)
+    t["swin"] = _tensor(seg.wwin[rows], device)
+    t["sbase"] = _tensor(seg.wbase[rows], device)
+    t["present"] = _tensor(present.astype(bool), device)
+    return DevSegment(kind="wide_tp", host=seg, t=t, nreal=len(rows),
+                      bounds=bounds)
+
+
+def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
+                   mesh=None) -> DevPlan:
     """Every numpy array of every segment as a tensor on ``device``.
     ``dense_nb_max`` picks K2 or K3 for each wide run (0: K3 for all,
-    31: K2 for all); the default is the reference's rule."""
+    31: K2 for all); the default is the reference's rule. With a ``mesh``
+    (``parallel.mesh.Mesh``) every wide run is this rank's ``wide_tp``
+    segment instead."""
     device = torch.device(device)
     segs = []
     for seg in plan.segments:
+        if segment_kind(seg, mesh=mesh) == "wide_tp":
+            segs.append(shard_to_device(seg, mesh.n_tp, mesh.tp_rank, device))
+            continue
         t = {}
         for f in dataclasses.fields(seg):
             a = getattr(seg, f.name)
             if isinstance(a, np.ndarray):
-                t[f.name] = torch.from_numpy(np.ascontiguousarray(a)).to(
-                    device
-                )
+                t[f.name] = _tensor(a, device)
         kind = segment_kind(seg, dense_nb_max)
         bits, real = _REAL_BITS[kind]
         nreal = int(np.count_nonzero(getattr(seg, bits) & real))

@@ -11,7 +11,10 @@ record ``(pi, pj, i2, j2, wu, wv, symd)`` to row ``t`` of an
 ``[L - 1, 7] int32`` tensor; then ``lane = gidx`` and ``r -= wsum``.
 
 Where ``lane`` lies in the backpointers, as ``_narrow_trace`` reads them:
-a transition's bp block is ``[R+1, lanes]`` at row ``bprow`` of its array;
+a transition's bp block is ``[R+1, lanes]`` at row ``bprow`` of its array
+(row ``ti`` of a dense wide or a ``wide_tp`` run's ``[T, R+1, NB * 1024]``;
+a ``wide_tp`` run's slots index its window-split tables, as the JAX
+package's host walk of the merged tp backpointers reads them);
 for the 1024-class blocks (narrow bp1024, dense wide, window-split wide)
 the lane is row ``bprow + lane // lanes``, column ``lane % lanes``, so a
 window-split run's lane ``win * 1024 + rel`` is read from its window's
@@ -43,6 +46,9 @@ def _tables(seg, ti: int):
     if seg.kind == "wide_split":
         return (0, int(h.tb_bprow[ti]), int(h.tb_chunkbase[ti]),
                 seg.t["tbl"], seg.t["w1"], seg.t["symd"], False)
+    if seg.kind == "wide_tp":
+        return (0, ti, int(h.tb_chunkbase[ti]), seg.t["tbl"], seg.t["w1"],
+                seg.t["symd"], False)
     return (0, ti, int(h.tb2_chunkbase[ti]), seg.t["dtbl"], seg.t["dw1"],
             seg.t["dsymd"], True)
 
@@ -111,11 +117,15 @@ def _descriptors(dplan: DevPlan, bps: list) -> np.ndarray:
             d[:, 9] = 1
             d[:, 10] = bp[0].shape[0] - h.tb_bprow
             cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
-        else:
+        else:  # one [R+1, NB * 1024] block per transition
             d[:, 0] = addr(bp[0], np.arange(T))
             d[:, 9] = 1
             d[:, 10] = T - np.arange(T)
-            cb, names, d[:, 6] = h.tb2_chunkbase, ("dtbl", "dw1", "dsymd"), 1
+            if seg.kind == "wide_tp":
+                cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
+            else:
+                cb, names, d[:, 6] = (h.tb2_chunkbase,
+                                      ("dtbl", "dw1", "dsymd"), 1)
         if seg.kind != "narrow":
             d[:, 1] = bp[0].shape[2]
         d[:, 2] = bp[0].element_size()

@@ -1,0 +1,131 @@
+"""The tp-sharded wide path: K4, one rank's partial of one wide transition
+(the CUDA kernel and its plain twin), and the run that merges the ranks'
+partials transition by transition.
+
+Replaces ``_wide_step_kernel`` / ``_wide_step_call`` and the orchestration
+of ``_run_wide_sharded`` / ``_sharded_jit`` in
+``dipgenie_tpu/ops/diploid_pallas.py``. Under a mesh with ``n_tp`` tp ranks
+every wide run is a ``wide_tp`` segment (``ops/plan.py``): tp rank ``d``
+holds the window-split chunks of the destination windows ``win % n_tp ==
+d``. Per transition each rank computes its partial ``part [2, R+1, NB *
+1024]`` int32 against the replicated state: plane 0 the best candidate
+value of the rank's chunks at each lane (the transition of ``narrow.py``,
+ties to the smallest ordinal ``sbase + lane``), plane 1 its ordinal; NEG /
+-1 on lanes none of the rank's chunks reaches. Windows are rank-disjoint,
+so one ``all_reduce(MAX)`` over the tp group reassembles the whole
+transition, and the commit ``where(present & (v > REACH_T), v, NEG)``
+gives the next state on every rank. The merged backpointers stay resident
+as ``bp [T, R+1, NB * 1024]`` with the unreached lanes' -1 committed as 0
+(the traceback never reads them from a reachable sink).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+from .. import kernels
+from .narrow import transition_keys
+from .plan import CHUNK, NEG, REACH_T, DevSegment, _LOW32
+from .wide_split import _state
+
+
+def _partial(keys: torch.Tensor) -> torch.Tensor:
+    """[2, R+1, lanes] int32 partial of max-reduced keys."""
+    has = keys != 0
+    v = torch.where(has, (keys >> 32) - 1 + REACH_T, NEG)
+    bp = torch.where(has, _LOW32 - (keys & _LOW32), -1)
+    return torch.stack((v, bp)).to(torch.int32)
+
+
+def _share(seg: DevSegment, ti: int) -> tuple[int, int]:
+    return int(seg.bounds[ti]), int(seg.bounds[ti + 1])
+
+
+def wide_step_ref(seg: DevSegment, ti: int, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: this rank's partial ``[2, R+1, NB * 1024]``
+    of transition ``ti`` from the state ``v [R+1, NB * 1024]``."""
+    c0, c1 = _share(seg, ti)
+    tbl = seg.t["stbl"][c0:c1]
+    packed = tbl[:, 0]
+    rel = ((packed >> 2) & 2047) - 1
+    dst = seg.t["swin"][c0:c1, None] * 1024 + rel
+    lane = torch.arange(CHUNK, device=v.device)
+    ordinal = seg.t["sbase"][c0:c1, None] + lane
+    real = rel >= 0
+    packed = packed[real]
+    keys = transition_keys(v, packed >> 13, packed & 3, tbl[:, 1][real],
+                           dst[real], ordinal[real], v.shape[1])
+    return _partial(keys)
+
+
+def wide_step(seg: DevSegment, ti: int, v: torch.Tensor,
+              keys: torch.Tensor | None = None) -> torch.Tensor:
+    """K4. A CUDA ``v`` launches ``csrc/wide_step.cu`` (one host call per
+    transition); a CPU ``v`` takes ``wide_step_ref``. ``keys`` is an
+    all-0 int64 scratch of ``v``'s shape, left all 0 (allocated when not
+    given)."""
+    if v.device.type == "cpu":
+        return wide_step_ref(seg, ti, v)
+    h = seg.host
+    if not 1 <= h.NB <= 31:
+        raise ValueError(f"wide_step: NB = {h.NB}, want 1..31")
+    R1 = v.shape[0]
+    shape = (R1, h.NB * 1024)
+    kernels.check_tensor(v, "v", torch.int32, shape)
+    if keys is None:
+        keys = torch.zeros(shape, dtype=torch.int64, device=v.device)
+    kernels.check_tensor(keys, "keys", torch.int64, shape, v.device)
+    tensors = {k: seg.t[k] for k in ("stbl", "swin", "sbase")}
+    for name, t in tensors.items():
+        kernels.check_tensor(t, name, torch.int32, None, v.device)
+    c0, c1 = _share(seg, ti)
+    part = torch.empty((2, *shape), dtype=torch.int32, device=v.device)
+    rc = kernels.lib().dg_wide_step(
+        tensors["stbl"].data_ptr(), tensors["swin"].data_ptr(),
+        tensors["sbase"].data_ptr(), c0, c1 - c0, R1, h.NB, v.data_ptr(),
+        keys.data_ptr(), part.data_ptr(), kernels.stream_of(v),
+    )
+    kernels.raise_on_error(rc, "wide_step")
+    wide_step.launches += 1
+    return part
+
+
+wide_step.launches = 0
+
+
+def commit(part: torch.Tensor, present: torch.Tensor, bp_out: torch.Tensor):
+    """The merged partial of one transition as the next state ``[R+1, NB
+    * 1024]`` (NEG outside the present windows and at values not above
+    REACH_T); writes its backpointers to ``bp_out`` with -1 as 0."""
+    R1, lanes = part.shape[1:]
+    v = part[0].view(R1, -1, 1024)
+    ok = (v > REACH_T) & present[None, :, None]
+    torch.clamp(part[1], min=0, out=bp_out)
+    return torch.where(ok, v, NEG).view(R1, lanes)
+
+
+def wide_tp_run(seg: DevSegment, v_in: torch.Tensor, group):
+    """One ``wide_tp`` run on this rank: ``(V_out [R+1, 1024], bp [T, R+1,
+    NB * 1024])`` from ``V_in [R+1, 1024]``, the same on every rank of the
+    tp ``group``. Adds the host seconds spent in the merges to
+    ``wide_tp_run.merge_seconds`` (with gloo on a card they include the
+    wait for the transition's K4, which the host staging needs)."""
+    h = seg.host
+    T = h.t1 - h.t0
+    V = _state(seg, v_in)
+    bp = torch.empty((T, *V.shape), dtype=torch.int32, device=V.device)
+    keys = (None if V.device.type == "cpu"
+            else torch.zeros(V.shape, dtype=torch.int64, device=V.device))
+    for ti in range(T):
+        part = wide_step(seg, ti, V, keys)
+        t0 = time.perf_counter()
+        dist.all_reduce(part, op=dist.ReduceOp.MAX, group=group)
+        wide_tp_run.merge_seconds += time.perf_counter() - t0
+        V = commit(part, seg.t["present"][ti], bp[ti])
+    return V[:, :1024].contiguous(), bp
+
+
+wide_tp_run.merge_seconds = 0.0

@@ -5,7 +5,8 @@ its own copies of ``build_color_masks``, ``_forward_exact``, ``csr_arrays``
 and ``_forward_native`` (``dipgenie_tpu/solver/diploid.py:50-245``):
 
 * ``torch``: ``csr_arrays`` and the port's ``plan_pairs``, then the pair DP
-  of ``ops/diploid_pair.py`` on ``device``. A ``ValueError`` from the
+  of ``ops/diploid_pair.py`` on ``device`` (with ``mesh``, its wide runs
+  window-sharded over the mesh's tp ranks). A ``ValueError`` from the
   planner (R > 31, the packed-value bound, more than 31 windows) is
   raised: there is no fallback tier;
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
@@ -232,9 +233,10 @@ def _forward_native(g: ExpandedGraph, R: int, color_homo_bv, n_threads: int = 0,
                               progress)
 
 
-def torch_forward(arrs, R: int, device):
+def torch_forward(arrs, R: int, device, mesh=None):
     """(sink_value, sink_s_het, transitions) of the port's device tier on
-    the CSR arrays of a levelized graph."""
+    the CSR arrays of a levelized graph; with a tp ``mesh``
+    (``parallel.mesh``) every wide run is window-sharded over its ranks."""
     t0 = time.time()
     plan = plan_pairs(*arrs, R)
     kinds = [segment_kind(s) for s in plan.segments]
@@ -245,12 +247,14 @@ def torch_forward(arrs, R: int, device):
         f"pair plan ready in {time.time() - t0:.1f}s: {plan.L} levels, "
         f"{dp_states(arrs[0], R)} DP states, "
         f"{kinds.count('narrow')} narrow and {n_wide} wide runs "
-        f"({n_split} over {DENSE_NB_MAX} windows)",
+        f"({n_split} over {DENSE_NB_MAX} windows)"
+        + (f"; wide runs over a tp mesh of {mesh.n_tp} ranks"
+           if mesh is not None else ""),
     )
     wrappers = (*RUNS.values(), trace)
     before = [w.launches for w in wrappers]
     t0 = time.time()
-    result = PairDiploidDP(plan, device).run()
+    result = PairDiploidDP(plan, device, mesh=mesh).run()
     launched = " ".join(
         f"{w.__name__}={w.launches - b}" for w, b in zip(wrappers, before)
     )
@@ -273,6 +277,7 @@ def diploid_dp_solver(
     backend: str = "torch",
     n_threads: int = 0,
     device="cuda",
+    mesh=None,
 ):
     if backend not in BACKENDS:
         raise ValueError(f"unknown DP backend {backend!r}: {BACKENDS}")
@@ -285,7 +290,7 @@ def diploid_dp_solver(
     print("Running DP", file=out)
     if backend == "torch":
         sink_val, sink_shet, transitions = torch_forward(
-            csr_arrays(g, color_homo_bv), R, device
+            csr_arrays(g, color_homo_bv), R, device, mesh
         )
     elif backend == "native":
         sink_val, sink_shet, transitions = _forward_native(

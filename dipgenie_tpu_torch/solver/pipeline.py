@@ -70,6 +70,10 @@ class PipelineConfig:
     # optional checkpoint directory: the anchor stage (sketch + join +
     # classify) resumes from disk on rerun (utils/checkpoint.py)
     checkpoint_dir: str | None = None
+    # optional parallel.mesh.Mesh: the torch tier's wide runs are sharded
+    # over its tp ranks (every rank runs the pipeline and writes the same
+    # FASTA); host sketching ignores the dp axis
+    mesh: object = None
 
     @property
     def backend(self) -> str:
@@ -164,6 +168,7 @@ class Pipeline:
                 build.anchors_by_hap, self.index, out=out,
                 progress=cfg.progress, backend=backend,
                 n_threads=cfg.num_threads, device=cfg.device,
+                mesh=cfg.mesh,
             )
             for r1, r2, s1, s2 in solutions:
                 print(

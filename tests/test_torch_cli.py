@@ -45,6 +45,8 @@ def test_port_imports_no_jax(tmp_path):
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert len(names) > 30, names\n"
+        "assert {'dipgenie_tpu_torch.parallel.mesh',\n"
+        "        'dipgenie_tpu_torch.ops.wide_step'} <= set(names), names\n"
         "rc = dipgenie_tpu_torch.cli.main(['--version'])\n"
         "assert rc == 0\n"
         "bad = [m for m in sys.modules\n"

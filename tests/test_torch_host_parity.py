@@ -126,9 +126,46 @@ def case_plan_pairs(rng, tmp_path):
     return ()
 
 
+def case_shard_wide_tables(rng, tmp_path):
+    """The port's tp shards (no compile-shape padding) against
+    ``_shard_wide_tables`` on the real rows of every (transition, device);
+    the JAX package's padded rows are not real (sbits 0)."""
+    from dipgenie_tpu.ops.diploid_pallas import _shard_wide_tables
+    from dipgenie_tpu.ops.diploid_pallas import plan_pairs as jax_plan
+    from dipgenie_tpu_torch.ops.pair_plan import shard_wide_tables
+    from dipgenie_tpu_torch.utils.synth import CASES
+
+    n_runs = 0
+    for case in [c for c in CASES if 400 <= c[0] < 600] + [
+            "mhc_slice_wide_csr"]:
+        arrs, R = case_csr(case)
+        for seg in jax_plan(*arrs, R).segments:
+            if type(seg).__name__ != "_WideRun":
+                continue
+            n_runs += 1
+            for n_tp in (2, 3):
+                shards, present = shard_wide_tables(seg, n_tp)
+                for ti, tab in enumerate(_shard_wide_tables(seg, n_tp)):
+                    sbits, swin, sbase, sgmask, tbl, jpresent = tab
+                    assert np.array_equal(np.repeat(present[ti], 1024),
+                                          jpresent[0])
+                    for d, (rows, bounds) in enumerate(shards):
+                        r = rows[bounds[ti]:bounds[ti + 1]]
+                        n = len(r)
+                        assert (sbits[d, :n] & 4).all()
+                        assert not sbits[d, n:].any()
+                        assert np.array_equal(tbl[d, :n], seg.tbl[r])
+                        assert np.array_equal(swin[d, :n], seg.wwin[r])
+                        assert np.array_equal(sbase[d, :n], seg.wbase[r])
+                        assert np.array_equal(sgmask[d, :n], seg.wgmask[r])
+    assert n_runs
+    return ()
+
+
 @pytest.mark.parametrize("case", [
     case_murmur_and_minimizers, case_fit_histogram, case_std_sort,
     case_gfa_index, case_anchors_expanded_csr, case_plan_pairs,
+    case_shard_wide_tables,
 ], ids=lambda f: f.__name__[5:])
 def test_port_host_module_matches_jax_package(case, tmp_path_factory):
     rng = np.random.default_rng(17)

@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split
+from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split, wide_step
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
-from dipgenie_tpu_torch.ops.plan import initial_v, plan_pairs, plan_to_device
+from dipgenie_tpu_torch.ops.plan import (
+    initial_v, plan_pairs, plan_to_device, shard_to_device,
+)
 from dipgenie_tpu_torch.solver.diploid import native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
     CASES, mhc_shaped_csr, random_leveled_csr,
@@ -127,3 +129,60 @@ def test_wrappers_reject_bad_inputs(cuda):
         wide_split.wide_split_run(seg_s, v[:, :512].contiguous())
     with pytest.raises(ValueError, match="dtype"):
         wide_split.wide_split_run(seg_s, v.to(torch.int16))
+
+
+def _tp_run_checked(seg, n_tp, v_in, device):
+    """A wide run through K4 on every rank's shard in turn, each partial
+    held against ``wide_step_ref``, merged as the ranks' all_reduce(MAX)
+    would be: the run's output state."""
+    segs = [shard_to_device(seg, n_tp, d, device) for d in range(n_tp)]
+    V = wide_split._state(segs[0], v_in)
+    bp = torch.empty((1, *V.shape), dtype=torch.int32, device=device)
+    for ti in range(seg.t1 - seg.t0):
+        parts = []
+        for s in segs:
+            got = wide_step.wide_step(s, ti, V)
+            assert torch.equal(got, wide_step.wide_step_ref(s, ti, V))
+            parts.append(got)
+        merged = torch.stack(parts).amax(dim=0)
+        V = wide_step.commit(merged, segs[0].t["present"][ti], bp[0])
+    return V[:, :1024]
+
+
+@pytest.mark.parametrize("case", WIDE)
+def test_wide_step_kernel_matches_plain_version(case, cuda):
+    """K4 on every (transition, rank) shard of every wide run for n_tp 1-3
+    against its plain version, from the single-device path's states; the
+    merged partials give K3's output state."""
+    arrs, R = case_csr(case)
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, cuda, dense_nb_max=0)
+    V, n_wide = initial_v(R, cuda), 0
+    for seg, dseg in zip(plan.segments, dplan.segments):
+        out = RUNS[dseg.kind][0](dseg, V)[0]
+        if dseg.kind == "wide_split":
+            n_wide += 1
+            for n_tp in (1, 2, 3):
+                assert torch.equal(_tp_run_checked(seg, n_tp, V, cuda), out)
+        V = out
+    assert n_wide
+
+
+def test_tp_dp_one_rank_mesh_matches_native_tier(cuda, tmp_path):
+    """The tp path on the card in a one-rank gloo mesh: every wide run
+    through K4 and the merge, the traceback over the merged backpointers."""
+    import torch.distributed as dist
+
+    from dipgenie_tpu_torch.parallel.mesh import make_mesh
+
+    arrs, R = case_csr("big_window")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        before = wide_step.wide_step.launches
+        got = PairDiploidDP(plan_pairs(*arrs, R), cuda,
+                            mesh=make_mesh(n_tp=1)).run()
+        assert wide_step.wide_step.launches > before
+    finally:
+        dist.destroy_process_group()
+    assert got == native_forward_csr(arrs, R)
