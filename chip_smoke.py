@@ -15,13 +15,25 @@ result line):
      once on the main path's routing and once with K3 forced over every
      wide run; then the DP results against the slices' baked exact-tier
      oracles and the random instances' native-tier results;
+  G. the level-chain probes (K5a chain_floor, K5b chain_step16, K6
+     chain_pair, K7 chain_edge: one block walks a chain of DP levels in one
+     launch): G1 each kernel against its plain version on short chains
+     (every output element, exact), K6 and K7 against the numpy oracle and
+     against each other; G2 the floor, pair and edge probes at their full
+     chain lengths through their entry functions (launch counts, per-level
+     slopes), each kernel beside its plain version and its bound at the
+     shorter length, and the plain versions' slopes on short chains; G3
+     the compiled parity gate (build/GPU_PARITY.json);
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
      graph, wide levels 33-96): launch counts of the main path, forward
      and traceback times, states/s and peak memory, equality with the
      native C++ tier, and K1's, K2's and K-T's times beside their plain
-     versions' and their bounds on a plan prefix;
-  E. the big-window DP at full width (the same shape with wide levels
-     141-177, ~1.9e9 states, every wide run 31 windows): the same
+     versions' and their bounds on a plan prefix; the DP stage probe on
+     the same plan, and K1's time per transition beside phase G's floors;
+  E. the big-window DP at full width and half the depth (the same shape
+     over 60,000 levels with wide levels 141-177, ~9.5e8 states, every
+     wide run 31 windows; the depth is cut to keep this script well inside
+     its time, most of which is the host's pair planning): the same
      readings for its main path through K3, K3 beside its plain version
      and its bound on a prefix, and K2 against K3 on the same big runs
      (equal V and traceback records, both times);
@@ -51,6 +63,7 @@ the JSON status object. Logs and tables go to build/chip_smoke/.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -66,6 +79,7 @@ SEED = 0
 R = 18
 L_MHC = 120_000
 N_BANDS = L_MHC // 400  # wide bands of 12 levels, as in the MHC graph
+L_BIG = L_MHC // 2  # depth of phases E and F; their widths are not cut
 PREFIX_TRANSITIONS = 5000
 BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
 # (n_bp, n_walks) of phase D's pangenomes. The widest expanded-graph
@@ -89,13 +103,24 @@ KERNELS = {
               "dipgenie_tpu/ops/diploid_pallas.py:1914"),
     "wide_step": ("dipgenie_tpu_torch/csrc/wide_step.cu",
                   "dipgenie_tpu/ops/diploid_pallas.py:1673"),
+    "chain_floor": ("dipgenie_tpu_torch/csrc/chain_floor.cu",
+                    "scripts/tpu_floor_probe.py:76"),
+    "chain_step16": ("dipgenie_tpu_torch/csrc/chain_step16.cu",
+                     "scripts/tpu_floor_probe.py:110"),
+    "chain_pair": ("dipgenie_tpu_torch/csrc/chain_pair.cu",
+                   "scripts/tpu_pair_probe.py:103"),
+    "chain_edge": ("dipgenie_tpu_torch/csrc/chain_edge.cu",
+                   "scripts/tpu_edge_probe.py:94"),
 }
+# the level-chain kernels (phase G), in the order of their probes
+CHAINS = ("chain_floor", "chain_step16", "chain_pair", "chain_edge")
 # the kernel wrapper of each plan segment kind (ops/plan.py:segment_kind)
 KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
                "wide_split": "wide_split_run", "wide_tp": "wide_step"}
 # the path whose launch counts the result line reports for each kernel
 MAIN_PATH = {"narrow_run": "C", "wide_dense_run": "C",
-             "wide_split_run": "E", "trace": "C", "wide_step": "F1"}
+             "wide_split_run": "E", "trace": "C", "wide_step": "F1",
+             **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2 and F3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
@@ -103,6 +128,24 @@ F_RANKS = 2  # ranks sharing the card in phases F2 and F3
 # adds and compares (the table has no int32 row)
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# phase G1's chains (levels, seed, destinations drawn one edge each): the
+# probes' own chain, and two whose states are still alive at the end
+G1_CHAINS = ((200, 0, 16), (40, 29, 9), (6, 35, 16))
+PLAIN_SLOPE = (100, 400)  # chain lengths of the plain versions' slopes
+# (bytes, int32 operations) of one level of each chain: its tables in and
+# its backpointer block out, each once; an add and a max per candidate and
+# row (K5a: an add and a mask per element)
+CHAIN_WORK = {
+    "chain_floor": (8 * 128 * 4 + 8 * 128 * 2, 2 * 8 * 128),
+    "chain_step16": (2 * 8 * 128 * 4 + 64 * 64 * 4 + 304 * 16 * 2,
+                     2 * 16 * 19 * 256),
+    "chain_pair": (8 * 256 * 4 + 24 * 256 * 2, 2 * 19 * 256),
+    "chain_edge": ((2 * 16 * 8 + 2 * 16 * 4 + 16 * 16) * 4 + 19 * 256 * 2,
+                   2 * 19 * 256),
+}
+# the probe variant that drives each chain kernel
+CHAIN_VARIANT = {"chain_floor": "floor0", "chain_step16": "step16",
+                 "chain_pair": "pair16", "chain_edge": "edge16"}
 
 
 def log(msg: str) -> None:
@@ -143,10 +186,17 @@ class Smoke:
         self.torch = torch
         self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
         from dipgenie_tpu_torch.ops import (
-            narrow, trace, wide, wide_split, wide_step,
+            chain_edge, chain_floor, chain_pair, narrow, trace, wide,
+            wide_split, wide_step,
         )
 
         self.fns = {
+            "chain_floor": (chain_floor.chain_floor,
+                            chain_floor.chain_floor_ref),
+            "chain_step16": (chain_floor.chain_step16,
+                             chain_floor.chain_step16_ref),
+            "chain_pair": (chain_pair.chain_pair, chain_pair.chain_pair_ref),
+            "chain_edge": (chain_edge.chain_edge, chain_edge.chain_edge_ref),
             "narrow_run": (narrow.narrow_run, narrow.narrow_run_ref),
             "wide_dense_run": (wide.wide_dense_run, wide.wide_dense_run_ref),
             "wide_split_run": (wide_split.wide_split_run,
@@ -158,6 +208,8 @@ class Smoke:
         self.compared = {k: 0 for k in KERNELS}
         self.launches = {}  # path -> {kernel: launches}
         self.ms, self.plain_ms, self.bound = {}, {}, {}
+        self.prefix_tr = {}  # transitions of each kernel's timed prefix
+        self.slopes = {}  # phase G2: probe variant -> Slope
         self.big = {}  # phase E's plan and result, for phase F
         self.d18 = None  # phase D's 18-walk pangenome and native FASTA
 
@@ -288,6 +340,141 @@ class Smoke:
                       "the single-device run")
             V = out
 
+    # ---------------- phase G ----------------
+    def chain_inputs(self, name, T, seed=0, cover=16):
+        """(the tables of a chain of T levels on the card, as the kernel's
+        wrapper takes them; the chain as the oracle takes it, or None)."""
+        from dipgenie_tpu_torch.probes import tables
+
+        hostE = None
+        if name == "chain_floor":
+            arrs = (tables.floor_tables(T, seed),)
+        elif name == "chain_step16":
+            arrs = tables.step16_tables(T, seed, tie_bits=True)
+        elif name == "chain_pair":
+            *arrs, hostE = tables.pair_tables(T, seed, cover)
+        else:
+            *arrs, hostE = tables.edge_tables(T, seed, cover)
+        return (tuple(self.torch.from_numpy(a).to(DEVICE) for a in arrs),
+                hostE)
+
+    def phase_g(self):
+        self.phase_g1()
+        self.phase_g2()
+        self.phase_g3()
+
+    def phase_g1(self):
+        """Each chain kernel against its plain version (every element of
+        the backpointers and of the final state), K6 and K7 against the
+        oracle and each other."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.probes import tables
+
+        for T, seed, cover in G1_CHAINS:
+            v = {}
+            for name in CHAINS:
+                args, hostE = self.chain_inputs(name, T, seed, cover)
+                kern, plain = self.fns[name]
+                got = kern(*args)
+                self.compare(name, got, plain(*args))
+                if hostE is not None:
+                    v[name] = got[1].cpu().numpy().reshape(
+                        tables.R1, tables.B, tables.B)
+                    want = tables.committed(tables.chain_oracle(hostE))
+                    check(np.array_equal(v[name], want),
+                          f"G1 {name} T={T} seed={seed}: final state "
+                          "differs from the oracle")
+            check(np.array_equal(v["chain_pair"], v["chain_edge"]),
+                  f"G1 T={T} seed={seed}: K6 and K7 differ")
+            log(f"G1 chains of {T} levels (seed {seed}, {cover} covered "
+                "destinations): K5a, K5b, K6, K7 == plain on every element; "
+                "K6 == K7 == oracle, "
+                f"{int((v['chain_pair'] > tables.NEG).sum())} states alive "
+                "at the end")
+
+    def phase_g2(self):
+        """The probes at their full chain lengths through their entry
+        functions, with the launch counts set to 0 just before and read
+        just after; then each kernel beside its plain version."""
+        from dipgenie_tpu_torch.probes import edge, floor, pair
+
+        dev = self.torch.device(DEVICE)
+        self.reset_counts()
+        for variant in floor.VARIANTS:
+            self.slopes[variant] = floor.measure(variant, dev)
+        for variant, mod in (("pair16", pair), ("edge16", edge)):
+            s = pair.probe(variant, mod.build, dev, pair.T1, pair.T2)
+            check(s is not None, f"G2 {variant}: the probe's check against "
+                  "the oracle failed")
+            self.slopes[variant] = s
+        launches = self.launches["G"] = self.counts()
+        # a warm-up and two timed chains at each of two lengths; the pair
+        # and edge probes check one more chain against the oracle first
+        want = {**dict.fromkeys(KERNELS, 0), "chain_floor": 6,
+                "chain_step16": 6, "chain_pair": 7, "chain_edge": 7}
+        check(launches == want, f"G2 launches {launches}, want {want}")
+        log(f"G2 launches {launches}: one per chain; host-dispatched loops: "
+            + ", ".join(f"{v} {self.slopes[v].per_level * 1e6:.3f} us/level"
+                        for v in ("scan1", "scandus")))
+        lengths = {**{v: x[1:] for v, x in floor.VARIANTS.items()},
+                   "pair16": (pair.T1, pair.T2), "edge16": (pair.T1, pair.T2)}
+        for name in CHAINS:
+            self.time_chain(name, *lengths[CHAIN_VARIANT[name]])
+
+    def time_chain(self, name, T1, T2):
+        """A chain kernel beside its plain version on a chain of T1 levels
+        (in turns plain, kernel, kernel, plain; CUDA events, min of 2) with
+        its bound, and the plain version's slope on short chains."""
+        kern, plain = self.fns[name]
+        args, _ = self.chain_inputs(name, T1)
+        run = {0: lambda: kern(*args), 1: lambda: plain(*args)}
+        times, outs = {0: [], 1: []}, {}
+        for which in (1, 0, 0, 1):
+            ms, outs[which] = self.timed(run[which])
+            times[which].append(ms)
+        self.compare(name, outs[0], outs[1])
+        state = outs[0][1].numel() * outs[0][1].element_size()
+        del outs
+        nbytes, ops = CHAIN_WORK[name]
+        nbound = bound(T1 * nbytes + state, T1 * ops)
+        level = bound(nbytes, ops)
+        short = []
+        for T in PLAIN_SLOPE:
+            a, _ = self.chain_inputs(name, T)
+            short.append(min(self.timed(lambda: plain(*a))[0]
+                             for _ in range(2)))
+        plain_us = (short[1] - short[0]) / (PLAIN_SLOPE[1] - PLAIN_SLOPE[0]) \
+            * 1e3
+        self.ms[name] = min(times[0])
+        self.plain_ms[name] = min(times[1])
+        self.bound[name] = nbound
+        s = self.slopes[CHAIN_VARIANT[name]]
+        log(f"G2 {name} ({CHAIN_VARIANT[name]}): {s.per_level * 1e6:.4f} "
+            f"us/level (slope {T1}->{T2}: {s.t1 * 1e3:.4f} -> "
+            f"{s.t2 * 1e3:.4f} ms, CUDA events); on a chain of {T1} levels "
+            f"kernel {times[0]} ms, plain {times[1]} ms, bound "
+            f"{nbound[0]:.6g} ms ({nbound[1]}); per level bound "
+            f"{level[0] * 1e6:.4f} ns ({level[1]}: {nbytes} B, {ops} ops), "
+            f"plain version {plain_us:.3f} us/level (slope "
+            f"{PLAIN_SLOPE[0]}->{PLAIN_SLOPE[1]})")
+
+    def phase_g3(self):
+        """The compiled parity gate on the card."""
+        from dipgenie_tpu_torch.probes import parity_gate
+
+        out = os.path.join(REPO, "build", "GPU_PARITY.json")
+        verdict = parity_gate.gate(self.torch.device(DEVICE), out)
+        with open(out) as fh:
+            written = json.load(fh)
+        check(written["ok"] is True and written["cases"] == verdict["cases"]
+              and verdict["cases"] >= 24,
+              f"G3 parity gate: {[r for r in written['results'] if not r['ok']]}")
+        log(f"G3 parity gate: {written['passed']} of {written['cases']} "
+            f"cases == exact tier on {written['card']} "
+            f"({written['power_limit']}) in {written['wall_s']}s; "
+            f"{os.path.relpath(out, REPO)}")
+
     # ---------------- phases C and E ----------------
     def main_path(self, tag, arrs):
         """Plan, ship and run one DP the way the solver does, with the
@@ -342,8 +529,8 @@ class Smoke:
         log(f"{tag} forward {fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA "
             f"events), {states / fwd_s:.4e} DP states/s, peak memory {peak} "
             f"B, launches {launches}, card {torch.cuda.get_device_name(0)}")
-        want = {"trace": 1, **{KIND_KERNEL[k]: kinds.count(k)
-                               for k in KIND_KERNEL}}
+        want = {**dict.fromkeys(KERNELS, 0), "trace": 1,
+                **{KIND_KERNEL[k]: kinds.count(k) for k in KIND_KERNEL}}
         check(launches == want, f"{tag} launches {launches}, want {want}")
         del bps, recs
         self.profile_forward(tag, dp)
@@ -402,6 +589,30 @@ class Smoke:
              and e.self_device_time_total > 0
              and not e.key.startswith("gloo:")),
             key=lambda x: -x[1])
+
+    @contextlib.contextmanager
+    def launch_events(self, entry):
+        """While the block runs, every call of the kernel library's C entry
+        point ``entry`` is bracketed by two CUDA events on the current
+        stream; yields the list the pairs are appended to."""
+        from dipgenie_tpu_torch import kernels
+
+        lib, pairs = kernels.lib(), []
+        launch = getattr(lib, entry)
+
+        def bracketed(*args):
+            ev = self.events(2)
+            ev[0].record()
+            rc = launch(*args)
+            ev[1].record()
+            pairs.append(ev)
+            return rc
+
+        setattr(lib, entry, bracketed)
+        try:
+            yield pairs
+        finally:
+            setattr(lib, entry, launch)
 
     def timed(self, fn):
         """(CUDA-event ms, output) of one call."""
@@ -467,22 +678,44 @@ class Smoke:
                 run[0]()
                 self.sync()
             rows = self.device_rows(prof, f"profile_{tag}_{name}.txt")
-            dev_ms = sum(t for _, t, _ in rows) / 1e3
+            device = f"{sum(t for _, t, _ in rows) / 1e3:.3f} ms by the " \
+                "profiler"
+            if name == "trace":
+                # one launch: its own time too, which a profile that holds
+                # no row for the kernel cannot give
+                with self.launch_events("dg_trace") as pairs:
+                    run[0]()
+                    self.sync()
+                check(len(pairs) == 1, f"{tag} trace: {len(pairs)} launches")
+                device = (f"{pairs[0][0].elapsed_time(pairs[0][1]):.3f} ms by "
+                          "CUDA events around the launch, "
+                          + (device if rows else "no row in the profile"))
             self.ms[name] = min(times[0])
             self.plain_ms[name] = min(times[1])
             self.bound[name] = nbound
+            self.prefix_tr[name] = n_tr
             log(f"{tag} {name} on the first {n_tr} transitions of the plan: "
-                f"kernel {times[0]} ms (device {dev_ms:.3f} ms by the "
-                f"profiler), plain {times[1]} ms, bound {nbound[0]:.6g} ms "
-                f"({nbound[1]})")
+                f"kernel {times[0]} ms (device {device}), plain {times[1]} "
+                f"ms, bound {nbound[0]:.6g} ms ({nbound[1]})")
         return prefix, v_ins, bps
 
     def phase_c(self):
         from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
-        _, dplan, _ = self.main_path("C", mhc_shaped_csr(
+        from dipgenie_tpu_torch.probes import dp_stages
+
+        plan, dplan, _ = self.main_path("C", mhc_shaped_csr(
             L=L_MHC, seed=SEED, n_bands=N_BANDS))
         self.time_prefix("C", dplan, ("narrow_run", "wide_dense_run", "trace"))
+        del dplan
+        self.torch.cuda.empty_cache()
+        dp_stages.stages(plan, DEVICE, log=lambda m: log("C dp-stages " + m))
+        k1_us = self.ms["narrow_run"] / self.prefix_tr["narrow_run"] * 1e3
+        log(f"C K1 narrow_run {k1_us:.4f} us per transition on the prefix "
+            "(host-timed, one launch per run) beside phase G's level-chain "
+            "floors: " + ", ".join(
+                f"{v} {self.slopes[v].per_level * 1e6:.4f} us/level"
+                for v in CHAIN_VARIANT.values()))
 
     def phase_e(self):
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
@@ -493,7 +726,7 @@ class Smoke:
         t_phase = time.time()
         wmin, wmax = BIG_WIDTHS
         plan, dplan, got = self.main_path(
-            "E", mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
+            "E", mhc_shaped_csr(L=L_BIG, seed=SEED, n_bands=L_BIG // 400,
                                 wmin=wmin, wmax=wmax))
         self.big = {"plan": plan, "dplan": dplan, "want": got}
         self.time_prefix("E", dplan, ("wide_split_run",))
@@ -597,8 +830,9 @@ class Smoke:
                 f"forward {merge_s:.4f}s in {n_wide_tr} merges (host timer), "
                 f"peak memory {torch.cuda.max_memory_allocated()} B, launches "
                 f"{launches}")
-            want_l = {"narrow_run": kinds.count("narrow"), "wide_dense_run": 0,
-                      "wide_split_run": 0, "trace": 1, "wide_step": n_wide_tr}
+            want_l = {**dict.fromkeys(KERNELS, 0),
+                      "narrow_run": kinds.count("narrow"), "trace": 1,
+                      "wide_step": n_wide_tr}
             check(launches == want_l, f"F1 launches {launches}, want {want_l}")
             check(got == want, f"F1 DP {got[:2]} differs from phase E's "
                   f"{want[:2]}")
@@ -1012,7 +1246,7 @@ def main() -> int:
     kernels.lib()
 
     smoke = Smoke(torch, ref_cxx)
-    for phase in (smoke.phase_b, smoke.phase_c, smoke.phase_e,
+    for phase in (smoke.phase_b, smoke.phase_g, smoke.phase_c, smoke.phase_e,
                   smoke.phase_f1, smoke.phase_f2, smoke.phase_d,
                   smoke.phase_f3):
         t0 = time.time()

@@ -8,7 +8,9 @@ held to the JAX package by the parity tests, and runs the diploid pair
 DP's forward pass and traceback as hand-written CUDA kernels (``csrc/``),
 each beside a plain PyTorch version of the same function. ``parallel/``
 shards the DP's wide runs over the tp ranks of a ``torch.distributed``
-mesh. It imports ``torch`` and never ``jax`` or ``dipgenie_tpu``.
+mesh; ``probes/`` holds the level-chain floor probes (four more CUDA
+kernels), the DP stage probe and the compiled parity gate. It imports
+``torch`` and never ``jax`` or ``dipgenie_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -49,6 +49,14 @@ _SIGNATURES = {
     "dg_wide_step": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # desc [T, 11], T, R, recs [T, 7], stream
     "dg_trace": (_P, _I, _I, _P, _P),
+    # tbl [T, 8, 128], T, bp, acc, stream
+    "dg_chain_floor": (_P, _I, _P, _P, _P),
+    # pit, pwt [T, 8, 128], C [T, 64, 64], T, bp, v, stream
+    "dg_chain_step16": (_P, _P, _P, _I, _P, _P, _P),
+    # tbl [T, 8, 256], T, bp, v, stream
+    "dg_chain_pair": (_P, _I, _P, _P, _P),
+    # tblc [T, 16, 8], tbl2c [T, 16, 4], S [T, 16, 16], T, bp, v, stream
+    "dg_chain_edge": (_P, _P, _P, _I, _P, _P, _P),
 }
 
 

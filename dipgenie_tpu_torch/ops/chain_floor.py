@@ -1,0 +1,149 @@
+"""The floor probes' level chains (K5a ``chain_floor``, K5b
+``chain_step16``): the CUDA kernels and their plain twins.
+
+Replace ``build_pallas0`` and ``build_pallas16`` of
+``scripts/tpu_floor_probe.py``. Both walk ``T`` levels with a state
+carried from level to level and a backpointer block written per level:
+
+* ``chain_floor`` is the empty body: ``acc += tbl[t]`` (int32, wrapping),
+  ``bp[t] = acc & 0x7FFF`` as int16.
+* ``chain_step16`` is a DP-shaped body at ``B = 16``, ``P = 4``: the state
+  ``V [19 * 16, 16]`` int32 (row ``r * 16 + i``, column ``j``) starts at 0
+  on ``(r, 0, 0)`` and ``NEG`` elsewhere. With ``Vsh[r] = V[r - 1]``
+  (``NEG`` at ``r = 0``), for every ``p, q < 4``::
+
+      u = pi[p, i2]        A[r, i2, j1] = (pw[p, u] ? Vsh : V)[r, u, j1]
+      v = pi[q, j2]        G[r, i2, j2] = (pw[q, v] ? Ash : A)[r, i2, v]
+      key = G * 16 + C[p * 16 + i2, q * 16 + j2]
+
+  (``Ash[r] = A[r - 1]``, ``NEG`` at ``r = 0``; the weight is looked up at
+  the source index, and there is no validity mask). ``best`` is the max of
+  the 16 keys and of ``-2^31 + 1``; ``V' = best >> 4`` where that is above
+  ``-2^18``, else ``NEG``; ``bp = best & 15``. ``pi`` must lie in
+  ``[0, 16)``. It is a floor probe with a DP-shaped body, not a checked
+  DP; the port computes what the probe computes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+R1, B, P = 19, 16, 4
+NEG = -(2**19)
+_BEST0 = -(2**31) + 1
+
+
+def _check(t, name, shape) -> None:
+    """Raise unless ``t`` is an int32 tensor ``[T, *shape]``."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise ValueError(f"{name}: want an int32 tensor, got "
+                         f"{getattr(t, 'dtype', type(t))}")
+    if t.dim() != len(shape) + 1 or tuple(t.shape[1:]) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
+                         f"(T, {', '.join(map(str, shape))})")
+
+
+def chain_floor_ref(tbl: torch.Tensor):
+    """Plain PyTorch version: ``(bp [T, 8, 128] int16, acc [8, 128]
+    int32)`` from ``tbl [T, 8, 128] int32``."""
+    _check(tbl, "tbl", (8, 128))
+    acc = torch.zeros((8, 128), dtype=torch.int32, device=tbl.device)
+    bp = torch.empty(tbl.shape, dtype=torch.int16, device=tbl.device)
+    for t in range(tbl.shape[0]):
+        acc = acc + tbl[t]
+        bp[t] = (acc & 0x7FFF).to(torch.int16)
+    return bp, acc
+
+
+def chain_floor(tbl: torch.Tensor):
+    """K5a. A CUDA ``tbl`` launches ``csrc/chain_floor.cu`` (one launch
+    per chain); a CPU ``tbl`` takes ``chain_floor_ref``."""
+    if tbl.device.type == "cpu":
+        return chain_floor_ref(tbl)
+    _check(tbl, "tbl", (8, 128))
+    kernels.check_tensor(tbl, "tbl", torch.int32)
+    T = tbl.shape[0]
+    bp = torch.empty(tbl.shape, dtype=torch.int16, device=tbl.device)
+    acc = torch.empty((8, 128), dtype=torch.int32, device=tbl.device)
+    rc = kernels.lib().dg_chain_floor(
+        tbl.data_ptr(), T, bp.data_ptr(), acc.data_ptr(),
+        kernels.stream_of(tbl))
+    kernels.raise_on_error(rc, "chain_floor")
+    chain_floor.launches += 1
+    return bp, acc
+
+
+chain_floor.launches = 0
+
+
+def _shift_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x[r - 1]`` along the first axis, ``NEG`` at ``r = 0``."""
+    return torch.cat([torch.full_like(x[:1], NEG), x[:-1]], 0)
+
+
+def _check_step16(pit, pwt, C) -> None:
+    _check(pit, "pit", (8, 128))
+    _check(pwt, "pwt", (8, 128))
+    _check(C, "C", (P * B, P * B))
+    if not pit.shape[0] == pwt.shape[0] == C.shape[0]:
+        raise ValueError("pit, pwt and C differ in T: "
+                         f"{pit.shape[0]}, {pwt.shape[0]}, {C.shape[0]}")
+
+
+def chain_step16_ref(pit, pwt, C):
+    """Plain PyTorch version: ``(bp [T, 304, 16] int16, V [304, 16]
+    int32)`` from ``pit, pwt [T, 8, 128]`` and ``C [T, 64, 64]`` int32."""
+    _check_step16(pit, pwt, C)
+    T, dev = pit.shape[0], pit.device
+    V = torch.full((R1, B, B), NEG, dtype=torch.int32, device=dev)
+    V[:, 0, 0] = 0
+    bp = torch.empty((T, R1 * B, B), dtype=torch.int16, device=dev)
+    for t in range(T):
+        pi = pit[t, :P, :B].to(torch.int64)
+        pw = pwt[t, :P, :B]
+        Ct = C[t].reshape(P, B, P, B)
+        Vsh = _shift_rows(V)
+        best = torch.full((R1, B, B), _BEST0, dtype=torch.int32, device=dev)
+        for p in range(P):
+            u = pi[p]
+            wu = (pw[p][u] > 0)[None, :, None]
+            A = torch.where(wu, Vsh[:, u, :], V[:, u, :])
+            Ash = _shift_rows(A)
+            for q in range(P):
+                v = pi[q]
+                wv = (pw[q][v] > 0)[None, None, :]
+                G = torch.where(wv, Ash[:, :, v], A[:, :, v])
+                best = torch.maximum(best, G * 16 + Ct[p, :, q, :][None])
+        Vn = best >> 4
+        V = torch.where(Vn > -(2**18), Vn, NEG)
+        bp[t] = (best & 15).to(torch.int16).reshape(R1 * B, B)
+    return bp, V.reshape(R1 * B, B)
+
+
+def chain_step16(pit, pwt, C):
+    """K5b. CUDA tensors launch ``csrc/chain_step16.cu`` (one launch per
+    chain); CPU tensors take ``chain_step16_ref``. Besides the
+    backpointers it returns the final state, which the TPU kernel kept in
+    scratch."""
+    if pit.device.type == "cpu":
+        return chain_step16_ref(pit, pwt, C)
+    _check_step16(pit, pwt, C)
+    for name, t in (("pit", pit), ("pwt", pwt), ("C", C)):
+        kernels.check_tensor(t, name, torch.int32, None, pit.device)
+    if C.data_ptr() % 16:
+        raise ValueError("C: the kernel loads 16 bytes at a time and wants "
+                         "a 16-byte aligned tensor")
+    T = pit.shape[0]
+    bp = torch.empty((T, R1 * B, B), dtype=torch.int16, device=pit.device)
+    v = torch.empty((R1 * B, B), dtype=torch.int32, device=pit.device)
+    rc = kernels.lib().dg_chain_step16(
+        pit.data_ptr(), pwt.data_ptr(), C.data_ptr(), T, bp.data_ptr(),
+        v.data_ptr(), kernels.stream_of(pit))
+    kernels.raise_on_error(rc, "chain_step16")
+    chain_step16.launches += 1
+    return bp, v
+
+
+chain_step16.launches = 0

@@ -5,6 +5,10 @@
   colour split of ``tests/test_pallas_dp.py``), emitted directly as the
   CSR arrays of ``dipgenie_tpu.solver.diploid.csr_arrays`` so that a run
   without the test tree sees the same instances;
+* ``dense_graph`` / ``hand_graph``: the controlled fan-out and the
+  hand-built leveled DAGs of ``tests/test_pallas_dp.py`` (``_dense_graph``,
+  ``_hand_graph``), as the port's ``ExpandedGraph``; ``graph_from_csr``
+  turns CSR arrays back into one, for the exact tier;
 * ``mhc_shaped_csr``: a leveled DAG at the scale of the MHC expanded
   graph, the deployment the DP is sized for;
 * ``pangenome``: a GFA v1.1 pangenome (S/L/W lines) plus short reads from
@@ -81,6 +85,81 @@ def random_leveled_csr(seed: int, L: int, kmax: int, ncolors: int):
         colors.append(sorted(int(c) for c in cs))
     chb = [bool(x) for x in rng.random(ncolors) < 0.4]
     return _csr(widths, adj, colors, chb)
+
+
+def _leveled_graph(widths):
+    """An edgeless, colourless ``ExpandedGraph`` of the level widths, and
+    the first vertex of each level."""
+    from ..graph.expanded import ExpandedGraph
+
+    starts = np.cumsum([0] + list(widths))
+    n = int(starts[-1])
+    g = ExpandedGraph(
+        adj_list=[[] for _ in range(n)],
+        color=[[] for _ in range(n)],
+        original_vertex=[[v] for v in range(n)],
+        haplotype=[0] * n,
+        level=[l for l, w in enumerate(widths) for _ in range(w)],
+        vertices_in_level=[
+            list(range(starts[l], starts[l + 1])) for l in range(len(widths))
+        ],
+    )
+    return g, starts
+
+
+def dense_graph(rng, widths, deg, pw=0.25, ncolors=6):
+    """Leveled DAG with controlled fan-out (pair-count stress): the same
+    random draws in the same order as ``_dense_graph`` of
+    ``tests/test_pallas_dp.py``."""
+    g, starts = _leveled_graph(widths)
+    for l in range(len(widths) - 1):
+        k2 = widths[l + 1]
+        for u in range(starts[l], starts[l + 1]):
+            for v in rng.choice(k2, size=min(k2, deg), replace=False):
+                g.adj_list[u].append(
+                    (int(starts[l + 1] + v), int(rng.random() < pw)))
+        for v in range(starts[l + 1], starts[l + 2]):
+            if not any(v == t for u in range(starts[l], starts[l + 1])
+                       for t, _ in g.adj_list[u]):
+                u = int(rng.integers(starts[l], starts[l + 1]))
+                g.adj_list[u].append((v, 0))
+    for v in range(len(g.adj_list)):
+        for c in rng.choice(ncolors, size=rng.integers(0, 3), replace=False):
+            g.color[v].append(int(c))
+        g.color[v].sort()
+    return g
+
+
+def hand_graph(widths, edges, colors=None):
+    """Leveled DAG with explicit edges (``_hand_graph`` of
+    ``tests/test_pallas_dp.py``): ``edges[l]`` lists ``(i, j, w)``, vertex
+    ``i`` of level ``l`` to vertex ``j`` of level ``l + 1`` with weight
+    ``w``; ``colors`` maps a vertex to its colours."""
+    g, starts = _leveled_graph(widths)
+    for l, es in enumerate(edges):
+        for i, j, w in es:
+            g.adj_list[starts[l] + i].append((int(starts[l + 1] + j), w))
+    for v, cs in (colors or {}).items():
+        g.color[v] = sorted(cs)
+    return g
+
+
+def graph_from_csr(arrs):
+    """``(ExpandedGraph, color_homo_bv)`` of CSR arrays: the graph whose
+    ``solver.diploid.csr_arrays`` are ``arrs`` again (a vertex's colours
+    sorted)."""
+    level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom, het_ptr, het = arrs
+    g, _ = _leveled_graph(np.diff(level_ptr).tolist())
+    for u in range(len(g.adj_list)):
+        g.adj_list[u] = [(int(adj_v[k]), int(adj_w[k]))
+                         for k in range(adj_ptr[u], adj_ptr[u + 1])]
+        g.color[u] = sorted(
+            [int(c) for c in hom[hom_ptr[u]:hom_ptr[u + 1]]]
+            + [int(c) for c in het[het_ptr[u]:het_ptr[u + 1]]])
+    n_colors = int(max(hom.max(initial=-1), het.max(initial=-1))) + 1
+    chb = np.zeros(n_colors, bool)
+    chb[hom] = True
+    return g, chb.tolist()
 
 
 def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,

@@ -46,7 +46,14 @@ def test_port_imports_no_jax(tmp_path):
         "    importlib.import_module(n)\n"
         "assert len(names) > 30, names\n"
         "assert {'dipgenie_tpu_torch.parallel.mesh',\n"
-        "        'dipgenie_tpu_torch.ops.wide_step'} <= set(names), names\n"
+        "        'dipgenie_tpu_torch.ops.wide_step',\n"
+        "        'dipgenie_tpu_torch.ops.chain_floor',\n"
+        "        'dipgenie_tpu_torch.ops.chain_pair',\n"
+        "        'dipgenie_tpu_torch.ops.chain_edge',\n"
+        "        *('dipgenie_tpu_torch.probes.' + m for m in (\n"
+        "            'tables', 'slope', 'floor', 'pair', 'edge',\n"
+        "            'dp_stages', 'parity_gate'))} <= set(names), names\n"
+        "importlib.import_module('dipgenie_tpu_torch.probes.__main__')\n"
         "rc = dipgenie_tpu_torch.cli.main(['--version'])\n"
         "assert rc == 0\n"
         "bad = [m for m in sys.modules\n"
@@ -59,15 +66,23 @@ def test_port_imports_no_jax(tmp_path):
 
 
 def test_port_sources_do_not_import_jax_package():
-    """A static scan: no ``import dipgenie_tpu`` / ``from dipgenie_tpu``
-    in the port's sources or in chip_smoke.py (which runs the JAX
-    package's CLI only as a subprocess, as its reference)."""
+    """A static scan: no import of ``dipgenie_tpu``, ``jax``, ``jaxlib``
+    or ``scripts`` in the port's sources (``ops/`` and ``probes/``
+    included) or in chip_smoke.py (which runs the JAX package's CLI only
+    as a subprocess, as its reference)."""
     pattern = re.compile(
-        r"^\s*(from\s+dipgenie_tpu(\.|\s)|import\s+dipgenie_tpu(\.|\s|$))",
+        r"^\s*(from|import)\s+(dipgenie_tpu|jax|jaxlib|scripts)(\.|\s|,|$)",
         re.M)
     files = glob.glob(os.path.join(REPO, "dipgenie_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) > 30
+    assert len(files) > 40
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"dipgenie_tpu_torch/probes/__main__.py",
+            "dipgenie_tpu_torch/probes/parity_gate.py",
+            "dipgenie_tpu_torch/ops/chain_edge.py"} <= names
+    assert pattern.search("import jax\n") and pattern.search(
+        "    from scripts.tpu_pair_probe import build\n")
+    assert not pattern.search("from dipgenie_tpu_torch.ops import plan\n")
     hits = [f for f in files if pattern.search(open(f).read())]
     assert not hits, hits
 

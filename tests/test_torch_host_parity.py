@@ -162,10 +162,53 @@ def case_shard_wide_tables(rng, tmp_path):
     return ()
 
 
+def case_dense_and_hand_graphs(rng, tmp_path):
+    """The port's copies of the JAX tests' ``_dense_graph`` and
+    ``_hand_graph`` (``utils/synth.py``): the same draws from the same
+    generator state, the same graph, the same CSR arrays."""
+    from dipgenie_tpu.solver.diploid import csr_arrays as jax_csr
+    from dipgenie_tpu_torch.solver.diploid import csr_arrays as port_csr
+    from dipgenie_tpu_torch.utils import synth
+    from tests.test_pallas_dp import _dense_graph, _hand_graph
+
+    for seed, widths, deg, pw in ((7, [1, 16, 16, 16, 1], 13, 0.1),
+                                  (11, [1, 140, 140, 1], 2, 0.2)):
+        r1, r2 = np.random.default_rng(seed), np.random.default_rng(seed)
+        g1 = _dense_graph(r1, widths, deg=deg, pw=pw)
+        g2 = synth.dense_graph(r2, widths, deg=deg, pw=pw)
+        assert r1.random() == r2.random()
+        chb = [bool(x) for x in r1.random(6) < 0.5]
+        assert vars(g1) == vars(g2)
+        same(jax_csr(g1, chb), port_csr(g2, chb))
+    edges = [[(0, i, 0) for i in range(5)], [(i, i % 3, i % 2)
+                                             for i in range(5)]]
+    colors = {2: [1, 0], 7: [0]}
+    g1 = _hand_graph([1, 5, 3], edges, colors)
+    g2 = synth.hand_graph([1, 5, 3], edges, colors)
+    assert vars(g1) == vars(g2)
+    return ()
+
+
+def case_graph_from_csr(rng, tmp_path):
+    """``graph_from_csr`` gives back a graph whose CSR arrays (of either
+    package) are the arrays it was made from."""
+    from dipgenie_tpu.solver.diploid import csr_arrays as jax_csr
+    from dipgenie_tpu_torch.solver.diploid import csr_arrays as port_csr
+    from dipgenie_tpu_torch.utils.synth import CASES, graph_from_csr
+
+    for case in (CASES[0], CASES[-1], "mhc_slice_wide_csr"):
+        arrs, _ = case_csr(case)
+        g, chb = graph_from_csr(arrs)
+        want = tuple(np.asarray(a) for a in arrs)
+        same(port_csr(g, chb), want)
+        same(jax_csr(g, chb), want)
+    return ()
+
+
 @pytest.mark.parametrize("case", [
     case_murmur_and_minimizers, case_fit_histogram, case_std_sort,
     case_gfa_index, case_anchors_expanded_csr, case_plan_pairs,
-    case_shard_wide_tables,
+    case_shard_wide_tables, case_dense_and_hand_graphs, case_graph_from_csr,
 ], ids=lambda f: f.__name__[5:])
 def test_port_host_module_matches_jax_package(case, tmp_path_factory):
     rng = np.random.default_rng(17)

@@ -12,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from dipgenie_tpu_torch.ops import narrow, trace, wide, wide_split, wide_step
+from dipgenie_tpu_torch.ops import (
+    chain_edge, chain_floor, chain_pair, narrow, trace, wide, wide_split,
+    wide_step,
+)
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
     initial_v, plan_pairs, plan_to_device, shard_to_device,
 )
+from dipgenie_tpu_torch.probes import tables
 from dipgenie_tpu_torch.solver.diploid import native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
     CASES, mhc_shaped_csr, random_leveled_csr,
@@ -186,3 +190,63 @@ def test_tp_dp_one_rank_mesh_matches_native_tier(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
     assert got == native_forward_csr(arrs, R)
+
+
+# the level-chain kernels: (wrapper, plain version, tables of a chain)
+CHAIN_KERNELS = {
+    "chain_floor": (chain_floor.chain_floor, chain_floor.chain_floor_ref,
+                    lambda T, seed, cover: (tables.floor_tables(T, seed),)),
+    "chain_step16": (chain_floor.chain_step16, chain_floor.chain_step16_ref,
+                     lambda T, seed, cover: tables.step16_tables(
+                         T, seed, tie_bits=True)),
+    "chain_pair": (chain_pair.chain_pair, chain_pair.chain_pair_ref,
+                   lambda T, seed, cover: tables.pair_tables(
+                       T, seed, cover)[:1]),
+    "chain_edge": (chain_edge.chain_edge, chain_edge.chain_edge_ref,
+                   lambda T, seed, cover: tables.edge_tables(
+                       T, seed, cover)[:5]),
+}
+
+
+@pytest.mark.parametrize("T,seed,cover", [(200, 0, 16), (40, 29, 9),
+                                          (6, 35, 16), (0, 0, 16)])
+@pytest.mark.parametrize("name", list(CHAIN_KERNELS))
+def test_chain_kernel_matches_plain_version(name, T, seed, cover, cuda):
+    """K5a, K5b, K6 and K7 against their plain versions: every element of
+    the backpointers and of the final state, on the probes' own chain, on
+    chains whose states are alive at the end (several edges into one
+    destination, destinations with none), and on an empty chain."""
+    kern, plain, make = CHAIN_KERNELS[name]
+    args = [torch.from_numpy(a).to(cuda) for a in make(T, seed, cover)]
+    before = kern.launches
+    got, want = kern(*args), plain(*args)
+    assert kern.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_chain_pair_and_edge_match_the_oracle(cuda):
+    tbl, hostE = tables.pair_tables(40, 29, 9)
+    *tabs, _ = tables.edge_tables(40, 29, 9)
+    want = tables.committed(tables.chain_oracle(hostE))
+    assert (want > tables.NEG).sum() > 500
+    v6 = chain_pair.chain_pair(torch.from_numpy(tbl).to(cuda))[1]
+    v7 = chain_edge.chain_edge(
+        *(torch.from_numpy(a).to(cuda) for a in tabs))[1]
+    assert np.array_equal(v6.cpu().numpy().reshape(want.shape), want)
+    assert np.array_equal(v7.cpu().numpy(), want)
+
+
+def test_chain_wrappers_reject_bad_inputs(cuda):
+    tbl = torch.from_numpy(tables.pair_tables(4)[0]).to(cuda)
+    with pytest.raises(ValueError, match="int32"):
+        chain_pair.chain_pair(tbl.to(torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        chain_pair.chain_pair(tbl[:, :6].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        chain_floor.chain_floor(tbl[:, :, :128])
+    tabs = [torch.from_numpy(a).to(cuda) for a in tables.edge_tables(4)[:5]]
+    tabs[1] = tabs[1].clone()
+    tabs[1][0, 0, 0] += 1
+    with pytest.raises(ValueError, match="transposes"):
+        chain_edge.chain_edge(*tabs)
