@@ -21,8 +21,9 @@ result line):
      (every output element, exact), K6 and K7 against the numpy oracle and
      against each other; G2 the floor, pair and edge probes at their full
      chain lengths through their entry functions (launch counts, per-level
-     slopes), each kernel beside its plain version and its bound at the
-     shorter length, and the plain versions' slopes on short chains; G3
+     slopes; K6 and K7 on the scripts' chain, whose states die out, and on
+     one that stays alive), each kernel beside its plain version and its
+     bound at the shorter length, and the plain versions' slopes on short chains; G3
      the compiled parity gate (build/GPU_PARITY.json);
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
      graph, wide levels 33-96): launch counts of the main path, forward
@@ -30,12 +31,9 @@ result line):
      native C++ tier, and K1's, K2's and K-T's times beside their plain
      versions' and their bounds on a plan prefix; the DP stage probe on
      the same plan, and K1's time per transition beside phase G's floors;
-  E. the big-window DP at full width and half the depth (the same shape
-     over 60,000 levels with wide levels 141-177, ~9.5e8 states, every
-     wide run 31 windows; the depth is cut to keep this script well inside
-     its time, most of which is the host's pair planning): the same
-     readings for its main path through K3, K3 beside its plain version
-     and its bound on a prefix, and K2 against K3 on the same big runs
+  E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
+     states, every wide run 31 windows): the same readings for its main
+     path through K3, K3 beside its plain version and its bound on a prefix, and K2 against K3 on the same big runs
      (equal V and traceback records, both times);
   F. the tp-sharded wide path (every wide run through K4 on this rank's
      destination windows, merged by all_reduce(MAX) after each
@@ -44,11 +42,13 @@ result line):
      memory, K4's device time beside K3's on the same runs, K4 beside its
      plain version and its bound on a prefix; the DP equal to phase E's,
      which equals the native tier); F2 in F_RANKS gloo ranks spawned on
-     the one card (each rank's DP equal to F1's; forward, merge and
-     traceback seconds per rank). The merges of ranks that share a card
+     the one card, on the plan's first L_F2 levels (the depth is cut to
+     keep this script well inside its time; each rank's DP equal to the
+     single-device path's on the same levels; forward, merge and traceback
+     seconds per rank). The merges of ranks that share a card
      are gloo's, staged through host memory: not a multi-card number;
   D. the port's CLI with its default flags on two synthetic pangenomes
-     (8 walks over 1 Mbp; 18 walks over 200 kbp, whose plan holds runs of
+     (8 walks over 500 kbp; 18 walks over 200 kbp, whose plan holds runs of
      more than 18 windows), byte-identical FASTA and stdout (apart from
      the timing line) against the JAX package's CLI on its native tier,
      run as a subprocess;
@@ -79,14 +79,14 @@ SEED = 0
 R = 18
 L_MHC = 120_000
 N_BANDS = L_MHC // 400  # wide bands of 12 levels, as in the MHC graph
-L_BIG = L_MHC // 2  # depth of phases E and F; their widths are not cut
+L_F2 = L_MHC // 4  # depth of phase F2, a prefix of phase E's plan
 PREFIX_TRANSITIONS = 5000
 BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
 # (n_bp, n_walks) of phase D's pangenomes. The widest expanded-graph
 # level grows with the walks: 16 give no run of more than 18 windows, 24
 # a level of more than 31 windows, which the planner refuses; 18 give
 # runs of 31 windows
-PANGENOMES = ((1_000_000, 8), (200_000, 18))
+PANGENOMES = ((500_000, 8), (200_000, 18))
 PORT_CLI = ["-m", "dipgenie_tpu_torch"]  # the port's CLI, default flags
 
 NPZ = ("mhc_slice_csr", "mhc_slice500_csr", "mhc_slice_wide_csr")
@@ -132,15 +132,18 @@ OPS_PER_S = 67e12
 # probes' own chain, and two whose states are still alive at the end
 G1_CHAINS = ((200, 0, 16), (40, 29, 9), (6, 35, 16))
 PLAIN_SLOPE = (100, 400)  # chain lengths of the plain versions' slopes
-# (bytes, int32 operations) of one level of each chain: its tables in and
-# its backpointer block out, each once; an add and a max per candidate and
-# row (K5a: an add and a mask per element)
+# (bytes, int32 operations) of one level of each chain: the table words the
+# function needs in and its backpointers out, each once (K5b: the [:4, :16]
+# corner of pit and pwt; K6: six of the block's eight rows in, 19 of its 24
+# backpointer rows out, the zero padding not counted; K7: tblc, tbl2c and
+# S, not the transposed twins); an add and a max per candidate and row
+# (K5a: an add and a mask per element)
 CHAIN_WORK = {
     "chain_floor": (8 * 128 * 4 + 8 * 128 * 2, 2 * 8 * 128),
-    "chain_step16": (2 * 8 * 128 * 4 + 64 * 64 * 4 + 304 * 16 * 2,
+    "chain_step16": (2 * 4 * 16 * 4 + 64 * 64 * 4 + 304 * 16 * 2,
                      2 * 16 * 19 * 256),
-    "chain_pair": (8 * 256 * 4 + 24 * 256 * 2, 2 * 19 * 256),
-    "chain_edge": ((2 * 16 * 8 + 2 * 16 * 4 + 16 * 16) * 4 + 19 * 256 * 2,
+    "chain_pair": (6 * 256 * 4 + 19 * 256 * 2, 2 * 19 * 256),
+    "chain_edge": ((16 * 8 + 16 * 4 + 16 * 16) * 4 + 19 * 256 * 2,
                    2 * 19 * 256),
 }
 # the probe variant that drives each chain kernel
@@ -341,7 +344,7 @@ class Smoke:
             V = out
 
     # ---------------- phase G ----------------
-    def chain_inputs(self, name, T, seed=0, cover=16):
+    def chain_inputs(self, name, T, seed=0, cover=16, weights=True):
         """(the tables of a chain of T levels on the card, as the kernel's
         wrapper takes them; the chain as the oracle takes it, or None)."""
         from dipgenie_tpu_torch.probes import tables
@@ -352,9 +355,9 @@ class Smoke:
         elif name == "chain_step16":
             arrs = tables.step16_tables(T, seed, tie_bits=True)
         elif name == "chain_pair":
-            *arrs, hostE = tables.pair_tables(T, seed, cover)
+            *arrs, hostE = tables.pair_tables(T, seed, cover, weights)
         else:
-            *arrs, hostE = tables.edge_tables(T, seed, cover)
+            *arrs, hostE = tables.edge_tables(T, seed, cover, weights)
         return (tuple(self.torch.from_numpy(a).to(DEVICE) for a in arrs),
                 hostE)
 
@@ -404,15 +407,18 @@ class Smoke:
         for variant in floor.VARIANTS:
             self.slopes[variant] = floor.measure(variant, dev)
         for variant, mod in (("pair16", pair), ("edge16", edge)):
-            s = pair.probe(variant, mod.build, dev, pair.T1, pair.T2)
-            check(s is not None, f"G2 {variant}: the probe's check against "
-                  "the oracle failed")
-            self.slopes[variant] = s
+            for live in (False, True):
+                label = variant + "-live" * live
+                s = pair.probe(label, mod.build, dev, pair.T1, pair.T2, live)
+                check(s is not None, f"G2 {label}: the probe's check "
+                      "against the oracle failed")
+                self.slopes[label] = s
         launches = self.launches["G"] = self.counts()
         # a warm-up and two timed chains at each of two lengths; the pair
-        # and edge probes check one more chain against the oracle first
+        # and edge probes check one more chain against the oracle first,
+        # and run on two chains
         want = {**dict.fromkeys(KERNELS, 0), "chain_floor": 6,
-                "chain_step16": 6, "chain_pair": 7, "chain_edge": 7}
+                "chain_step16": 6, "chain_pair": 14, "chain_edge": 14}
         check(launches == want, f"G2 launches {launches}, want {want}")
         log(f"G2 launches {launches}: one per chain; host-dispatched loops: "
             + ", ".join(f"{v} {self.slopes[v].per_level * 1e6:.3f} us/level"
@@ -425,9 +431,20 @@ class Smoke:
     def time_chain(self, name, T1, T2):
         """A chain kernel beside its plain version on a chain of T1 levels
         (in turns plain, kernel, kernel, plain; CUDA events, min of 2) with
-        its bound, and the plain version's slope on short chains."""
+        its bound, and the plain version's slope on short chains. K6 and
+        K7 on the chain that stays alive."""
+        import functools
+
+        from dipgenie_tpu_torch.ops.chain_edge import check_twins
+        from dipgenie_tpu_torch.probes import tables
+
         kern, plain = self.fns[name]
-        args, _ = self.chain_inputs(name, T1)
+        live = self.slopes.get(CHAIN_VARIANT[name] + "-live")
+        chain = tables.LIVE if live else {}
+        args, _ = self.chain_inputs(name, T1, **chain)
+        if name == "chain_edge":  # the twins' check stays out of the timing
+            check_twins(*args[:4])
+            kern = functools.partial(kern, twins_checked=True)
         run = {0: lambda: kern(*args), 1: lambda: plain(*args)}
         times, outs = {0: [], 1: []}, {}
         for which in (1, 0, 0, 1):
@@ -441,7 +458,7 @@ class Smoke:
         level = bound(nbytes, ops)
         short = []
         for T in PLAIN_SLOPE:
-            a, _ = self.chain_inputs(name, T)
+            a, _ = self.chain_inputs(name, T, **chain)
             short.append(min(self.timed(lambda: plain(*a))[0]
                              for _ in range(2)))
         plain_us = (short[1] - short[0]) / (PLAIN_SLOPE[1] - PLAIN_SLOPE[0]) \
@@ -450,9 +467,15 @@ class Smoke:
         self.plain_ms[name] = min(times[1])
         self.bound[name] = nbound
         s = self.slopes[CHAIN_VARIANT[name]]
+        alive = ""
+        if live:
+            alive = ("; on the chain that stays alive "
+                     f"{live.per_level * 1e6:.4f} us/level ({live.t1 * 1e3:.4f} -> {live.t2 * 1e3:.4f} "
+                     "ms), and on it what follows")
         log(f"G2 {name} ({CHAIN_VARIANT[name]}): {s.per_level * 1e6:.4f} "
             f"us/level (slope {T1}->{T2}: {s.t1 * 1e3:.4f} -> "
-            f"{s.t2 * 1e3:.4f} ms, CUDA events); on a chain of {T1} levels "
+            f"{s.t2 * 1e3:.4f} ms, CUDA events){alive}; on a chain of {T1} "
+            f"levels "
             f"kernel {times[0]} ms, plain {times[1]} ms, bound "
             f"{nbound[0]:.6g} ms ({nbound[1]}); per level bound "
             f"{level[0] * 1e6:.4f} ns ({level[1]}: {nbytes} B, {ops} ops), "
@@ -714,8 +737,9 @@ class Smoke:
         log(f"C K1 narrow_run {k1_us:.4f} us per transition on the prefix "
             "(host-timed, one launch per run) beside phase G's level-chain "
             "floors: " + ", ".join(
-                f"{v} {self.slopes[v].per_level * 1e6:.4f} us/level"
-                for v in CHAIN_VARIANT.values()))
+                f"{v} {s.per_level * 1e6:.4f} us/level"
+                for v, s in self.slopes.items()
+                if v not in ("scan1", "scandus")))
 
     def phase_e(self):
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
@@ -726,9 +750,12 @@ class Smoke:
         t_phase = time.time()
         wmin, wmax = BIG_WIDTHS
         plan, dplan, got = self.main_path(
-            "E", mhc_shaped_csr(L=L_BIG, seed=SEED, n_bands=L_BIG // 400,
+            "E", mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
                                 wmin=wmin, wmax=wmax))
-        self.big = {"plan": plan, "dplan": dplan, "want": got}
+        self.big = {"plan": plan, "dplan": dplan, "want": got,
+                    # phase F2's reference: the single-device path (K1, K3)
+                    "want_f2": PairDiploidDP(plan_prefix(dplan, L_F2),
+                                             DEVICE).run()}
         self.time_prefix("E", dplan, ("wide_split_run",))
 
         # K2 against K3 on the same big runs: per run from the same input
@@ -963,13 +990,15 @@ class Smoke:
 
     def phase_f2(self):
         """F_RANKS gloo ranks spawned on the one card, each running the tp
-        DP on phase E's plan (pickled once here, loaded by each rank)."""
+        DP on the first L_F2 levels of phase E's plan (pickled once here,
+        loaded by each rank)."""
         import pickle
 
-        want = self.big["want"]
+        want = self.big["want_f2"]
+        plan = plan_prefix(self.big.pop("plan"), L_F2)
         path = os.path.join(OUT_DIR, "phase_f_plan.pkl")
         with open(path, "wb") as fh:
-            pickle.dump(self.big.pop("plan"), fh, protocol=5)
+            pickle.dump(plan, fh, protocol=5)
         self.torch.cuda.empty_cache()
         try:
             results = spawn_ranks("f2", {"kind": "dp", "plan": path})
@@ -977,13 +1006,16 @@ class Smoke:
             os.remove(path)
         for r, res in enumerate(results):
             check(res["result"] == want, f"F2 rank {r}: DP "
-                  f"{res['result'][:2]} differs from F1's {want[:2]}")
-            log(f"F2 rank {r} of {F_RANKS} (gloo, one card): load + ship "
+                  f"{res['result'][:2]} differs from the single-device "
+                  f"path's {want[:2]}")
+            log(f"F2 rank {r} of {F_RANKS} (gloo, one card) on the plan's "
+                f"first {plan.L} levels: load + ship "
                 f"{res['ship_s']:.3f}s, forward {res['forward_s']:.4f}s "
                 f"(CUDA events), of it {res['merge_s']:.4f}s in "
                 f"{res['launches']['wide_step']} merges (host timer), "
                 f"traceback {res['trace_s']:.4f}s, peak memory {res['peak']} "
-                f"B, launches {res['launches']}; value {want[0]} == F1")
+                f"B, launches {res['launches']}; value {want[0]} == the "
+                "single-device path on the same levels")
 
     def phase_f3(self):
         """The port's pipeline with a mesh of F_RANKS gloo ranks on the
@@ -1074,6 +1106,15 @@ class Smoke:
                 self.d18 = (gfa, reads, nf, n_narrow)
             log(f"{tag} FASTA byte-identical ({len(pf)} B) and stdout "
                 "identical apart from the timing line")
+
+
+def plan_prefix(plan, n_levels: int):
+    """The whole runs of a PairPlan or a DevPlan that lie within its first
+    ``n_levels`` levels, as a plan of its own."""
+    import dataclasses
+
+    segs = [s for s in plan.segments if s.t1 < n_levels]
+    return dataclasses.replace(plan, L=segs[-1].t1 + 1, segments=segs)
 
 
 def pg_file(tag: str) -> str:

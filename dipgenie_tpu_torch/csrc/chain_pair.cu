@@ -15,8 +15,9 @@
 //
 // What bounds it on the H100: the chain is serial, one block can work on
 // it, and a level is 19 x 256 candidates, 6 KB of tables in and 9.5 KB of
-// backpointers out: far below what the card moves or computes in the time
-// one block needs for a level. The cost is latency per level: two block
+// backpointers out (plus 2.5 KB of zeros into the block's five padding
+// rows): far below what the card moves or computes in the time one block
+// needs for a level. The cost is latency per level: two block
 // barriers, a few dependent shared-memory loads per candidate, and the
 // global load of the level's tables.
 //
@@ -41,6 +42,7 @@ constexpr int ROWS = (R1 + GROUPS - 1) / GROUPS;  // rows per thread
 constexpr int TBL_ROWS = 8;            // rows of a level's block
 constexpr int USED = 6 * NP2;          // gidx, sc, tie, seg, lastE, wsum
 constexpr int BP_ROWS = 24;            // rows of a level's bp block
+constexpr int PAD_WORDS = (BP_ROWS - R1) * NP2 / 2;  // rows 19..23, as int32
 constexpr long long NO_KEY = -(1LL << 62);
 
 __global__ void __launch_bounds__(GROUPS * NP2)
@@ -116,6 +118,10 @@ chain_pair_kernel(const int32_t* __restrict__ tbl, int T,
       bp[((size_t)t * BP_ROWS + r) * NP2 + d] =
           reach ? (int16_t)(best[k] & 255) : (int16_t)0;
     }
+    // the padding rows of the level's block, which no state maps to
+    if (tid < PAD_WORDS)
+      reinterpret_cast<int32_t*>(bp + ((size_t)t * BP_ROWS + R1) * NP2)[tid] =
+          0;
   }
   __syncthreads();
   for (int i = tid; i < R1 * NP2; i += blockDim.x) v_out[i] = s_V[i];

@@ -28,7 +28,9 @@ winner's tie where the state was reached, else 0. ``rsel`` must lie in
 last edge of its run.
 
 ``tblr`` and ``tbl2r``, the transposes the TPU's layouts needed, are
-taken and checked but not read.
+taken and checked but not read. That check is a pass over the tables and a
+host synchronisation: a caller that times the chain makes it once
+(``check_twins``) and passes ``twins_checked=True``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ _NO_KEY = -(2**62)  # below every key
 
 
 def _check(tblc, tblr, tbl2c, tbl2r, S) -> None:
+    """Raise unless the five tables are int32 tensors of their shapes."""
     shapes = {"tblc": (EB, 8), "tblr": (8, EB), "tbl2c": (B, 4),
               "tbl2r": (4, B), "S": (EB, EB)}
     T = getattr(tblc, "shape", (None,))[0]
@@ -55,6 +58,11 @@ def _check(tblc, tblr, tbl2c, tbl2r, S) -> None:
         if tuple(t.shape) != (T, *shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
                              f"{(T, *shape)}")
+
+
+def check_twins(tblc, tblr, tbl2c, tbl2r) -> None:
+    """Raise unless ``tblr`` / ``tbl2r`` are the transposes of ``tblc`` /
+    ``tbl2c``."""
     if not (torch.equal(tblr, tblc.transpose(1, 2))
             and torch.equal(tbl2r, tbl2c.transpose(1, 2))):
         raise ValueError("tblr / tbl2r are not the transposes of tblc / "
@@ -71,6 +79,7 @@ def chain_edge_ref(tblc, tblr, tbl2c, tbl2r, S):
     """Plain PyTorch version: ``(bp [T, 19, 16, 16] int16, V [19, 16, 16]
     int32)``."""
     _check(tblc, tblr, tbl2c, tbl2r, S)
+    check_twins(tblc, tblr, tbl2c, tbl2r)
     T, dev = tblc.shape[0], tblc.device
     V = torch.full((R1, B, B), NEG, dtype=torch.int64, device=dev)
     V[:, 0, 0] = 0
@@ -105,15 +114,18 @@ def chain_edge_ref(tblc, tblr, tbl2c, tbl2r, S):
     return bp, V.to(torch.int32)
 
 
-def chain_edge(tblc, tblr, tbl2c, tbl2r, S):
+def chain_edge(tblc, tblr, tbl2c, tbl2r, S, twins_checked=False):
     """K7. CUDA tensors launch ``csrc/chain_edge.cu`` (one launch per
-    chain); CPU tensors take ``chain_edge_ref``."""
+    chain); CPU tensors take ``chain_edge_ref``. ``twins_checked`` says
+    that the caller has held these tables to ``check_twins``."""
     if tblc.device.type == "cpu":
         return chain_edge_ref(tblc, tblr, tbl2c, tbl2r, S)
     for name, t in (("tblc", tblc), ("tblr", tblr), ("tbl2c", tbl2c),
                     ("tbl2r", tbl2r), ("S", S)):
         kernels.check_tensor(t, name, torch.int32, None, tblc.device)
     _check(tblc, tblr, tbl2c, tbl2r, S)
+    if not twins_checked:
+        check_twins(tblc, tblr, tbl2c, tbl2r)
     T = tblc.shape[0]
     bp = torch.empty((T, R1, B, B), dtype=torch.int16, device=tblc.device)
     v = torch.empty((R1, B, B), dtype=torch.int32, device=tblc.device)

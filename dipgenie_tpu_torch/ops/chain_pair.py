@@ -31,7 +31,7 @@ import torch
 from .. import kernels
 
 R1, NP2 = 19, 256
-BP_ROWS = 24  # the TPU block's sublane padding; rows 19..23 stay 0
+BP_ROWS = 24  # the TPU block's sublane padding; rows 19..23 are 0
 NEG = -(2**19)
 REACH_T = -(2**18)
 _NO_KEY = -(2**62)  # below every key
@@ -79,13 +79,14 @@ def chain_pair_ref(tbl: torch.Tensor):
 
 def chain_pair(tbl: torch.Tensor):
     """K6. A CUDA ``tbl`` launches ``csrc/chain_pair.cu`` (one launch per
-    chain); a CPU ``tbl`` takes ``chain_pair_ref``."""
+    chain, which also zeroes the padding rows of ``bp``); a CPU ``tbl``
+    takes ``chain_pair_ref``."""
     if tbl.device.type == "cpu":
         return chain_pair_ref(tbl)
     _check(tbl)
     kernels.check_tensor(tbl, "tbl", torch.int32)
     T = tbl.shape[0]
-    bp = torch.zeros((T, BP_ROWS, NP2), dtype=torch.int16, device=tbl.device)
+    bp = torch.empty((T, BP_ROWS, NP2), dtype=torch.int16, device=tbl.device)
     v = torch.empty((R1, NP2), dtype=torch.int32, device=tbl.device)
     rc = kernels.lib().dg_chain_pair(
         tbl.data_ptr(), T, bp.data_ptr(), v.data_ptr(),

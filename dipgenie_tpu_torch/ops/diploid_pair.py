@@ -58,9 +58,11 @@ class PairDiploidDP:
             raise ValueError("a plan of wide_tp segments needs its mesh")
         self.R = self.dplan.R
 
-    def forward(self):
+    def forward(self, on_segment=None):
         """``(V [R+1, 1024] at the last level, per-segment backpointers)``:
-        ``(bp256, bp1024)`` of a narrow run, ``(bp,)`` of a wide one."""
+        ``(bp256, bp1024)`` of a narrow run, ``(bp,)`` of a wide one.
+        ``on_segment(seg)``, if given, is called after each run is queued
+        (the stage probe stamps the stream there)."""
         V = initial_v(self.R, self.device)
         bps = []
         for seg in self.dplan.segments:
@@ -69,6 +71,8 @@ class PairDiploidDP:
             else:
                 V, *bp = RUNS[seg.kind](seg, V)
             bps.append(tuple(bp))
+            if on_segment is not None:
+                on_segment(seg)
         return V, bps
 
     def run(self):

@@ -27,8 +27,8 @@ import time
 import torch
 
 from ..device import resolve_device
-from ..ops.diploid_pair import RUNS, PairDiploidDP, assemble
-from ..ops.plan import initial_v, plan_pairs, plan_to_device
+from ..ops.diploid_pair import PairDiploidDP, assemble
+from ..ops.plan import plan_pairs, plan_to_device
 from ..ops.trace import trace
 from ..utils.synth import dp_states, mhc_shaped_csr
 from .slope import clock
@@ -60,15 +60,10 @@ class _Marks:
 
 
 def forward_by_kind(dp: PairDiploidDP, marks: _Marks):
-    """One forward pass (as ``PairDiploidDP.forward`` without a mesh) with
-    a mark around every run: ``(V, bps, seconds, {kind: (runs,
-    transitions, seconds)})``."""
-    V, bps = initial_v(dp.R, dp.device), []
+    """One ``dp.forward()`` with a mark after every run: ``(V, bps,
+    seconds, {kind: (runs, transitions, seconds)})``."""
     stamps = [marks.mark()]
-    for seg in dp.dplan.segments:
-        V, *bp = RUNS[seg.kind](seg, V)
-        bps.append(tuple(bp))
-        stamps.append(marks.mark())
+    V, bps = dp.forward(on_segment=lambda seg: stamps.append(marks.mark()))
     kinds = {}
     for seg, a, b in zip(dp.dplan.segments, stamps, stamps[1:]):
         n, tr, s = kinds.get(seg.kind, (0, 0, 0.0))
@@ -93,21 +88,15 @@ def stages(plan, device, log=print) -> dict:
     sync()
     out["ship"] = time.time() - t0
     log(f"ship: {out['ship']:.3f}s (host clock)")
-    if any(s.kind == "wide_tp" for s in dplan.segments):
-        raise ValueError("dp-stages times the single-device path")
     dp = PairDiploidDP(dplan, device)
 
     t0 = time.time()
     V, bps = dp.forward()
     sync()
     log(f"forward, first pass: {time.time() - t0:.4f}s (host clock)")
-    want_v = V.clone()
     del V, bps
 
     V, bps, out["forward"], kinds = forward_by_kind(dp, marks)
-    if not torch.equal(V, want_v):
-        raise AssertionError("the marked forward pass differs from "
-                             "PairDiploidDP.forward")
     log(f"forward: {out['forward']:.4f}s ({clock(device)})")
     for kind, (n, tr, s) in sorted(kinds.items()):
         out[f"forward_{kind}"] = s

@@ -9,17 +9,22 @@ probe's, same lengths).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..ops.chain_edge import chain_edge
+from ..ops.chain_edge import chain_edge, check_twins
 from . import pair, tables
 
 
-def build(T, device):
-    """``(fn, args, hostE)`` of a chain of ``T`` levels."""
-    *tabs, hostE = tables.edge_tables(T)
-    return (chain_edge, tuple(torch.from_numpy(a).to(device) for a in tabs),
-            hostE)
+def build(T, device, live=False):
+    """``(fn, args, hostE)`` of a chain of ``T`` levels (``pair.build``'s
+    chain); the transposed tables are checked here, once, and not inside
+    the timed calls."""
+    *tabs, hostE = tables.edge_tables(T, **(tables.LIVE if live else {}))
+    args = tuple(torch.from_numpy(a).to(device) for a in tabs)
+    check_twins(*args[:4])
+    return functools.partial(chain_edge, twins_checked=True), args, hostE
 
 
 def main(argv=None) -> int:

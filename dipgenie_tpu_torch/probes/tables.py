@@ -9,6 +9,15 @@ leveled graph, every level ``B = 16`` vertices wide with ``EB = 16`` edges
 sorted by ``(dst, src)``, ~12% of them of weight 1, and a random score per
 edge pair.
 
+The scripts' own chain dies. Every destination has one edge from a random
+source, so the set of reachable vertices either empties or fills (from seed
+0 it is empty after a few levels), and every path pays ~0.24 of weight per
+level out of the 18 that the rows allow, so no state of any seed is
+reachable after ~200 levels. ``LIVE`` is a chain that lasts: a seed whose
+vertices fill by level 24, drawn without weights (``weights=False``: the
+same edges and scores, every weight 0), so that every state is reachable
+from then on however long the chain. The probes time both.
+
 ``cover`` (not in the scripts, whose every destination vertex has exactly
 one edge) draws only the first ``cover`` destinations one edge each and the
 rest at random, so that destinations with several edges (ties) and with
@@ -26,21 +35,25 @@ B = 16  # vertices per level
 EB = 16  # edges per level
 NP2 = B * B  # pair lanes
 P = 4  # predecessors per vertex of the step16 body
+# a chain whose every state is reachable from level 24 on
+LIVE = {"seed": 40, "weights": False}
 
 
-def _level(rng, cover):
+def _level(rng, cover, weights=True):
     """One level's edges (src, dst, w) sorted by (dst, src) and its pair
-    scores, drawn in the scripts' order."""
+    scores, drawn in the scripts' order; without ``weights`` every ``w`` is
+    0 and the rest is the same draw."""
     dst = np.concatenate([np.arange(cover), rng.integers(0, B, EB - cover)])
     src = rng.integers(0, B, EB)
-    w = (rng.random(EB) < 0.12).astype(np.int32)
+    w = (rng.random(EB) < 0.12 * weights).astype(np.int32)
     order = np.lexsort((src, dst))
     dst, src, w = dst[order], src[order], w[order]
     sc = rng.integers(0, 50, (EB, EB)).astype(np.int32)
     return src, dst, w, sc
 
 
-def pair_tables(T: int, seed: int = 0, cover: int = B):
+def pair_tables(T: int, seed: int = 0, cover: int = B,
+                weights: bool = True):
     """``(tbl [T, 8, 256] int32, hostE)`` of the pair-space chain.
 
     Rows of ``tbl``: 0 gidx (source pair lane), 1 score, 2 tie (larger is
@@ -52,7 +65,7 @@ def pair_tables(T: int, seed: int = 0, cover: int = B):
     gidx, sc, tie, seg, lastE, wsum = (tbl[:, i] for i in range(6))
     hostE = []
     for t in range(T):
-        src, dst, w, s2 = _level(rng, cover)
+        src, dst, w, s2 = _level(rng, cover, weights)
         hostE.append((src.copy(), dst.copy(), w.copy(), s2))
         # edge pairs sorted by (dstpair, e1, e2): slot order is pred order
         e1 = np.repeat(np.arange(EB), EB)
@@ -71,7 +84,8 @@ def pair_tables(T: int, seed: int = 0, cover: int = B):
     return tbl, hostE
 
 
-def edge_tables(T: int, seed: int = 0, cover: int = B):
+def edge_tables(T: int, seed: int = 0, cover: int = B,
+                weights: bool = True):
     """``(tblc [T, 16, 8], tblr [T, 8, 16], tbl2c [T, 16, 4], tbl2r
     [T, 4, 16], S [T, 16, 16], hostE)`` of the edge-space chain, int32.
 
@@ -85,7 +99,7 @@ def edge_tables(T: int, seed: int = 0, cover: int = B):
     S = np.zeros((T, EB, EB), np.int32)
     hostE = []
     for t in range(T):
-        src, dst, w, sc = _level(rng, cover)
+        src, dst, w, sc = _level(rng, cover, weights)
         tblc[t, :, 0] = w * B + src
         tblc[t, :, 1] = dst
         tblc[t, :, 2] = 1

@@ -237,6 +237,30 @@ def test_chain_pair_and_edge_match_the_oracle(cuda):
     assert np.array_equal(v7.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("which", ["pair", "edge"])
+def test_chain_kernels_on_the_chain_that_stays_alive(which, cuda):
+    """K6 and K7 on ``tables.LIVE`` (every state reachable at the end),
+    every element against the plain version; K6's padding rows come back
+    zero from the kernel, and K7 with its twins checked beforehand gives
+    the same."""
+    T = 120
+    if which == "pair":
+        args = [torch.from_numpy(tables.pair_tables(T, **tables.LIVE)[0])
+                .to(cuda)]
+        got, want = chain_pair.chain_pair(*args), \
+            chain_pair.chain_pair_ref(*args)
+        assert not got[0][:, 19:].any()
+    else:
+        args = [torch.from_numpy(a).to(cuda)
+                for a in tables.edge_tables(T, **tables.LIVE)[:5]]
+        chain_edge.check_twins(*args[:4])
+        got, want = chain_edge.chain_edge(*args, twins_checked=True), \
+            chain_edge.chain_edge_ref(*args)
+    assert bool((got[1] > tables.NEG).all())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 def test_chain_wrappers_reject_bad_inputs(cuda):
     tbl = torch.from_numpy(tables.pair_tables(4)[0]).to(cuda)
     with pytest.raises(ValueError, match="int32"):

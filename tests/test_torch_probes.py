@@ -179,6 +179,23 @@ def test_plain_version_matches_oracle(which, chain):
     same(v.numpy().astype(np.int64), want, "v")
 
 
+@pytest.mark.parametrize("T", [24, 120])
+def test_live_chain_keeps_every_state_reachable(T):
+    """``tables.LIVE`` is the seed's own draw apart from the weights, and
+    every state of it is reachable from level 24 on; the script's chain
+    has none left by then."""
+    tbl, hostE = tables.pair_tables(T, **tables.LIVE)
+    drawn, _ = tables.pair_tables(T, tables.LIVE["seed"])
+    assert not tbl[:, 5].any() and drawn[:, 5].any()
+    same(np.delete(tbl, 5, axis=1), np.delete(drawn, 5, axis=1), "tbl")
+    v = chain_pair.chain_pair(*_t([tbl]))[1].numpy()
+    assert (v > tables.NEG).all()
+    same(v.reshape(19, 16, 16).astype(np.int64),
+         tables.committed(tables.chain_oracle(hostE)), "v")
+    dead = chain_pair.chain_pair(*_t([tables.pair_tables(T)[0]]))[1]
+    assert not (dead.numpy() > tables.NEG).any()
+
+
 def test_scandus_matches_script_loop():
     """The host-dispatched loop against the script's ``lax.scan``."""
     T = 4
@@ -209,6 +226,8 @@ def test_edge_wrapper_checks_the_transposed_twins():
     tabs[3][1, 0, 0] += 1
     with pytest.raises(ValueError, match="transposes"):
         chain_edge.chain_edge(*tabs)
+    with pytest.raises(ValueError, match="transposes"):
+        chain_edge.check_twins(*tabs[:4])
     with pytest.raises(ValueError, match="int32"):
         chain_pair.chain_pair(torch.zeros((2, 8, 256), dtype=torch.int64))
     with pytest.raises(ValueError, match="shape"):
@@ -231,7 +250,11 @@ def test_probe_prints_a_slope_line_on_the_cpu(argv, name, capsys):
     # a CPU time is never printed under a device's name
     assert "not a device time" in line[0] and "CUDA" not in line[0]
     if name in ("pair16", "edge16"):
-        assert "correctness: OK" in out
+        # the script's chain, then the one that stays alive
+        assert out.count("correctness: OK") == 2
+        live = [x for x in out.splitlines() if x.startswith(f"{name}-live: ")]
+        assert len(live) == 1 and "us/level (slope" in live[0]
+        assert "40 levels: 4864 of 4864" in out
 
 
 def test_dp_stages_on_the_cpu(capsys):
@@ -242,6 +265,27 @@ def test_dp_stages_on_the_cpu(capsys):
                   "traceback:", "run() total:"):
         assert any(x.startswith(stage) for x in out.splitlines()), stage
     assert "CUDA" not in out
+
+
+def test_stage_marks_ride_on_the_one_forward_loop():
+    """``dp_stages`` stamps the runs through ``forward``'s own callback:
+    one call per segment, in order, and the same pass as without it."""
+    from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
+    from dipgenie_tpu_torch.ops.plan import plan_pairs
+    from dipgenie_tpu_torch.probes import dp_stages
+    from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+    dp = PairDiploidDP(plan_pairs(*mhc_shaped_csr(L=300, seed=1, n_bands=1),
+                                  18), "cpu")
+    seen = []
+    V, bps = dp.forward(on_segment=seen.append)
+    assert seen == dp.dplan.segments and len(bps) == len(seen)
+    V2, _, seconds, kinds = dp_stages.forward_by_kind(
+        dp, dp_stages._Marks(torch.device("cpu")))
+    assert torch.equal(V, V2) and torch.equal(V, dp.forward()[0])
+    assert sum(n for n, _, _ in kinds.values()) == len(seen)
+    assert sum(tr for _, tr, _ in kinds.values()) == 299
+    assert 0 < sum(s for _, _, s in kinds.values()) <= seconds
 
 
 def test_parity_gate_on_the_cpu_writes_its_verdict(tmp_path, capsys):
