@@ -54,7 +54,16 @@ result line):
      run as a subprocess;
   F3. the port's pipeline with a mesh of F_RANKS gloo ranks on the card on
      phase D's 18-walk pangenome: each rank's FASTA byte-identical to
-     phase D's native-tier FASTA, every wide run through K4.
+     phase D's native-tier FASTA, every wide run through K4;
+  H. (run after G) the 30 capability checks (K8, K9: csrc/caps_*.cu):
+     H1 the probes caps and caps2 through their entry functions (one
+     launch per check, 30 PASS lines), then every kernel against its plain
+     version and the numpy expectation on every element (floats as floats),
+     on the scripts' inputs and on the second inputs; H2 each kernel's time
+     per launch beside its plain version's and, where one PyTorch call
+     computes the same output, that call's (CUDA events over H_CALLS
+     launches, min of 2, in turns), the kernel's and the call's device time
+     per launch (profiler), and the bound.
 
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object of per-kernel results; the last line is
@@ -149,6 +158,26 @@ CHAIN_WORK = {
 # the probe variant that drives each chain kernel
 CHAIN_VARIANT = {"chain_floor": "floor0", "chain_step16": "step16",
                  "chain_pair": "pair16", "chain_edge": "edge16"}
+# phase H: the source of each capability check's kernel (K8, K9); KERNELS
+# and MAIN_PATH take them in main(), with the line of the script's mk_*
+CAPS_SOURCES = {
+    "caps_gather.cu": (
+        "lane_gather_taa_grouped", "lane_gather_cross_vreg",
+        "sublane_gather_8", "sublane_gather_16", "roll_lane", "roll_sublane",
+        "dyn_slice_row_bcast", "scalar_prefetch_grid", "strided_slice_lane",
+        "roll3d_ax1", "roll3d_ax2"),
+    "caps_layout.cu": (
+        "lane_bcast_col", "sublane_bcast_row", "tile_lane_concat", "popcount",
+        "reshape_lane_groups", "concat3d_ax0", "concat3d_ax1", "concat3d_ax2",
+        "convert_f32_i32_3d", "iota_onehot_build", "where3d_iota_mask",
+        "transpose2d", "switch_compute"),
+    "caps_bulk.cu": ("manual_dma_dynoff", "dma_strided_3d", "dma_in_when"),
+    "caps_mma.cu": ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32"),
+}
+CAPS_PRODUCTS = ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32")
+TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
+H_CALLS = 200  # launches per CUDA-event timing in phase H2
+H_PROFILED = 50  # launches per profile of a check in phase H2
 
 
 def log(msg: str) -> None:
@@ -160,9 +189,10 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
+          ) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -189,7 +219,7 @@ class Smoke:
         self.torch = torch
         self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
         from dipgenie_tpu_torch.ops import (
-            chain_edge, chain_floor, chain_pair, narrow, trace, wide,
+            caps, chain_edge, chain_floor, chain_pair, narrow, trace, wide,
             wide_split, wide_step,
         )
 
@@ -206,11 +236,13 @@ class Smoke:
                                wide_split.wide_split_run_ref),
             "trace": (trace.trace, trace.trace_ref),
             "wide_step": (wide_step.wide_step, wide_step.wide_step_ref),
+            **caps.CHECKS,
         }
         self.err = {k: 0 for k in KERNELS}
         self.compared = {k: 0 for k in KERNELS}
         self.launches = {}  # path -> {kernel: launches}
         self.ms, self.plain_ms, self.bound = {}, {}, {}
+        self.library_ms = {}  # one PyTorch call computing the same output
         self.prefix_tr = {}  # transitions of each kernel's timed prefix
         self.slopes = {}  # phase G2: probe variant -> Slope
         self.big = {}  # phase E's plan and result, for phase F
@@ -230,8 +262,8 @@ class Smoke:
         return [self.torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
     def compare(self, name, got, want):
-        """Exact equality of kernel and plain outputs (tuples of int
-        tensors); records the max abs difference."""
+        """Exact equality of kernel and plain outputs (tuples of tensors;
+        floats compared as floats); records the max abs difference."""
         torch = self.torch
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -239,7 +271,10 @@ class Smoke:
             check(g.shape == w.shape and g.dtype == w.dtype,
                   f"{name}: {tuple(g.shape)} {g.dtype} vs "
                   f"{tuple(w.shape)} {w.dtype}")
-            if g.numel():
+            if g.numel() and g.is_floating_point():
+                d = float((g.double() - w.double()).abs().max())
+                self.err[name] = max(self.err[name], d)
+            elif g.numel():
                 d = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                 self.err[name] = max(self.err[name], d)
         self.compared[name] += 1
@@ -445,12 +480,26 @@ class Smoke:
         if name == "chain_edge":  # the twins' check stays out of the timing
             check_twins(*args[:4])
             kern = functools.partial(kern, twins_checked=True)
+        torch = self.torch
         run = {0: lambda: kern(*args), 1: lambda: plain(*args)}
-        times, outs = {0: [], 1: []}, {}
-        for which in (1, 0, 0, 1):
+        library = ""
+        if name == "chain_floor":
+            # one PyTorch call computes K5a's acc chain (the backpointers'
+            # & 0x7FFF left out)
+            run[2] = lambda: torch.cumsum(args[0], 0, dtype=torch.int32)
+        times, outs = {w: [] for w in run}, {}
+        for which in (1, 0, 2, 2, 0, 1) if 2 in run else (1, 0, 0, 1):
             ms, outs[which] = self.timed(run[which])
             times[which].append(ms)
         self.compare(name, outs[0], outs[1])
+        if 2 in run:
+            acc = outs[2]
+            check(bool(torch.equal(acc[-1], outs[0][1]) and torch.equal(
+                (acc & 0x7FFF).to(torch.int16), outs[0][0])),
+                "G2 chain_floor: torch.cumsum differs from K5a")
+            self.library_ms[name] = min(times[2])
+            library = (f", torch.cumsum {times[2]} ms (the same acc chain, "
+                       "no mask)")
         state = outs[0][1].numel() * outs[0][1].element_size()
         del outs
         nbytes, ops = CHAIN_WORK[name]
@@ -476,7 +525,7 @@ class Smoke:
             f"us/level (slope {T1}->{T2}: {s.t1 * 1e3:.4f} -> "
             f"{s.t2 * 1e3:.4f} ms, CUDA events){alive}; on a chain of {T1} "
             f"levels "
-            f"kernel {times[0]} ms, plain {times[1]} ms, bound "
+            f"kernel {times[0]} ms, plain {times[1]} ms{library}, bound "
             f"{nbound[0]:.6g} ms ({nbound[1]}); per level bound "
             f"{level[0] * 1e6:.4f} ns ({level[1]}: {nbytes} B, {ops} ops), "
             f"plain version {plain_us:.3f} us/level (slope "
@@ -497,6 +546,180 @@ class Smoke:
             f"cases == exact tier on {written['card']} "
             f"({written['power_limit']}) in {written['wall_s']}s; "
             f"{os.path.relpath(out, REPO)}")
+
+    # ---------------- phase H ----------------
+    def phase_h(self):
+        self.phase_h1()
+        self.phase_h2()
+
+    def phase_h1(self):
+        """The probes caps and caps2 through their entry functions, with
+        the launch counts set to 0 just before and read just after; then
+        every kernel against its plain version and the expectation."""
+        import io
+
+        from dipgenie_tpu_torch.ops.caps import NAMES
+        from dipgenie_tpu_torch.probes import caps, caps_tables
+
+        out = io.StringIO()
+        self.reset_counts()
+        with contextlib.redirect_stdout(out):
+            rcs = [caps.main(["--device", DEVICE]),
+                   caps.main2(["--device", DEVICE])]
+        self.sync()
+        launches = self.launches["H"] = self.counts()
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"H1 {line}")
+        check(rcs == [0, 0] and lines == [f"PASS  {n}" for n in NAMES],
+              f"H1 probes caps / caps2 exited {rcs}")
+        want = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(NAMES, 1)}
+        check(launches == want, f"H1 launches {launches}, want {want}")
+        seeds = (None, *caps_tables.SECOND_SEEDS)
+        for name in NAMES:
+            kern, plain = self.fns[name]
+            for seed in seeds:
+                ins, expect = caps_tables.make(name, seed)
+                args = caps.to_device(ins, DEVICE)
+                got = kern(*args)
+                self.compare(name, got, plain(*args))
+                self.compare(name, got, self.torch.from_numpy(expect).to(
+                    DEVICE))
+        log(f"H1 {len(NAMES)} of {len(NAMES)} PASS, one launch each; every "
+            "kernel == plain == expectation on every element, on the "
+            f"scripts' inputs and the second inputs (seeds {seeds[1:]})")
+
+    def caps_library(self, name, args):
+        """(one PyTorch call computing the check's output on ``args``,
+        what it leaves out or None), or None where no one call does. Timed
+        here beside the kernel only; the port never calls it."""
+        torch = self.torch
+        a = args[-1]
+        if name in ("lane_gather_taa_grouped", "lane_gather_cross_vreg",
+                    "sublane_gather_8", "sublane_gather_16"):
+            i64 = args[1].long()  # torch.gather takes int64 indices only
+            dim = 1 if name.startswith("lane") else 0
+            return lambda: torch.gather(args[0], dim, i64), None
+        rolls = {"roll_lane": (16, 1), "roll_sublane": (1, 0),
+                 "roll3d_ax1": (4, 1), "roll3d_ax2": (4, 2)}
+        if name in rolls:
+            return lambda: torch.roll(a, *rolls[name]), None
+        repeats = {"lane_bcast_col": (1, 256), "sublane_bcast_row": (16, 1),
+                   "tile_lane_concat": (1, 19)}
+        if name in repeats:
+            return lambda: a.repeat(*repeats[name]), None
+        views = {"strided_slice_lane": lambda: a[:, 3::16],
+                 "transpose2d": lambda: a.t(),
+                 "reshape_lane_groups": lambda: a.view(16, 19, 16),
+                 "dma_in_when": lambda: a[2]}
+        if name in views:  # one copy kernel
+            view = views[name]()
+            return view.clone if view.is_contiguous() else view.contiguous, \
+                None
+        if name in ("manual_dma_dynoff", "dma_strided_3d"):
+            view = a[8:24] if name == "manual_dma_dynoff" else a[2, :, :8, :8]
+            return lambda: torch.add(view, 1), None
+        if name == "scalar_prefetch_grid":
+            return lambda: torch.index_select(a, 0, args[0]), None
+        if name in CAPS_PRODUCTS:
+            fn = torch.bmm if name == "batched_dot_3d" else torch.matmul
+            return lambda: fn(args[0], a), None
+        if name == "concat3d_ax0":
+            parts = [torch.full((1, 16, 16), -7, dtype=a.dtype,
+                                device=a.device), a[:-1]]
+            return lambda: torch.cat(parts, 0), None
+        if name in ("concat3d_ax1", "concat3d_ax2"):
+            parts, dim = [a, a + 1], int(name[-1])
+            return lambda: torch.cat(parts, dim), "A + 1 made beforehand"
+        if name == "convert_f32_i32_3d":
+            return lambda: a.to(torch.int32), "without the * 2"
+        if name == "iota_onehot_build":
+            cols = torch.arange(32, dtype=torch.int32, device=a.device)[None]
+            return lambda: torch.eq(cols, a), "a bool one-hot, not float32"
+        if name == "where3d_iota_mask":
+            rows = (torch.arange(16, device=a.device) < 8)[None, :, None]
+            return lambda: torch.where(rows, a, -1), None
+        return None  # dyn_slice_row_bcast, popcount, switch_compute
+
+    def caps_device_us(self, name, runs):
+        """Device us per launch of the kernel and of the library call (or
+        None), from one profile of H_PROFILED launches of each: the
+        kernel's rows are the caps_* kernels, the call's the others."""
+        with self.profiler() as prof:
+            for run in runs:
+                for _ in range(H_PROFILED):
+                    run()
+            self.sync()
+        rows = self.device_rows(prof, f"profile_H_{name}.txt")
+        kern = sum(t for k, t, _ in rows if "caps_" in k) / H_PROFILED
+        lib = sum(t for k, t, _ in rows if "caps_" not in k) / H_PROFILED
+        return kern or None, (lib or None) if len(runs) > 1 else None
+
+    def phase_h2(self):
+        """Each check's kernel beside its plain version and the library
+        call, on the scripts' inputs: per launch by CUDA events over
+        H_CALLS launches (min of 2, in turns plain, kernel, library,
+        library, kernel, plain) and by the profiler; and its bound."""
+        from dipgenie_tpu_torch.ops.caps import NAMES
+        from dipgenie_tpu_torch.probes import caps, caps_tables
+
+        torch = self.torch
+        for name in NAMES:
+            ins, expect = caps_tables.make(name)
+            args = caps.to_device(ins, DEVICE)
+            kern, plain = self.fns[name]
+            runs = {"plain": lambda: plain(*args),
+                    "kernel": lambda: kern(*args)}
+            lib = self.caps_library(name, args)
+            if lib:
+                runs["library"] = lib[0]
+                if lib[1] is None:
+                    check(bool(torch.equal(lib[0](), torch.from_numpy(
+                        expect).to(DEVICE))), f"H2 {name}: the library "
+                        "call's output differs from the expectation")
+            times = {w: [] for w in runs}
+            for which in ("plain", "kernel", "library", "library", "kernel",
+                          "plain"):
+                if which in runs:
+                    times[which].append(self.per_launch_ms(runs[which]))
+            dev_k, dev_l = self.caps_device_us(
+                name, [runs[w] for w in ("kernel", "library") if w in runs])
+            nbytes = expect.nbytes + caps_read_bytes(name, ins)
+            if name in CAPS_PRODUCTS:  # a multiply and an add per term
+                nbound = bound(nbytes, 2 * expect.size * ins[0].shape[-1],
+                               TF32_OPS_PER_S)
+            else:  # at most one int32 operation per output element
+                nbound = bound(nbytes, expect.size)
+            self.ms[name] = min(times["kernel"])
+            self.plain_ms[name] = min(times["plain"])
+            self.bound[name] = nbound
+            self.library_ms[name] = min(times["library"]) if lib else None
+
+            def us(x):
+                return "not in the profile" if x is None else f"{x:.3f} us"
+
+            lib_msg = "no one PyTorch call computes it"
+            if lib:
+                lib_msg = (f"library {[t * 1e3 for t in times['library']]} "
+                           f"us (device {us(dev_l)}"
+                           + (f"; {lib[1]}" if lib[1] else "") + ")")
+            log(f"H2 {name}: kernel {[t * 1e3 for t in times['kernel']]} us "
+                f"per launch (device {us(dev_k)}), plain "
+                f"{[t * 1e3 for t in times['plain']]} us, {lib_msg}; bound "
+                f"{nbound[0] * 1e6:.4f} ns ({nbound[1]}: {nbytes} B)")
+
+    def per_launch_ms(self, fn):
+        """CUDA-event ms per call over H_CALLS calls of ``fn``, after one
+        warm-up call."""
+        fn()
+        a, b = self.events(2)
+        self.sync()
+        a.record()
+        for _ in range(H_CALLS):
+            fn()
+        b.record()
+        self.sync()
+        return a.elapsed_time(b) / H_CALLS
 
     # ---------------- phases C and E ----------------
     def main_path(self, tag, arrs):
@@ -1108,6 +1331,23 @@ class Smoke:
                 "identical apart from the timing line")
 
 
+def caps_read_bytes(name: str, ins) -> int:
+    """Input bytes a capability check needs, each once: only what it reads
+    of a slice, a picked row or selected blocks (each distinct block
+    once); every input byte otherwise."""
+    needs = {
+        "dyn_slice_row_bcast": 4 + 256 * 4,  # A[0, 0] and the row
+        "manual_dma_dynoff": 16 * 128 * 4,
+        "strided_slice_lane": 16 * 19 * 4,
+        "dma_strided_3d": 19 * 8 * 8 * 2,
+        "dma_in_when": 8 * 128 * 4,
+        "concat3d_ax0": 18 * 256 * 4,  # A[:18]
+    }
+    if name == "scalar_prefetch_grid":
+        return ins[0].nbytes + len(set(ins[0].tolist())) * 8 * 128 * 4
+    return needs.get(name, sum(a.nbytes for a in ins))
+
+
 def plan_prefix(plan, n_levels: int):
     """The whole runs of a PairPlan or a DevPlan that lie within its first
     ``n_levels`` levels, as a plan of its own."""
@@ -1259,6 +1499,21 @@ def build_all():
     return path, nvcc_log, out["ref_cxx"]
 
 
+def add_caps_kernels() -> None:
+    """The 30 capability checks of phase H into KERNELS and MAIN_PATH."""
+    from dipgenie_tpu_torch.ops.caps import NAMES
+    from dipgenie_tpu_torch.probes.caps_tables import CHECKS
+
+    for src, names in CAPS_SOURCES.items():
+        for name in names:
+            script, line = CHECKS[name][:2]
+            KERNELS[name] = (f"dipgenie_tpu_torch/csrc/{src}",
+                             f"scripts/{script}.py:{line}")
+            MAIN_PATH[name] = "H"
+    check(sorted(NAMES) == sorted(n for v in CAPS_SOURCES.values()
+                                  for n in v), "CAPS_SOURCES misses a check")
+
+
 def main() -> int:
     import torch
 
@@ -1285,11 +1540,12 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as fh:
         fh.write(nvcc_log)
     kernels.lib()
+    add_caps_kernels()
 
     smoke = Smoke(torch, ref_cxx)
-    for phase in (smoke.phase_b, smoke.phase_g, smoke.phase_c, smoke.phase_e,
-                  smoke.phase_f1, smoke.phase_f2, smoke.phase_d,
-                  smoke.phase_f3):
+    for phase in (smoke.phase_b, smoke.phase_g, smoke.phase_h, smoke.phase_c,
+                  smoke.phase_e, smoke.phase_f1, smoke.phase_f2,
+                  smoke.phase_d, smoke.phase_f3):
         t0 = time.time()
         phase()
         torch.cuda.empty_cache()
@@ -1300,7 +1556,8 @@ def main() -> int:
          "launches": smoke.launches[MAIN_PATH[name]][name],
          "max_abs_err": smoke.err[name], "ms": smoke.ms[name],
          "plain_ms": smoke.plain_ms[name], "bound_ms": smoke.bound[name][0],
-         "bound_by": smoke.bound[name][1], "library_ms": None}
+         "bound_by": smoke.bound[name][1],
+         "library_ms": smoke.library_ms.get(name)}
         for name, (src, rep) in KERNELS.items()
     ]}
     print(smi)

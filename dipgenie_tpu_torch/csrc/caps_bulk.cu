@@ -1,0 +1,229 @@
+// Capability checks, the bulk-copy family: copies between device memory and
+// shared memory that the hardware runs on its own, completed on mbarriers.
+//
+// Replaces these checks, the TPU's manual DMAs (pltpu.make_async_copy with
+// DMA semaphores on pltpu.ANY operands):
+//   scripts/tpu_caps_probe.py mk_manual_dma (:186): A[8:24] + 1 of a
+//     [64, 128] int32 array, copied in at a row offset and back out;
+//   scripts/tpu_caps_probe2.py mk_dma_strided_3d (:202): the [19, 8, 8]
+//     corner of slab 2 of a [4, 19, 16, 16] int16 array, + 1;
+//   scripts/tpu_caps_probe2.py mk_dma_in_when (:265): slab 2 of a
+//     [4, 8, 128] int32 array, copied in only under program_id == 0.
+//
+// What bounds them on the H100: 2.4-16 KB each, 1-5 ns at 3.35 TB/s; the
+// launch and the copy's round trip (a few microseconds) are the cost. The
+// primitives probed are the ones the DP kernels' prefetch would use:
+//   * cp.async.bulk global -> shared at an offset passed at run time, the
+//     mbarrier armed with expect_tx by the issuing thread and waited on by
+//     all (try_wait.parity), then fence.proxy.async so that the bulk store
+//     shared -> global (bulk_group, commit_group, wait_group 0) sees the
+//     threads' writes;
+//   * a TMA tensor load (cp.async.bulk.tensor.3d) through a CUtensorMap of
+//     A seen as [76, 16, 16] int16 with box {8, 8, 19} (innermost first):
+//     the strided corner lands dense in shared memory. The map is encoded
+//     here on the host with cuTensorMapEncodeTiled, found through
+//     cudaGetDriverEntryPoint (no -lcuda), and passed as a __grid_constant__
+//     kernel parameter;
+//   * a bulk copy issued under a condition on blockIdx, then plain stores.
+// TMA wants 16-byte aligned global addresses and strides and a 128-byte
+// aligned shared destination; the wrapper passes the tensor's base (which
+// it checks for 16-byte alignment) and the offset, never a sliced pointer.
+#include <cuda.h>
+
+#include "caps.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One thread sets the barrier up for one arrival (its expect_tx), then the
+// block syncs.
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Every thread waits for phase 0 of the barrier to complete.
+__device__ __forceinline__ void wait_phase0(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem(bar)), "r"(0u)
+        : "memory");
+  }
+}
+
+// Global -> shared, `bytes` (a multiple of 16) completed on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem(dst)),
+      "l"(src), "r"(bytes), "r"(smem(bar))
+      : "memory");
+}
+
+// After every thread's fence and a block sync, thread 0 stores `bytes` of
+// shared memory to global and waits for the store to finish.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(dst), "r"(smem(src)), "r"(bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+// out [16, 128] = A[row:row + 16] + 1 of A [64, 128] int32.
+__global__ void __launch_bounds__(512)
+caps_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
+                int row) {
+  constexpr uint32_t BYTES = 16 * 128 * 4;
+  __shared__ __align__(128) int32_t s[16 * 128];
+  __shared__ __align__(8) uint64_t bar;
+  barrier_init(&bar);
+  if (threadIdx.x == 0) {
+    expect_bytes(&bar, BYTES);
+    bulk_load(s, A + (size_t)row * 128, BYTES, &bar);
+  }
+  wait_phase0(&bar);
+  for (int i = threadIdx.x; i < 16 * 128; i += blockDim.x) s[i] += 1;
+  bulk_store(out, s, BYTES);
+}
+
+// out [19, 8, 8] = A[slab, :, :8, :8] + 1 of A [4, 19, 16, 16] int16,
+// loaded by one TMA tensor copy.
+__global__ void __launch_bounds__(256)
+caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
+                 int16_t* __restrict__ out, int slab) {
+  constexpr uint32_t BYTES = 19 * 8 * 8 * 2;
+  __shared__ __align__(128) int16_t s[19 * 8 * 8];
+  __shared__ __align__(8) uint64_t bar;
+  barrier_init(&bar);
+  if (threadIdx.x == 0) {
+    expect_bytes(&bar, BYTES);
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem(s)),
+        "l"(reinterpret_cast<uint64_t>(&tmap)), "r"(0), "r"(0),
+        "r"(slab * 19), "r"(smem(&bar))
+        : "memory");
+  }
+  wait_phase0(&bar);
+  for (int i = threadIdx.x; i < 19 * 8 * 8; i += blockDim.x)
+    s[i] = (int16_t)(s[i] + 1);
+  bulk_store(out, s, BYTES);
+}
+
+// out [8, 128] = A[slab] of A [4, 8, 128] int32, the copy issued only in
+// block 0 (the grid has one block, as the script's has one step).
+__global__ void __launch_bounds__(256)
+caps_dma_in_when(const int32_t* __restrict__ A, int4* __restrict__ out,
+                 int slab) {
+  constexpr uint32_t BYTES = 8 * 128 * 4;
+  __shared__ __align__(128) int4 s[8 * 128 / 4];
+  __shared__ __align__(8) uint64_t bar;
+  if (blockIdx.x == 0) {
+    barrier_init(&bar);
+    if (threadIdx.x == 0) {
+      expect_bytes(&bar, BYTES);
+      bulk_load(s, A + (size_t)slab * 8 * 128, BYTES, &bar);
+    }
+    wait_phase0(&bar);
+  }
+  out[threadIdx.x] = s[threadIdx.x];
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time, or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of A [4, 19, 16, 16] int16 seen as [76, 16, 16], box [19, 8, 8].
+int strided_corner_map(const void* A, CUtensorMap* tmap) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {16, 16, 4 * 19};
+  const cuuint64_t strides[2] = {16 * 2, 16 * 16 * 2};  // bytes, dims 1, 2
+  const cuuint32_t box[3] = {8, 8, 19};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      tmap, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3, const_cast<void*>(A), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+int caps::bulk(int check, const void* in0, const void* in1, void* out,
+               int arg, cudaStream_t s) {
+  (void)in1;
+  switch (check) {
+    case MANUAL_DMA_DYNOFF:  // arg: the first row, 0..48
+      if (arg < 0 || arg > 64 - 16) return (int)cudaErrorInvalidValue;
+      caps_manual_dma<<<1, 512, 0, s>>>(static_cast<const int32_t*>(in0),
+                                        static_cast<int32_t*>(out), arg);
+      break;
+    case DMA_STRIDED_3D: {  // arg: the slab, 0..3
+      if (arg < 0 || arg > 3) return (int)cudaErrorInvalidValue;
+      CUtensorMap tmap;
+      const int rc = strided_corner_map(in0, &tmap);
+      if (rc != 0) return rc;
+      caps_dma_strided<<<1, 256, 0, s>>>(tmap, static_cast<int16_t*>(out),
+                                         arg);
+      break;
+    }
+    case DMA_IN_WHEN:  // arg: the slab, 0..3
+      if (arg < 0 || arg > 3) return (int)cudaErrorInvalidValue;
+      caps_dma_in_when<<<1, 256, 0, s>>>(static_cast<const int32_t*>(in0),
+                                         static_cast<int4*>(out), arg);
+      break;
+    default:
+      return NOT_MINE;
+  }
+  return (int)cudaGetLastError();
+}

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "dg_chain_pair": (_P, _I, _P, _P, _P),
     # tblc [T, 16, 8], tbl2c [T, 16, 4], S [T, 16, 16], T, bp, v, stream
     "dg_chain_edge": (_P, _P, _P, _I, _P, _P, _P),
+    # check id (csrc/caps.cuh), in0, in1 (or null), out, offset, stream
+    "dg_caps": (_I, _P, _P, _P, _I, _P),
 }
 
 

@@ -7,13 +7,16 @@ import sys
 
 from ..device import NoCudaDevice
 
-# probe name -> (module, exit code when the card is asked for and absent)
+# probe name -> (module[:function, default main], exit code when the card
+# is asked for and absent)
 PROBES = {
     "floor": ("floor", 1),
     "pair": ("pair", 1),
     "edge": ("edge", 1),
     "dp-stages": ("dp_stages", 1),
     "parity-gate": ("parity_gate", 2),
+    "caps": ("caps", 1),
+    "caps2": ("caps:main2", 1),
 }
 
 
@@ -24,10 +27,11 @@ def main(argv=None) -> int:
               f"{{{','.join(PROBES)}}} [--device cuda|cpu] ...",
               file=sys.stderr)
         return 2
-    module, no_card = PROBES[argv[0]]
+    target, no_card = PROBES[argv[0]]
+    module, _, entry = target.partition(":")
     probe = importlib.import_module(f"{__package__}.{module}")
     try:
-        return probe.main(argv[1:])
+        return getattr(probe, entry or "main")(argv[1:])
     except NoCudaDevice as e:
         print(f"[E::probes] {e}", file=sys.stderr)
         return no_card

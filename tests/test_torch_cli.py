@@ -50,9 +50,11 @@ def test_port_imports_no_jax(tmp_path):
         "        'dipgenie_tpu_torch.ops.chain_floor',\n"
         "        'dipgenie_tpu_torch.ops.chain_pair',\n"
         "        'dipgenie_tpu_torch.ops.chain_edge',\n"
+        "        'dipgenie_tpu_torch.ops.caps',\n"
         "        *('dipgenie_tpu_torch.probes.' + m for m in (\n"
         "            'tables', 'slope', 'floor', 'pair', 'edge',\n"
-        "            'dp_stages', 'parity_gate'))} <= set(names), names\n"
+        "            'dp_stages', 'parity_gate', 'caps',\n"
+        "            'caps_tables'))} <= set(names), names\n"
         "importlib.import_module('dipgenie_tpu_torch.probes.__main__')\n"
         "rc = dipgenie_tpu_torch.cli.main(['--version'])\n"
         "assert rc == 0\n"
@@ -79,7 +81,10 @@ def test_port_sources_do_not_import_jax_package():
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"dipgenie_tpu_torch/probes/__main__.py",
             "dipgenie_tpu_torch/probes/parity_gate.py",
-            "dipgenie_tpu_torch/ops/chain_edge.py"} <= names
+            "dipgenie_tpu_torch/probes/caps.py",
+            "dipgenie_tpu_torch/probes/caps_tables.py",
+            "dipgenie_tpu_torch/ops/chain_edge.py",
+            "dipgenie_tpu_torch/ops/caps.py"} <= names
     assert pattern.search("import jax\n") and pattern.search(
         "    from scripts.tpu_pair_probe import build\n")
     assert not pattern.search("from dipgenie_tpu_torch.ops import plan\n")

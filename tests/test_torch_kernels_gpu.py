@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``; without an NVIDIA GPU every test skips. On the card run
-``python -m pytest tests/test_torch_kernels_gpu.py -q``. Outputs are
-integers: exact equality of every output tensor (the kernels and the plain
-versions also agree at unreachable states and stale lanes).
+``python -m pytest tests/test_torch_kernels_gpu.py -q``. Every output is
+compared exactly, element by element (the kernels and the plain versions
+also agree at unreachable states and stale lanes); the capability checks'
+float products take small integers, so they are exact too.
 """
 
 import os
@@ -13,14 +14,15 @@ import pytest
 import torch
 
 from dipgenie_tpu_torch.ops import (
-    chain_edge, chain_floor, chain_pair, narrow, trace, wide, wide_split,
-    wide_step,
+    caps, chain_edge, chain_floor, chain_pair, narrow, trace, wide,
+    wide_split, wide_step,
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
     initial_v, plan_pairs, plan_to_device, shard_to_device,
 )
-from dipgenie_tpu_torch.probes import tables
+from dipgenie_tpu_torch.probes import caps as probe_caps
+from dipgenie_tpu_torch.probes import caps_tables, tables
 from dipgenie_tpu_torch.solver.diploid import native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
     CASES, mhc_shaped_csr, random_leveled_csr,
@@ -274,3 +276,51 @@ def test_chain_wrappers_reject_bad_inputs(cuda):
     tabs[1][0, 0, 0] += 1
     with pytest.raises(ValueError, match="transposes"):
         chain_edge.chain_edge(*tabs)
+
+
+def _caps_inputs(name, seed, device):
+    ins, expect = caps_tables.make(name, seed)
+    return probe_caps.to_device(ins, device), torch.from_numpy(expect)
+
+
+@pytest.mark.parametrize("seed", [None, *caps_tables.SECOND_SEEDS])
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_caps_kernel_matches_plain_version_and_expectation(name, seed,
+                                                           cuda):
+    """Each capability check's kernel (K8 / K9) == its plain version == the
+    numpy expectation, every element, exactly (floats as floats), on the
+    script's inputs and on the second inputs; one launch per call."""
+    kern, plain = caps.CHECKS[name]
+    args, want = _caps_inputs(name, seed, cuda)
+    before = kern.launches
+    got = kern(*args)
+    assert kern.launches == before + 1
+    ref = plain(*args)
+    assert got.dtype == ref.dtype == want.dtype
+    assert torch.equal(got, ref) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_caps_wrappers_reject_bad_inputs(name, cuda):
+    """A wrong dtype, a wrong shape, a non-contiguous tensor, and (for the
+    checks with two inputs) one input left on the CPU: each raises."""
+    kern = caps.CHECKS[name][0]
+    args, _ = _caps_inputs(name, None, cuda)
+    i = next(k for k, a in enumerate(args) if a.numel() > 1)
+
+    def with_arg(t):
+        return [t if k == i else a for k, a in enumerate(args)]
+
+    a, before = args[i], kern.launches
+    other = torch.float32 if a.dtype != torch.float32 else torch.int32
+    with pytest.raises(ValueError, match="dtype"):
+        kern(*with_arg(a.to(other)))
+    with pytest.raises(ValueError, match="shape"):
+        kern(*with_arg(a.flatten()[:-1]))
+    strided = torch.empty((*a.shape, 2), dtype=a.dtype, device=cuda)[..., 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(*with_arg(strided))
+    if len(args) == 2:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kern(args[0], args[1].cpu())
+    assert kern.launches == before

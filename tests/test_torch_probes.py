@@ -312,7 +312,7 @@ def test_parity_gate_lists_the_scripts_cases():
 
 @pytest.mark.parametrize("probe,code", [
     ("floor", 1), ("pair", 1), ("edge", 1), ("dp-stages", 1),
-    ("parity-gate", 2),
+    ("parity-gate", 2), ("caps", 1), ("caps2", 1),
 ])
 def test_probe_stops_without_a_card(probe, code, capsys, tmp_path,
                                     monkeypatch):
