@@ -14,7 +14,10 @@ result line):
      (tests/data) and of the random instances of the JAX package's tests,
      once on the main path's routing and once with K3 forced over every
      wide run; then the DP results against the slices' baked exact-tier
-     oracles and the random instances' native-tier results;
+     oracles and the random instances' native-tier results; the same, K4's
+     shards included, on three graphs past the TPU planner's limits
+     (LIMIT_B: R = 40, a wide run of 36 windows, values past 4,100,000)
+     against the native tier;
   G. the level-chain probes (K5a chain_floor, K5b chain_step16, K6
      chain_pair, K7 chain_edge: one block walks a chain of DP levels in one
      launch): G1 each kernel against its plain version on short chains
@@ -47,11 +50,13 @@ result line):
      single-device path's on the same levels; forward, merge and traceback
      seconds per rank). The merges of ranks that share a card
      are gloo's, staged through host memory: not a multi-card number;
-  D. the port's CLI with its default flags on two synthetic pangenomes
-     (8 walks over 500 kbp; 18 walks over 200 kbp, whose plan holds runs of
-     more than 18 windows), byte-identical FASTA and stdout (apart from
-     the timing line) against the JAX package's CLI on its native tier,
-     run as a subprocess;
+  D. the port's CLI with its default flags on three synthetic pangenomes
+     (8 walks over 500 kbp; 18 and 24 walks over 200 kbp, whose plans hold
+     runs of more than 18 windows, and for 24 walks of more than 31),
+     byte-identical FASTA and stdout (apart from the timing line) against
+     the JAX package's CLI on its native tier, run as a subprocess; the
+     widest run, K3's launches and the peak device memory from the port's
+     log;
   F3. the port's pipeline with a mesh of F_RANKS gloo ranks on the card on
      phase D's 18-walk pangenome: each rank's FASTA byte-identical to
      phase D's native-tier FASTA, every wide run through K4;
@@ -92,10 +97,12 @@ L_F2 = L_MHC // 4  # depth of phase F2, a prefix of phase E's plan
 PREFIX_TRANSITIONS = 5000
 BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
 # (n_bp, n_walks) of phase D's pangenomes. The widest expanded-graph
-# level grows with the walks: 16 give no run of more than 18 windows, 24
-# a level of more than 31 windows, which the planner refuses; 18 give
-# runs of 31 windows
-PANGENOMES = ((500_000, 8), (200_000, 18))
+# level grows with the walks: 16 give no run of more than 18 windows, 18
+# three runs of 31 windows, 24 runs of 19-31 windows and two of more than
+# 31 (levels up to width 214), past the TPU planner's limits
+PANGENOMES = ((500_000, 8), (200_000, 18), (200_000, 24))
+# phase B's graphs past the TPU planner's limits (utils/synth.py)
+LIMIT_B = ("R40", "width190", "values")
 PORT_CLI = ["-m", "dipgenie_tpu_torch"]  # the port's CLI, default flags
 
 NPZ = ("mhc_slice_csr", "mhc_slice500_csr", "mhc_slice_wide_csr")
@@ -176,6 +183,9 @@ CAPS_SOURCES = {
 }
 CAPS_PRODUCTS = ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32")
 TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
+# the checks redesigned after PR 5, and their device us per launch there
+# (PERF.md section 6: PR 5 run 2, H100 80GB HBM3, 700 W)
+REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004}
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
 
@@ -316,8 +326,12 @@ class Smoke:
         import numpy as np
 
         from dipgenie_tpu_torch.ops.plan import plan_pairs
-        from dipgenie_tpu_torch.solver.diploid import native_forward_csr
-        from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
+        from dipgenie_tpu_torch.solver.diploid import (
+            csr_arrays, native_forward_csr,
+        )
+        from dipgenie_tpu_torch.utils.synth import (
+            CASES, limit_case, random_leveled_csr,
+        )
 
         t0 = time.time()
         n_seg = 0
@@ -339,6 +353,19 @@ class Smoke:
                                      f"case {seed}")
             self.tp_shards_checked(plan)
         log(f"B random cases: {len(CASES)} instances == native tier")
+        for name in LIMIT_B:
+            g, chb, r = limit_case(name)
+            arrs = csr_arrays(g, chb)
+            plan = plan_pairs(*arrs, r)
+            n_seg += len(plan.segments)
+            want = native_forward_csr(arrs, r)
+            self.checked_both_routes(plan, want, f"limit case {name}")
+            self.tp_shards_checked(plan)
+            nbs = [s.NB for s in plan.segments if hasattr(s, "NB")]
+            log(f"B limit case {name}: R={r}, {plan.L} levels, widest run "
+                f"{max(nbs, default=0)} windows, value bound "
+                f"{plan.max_abs_value}, value {want[0]} s_het {want[1]} == "
+                "native tier")
         log(f"B kernels == plain on {n_seg} segments, each on both routes "
             f"(calls compared: {self.compared}) in {time.time() - t0:.1f}s")
 
@@ -707,6 +734,37 @@ class Smoke:
                 f"per launch (device {us(dev_k)}), plain "
                 f"{[t * 1e3 for t in times['plain']]} us, {lib_msg}; bound "
                 f"{nbound[0] * 1e6:.4f} ns ({nbound[1]}: {nbytes} B)")
+            if name in REDESIGNED:
+                log(f"H2 {name} (redesigned): device {us(dev_k)} per launch "
+                    f"against {REDESIGNED[name]:.3f} us before, and the "
+                    f"library call's {us(dev_l)}")
+            if name == "batched_dot_bcast_lhs":
+                self.time_one_block_variant(name, args, expect)
+
+    def time_one_block_variant(self, name, args, expect):
+        """The other design of batched_dot_bcast_lhs (one block of 19
+        warps, the one-hot in shared memory; dg_caps arg 1), checked and
+        timed as the kernel is."""
+        from dipgenie_tpu_torch import kernels
+        from dipgenie_tpu_torch.ops.caps import NAMES
+
+        torch = self.torch
+        lib, cid = kernels.lib(), NAMES.index(name)
+        out = torch.empty(expect.shape, dtype=torch.float32, device=DEVICE)
+
+        def variant():
+            kernels.raise_on_error(lib.dg_caps(
+                cid, args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(),
+                1, kernels.stream_of(out)), name)
+
+        variant()
+        check(bool(torch.equal(out, torch.from_numpy(expect).to(DEVICE))),
+              f"H2 {name}: the one-block variant differs")
+        ms = [self.per_launch_ms(variant) for _ in range(2)]
+        dev = self.caps_device_us(f"{name}_one_block", [variant])[0]
+        dev = "not in the profile" if dev is None else f"{dev:.3f} us"
+        log(f"H2 {name} one-block variant: {[t * 1e3 for t in ms]} us per "
+            f"launch (device {dev})")
 
     def per_launch_ms(self, fn):
         """CUDA-event ms per call over H_CALLS calls of ``fn``, after one
@@ -1318,15 +1376,25 @@ class Smoke:
             counts = {k: int(v) for k, v in (
                 kv.split("=") for kv in
                 launch_line[0].split("launches ", 1)[1].split())}
-            m = re.search(r"(\d+) narrow and (\d+) wide runs \((\d+) over",
+            m = re.search(r"(\d+) narrow and (\d+) wide runs \((\d+) over "
+                          r"\d+ windows, (\d+) over \d+; widest (\d+)",
                           plan_line[0])
-            n_narrow, n_wide, n_split = (int(x) for x in m.groups())
+            n_narrow, n_wide, n_split, n_big, widest = (
+                int(x) for x in m.groups())
             want = {"narrow_run": n_narrow, "wide_dense_run": n_wide - n_split,
                     "wide_split_run": n_split, "wide_step": 0, "trace": 1}
             check(counts == want, f"{tag} launches {counts}, want {want}")
             if n_walks > 8:
                 check(n_split > 0, f"{tag} no run of more than 18 windows")
-                self.d18 = (gfa, reads, nf, n_narrow)
+                if self.d18 is None:
+                    self.d18 = (gfa, reads, nf, n_narrow)
+            if n_walks >= 24:
+                check(n_big > 0, f"{tag} no run of more than 31 windows")
+            peak = re.search(r"peak device memory (\d+) B", launch_line[0])
+            log(f"{tag} widest run {widest} windows; K3 ran {n_split} runs "
+                f"of more than 18 windows in {counts['wide_split_run']} "
+                f"launches, {n_big} of them of more than 31 windows; peak "
+                f"device memory {peak.group(1)} B")
             log(f"{tag} FASTA byte-identical ({len(pf)} B) and stdout "
                 "identical apart from the timing line")
 

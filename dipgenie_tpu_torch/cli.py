@@ -10,6 +10,10 @@
   exit code 1 before any host work;
 * ``--sketch-backend host`` only: device sketching is not ported yet.
 
+A graph past the pair planner's limits (``ops/pair_plan.py:PlanLimit``)
+ends the run with one ``[E::main]`` line naming ``--dp-backend native``
+and exit code 1.
+
 Parsed-but-unused flags, for parity (each is equally dead in the
 reference binary): -H, -c, -N, -l.
 """
@@ -21,6 +25,7 @@ import sys
 
 from . import PHI_VERSION
 from .device import NoCudaDevice
+from .ops.pair_plan import PlanLimit
 from .solver.pipeline import Pipeline, PipelineConfig
 from .utils import timing
 
@@ -147,7 +152,7 @@ def main(argv: list[str] | None = None) -> int:
                 checkpoint_dir=args.checkpoint_dir or None,
             )
             Pipeline(args.g, args.r, args.o, cfg).run()
-    except NoCudaDevice as e:
+    except (NoCudaDevice, PlanLimit) as e:
         print(f"[E::main] {e}", file=sys.stderr)
         return 1
 

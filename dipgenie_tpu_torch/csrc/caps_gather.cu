@@ -15,8 +15,12 @@
 //     __shfl_sync with width 16: a warp holds 32 lanes of a row;
 //   * a gather anywhere in a 256-lane row, and a gather along the columns
 //     (the TPU's sublanes), stage the rows in shared memory and index it;
-//   * pltpu.roll along lanes or sublanes is index arithmetic over a slab
-//     staged in shared memory; inside a 16-wide segment it is a shuffle;
+//   * pltpu.roll along lanes is index arithmetic over a slab staged in
+//     shared memory; inside a 16-wide segment it is a shuffle; along
+//     sublanes (whole rows) it is a copy with no staging: each thread
+//     moves one 16-byte int4 from its source row (redesigned after the
+//     one-block staged version took 4.1 us of device time against
+//     torch.roll's 1.4);
 //   * the row index of dyn_slice_row_bcast and the per-block selection of
 //     scalar_prefetch_grid are read from device memory by the kernel
 //     itself: no host read, no synchronisation ("a block loads its own
@@ -82,6 +86,20 @@ __global__ void caps_roll_smem(const int32_t* __restrict__ A,
   }
 }
 
+// np.roll of whole rows: A is [n, 4 * vec] int32, n rows of vec int4;
+// out row j = A row (j - shift) mod n (0 <= shift < n). One 16-byte int4
+// per thread, no shared memory and no barrier: a warp moves 512 contiguous
+// bytes of one row (four 128-byte lines), and the grid spreads over SMs.
+__global__ void __launch_bounds__(128)
+caps_roll_rows(const int4* __restrict__ A, int4* __restrict__ out, int n,
+               int vec, int shift) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n * vec) return;
+  const int j = i / vec, c = i - j * vec;
+  const int src = j >= shift ? j - shift : j - shift + n;
+  out[i] = A[src * vec + c];
+}
+
 // np.roll of a [16, 16] slab per block (A is [gridDim.x, 16, 16]) by
 // `shift` along axis 2 (`minor`) or axis 1: a 16-lane shuffle segment runs
 // along the rolled axis, and lane l takes the value of lane l - shift.
@@ -143,8 +161,9 @@ int caps::gather(int check, const void* in0, const void* in1, void* out,
     case ROLL_LANE:  // [16, 256], by 16 along axis 1
       caps_roll_smem<<<16, 256, 256 * 4, s>>>(a, o, 256, 1, 16);
       break;
-    case ROLL_SUBLANE:  // [24, 256], by 1 along axis 0
-      caps_roll_smem<<<1, 1024, 24 * 256 * 4, s>>>(a, o, 24, 256, 1);
+    case ROLL_SUBLANE:  // [24, 256], by 1 along axis 0: 24 x 64 int4
+      caps_roll_rows<<<24 * 64 / 128, 128, 0, s>>>(
+          static_cast<const int4*>(in0), static_cast<int4*>(out), 24, 64, 1);
       break;
     case ROLL3D_AX1:  // [19, 16, 16], by 4
       caps_roll_shfl<<<19, 256, 0, s>>>(a, o, false, 4);

@@ -19,9 +19,11 @@
 // place in global memory (L1/L2 resident): the candidate phase only reads
 // V and max-reduces into keys [R+1, 1024]; after a barrier the commit
 // phase swaps each key of the destination extent back to 0 and writes V
-// and the int16 backpointer. Keys and V in shared memory would not fit
-// both at R = 31 (384 KB); that, and several blocks per transition, are
-// later work.
+// and the int16 backpointer. R is a run-time argument with no upper
+// limit (the TPU kernel padded to 24 or 32 rows); keys (8 KB a row) and V
+// (4 KB a row) would fit a block's 227 KB of shared memory only up to
+// R = 17, so they stay in global memory. Shared-memory state for small R,
+// and several blocks per transition, are later work.
 #include "dg_common.cuh"
 
 namespace {

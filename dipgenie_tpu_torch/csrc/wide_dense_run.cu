@@ -13,8 +13,8 @@
 //
 // What bounds it on the H100: a wide transition has up to ~30k pairs x
 // (R+1) rows, i.e. tens to a few hundred blocks of work: latency of
-// L2-resident gathers and atomics (the state is at most 19 x 31 x 4 KB =
-// 2.4 MB and the keys twice that, both well inside the 50 MB L2), plus
+// L2-resident gathers and atomics (at R = 18 the state is at most
+// 19 x 31 x 4 KB = 2.4 MB and the keys twice that, inside the 50 MB L2), plus
 // two launches per transition. Design: a host loop over the run's
 // transitions launches (1) one block per chunk, one thread per pair lane,
 // looping over rows, and (2) a commit grid over the whole state that

@@ -3,7 +3,9 @@
 //
 // Replaces dipgenie_tpu/ops/diploid_pallas.py `_wide_split_kernel`
 // (launched by `_wide_split_call`), which the JAX package runs for wide
-// runs of more than 18 windows (NB 19-31, level widths ~136-177). On the
+// runs of more than 18 windows (NB 19-31, level widths ~136-177). The port
+// sends it every run past 18 windows, up to the planner's 256 (level width
+// 512: the window-split packing holds gidx < 2^18), at any R. On the
 // TPU a chunk gathered with block-masked one-hot matmuls over the source
 // windows in its gather mask, extracted the per-destination winner with a
 // segmented scan, and read-modify-wrote its one destination window with a
@@ -20,10 +22,10 @@
 // (hole windows get ordinal 0; the JAX kernel leaves them unwritten).
 //
 // What bounds it on the H100: at NB = 31 a transition has ~40k pairs x
-// (R+1) rows of candidates, gathered from and reduced into a state of at
-// most 19 x 31 x 4 KB = 2.4 MB (keys twice that), all L2-resident; the
-// bytes that must reach device memory are the backpointers, ~2 MB per
-// transition. So a transition costs the latency of L2 gathers and atomics
+// (R+1) rows of candidates, gathered from and reduced into a state of
+// 19 x 31 x 4 KB = 2.4 MB at R = 18 (keys twice that), all L2-resident;
+// the bytes that must reach device memory are the backpointers, ~2 MB per
+// transition (R + 1 rows x 4 KB per window). So a transition costs the latency of L2 gathers and atomics
 // plus one pass writing its backpointers, and two launches. Design (K2's):
 // a host loop over the run's transitions launches (1) one block per chunk,
 // one thread per pair lane, looping over rows (dg::window_candidates,

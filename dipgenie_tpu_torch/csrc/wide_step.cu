@@ -5,7 +5,8 @@
 // (launched by `_wide_step_call`), which the JAX package runs for every
 // wide run under a mesh with a "tp" axis. There each device owns the
 // destination windows `win % n_tp`; its kernel set the [R1P, NB * 1024]
-// partials to NEG / -1, then for each of its chunks gathered with
+// partials (R1P: R + 1 padded to the TPU's 24 or 32 rows, NB <= 31) to
+// NEG / -1, then for each of its chunks gathered with
 // block-masked one-hot matmuls, extracted the per-destination winner with a
 // segmented scan and read-modify-wrote the chunk's window with a strict
 // `>`. No commit: a `pmax` over tp and a presence mask follow outside the
@@ -17,10 +18,14 @@
 // elsewhere (an invalid candidate never shows: NEG, not the TPU kernel's
 // internal -OFF), and swaps the keys back to 0 for the next transition.
 //
+// Here the partial is [R + 1, NB * 1024] for any R and any NB the planner
+// makes (up to 256 windows; the window-split packing holds gidx < 2^18).
+//
 // What bounds it on the H100: a rank reads its share of the transition's
 // table (at NB 31 ~40k pairs / n_tp x 8 B), gathers from the replicated
-// state (<= 19 x 31 x 4 KB = 2.4 MB, L2-resident, the keys twice that) and
-// writes the partial V and bp planes (4.8 MB): ~2 us of device memory
+// state (at R = 18, NB = 31: 19 x 31 x 4 KB = 2.4 MB, L2-resident, the
+// keys twice that) and writes the partial V and bp planes (4.8 MB): ~2 us
+// of device memory
 // traffic. It is bound by L2 gather and atomic latency and two launches,
 // and on the path by the merge that follows each transition (an
 // all_reduce of the 4.8 MB partial). Design: one host call per transition,

@@ -4,8 +4,12 @@ and wide runs of 256-pair chunks, with the tables every kernel reads.
 A copy of the planner of ``dipgenie_tpu/ops/diploid_pallas.py`` (its
 constants, ``_NarrowRun``, ``_WideRun``, ``PairPlan``, ``plan_pairs``,
 ``_plan_narrow_run`` and ``_plan_wide_run``), held field for field to that
-module's by ``tests/test_torch_host_parity.py``. The on-disk plan cache
-and the TPU kernels' digit helpers are left out. Producer of the per-
+module's by ``tests/test_torch_host_parity.py`` on every graph that
+module plans. Where that module raises (R >= 32, a wide run of more than
+31 windows, a value bound past 4,100,000: limits of the TPU kernels) this
+one plans on, up to its own limits (``VALUE_MAX``, ``SPLIT_NB_MAX``). The
+on-disk plan cache and the TPU kernels' digit helpers are left out.
+Producer of the per-
 transition pair tables: the native ``dg_pair_tables`` (``native.py``),
 with the numpy closure in ``plan_pairs`` as reference and fallback.
 """
@@ -20,9 +24,9 @@ import numpy as np
 NEG = -(2**19)  # unreachable sentinel, re-pinned every level
 
 # packed chunk-table layout: tbl is [nchunks, 2, CHUNK]
-#   row 0: gidx << 13 | (dst + 1) << 2 | wsum   (gidx < 2^15 = NB_max*1024
-#          + narrow layouts; dst+1 in [0, 1024] — 0 marks a padded lane;
-#          wsum in {0, 1, 2})
+#   row 0: gidx << 13 | (dst + 1) << 2 | wsum   (gidx < 2^18 = SPLIT_NB_MAX
+#          * 1024; dst+1 in [0, 1024] — 0 marks a padded lane; wsum in
+#          {0, 1, 2})
 #   row 1: score (PAD_SC on padded lanes)
 _TBL_ROWS = 2
 
@@ -30,6 +34,30 @@ REACH_T = -(2**18)  # values above this are reachable
 PAD_SC = -(2**22)  # score of padded pair lanes (loses every max)
 CHUNK = 2**8  # pair lanes per chunk
 NARROW_W = 32  # widest level of a narrow run
+
+# The port's own limits. The TPU planner's (R <= 31, at most 31 windows,
+# a value bound of 4,100,000) came from its padded rows, its int32 window
+# bitmasks and its packed int32 scan key, none of which the port has;
+# plans within them are the TPU planner's, field for field.
+#
+# VALUE_MAX: the largest DP value the kernels' reduction key holds. The
+# key's high word is value - REACH_T + 1 (ops/plan.py:make_keys,
+# csrc/dg_common.cuh:make_key), computed in int32 on the card and read
+# back as a signed int32, so value - REACH_T + 1 <= 2^31 - 1. Scores are
+# popcounts (>= 0), so no value exceeds the plan's bound less |NEG|.
+VALUE_MAX = 2**31 - 2 + REACH_T  # 2,147,221,502
+# SPLIT_NB_MAX: the most 1024-lane windows a wide run may have, so that
+# its window-split gidx fits the 18 bits above `<< 13` (level width 512).
+SPLIT_NB_MAX = 256
+# DENSE_NB_LIMIT: the most windows a dense table (gidx(15) << 17 | win(5)
+# << 12) and the int32 window bitmasks encode. A run past it has neither:
+# its dense arrays are empty and its bitmasks 0; K3 / K4 run it.
+DENSE_NB_LIMIT = 31
+
+
+class PlanLimit(ValueError):
+    """A graph past one of the port's own limits (``VALUE_MAX``,
+    ``SPLIT_NB_MAX``); the native tier (``--dp-backend native``) runs it."""
 
 
 # --------------------------------------------------------------------
@@ -121,7 +149,8 @@ class _WideRun:
     symd: np.ndarray  # [nchunks_pad, CHUNK] int16
     wbits: np.ndarray  # [nchunks_pad] int32: 1 window-first, 2 commit
     wwin: np.ndarray  # [nchunks_pad] int32 dst window index
-    wpmask: np.ndarray  # [nchunks_pad] int32 dst-window PRESENCE bits:
+    wpmask: np.ndarray  # [nchunks_pad] int32 dst-window PRESENCE bits
+    # (0 past DENSE_NB_LIMIT windows, where no port kernel reads them):
     # bit b set iff the chunk's transition has >= 1 kept pair landing in
     # window b. At commit every V window is rewritten: present windows
     # take the (reach-masked) Vnext value, absent windows — both holes
@@ -131,7 +160,8 @@ class _WideRun:
     # states by later transitions) and promoted raw uninitialized Vnext
     # scratch for hole windows.
     wbase: np.ndarray  # [nchunks_pad] int32 slot base within transition
-    wgmask: np.ndarray  # [nchunks_pad] int32 src-window presence bits
+    wgmask: np.ndarray  # [nchunks_pad] int32 src-window presence bits (0
+    # past DENSE_NB_LIMIT windows)
     wrow: np.ndarray  # [nchunks_pad] int32 bp output row
     nrows: int  # real bp rows (sum of ext over transitions)
     # traceback per-transition metadata (same contract as _NarrowRun)
@@ -150,7 +180,9 @@ class _WideRun:
     # ownership) and of its traceback. Dense rowA packing:
     #   gidx(15) << 17 | win(5) << 12 | rel(10) << 2 | wsum(2)
     # (padded lanes are all-zero rowA and are identified by
-    # score == PAD_SC, NOT by a dst sentinel).
+    # score == PAD_SC, NOT by a dst sentinel). A run of more than
+    # DENSE_NB_LIMIT windows has no dense tables: every d* array is empty
+    # and tb2_chunkbase is 0.
     dtbl: np.ndarray  # [ndch_pad, 2, CHUNK] int32
     dw1: np.ndarray  # [ndch_pad, CHUNK] int8 (traceback)
     dsymd: np.ndarray  # [ndch_pad, CHUNK] int16 (traceback)
@@ -196,9 +228,9 @@ def _pad_up(x: int, m: int) -> int:
 # fits beat fewer compile shapes (the persistent cache amortizes them)
 _RUN_LADDER = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
                32768, 65536)
-# wide-run V window-count ladder (VMEM state = 2 * NB * 128 KB);
-# 31 is the hard cap (int32 gather-mask bits) => max level width ~177
-_NB_LADDER = (2, 5, 18, 31)
+# wide-run V window-count ladder (the TPU's VMEM state = 2 * NB * 128 KB
+# and compile shapes); past its last rung NB is the windows the run needs
+_NB_LADDER = (2, 5, 18, DENSE_NB_LIMIT)
 # backpointer output rows (per narrow run) are padded to this ladder so
 # the number of distinct Mosaic compile shapes stays small: on MHC,
 # (T, n256, n1024) is otherwise unique per run -> 300+ compiles
@@ -269,8 +301,6 @@ def plan_pairs(
     L = len(level_ptr) - 1
     L1 = L - 1
     widths = np.diff(level_ptr)
-    if R + 1 > 32:
-        raise ValueError("the pair planner requires R <= 31")
 
     # ---- per-transition raw pair tables ----
     # Producer selection: the native OpenMP planner (dg_pair_tables,
@@ -375,9 +405,8 @@ def plan_pairs(
             and _pad_up(kept_pairs(l), CHUNK) <= _NARROW_MAX_PAIRS
         )
 
-    # packed-key overflow guard: the narrow kernel packs value*256+slot
-    # into int32, so the running value upper bound (sum of per-level max
-    # scores) must stay below 2^21
+    # value guard: |NEG| plus the sum of the per-level max scores, an
+    # upper bound of every DP value plus |NEG| (see VALUE_MAX)
     bound = [abs(NEG)]
 
     def pair_tables_g(l):
@@ -402,13 +431,10 @@ def plan_pairs(
                 j += 1
             segments.append(_plan_wide_run(l, j, widths, pair_tables_g, R))
             l = j
-    # 4_100_000 (< 2^22 - 2^15): keeps both the packed int32 scan key
-    # (value*256 | slot < 2^30) AND the top balanced base-256 digit of
-    # the extract channel (voff*256 | slot < ~127.5 * 2^24) in range
-    if bound[0] > 4_100_000:
-        raise ValueError(
-            f"DP value bound {bound[0]} overflows the packed int32 key; "
-            "use --dp-backend native"
+    if bound[0] + NEG > VALUE_MAX:
+        raise PlanLimit(
+            f"DP values may reach {bound[0] + NEG}, past {VALUE_MAX}, the "
+            "largest the 64-bit reduction key holds; use --dp-backend native"
         )
     return PairPlan(R=R, L=L, segments=segments, max_abs_value=bound[0])
 
@@ -544,12 +570,14 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
             (int(dstl.max(initial=0)) >> 10) + 1,
         )
         tabs.append((gidx, ws, score, dstl, w1, symd, Bin, Bout))
-    NB = _ladder_fit(need_nb, _NB_LADDER)
-    if NB > 31:
-        raise ValueError(
-            f"wide run needs {NB} 1024-lane V windows (> 31, the int32 "
-            "gather-mask limit); use --dp-backend native"
+    if need_nb > SPLIT_NB_MAX:
+        raise PlanLimit(
+            f"a wide run needs {need_nb} 1024-lane windows, past "
+            f"{SPLIT_NB_MAX} (a level wider than 512); use --dp-backend "
+            "native"
         )
+    dense = need_nb <= DENSE_NB_LIMIT  # dense tables and window bitmasks
+    NB = _ladder_fit(need_nb, _NB_LADDER) if dense else need_nb
 
     # pass 2: chunk each transition, splitting at 1024-lane dst-window
     # boundaries (dst-sorted pairs => windows ascend monotonically)
@@ -577,7 +605,7 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
         ext = (int(dstl.max(initial=0)) >> 10) + 1
         pmask = int(
             np.bitwise_or.reduce(np.left_shift(1, np.unique(win)), initial=0)
-        ) if len(win) else 0
+        ) if len(win) and dense else 0
         per_tr.append((local, ext, rowbase, pmask))
         rowbase += ext
     nrows = rowbase
@@ -632,12 +660,13 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
             wwin[row] = win
             wpmask[row] = pmask
             wbase[row] = ci * CHUNK
-            wgmask[row] = int(
-                np.bitwise_or.reduce(
-                    np.left_shift(1, np.unique(gidx[c0:c1] >> 10)),
-                    initial=0,
+            if dense:
+                wgmask[row] = int(
+                    np.bitwise_or.reduce(
+                        np.left_shift(1, np.unique(gidx[c0:c1] >> 10)),
+                        initial=0,
+                    )
                 )
-            )
             wrow[row] = rb + win
         crow += len(local)
     # padded grid steps: repeat the final row indices (no map regression)
@@ -648,10 +677,12 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
 
     # ---- pass 3: DENSE chunking for the single-chip megakernel ----
     # pairs pack contiguously into 256-lane chunks that may straddle
-    # dst windows (window-split chunks above are only ~34% full on MHC)
-    ndch_per = [max(1, (len(tab[0]) + CHUNK - 1) // CHUNK) for tab in tabs]
+    # dst windows (window-split chunks above are only ~34% full on MHC);
+    # none past DENSE_NB_LIMIT windows
+    ndch_per = [max(1, (len(tab[0]) + CHUNK - 1) // CHUNK) if dense else 0
+                for tab in tabs]
     ndreal = int(sum(ndch_per))
-    ndpad = _ladder_fit(ndreal, _RUN_LADDER)
+    ndpad = _ladder_fit(ndreal, _RUN_LADDER) if dense else 0
     dtbl = np.zeros((ndpad, _TBL_ROWS, CHUNK), np.int32)
     dtbl[:, 1] = PAD_SC
     dw1 = np.zeros((ndpad, CHUNK), np.int8)
@@ -665,7 +696,8 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
     dwbase = np.zeros(ndpad, np.int32)
     tb2_chunkbase = np.zeros(T, np.int32)
     drow = 0
-    for ti, (gidx, ws, score, dstl, w1, symd, Bin, Bout) in enumerate(tabs):
+    for ti, (gidx, ws, score, dstl, w1, symd, Bin, Bout) in enumerate(
+            tabs if dense else ()):
         _, _, _, pmask = per_tr[ti]
         tb2_chunkbase[ti] = drow
         n = len(gidx)
@@ -760,8 +792,9 @@ def shard_wide_tables(seg: _WideRun, n_tp: int):
     run's tables (int64, plan order) and transition ``ti``'s share
     ``rows[bounds[ti]:bounds[ti + 1]]`` (``bounds`` [T + 1] int32), and
     ``present`` [T, NB] int32 is 1 on the windows the transition's kept
-    pairs reach (``wpmask`` of its first chunk; 0 for a transition with
-    no chunk)."""
+    pairs reach: the windows (``wwin``) of its chunks that hold a real
+    pair, which is what ``wpmask`` holds up to ``DENSE_NB_LIMIT``
+    windows."""
     nreal = int(np.count_nonzero(seg.wbits & 4))
     chunkbase = np.asarray(seg.tb_chunkbase, np.int64)
     owner = seg.wwin[:nreal] % n_tp
@@ -771,10 +804,11 @@ def shard_wide_tables(seg: _WideRun, n_tp: int):
         bounds = np.searchsorted(rows, np.append(chunkbase, nreal))
         shards.append((rows, bounds.astype(np.int32)))
     T = seg.t1 - seg.t0
-    first = np.minimum(chunkbase, max(nreal - 1, 0))
-    has = chunkbase < np.append(chunkbase[1:], nreal)
-    pmask = np.where(has, seg.wpmask[first], 0).astype(np.int64)
-    present = (pmask[:, None] >> np.arange(seg.NB)) & 1
-    return shards, present.astype(np.int32).reshape(T, seg.NB)
+    # a real lane's packed word is never 0 ((dst + 1) << 2 >= 4)
+    real = np.flatnonzero((seg.tbl[:nreal, 0] != 0).any(axis=1))
+    trans = np.searchsorted(chunkbase, real, side="right") - 1
+    present = np.zeros((T, seg.NB), np.int32)
+    present[trans, seg.wwin[real]] = 1
+    return shards, present
 
 

@@ -31,7 +31,9 @@ Layouts the port's kernels (and their plain versions) decode:
 * Dense wide chunk table ``dtbl [nchunks, 2, 256] int32``. Row 0 packs
   ``gidx << 17 | win << 12 | rel << 2 | wsum`` with the destination lane
   ``win * 1024 + rel``; padded lanes are all zero there, which decodes as
-  the real lane 0, so only ``score == PAD_SC`` in row 1 marks them.
+  the real lane 0, so only ``score == PAD_SC`` in row 1 marks them. A run
+  of more than ``DENSE_NB_LIMIT`` (31) windows has no dense table (its
+  ``dtbl`` has 0 chunks), so only K3 or K4 run it.
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
 * Pair ordinals (the backpointers): a pair's index in its transition's
   preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``
@@ -58,7 +60,13 @@ best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
 (0xFFFFFFFF - ordinal)``, merged with a max. A larger key is a larger
 value, then a smaller ordinal: the reference tie rule (the earliest pair in
 plan order wins). The max is order-independent, so parallel atomics give
-deterministic results, and 0 means "no valid candidate".
+deterministic results, and 0 means "no valid candidate". The high word
+stays below 2^31 (the card computes it in int32 and reads it back signed):
+the planner refuses a graph whose values could pass ``VALUE_MAX``
+(2,147,221,502). Padded pair lanes never make a key: K1 and K3 (and K4)
+drop them by their ``dst + 1 == 0`` sentinel, K2 by ``score == PAD_SC``,
+before ``value + score`` is formed, and a real score is a popcount (>= 0),
+so no real lane looks like a pad, whatever the values.
 """
 
 from __future__ import annotations
@@ -71,10 +79,12 @@ import torch
 
 from .pair_plan import (  # noqa: F401  (re-exported)
     CHUNK,
+    DENSE_NB_LIMIT,
     NEG,
     PAD_SC,
     REACH_T,
     PairPlan,
+    PlanLimit,
     _NarrowRun,
     _WideRun,
     plan_pairs,
@@ -84,8 +94,8 @@ from .pair_plan import (  # noqa: F401  (re-exported)
 # The JAX package sends wide runs of more than 18 windows to its
 # window-split kernel (diploid_pallas.py:1140, :2193): there the dense
 # kernel's state no longer fit the TPU's VMEM. The H100 has no such limit
-# (K2 runs any NB <= 31), but the port keeps the rule so that its path is
-# the reference's path.
+# (K2 runs any run that has dense tables, up to DENSE_NB_LIMIT windows),
+# but the port keeps the rule so that its path is the reference's path.
 DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
@@ -160,7 +170,9 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
                    mesh=None) -> DevPlan:
     """Every numpy array of every segment as a tensor on ``device``.
     ``dense_nb_max`` picks K2 or K3 for each wide run (0: K3 for all,
-    31: K2 for all); the default is the reference's rule. With a ``mesh``
+    31: K2 for every run of at most 31 windows); the default is the
+    reference's rule. A run past 31 windows that it sends to K2 raises:
+    such a run has no dense tables. With a ``mesh``
     (``parallel.mesh.Mesh``) every wide run is this rank's ``wide_tp``
     segment instead."""
     device = torch.device(device)
@@ -175,6 +187,11 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             if isinstance(a, np.ndarray):
                 t[f.name] = _tensor(a, device)
         kind = segment_kind(seg, dense_nb_max)
+        if kind == "wide" and seg.NB > DENSE_NB_LIMIT:
+            raise ValueError(
+                f"plan_to_device: a wide run of {seg.NB} windows has no "
+                f"dense tables (past {DENSE_NB_LIMIT}); K2 cannot run it, "
+                f"dense_nb_max={dense_nb_max} sends it there")
         bits, real = _REAL_BITS[kind]
         nreal = int(np.count_nonzero(getattr(seg, bits) & real))
         segs.append(DevSegment(kind=kind, host=seg, t=t, nreal=nreal))

@@ -4,8 +4,8 @@ and its plain twin.
 Replaces ``_wide_dense_kernel`` / ``_wide_call`` of
 ``dipgenie_tpu/ops/diploid_pallas.py``. The main path sends it the wide
 runs of at most ``DENSE_NB_MAX`` windows; it also runs the bigger ones
-(up to 31 windows) when asked (``plan_to_device(..., dense_nb_max=31)``),
-since the dense tables exist for every wide run. The transition is the one of
+up to ``DENSE_NB_LIMIT`` (31) windows when asked (``plan_to_device(...,
+dense_nb_max=31)``): the runs that have dense tables. The transition is the one of
 ``narrow.py`` over a ``[R+1, NB * 1024]`` state; every lane of every
 window is rewritten at each transition, so lanes no kept pair reaches
 (holes, windows past the extent) become ``NEG``. The run's output state
@@ -18,7 +18,9 @@ import torch
 
 from .. import kernels
 from .narrow import transition_keys
-from .plan import NEG, PAD_SC, DevSegment, chunk_bounds, decode_keys
+from .plan import (
+    DENSE_NB_LIMIT, NEG, PAD_SC, DevSegment, chunk_bounds, decode_keys,
+)
 
 
 def _alloc(seg: DevSegment, v_in: torch.Tensor):
@@ -64,8 +66,10 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
     h = seg.host
     dtbl = seg.t["dtbl"]
     kernels.check_tensor(dtbl, "dtbl", torch.int32, None, v_in.device)
-    if not 1 <= h.NB <= 31:
-        raise ValueError(f"wide_dense_run: NB = {h.NB}, want 1..31")
+    if not 1 <= h.NB <= DENSE_NB_LIMIT:
+        raise ValueError(
+            f"wide_dense_run: NB = {h.NB}, want 1..{DENSE_NB_LIMIT} (a run "
+            "of more windows has no dense tables; K3 runs it)")
     V, bp = _alloc(seg, v_in)
     R1 = v_in.shape[0]
     keys = torch.zeros(V.shape, dtype=torch.int64, device=v_in.device)

@@ -3,7 +3,8 @@ kernel and its plain twin.
 
 Replaces ``_wide_split_kernel`` / ``_wide_split_call`` of
 ``dipgenie_tpu/ops/diploid_pallas.py``, which the JAX package runs for wide
-runs of more than ``DENSE_NB_MAX`` 1024-lane windows. The transition is the
+runs of more than ``DENSE_NB_MAX`` 1024-lane windows (up to 31; the port
+runs any run its planner makes, up to ``SPLIT_NB_MAX``). The transition is the
 one of ``narrow.py`` over a ``[R+1, NB * 1024]`` state, read from the
 window-split tables: a chunk's destination lane is ``wwin * 1024 + rel``
 and a pair's ordinal ``wbase + lane``. Every lane of every window is
@@ -21,6 +22,7 @@ import torch
 
 from .. import kernels
 from .narrow import transition_keys
+from .pair_plan import SPLIT_NB_MAX
 from .plan import CHUNK, NEG, DevSegment, chunk_bounds, decode_keys
 
 
@@ -78,8 +80,9 @@ def wide_split_run(seg: DevSegment, v_in: torch.Tensor):
     tensors = {k: seg.t[k] for k in ("tbl", "wwin", "wbase")}
     for name, t in tensors.items():
         kernels.check_tensor(t, name, torch.int32, None, v_in.device)
-    if not 1 <= h.NB <= 31:
-        raise ValueError(f"wide_split_run: NB = {h.NB}, want 1..31")
+    if not 1 <= h.NB <= SPLIT_NB_MAX:
+        raise ValueError(
+            f"wide_split_run: NB = {h.NB}, want 1..{SPLIT_NB_MAX}")
     R1 = v_in.shape[0]
     V = _state(seg, v_in)
     # every bp row is written: the rows of a transition are its windows

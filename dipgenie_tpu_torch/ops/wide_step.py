@@ -28,6 +28,7 @@ import torch.distributed as dist
 
 from .. import kernels
 from .narrow import transition_keys
+from .pair_plan import SPLIT_NB_MAX
 from .plan import CHUNK, NEG, REACH_T, DevSegment, _LOW32
 from .wide_split import _state
 
@@ -70,8 +71,8 @@ def wide_step(seg: DevSegment, ti: int, v: torch.Tensor,
     if v.device.type == "cpu":
         return wide_step_ref(seg, ti, v)
     h = seg.host
-    if not 1 <= h.NB <= 31:
-        raise ValueError(f"wide_step: NB = {h.NB}, want 1..31")
+    if not 1 <= h.NB <= SPLIT_NB_MAX:
+        raise ValueError(f"wide_step: NB = {h.NB}, want 1..{SPLIT_NB_MAX}")
     R1 = v.shape[0]
     shape = (R1, h.NB * 1024)
     kernels.check_tensor(v, "v", torch.int32, shape)

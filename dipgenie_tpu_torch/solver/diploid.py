@@ -6,9 +6,10 @@ and ``_forward_native`` (``dipgenie_tpu/solver/diploid.py:50-245``):
 
 * ``torch``: ``csr_arrays`` and the port's ``plan_pairs``, then the pair DP
   of ``ops/diploid_pair.py`` on ``device`` (with ``mesh``, its wide runs
-  window-sharded over the mesh's tp ranks). A ``ValueError`` from the
-  planner (R > 31, the packed-value bound, more than 31 windows) is
-  raised: there is no fallback tier;
+  window-sharded over the mesh's tp ranks). Any R, level widths up to
+  512 and DP values up to ``VALUE_MAX`` (2,147,221,502) plan; past the
+  last two the planner raises ``PlanLimit``, which is passed on (the CLI
+  prints it as one ``[E::main]`` line): there is no fallback tier;
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
 
@@ -25,12 +26,13 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from .. import native
 from ..graph.expanded import AnchorRec, ExpandedGraph, FlatAnchors
 from ..graph.pangenome import PangenomeIndex
 from ..ops.diploid_pair import RUNS, PairDiploidDP
-from ..ops.plan import DENSE_NB_MAX, plan_pairs, segment_kind
+from ..ops.plan import DENSE_NB_LIMIT, DENSE_NB_MAX, plan_pairs, segment_kind
 from ..ops.trace import trace
 from ..utils.synth import dp_states
 from ..utils.timing import log_stage
@@ -242,26 +244,36 @@ def torch_forward(arrs, R: int, device, mesh=None):
     kinds = [segment_kind(s) for s in plan.segments]
     n_split = kinds.count("wide_split")
     n_wide = kinds.count("wide") + n_split
+    nbs = [s.NB for s in plan.segments if segment_kind(s) != "narrow"]
+    n_big = sum(nb > DENSE_NB_LIMIT for nb in nbs)
     log_stage(
         "diploid_dp",
         f"pair plan ready in {time.time() - t0:.1f}s: {plan.L} levels, "
         f"{dp_states(arrs[0], R)} DP states, "
         f"{kinds.count('narrow')} narrow and {n_wide} wide runs "
-        f"({n_split} over {DENSE_NB_MAX} windows)"
+        f"({n_split} over {DENSE_NB_MAX} windows, {n_big} over "
+        f"{DENSE_NB_LIMIT}; widest {max(nbs, default=0)} windows)"
         + (f"; wide runs over a tp mesh of {mesh.n_tp} ranks"
            if mesh is not None else ""),
     )
     wrappers = (*RUNS.values(), trace)
     before = [w.launches for w in wrappers]
     t0 = time.time()
-    result = PairDiploidDP(plan, device, mesh=mesh).run()
+    dp = PairDiploidDP(plan, device, mesh=mesh)
+    on_card = dp.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dp.device)
+    result = dp.run()
     launched = " ".join(
         f"{w.__name__}={w.launches - b}" for w, b in zip(wrappers, before)
     )
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated(dp.device)} B" if on_card
+            else "")
     log_stage(
         "diploid_dp",
         f"torch tier on {device}: ship+forward+traceback in "
-        f"{time.time() - t0:.1f}s; kernel launches {launched}",
+        f"{time.time() - t0:.1f}s{peak}; kernel launches {launched}",
     )
     return result
 

@@ -9,6 +9,8 @@
   hand-built leveled DAGs of ``tests/test_pallas_dp.py`` (``_dense_graph``,
   ``_hand_graph``), as the port's ``ExpandedGraph``; ``graph_from_csr``
   turns CSR arrays back into one, for the exact tier;
+* ``wide_window_graph`` / ``heavy_chain``: graphs past the TPU planner's
+  limits (a wide run of more than 31 windows; DP values past 4,100,000);
 * ``mhc_shaped_csr``: a leveled DAG at the scale of the MHC expanded
   graph, the deployment the DP is sized for;
 * ``pangenome``: a GFA v1.1 pangenome (S/L/W lines) plus short reads from
@@ -160,6 +162,54 @@ def graph_from_csr(arrs):
     chb = np.zeros(n_colors, bool)
     chb[hom] = True
     return g, chb.tolist()
+
+
+def wide_window_graph(width: int):
+    """``(ExpandedGraph, color_homo_bv)`` of the width-140 instance of
+    ``tests/test_pallas_dp.py:119`` at ``width``: widths ``[1, width,
+    width, 1]``, two edges a vertex. Its wide run needs ``ceil(width^2 /
+    1024)`` windows: more than 31 from width 179 on."""
+    rng = np.random.default_rng(11)
+    g = dense_graph(rng, [1, width, width, 1], deg=2, pw=0.2)
+    return g, [bool(x) for x in rng.random(6) < 0.5]
+
+
+def heavy_chain(L: int = 1100, n_hom: int = 4096, seed: int = 0):
+    """``(ExpandedGraph, color_homo_bv)`` of a chain of width-2 levels whose
+    DP values pass 4,100,000: every vertex carries the same ``n_hom`` HOM
+    colours (one shared list), so every pair scores at least ``n_hom``, and
+    a quarter of the vertices one more HET colour out of six. A vertex has
+    an edge of weight 0 to its own index on the next level and of weight 1
+    to the other."""
+    rng = np.random.default_rng(seed)
+    widths = [1] + [2] * (L - 2) + [1]
+    g, starts = _leveled_graph(widths)
+    hom = list(range(n_hom))
+    for l in range(L - 1):
+        for i in range(widths[l]):
+            for j in range(widths[l + 1]):
+                w = int(i != j and min(widths[l], widths[l + 1]) > 1)
+                g.adj_list[starts[l] + i].append((int(starts[l + 1] + j), w))
+    for v in range(len(g.color)):
+        extra = rng.random() < 0.25
+        g.color[v] = hom + [n_hom + int(rng.integers(6))] if extra else hom
+    return g, [True] * n_hom + [False] * 6
+
+
+# graphs past each of the TPU planner's limits: R >= 32 (on a random
+# instance with wide levels, the JAX tests' case (400, 10, 40, 4, 8) at
+# another R), wide runs of 32 and 36 windows, DP values past 4,100,000
+LIMIT_CASES = ("R32", "R36", "R40", "width179", "width190", "values")
+
+
+def limit_case(name: str):
+    """``(ExpandedGraph, color_homo_bv, R)`` of a ``LIMIT_CASES`` name."""
+    if name.startswith("width"):
+        return (*wide_window_graph(int(name[5:])), 2)
+    if name == "values":
+        return (*heavy_chain(), 4)
+    return (*graph_from_csr(random_leveled_csr(400, 10, 40, 8)),
+            int(name[1:]))
 
 
 def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,

@@ -135,7 +135,10 @@ def _strip(stdout):
             if " took " not in x and "written to" not in x]
 
 
-def test_torch_cpu_cli_matches_jax_exact_cli(tmp_path, tiny_pangenome):
+@pytest.mark.parametrize("rflag", ["-R18", "-R36"])
+def test_torch_cpu_cli_matches_jax_exact_cli(rflag, tmp_path, tiny_pangenome):
+    """-R36 is past the TPU planner's R <= 31: the JAX package's exact tier
+    and the port's torch tier both run it."""
     gfa, reads = tiny_pangenome
     outs = {}
     for tag, args in (
@@ -145,7 +148,7 @@ def test_torch_cpu_cli_matches_jax_exact_cli(tmp_path, tiny_pangenome):
     ):
         d = tmp_path / tag
         d.mkdir()
-        p = _run([*args, "-p2", "-R18", "-g", gfa, "-r", reads, "-o",
+        p = _run([*args, "-p2", rflag, "-g", gfa, "-r", reads, "-o",
                   "out.fa"], d)
         assert p.returncode == 0, p.stderr[-3000:]
         outs[tag] = (p.stdout, (d / "out.fa").read_bytes(), p.stderr)
@@ -154,6 +157,30 @@ def test_torch_cpu_cli_matches_jax_exact_cli(tmp_path, tiny_pangenome):
     assert _strip(outs["port"][0]) == _strip(outs["jax"][0])
     assert "DP value:" in outs["port"][0]
     assert "torch tier on cpu" in outs["port"][2]
+
+
+def test_cli_past_the_value_bound_prints_one_error_line(tmp_path,
+                                                       tiny_pangenome):
+    """Past the planner's value bound (``VALUE_MAX`` patched to 0 in the
+    CLI's process, so any positive value is past it) the CLI prints one
+    ``[E::main]`` line that names the native tier and exits 1: no
+    traceback, no FASTA, no fallback."""
+    gfa, reads = tiny_pangenome
+    code = (
+        "import sys\n"
+        "from dipgenie_tpu_torch.ops import pair_plan\n"
+        "pair_plan.VALUE_MAX = 0\n"
+        "from dipgenie_tpu_torch.cli import main\n"
+        "sys.exit(main(sys.argv[1:]))\n"
+    )
+    p = _run(["-c", code, "--dp-backend", "torch", "--device", "cpu", "-p2",
+              "-R18", "-g", gfa, "-r", reads, "-o", "out.fa"], tmp_path)
+    errors = [x for x in p.stderr.splitlines() if x.startswith("[E::")]
+    assert p.returncode == 1 and len(errors) == 1, p.stderr[-2000:]
+    assert errors[0].startswith("[E::main] DP values may reach ")
+    assert "--dp-backend native" in errors[0]
+    assert "Traceback" not in p.stderr and "torch tier on" not in p.stderr
+    assert not (tmp_path / "out.fa").exists()
 
 
 def test_toy_diploid_torch_cpu_matches_golden(tmp_path):

@@ -19,13 +19,13 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    initial_v, plan_pairs, plan_to_device, shard_to_device,
+    DENSE_NB_MAX, initial_v, plan_pairs, plan_to_device, shard_to_device,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
-from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
-    CASES, mhc_shaped_csr, random_leveled_csr,
+    CASES, LIMIT_CASES, limit_case, mhc_shaped_csr, random_leveled_csr,
 )
 
 pytestmark = pytest.mark.cuda
@@ -192,6 +192,30 @@ def test_tp_dp_one_rank_mesh_matches_native_tier(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
     assert got == native_forward_csr(arrs, R)
+
+
+@pytest.mark.parametrize("case", LIMIT_CASES)
+def test_kernels_past_the_tpu_limits(case, cuda):
+    """The graphs past the TPU planner's limits (tests/test_torch_limits.py)
+    on the card: K1 and K2 at R + 1 up to 41, K3 at NB 32 and 36, values
+    past 4,100,000; every call against its plain version on both routings,
+    K4 on every rank's shard of each K3 run for n_tp 1-3, and the DP on the
+    main path against the native tier."""
+    g, chb, R = limit_case(case)
+    arrs = csr_arrays(g, chb)
+    plan = plan_pairs(*arrs, R)
+    want = native_forward_csr(arrs, R)
+    for nb_max in (DENSE_NB_MAX, 0):
+        _run_checked(plan_to_device(plan, cuda, nb_max), cuda)
+    dplan = plan_to_device(plan, cuda, dense_nb_max=0)
+    V = initial_v(R, cuda)
+    for seg, dseg in zip(plan.segments, dplan.segments):
+        out = RUNS[dseg.kind][0](dseg, V)[0]
+        if dseg.kind == "wide_split":
+            for n_tp in (1, 2, 3):
+                assert torch.equal(_tp_run_checked(seg, n_tp, V, cuda), out)
+        V = out
+    assert PairDiploidDP(plan, cuda).run() == want
 
 
 # the level-chain kernels: (wrapper, plain version, tables of a chain)
