@@ -738,33 +738,6 @@ class Smoke:
                 log(f"H2 {name} (redesigned): device {us(dev_k)} per launch "
                     f"against {REDESIGNED[name]:.3f} us before, and the "
                     f"library call's {us(dev_l)}")
-            if name == "batched_dot_bcast_lhs":
-                self.time_one_block_variant(name, args, expect)
-
-    def time_one_block_variant(self, name, args, expect):
-        """The other design of batched_dot_bcast_lhs (one block of 19
-        warps, the one-hot in shared memory; dg_caps arg 1), checked and
-        timed as the kernel is."""
-        from dipgenie_tpu_torch import kernels
-        from dipgenie_tpu_torch.ops.caps import NAMES
-
-        torch = self.torch
-        lib, cid = kernels.lib(), NAMES.index(name)
-        out = torch.empty(expect.shape, dtype=torch.float32, device=DEVICE)
-
-        def variant():
-            kernels.raise_on_error(lib.dg_caps(
-                cid, args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(),
-                1, kernels.stream_of(out)), name)
-
-        variant()
-        check(bool(torch.equal(out, torch.from_numpy(expect).to(DEVICE))),
-              f"H2 {name}: the one-block variant differs")
-        ms = [self.per_launch_ms(variant) for _ in range(2)]
-        dev = self.caps_device_us(f"{name}_one_block", [variant])[0]
-        dev = "not in the profile" if dev is None else f"{dev:.3f} us"
-        log(f"H2 {name} one-block variant: {[t * 1e3 for t in ms]} us per "
-            f"launch (device {dev})")
 
     def per_launch_ms(self, fn):
         """CUDA-event ms per call over H_CALLS calls of ``fn``, after one

@@ -244,15 +244,18 @@ def torch_forward(arrs, R: int, device, mesh=None):
     kinds = [segment_kind(s) for s in plan.segments]
     n_split = kinds.count("wide_split")
     n_wide = kinds.count("wide") + n_split
-    nbs = [s.NB for s in plan.segments if segment_kind(s) != "narrow"]
-    n_big = sum(nb > DENSE_NB_LIMIT for nb in nbs)
+    wide = [s for s, k in zip(plan.segments, kinds) if k != "narrow"]
+    n_big = sum(s.NB > DENSE_NB_LIMIT for s in wide)
+    widest = max(wide, key=lambda s: s.NB, default=None)
     log_stage(
         "diploid_dp",
         f"pair plan ready in {time.time() - t0:.1f}s: {plan.L} levels, "
         f"{dp_states(arrs[0], R)} DP states, "
         f"{kinds.count('narrow')} narrow and {n_wide} wide runs "
         f"({n_split} over {DENSE_NB_MAX} windows, {n_big} over "
-        f"{DENSE_NB_LIMIT}; widest {max(nbs, default=0)} windows)"
+        f"{DENSE_NB_LIMIT}; widest {widest.NB if wide else 0} windows"
+        + (f", its window-split backpointers {widest.nrows * (R + 1) * 4096}"
+           " B" if wide else "") + ")"
         + (f"; wide runs over a tp mesh of {mesh.n_tp} ranks"
            if mesh is not None else ""),
     )

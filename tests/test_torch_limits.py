@@ -22,15 +22,14 @@ from dipgenie_tpu_torch.ops.pair_plan import (
 )
 from dipgenie_tpu_torch.ops.plan import (
     DENSE_NB_MAX, decode_keys, initial_v, make_keys, plan_pairs,
-    plan_to_device, shard_to_device,
+    plan_to_device,
 )
-from dipgenie_tpu_torch.ops.wide_split import _state
-from dipgenie_tpu_torch.ops.wide_step import commit, wide_step_ref
 from dipgenie_tpu_torch.solver.diploid import (
     _forward_exact, build_color_masks, csr_arrays, native_forward_csr,
 )
 from dipgenie_tpu_torch.utils import synth
 from dipgenie_tpu_torch.utils.synth import LIMIT_CASES, limit_case
+from tests.test_torch_kernels_gpu import _tp_run_checked
 
 TPU_VALUE_BOUND = 4_100_000  # the JAX planner's limit on its value bound
 
@@ -64,27 +63,14 @@ def test_torch_tier_matches_native_and_exact_past_tpu_limits(name):
         assert PairDiploidDP(dplan, "cpu").run() == want, nb_max
 
 
-def _tp_merged(seg, n_tp, v_in):
-    """A wide run through K4's plain version on every rank's shard, the
-    partials merged as the ranks' all_reduce(MAX) merges them: the run's
-    output state."""
-    segs = [shard_to_device(seg, n_tp, d, "cpu") for d in range(n_tp)]
-    V = _state(segs[0], v_in)
-    bp = torch.empty(V.shape, dtype=torch.int32)
-    for ti in range(seg.t1 - seg.t0):
-        parts = [wide_step_ref(s, ti, V) for s in segs]
-        V = commit(torch.stack(parts).amax(dim=0), segs[0].t["present"][ti],
-                   bp)
-    return V[:, :1024]
-
-
 @pytest.mark.parametrize("width", [179, 190])
 def test_runs_past_31_windows_through_k3_and_k4(width, tmp_path):
     """A level of width 179 needs 32 windows, 190 needs 36: NB is what the
     run needs (no ladder rung), the run has no dense tables and no window
     bitmasks, K2 is refused, and K4's plain version on each of 1-3 ranks'
-    shards, merged, gives K3's output state; the DP over a one-rank gloo
-    mesh equals the native tier."""
+    shards, merged as the ranks' all_reduce(MAX) merges them, gives K3's
+    output state; the DP over a one-rank gloo mesh equals the native
+    tier."""
     from dipgenie_tpu_torch.parallel.mesh import make_mesh
 
     _, _, R, arrs, plan = _plan(f"width{width}")
@@ -102,7 +88,8 @@ def test_runs_past_31_windows_through_k3_and_k4(width, tmp_path):
         out = RUNS[dseg.kind](dseg, V)[0]
         if host is seg:
             for n_tp in (1, 2, 3):
-                assert torch.equal(_tp_merged(seg, n_tp, V), out), n_tp
+                assert torch.equal(_tp_run_checked(seg, n_tp, V, "cpu"),
+                                   out), n_tp
         V = out
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
@@ -125,7 +112,7 @@ def test_value_max_round_trips_through_the_key():
     assert torch.equal(val, v) and torch.equal(ordv, ordinal)
     hi32 = torch.tensor([VALUE_MAX, VALUE_MAX + 1],
                         dtype=torch.int32) - REACH_T + 1
-    hi = int(VALUE_MAX) - REACH_T + 1
+    hi = VALUE_MAX - REACH_T + 1
     assert hi == 2**31 - 1 and hi32.tolist() == [hi, -(2**31)]
 
 
