@@ -38,18 +38,18 @@ __device__ __forceinline__ uint32_t smem(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// One thread sets the barrier up for one arrival (its expect_tx), then the
-// block syncs.
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+// The issuing thread sets the barrier up for one arrival and arms it for
+// `bytes`; the caller then syncs the threads that wait on it. mbarrier.init
+// is a generic-proxy write, and the copy's complete_tx reaches the barrier
+// through the async proxy: PTX orders the two only across a proxy fence,
+// fence.proxy.async.shared::cta (as the CUDA C++ Programming Guide's TMA
+// example does for a block's barrier). fence.mbarrier_init.release.cluster
+// would publish the init to the other blocks of a cluster; these kernels
+// launch no cluster.
+__device__ __forceinline__ void arm_barrier(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
+               : "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    smem(bar)),
                "r"(bytes)
@@ -80,36 +80,48 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// After every thread's fence and a block sync, thread 0 stores `bytes` of
-// shared memory to global and waits for the store to finish.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
+// Each thread that wrote `src` fences its writes to the async proxy, and
+// the caller syncs those threads, before one thread calls bulk_store.
+__device__ __forceinline__ void fence_to_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                 ::"l"(dst), "r"(smem(src)), "r"(bytes)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  }
 }
 
-// out [16, 128] = A[row:row + 16] + 1 of A [64, 128] int32.
-__global__ void __launch_bounds__(512)
+// Shared -> global, `bytes`, waited for only until the copy has read
+// shared memory (wait_group.read), which must outlive the read; the end of
+// the grid makes the writes visible to the next kernel, so waiting for
+// them here (wait_group 0) would only lengthen the chain.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+constexpr uint32_t ROW_BYTES = 128 * 4;  // one int32 row, one int4 a lane
+
+// out [16, 128] = A[row:row + 16] + 1 of A [64, 128] int32: 16 blocks of
+// one warp, block b one row. Lane 0 arms the block's barrier and bulk-loads
+// row `row + b` (the offset comes at run time); the warp waits, adds,
+// fences, syncs; lane 0 bulk-stores the row.
+__global__ void __launch_bounds__(32)
 caps_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
                 int row) {
-  constexpr uint32_t BYTES = 16 * 128 * 4;
-  __shared__ __align__(128) int32_t s[16 * 128];
+  __shared__ __align__(128) int4 s[32];
   __shared__ __align__(8) uint64_t bar;
-  barrier_init(&bar);
-  if (threadIdx.x == 0) {
-    expect_bytes(&bar, BYTES);
-    bulk_load(s, A + (size_t)row * 128, BYTES, &bar);
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    arm_barrier(&bar, ROW_BYTES);
+    bulk_load(s, A + (size_t)(row + blockIdx.x) * 128, ROW_BYTES, &bar);
   }
+  __syncwarp();
   wait_phase0(&bar);
-  for (int i = threadIdx.x; i < 16 * 128; i += blockDim.x) s[i] += 1;
-  bulk_store(out, s, BYTES);
+  int4 v = s[lane];
+  s[lane] = make_int4(v.x + 1, v.y + 1, v.z + 1, v.w + 1);
+  fence_to_async();
+  __syncwarp();
+  if (lane == 0) bulk_store(out + (size_t)blockIdx.x * 128, s, ROW_BYTES);
 }
 
 // out [19, 8, 8] = A[slab, :, :8, :8] + 1 of A [4, 19, 16, 16] int16,
@@ -120,9 +132,8 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
   constexpr uint32_t BYTES = 19 * 8 * 8 * 2;
   __shared__ __align__(128) int16_t s[19 * 8 * 8];
   __shared__ __align__(8) uint64_t bar;
-  barrier_init(&bar);
   if (threadIdx.x == 0) {
-    expect_bytes(&bar, BYTES);
+    arm_barrier(&bar, BYTES);
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
         "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem(s)),
@@ -130,29 +141,38 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
         "r"(slab * 19), "r"(smem(&bar))
         : "memory");
   }
+  __syncthreads();
   wait_phase0(&bar);
   for (int i = threadIdx.x; i < 19 * 8 * 8; i += blockDim.x)
     s[i] = (int16_t)(s[i] + 1);
-  bulk_store(out, s, BYTES);
+  fence_to_async();
+  __syncthreads();
+  if (threadIdx.x == 0) bulk_store(out, s, BYTES);
 }
 
-// out [8, 128] = A[slab] of A [4, 8, 128] int32, the copy issued only in
-// block 0 (the grid has one block, as the script's has one step).
-__global__ void __launch_bounds__(256)
+// out [8, 128] = A[slab] of A [4, 8, 128] int32: 8 blocks of one warp,
+// block b row b of the slab. Each block walks its own steps (`steps`, 1 as
+// the script's grid has one step) and bulk-loads its row only at step 0, as
+// pl.when(program_id(0) == 0) copies at the first step of a sequential
+// grid axis; every step stores what landed, which later steps would reuse.
+__global__ void __launch_bounds__(32)
 caps_dma_in_when(const int32_t* __restrict__ A, int4* __restrict__ out,
-                 int slab) {
-  constexpr uint32_t BYTES = 8 * 128 * 4;
-  __shared__ __align__(128) int4 s[8 * 128 / 4];
+                 int slab, int steps) {
+  __shared__ __align__(128) int4 s[32];
   __shared__ __align__(8) uint64_t bar;
-  if (blockIdx.x == 0) {
-    barrier_init(&bar);
-    if (threadIdx.x == 0) {
-      expect_bytes(&bar, BYTES);
-      bulk_load(s, A + (size_t)slab * 8 * 128, BYTES, &bar);
+  const int lane = threadIdx.x;
+  for (int step = 0; step < steps; ++step) {
+    if (step == 0) {
+      if (lane == 0) {
+        arm_barrier(&bar, ROW_BYTES);
+        bulk_load(s, A + (size_t)(slab * 8 + blockIdx.x) * 128, ROW_BYTES,
+                  &bar);
+      }
+      __syncwarp();
+      wait_phase0(&bar);
     }
-    wait_phase0(&bar);
+    out[blockIdx.x * 32 + lane] = s[lane];
   }
-  out[threadIdx.x] = s[threadIdx.x];
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -205,7 +225,7 @@ int caps::bulk(int check, const void* in0, const void* in1, void* out,
   switch (check) {
     case MANUAL_DMA_DYNOFF:  // arg: the first row, 0..48
       if (arg < 0 || arg > 64 - 16) return (int)cudaErrorInvalidValue;
-      caps_manual_dma<<<1, 512, 0, s>>>(static_cast<const int32_t*>(in0),
+      caps_manual_dma<<<16, 32, 0, s>>>(static_cast<const int32_t*>(in0),
                                         static_cast<int32_t*>(out), arg);
       break;
     case DMA_STRIDED_3D: {  // arg: the slab, 0..3
@@ -219,8 +239,8 @@ int caps::bulk(int check, const void* in0, const void* in1, void* out,
     }
     case DMA_IN_WHEN:  // arg: the slab, 0..3
       if (arg < 0 || arg > 3) return (int)cudaErrorInvalidValue;
-      caps_dma_in_when<<<1, 256, 0, s>>>(static_cast<const int32_t*>(in0),
-                                         static_cast<int4*>(out), arg);
+      caps_dma_in_when<<<8, 32, 0, s>>>(static_cast<const int32_t*>(in0),
+                                        static_cast<int4*>(out), arg, 1);
       break;
     default:
       return NOT_MINE;

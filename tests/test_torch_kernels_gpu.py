@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dipgenie_tpu_torch import kernels
 from dipgenie_tpu_torch.ops import (
     caps, chain_edge, chain_floor, chain_pair, narrow, trace, wide,
     wide_split, wide_step,
@@ -322,6 +323,42 @@ def test_caps_kernel_matches_plain_version_and_expectation(name, seed,
     ref = plain(*args)
     assert got.dtype == ref.dtype == want.dtype
     assert torch.equal(got, ref) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("seed", [None, 7])
+@pytest.mark.parametrize("name,last", [("manual_dma_dynoff", 48),
+                                       ("dma_in_when", 3)])
+def test_caps_bulk_copies_at_every_run_time_offset(name, last, seed, cuda):
+    """The two bulk copies at a run-time offset, through ``dg_caps``
+    itself (the wrappers always pass row 8 / slab 2): every legal row
+    (``A[row:row + 16] + 1``) or slab (``A[slab]``), on the script's
+    ``A`` and on a seeded random one; an offset one past either end returns
+    a non-zero code and launches nothing."""
+    ins, (dtype, shape), _, _ = caps.SPECS[name]
+    a_shape = ins[0][1]
+    if seed is None:
+        a_np = caps_tables.make(name)[0][0]
+    else:
+        a_np = np.random.default_rng(seed).integers(
+            -(2**30), 2**30, a_shape, dtype=np.int32)
+    a = torch.from_numpy(a_np).to(cuda)
+    check_id = caps.NAMES.index(name)
+
+    def call(off, out):
+        return kernels.lib().dg_caps(check_id, a.data_ptr(), None,
+                                     out.data_ptr(), off,
+                                     kernels.stream_of(out))
+
+    for off in range(last + 1):
+        out = torch.full(shape, -7, dtype=dtype, device=cuda)
+        assert call(off, out) == 0
+        want = a[off:off + 16] + 1 if name == "manual_dma_dynoff" else a[off]
+        assert torch.equal(out, want), off
+    for off in (-1, last + 1):
+        out = torch.full(shape, -7, dtype=dtype, device=cuda)
+        assert call(off, out) != 0
+        torch.cuda.synchronize()
+        assert bool((out == -7).all()), off
 
 
 @pytest.mark.parametrize("name", caps.NAMES)
