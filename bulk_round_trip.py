@@ -3,19 +3,18 @@
 
     python3 bulk_round_trip.py      # from the root of a checkout
 
-Times the variants of csrc/bulk_variants.cu (device us per launch from the
-profiler over N_PROFILED launches, in two passes, the second in reverse
-order), the two bulk-copy checks as the port launches them and the PyTorch
-calls that compute the same outputs, and reads each variant's clock64
-stamps (set-up, load, store; median of N_STAMPED launches). Writes
-chiprun_out/bulk_round_trip.json; exits 1 if a variant's output is wrong.
+Times the variants of csrc/bulk_variants.cu, the two bulk-copy checks and
+the PyTorch calls that compute the same outputs: device us per launch from
+the profiler over N_PROFILED launches, in two passes, the second in reverse
+order. Each variant runs twice: launched as ops/caps.py's wrapper launches
+(checks, a new output tensor) and launched bare into one output tensor.
+Writes chiprun_out/bulk_round_trip.json; exits 1 if an output is wrong.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 
@@ -26,39 +25,33 @@ from dipgenie_tpu_torch import kernels
 from dipgenie_tpu_torch.ops import caps
 
 N_PROFILED = 50
-N_STAMPED = 21
 ROW = 8
-# (name, blocks, rows a block, moves data) in csrc/bulk_variants.cu's order
-VARIANTS = [
-    ("empty 1x32", 1, 1, False),
-    ("empty 16x32", 16, 1, False),
-    ("init, no fence, 1x32", 1, 1, False),
-    ("init + fence.mbarrier_init, 1x32", 1, 1, False),
-    ("init + fence.proxy.async, 1x32", 1, 1, False),
-    ("init + both fences, 1x32", 1, 1, False),
-    ("init + fence.mbarrier_init, 1x512 (__syncthreads)", 1, 16, False),
-    ("bulk load 512 B, st.global, 1x32", 1, 1, True),
-    ("bulk load 4 KB, st.global, 1x256", 1, 8, True),
-    ("bulk load 8 KB, st.global, 1x512", 1, 16, True),
-    ("ld.global 512 B, st.global, 1x32", 1, 1, True),
-    ("ld.global 4 KB, st.global, 1x256", 1, 8, True),
-    ("ld.global 8 KB, st.global, 1x512", 1, 16, True),
-    ("ld.global 8 KB, st.global, 16x32", 16, 1, True),
-    ("bulk load 8 x 512 B, st.global, 8x32", 8, 1, True),
-    ("bulk load 16 x 512 B, st.global, 16x32", 16, 1, True),
-    ("chain 8 KB 1x512, mbarrier_init fence, wait_group 0 (PR 5)", 1, 16,
-     True),
-    ("chain 8 KB 1x512, mbarrier_init fence, wait_group.read", 1, 16, True),
-    ("chain 8 KB 1x512, proxy fence, wait_group.read", 1, 16, True),
-    ("chain 8 x 1 KB 8x64, proxy fence, wait_group 0", 8, 2, True),
-    ("chain 8 x 1 KB 8x64, proxy fence, wait_group.read", 8, 2, True),
-    ("chain 16 x 512 B 16x32, proxy fence, wait_group 0", 16, 1, True),
-    ("chain 16 x 512 B 16x32, proxy fence, wait_group.read", 16, 1, True),
-    ("chain 16 x 512 B 16x32, mbarrier_init fence, wait_group.read", 16, 1,
-     True),
-    ("chain 16 x 512 B 16x32, no fence, wait_group.read", 16, 1, True),
-    ("bulk load 4 KB 1x256, mbarrier_init fence, st.global (PR 5)", 1, 8,
-     True),
+# (name, blocks, rows a block, + 1) in csrc/bulk_variants.cu's order
+V = [
+    ("when 8x32, proxy fence", 8, 1, 0),
+    ("when 8x32, mbarrier_init fence", 8, 1, 0),
+    ("when 8x32, no fence", 8, 1, 0),
+    ("when 8x32, proxy, sync after the wait", 8, 1, 0),
+    ("when 8x32, proxy, armed after the issue", 8, 1, 0),
+    ("when 8x32, proxy, armed after, sync after", 8, 1, 0),
+    ("when 8x32, proxy, test_wait spin", 8, 1, 0),
+    ("when 1x32 (one warp, 4 KB), proxy", 1, 8, 0),
+    ("when 1x256, proxy", 1, 8, 0),
+    ("when 1x256, mbarrier_init fence", 1, 8, 0),
+    ("when 8x32, proxy, lane 0 bulk-stores what landed", 8, 1, 0),
+    ("when 8x32, mbarrier_init, armed after, sync after", 8, 1, 0),
+    ("manual 16x32, proxy, .read", 16, 1, 1),
+    ("manual 16x32, mbarrier_init, .read", 16, 1, 1),
+    ("manual 16x32, proxy, armed after, sync after, .read", 16, 1, 1),
+    ("manual 16x32, mbarrier_init, armed after, sync after, .read", 16, 1,
+     1),
+    ("manual 16x32, proxy, wait_group 0", 16, 1, 1),
+    ("manual 1x512, mbarrier_init, wait_group 0", 1, 16, 1),
+    ("manual 8x64, proxy, .read", 8, 2, 1),
+    ("manual 16x32, proxy, st.global (no bulk store)", 16, 1, 1),
+    ("empty 1x32", 0, 0, 0),
+    ("PR 5 manual_dma (1x512)", 1, 16, 1),
+    ("PR 5 dma_in_when (1x256)", 0, 0, 0),
 ]
 
 
@@ -90,80 +83,99 @@ def main() -> int:
     dev = torch.device("cuda")
     lib = kernels.lib()
     lib.dg_bulk_variant.argtypes = [kernels._I, kernels._P, kernels._P,
-                                    kernels._P, kernels._I, kernels._P]
+                                    kernels._I, kernels._P]
     lib.dg_bulk_variant.restype = kernels._I
     g = torch.Generator().manual_seed(0)
     A = torch.randint(-2**30, 2**30, (64, 128), generator=g,
                       dtype=torch.int32).to(dev)
     A3 = A[:32].reshape(4, 8, 128).contiguous()
-    out = torch.zeros(16, 128, dtype=torch.int32, device=dev)
-    stamps = torch.zeros(3, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
+    fixed = torch.zeros(16, 128, dtype=torch.int32, device=dev)
 
-    def launcher(v, with_stamps=False):
-        st = stamps.data_ptr() if with_stamps else None
+    def args(v):
+        return (A3, 2) if v == 22 else (A, ROW)
+
+    def direct(v):
+        a, row = args(v)
 
         def run():
-            rc = lib.dg_bulk_variant(v, A.data_ptr(), out.data_ptr(), st,
-                                     ROW, stream)
-            if rc:
-                raise RuntimeError(f"variant {v}: CUDA error {rc}")
+            rc = lib.dg_bulk_variant(v, a.data_ptr(), fixed.data_ptr(), row,
+                                     torch.cuda.current_stream().cuda_stream)
+            kernels.raise_on_error(rc, f"variant {v}")
+            return fixed
+        return run
+
+    def wrapped(v):
+        """As ops/caps.py's wrapper: checks, a new output, the launch."""
+        a, row = args(v)
+
+        def run():
+            kernels.check_tensor(a, "A", torch.int32, a.shape, dev)
+            if a.data_ptr() % 16:
+                raise ValueError("A: not 16-byte aligned")
+            out = torch.empty(16, 128, dtype=torch.int32, device=dev)
+            rc = lib.dg_bulk_variant(v, a.data_ptr(), out.data_ptr(), row,
+                                     kernels.stream_of(out))
+            kernels.raise_on_error(rc, f"variant {v}")
+            return out
         return run
 
     bad = []
-    for v, (name, blocks, rows, moves) in enumerate(VARIANTS):
-        out.zero_()
-        launcher(v)()
+    for v, (name, blocks, rows, add) in enumerate(V):
+        got = wrapped(v)()
         torch.cuda.synchronize()
-        if moves:
+        if v == 22:
+            ok = torch.equal(got[:8], A3[2])
+        else:
             n = blocks * rows
-            if not torch.equal(out[:n], A[ROW:ROW + n] + 1):
-                bad.append(name)
+            ok = torch.equal(got[:n], A[ROW:ROW + n] + add)
+        if not ok:
+            bad.append(name)
     manual, _ = caps.CHECKS["manual_dma_dynoff"]
     when, _ = caps.CHECKS["dma_in_when"]
+    ids = {n: caps.NAMES.index(n) for n in ("manual_dma_dynoff",
+                                              "dma_in_when")}
+
+    def caps_direct(name, a, arg):
+        def run():
+            rc = lib.dg_caps(ids[name], a.data_ptr(), None, fixed.data_ptr(),
+                             arg, torch.cuda.current_stream().cuda_stream)
+            kernels.raise_on_error(rc, name)
+        return run
+
     if not torch.equal(manual(A), A[8:24] + 1):
         bad.append("manual_dma_dynoff")
     if not torch.equal(when(A3), A3[2]):
         bad.append("dma_in_when")
     view = A[8:24]
-    others = [
-        ("check manual_dma_dynoff (16x32)", lambda: manual(A)),
-        ("check dma_in_when (8x32)", lambda: when(A3)),
+    runs = [(f"{name} [wrapped]", wrapped(v)) for v, (name, *_) in
+            enumerate(V)]
+    runs += [(f"{name} [direct]", direct(v)) for v, (name, *_) in
+             enumerate(V)]
+    runs += [
+        ("check manual_dma_dynoff [wrapper]", lambda: manual(A)),
+        ("check dma_in_when [wrapper]", lambda: when(A3)),
+        ("check manual_dma_dynoff [direct]",
+         caps_direct("manual_dma_dynoff", A, 8)),
+        ("check dma_in_when [direct]", caps_direct("dma_in_when", A3, 2)),
         ("torch.add(A[8:24], 1)", lambda: torch.add(view, 1)),
         ("A3[2].clone()", lambda: A3[2].clone()),
     ]
-    runs = [(name, launcher(v)) for v, (name, *_) in enumerate(VARIANTS)]
-    runs += others
     times = {name: [] for name, _ in runs}
     for order in (runs, runs[::-1]):
         for name, fn in order:
             times[name].append(device_us(fn))
-    cycles = {}
-    for v, (name, *_) in enumerate(VARIANTS):
-        fn = launcher(v, True)
-        got = []
-        for _ in range(N_STAMPED):
-            fn()
-            torch.cuda.synchronize()
-            got.append(stamps.tolist())
-        cycles[name] = [statistics.median(c) for c in zip(*got)]
     card = smi("name,power.limit")
     clocks = smi("clocks.sm,clocks.max.sm")
     result = {"card": card, "clocks_sm_now_max": clocks,
-              "device_us_two_passes": times,
-              "clock64_setup_load_store_median": cycles, "wrong": bad}
+              "device_us_two_passes": times, "wrong": bad}
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/bulk_round_trip.json", "w") as fh:
         json.dump(result, fh, indent=1)
     print(card)
     print(f"SM clock now / max: {clocks}")
-    print(f"{'variant':66s} device us (2 passes)   clock64 set-up / load / "
-          "store")
+    print(f"{'variant':70s} device us (2 passes)")
     for name, _ in runs:
-        c = cycles.get(name)
-        cyc = " / ".join(f"{x:.0f}" for x in c) if c else ""
-        print(f"{name:66s} {times[name][0]:7.3f} {times[name][1]:7.3f}   "
-              f"{cyc}")
+        print(f"{name:70s} {times[name][0]:7.3f} {times[name][1]:7.3f}")
     if bad:
         print(f"WRONG: {bad}")
         return 1

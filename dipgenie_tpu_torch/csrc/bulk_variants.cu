@@ -1,18 +1,23 @@
-// Variants of the bulk-copy checks, timed by bulk_round_trip.py to take one
-// bulk round trip apart: the launch, the barrier's set-up, the bulk load at
-// 512 B / 4 KB / 8 KB against plain loads, the store's wait (wait_group 0
-// against wait_group.read 0), and one block against 8 or 16 one-warp blocks.
+// Variants of the bulk-copy checks' set-up and store, timed by
+// bulk_round_trip.py: the fence after mbarrier.init, arming the barrier
+// before or after the copy is issued, syncing the warp before or after the
+// wait, try_wait against test_wait, one warp or one block against 8 or 16
+// one-warp blocks, and how the landed data goes out.
 //
-// variant<ROWS, INIT, LOAD, STORE, STAMP>: blockDim.x = 32 * ROWS threads, a
-// block moves ROWS rows of 128 int32 (one int4 a thread) from
-// A + (row + blockIdx.x * ROWS) * 128 to out + blockIdx.x * ROWS * 128, + 1.
-//   INIT  -1 no barrier, 0 mbarrier.init alone, 1 + fence.mbarrier_init,
-//         2 + fence.proxy.async, 3 both fences; then the block syncs
-//   LOAD  0 none, 1 cp.async.bulk + expect_tx + try_wait, 2 ld.global int4
-//   STORE 0 none, 1 st.global int4, 2 bulk store + wait_group 0,
-//         3 bulk store + wait_group.read 0
-//   STAMP thread 0 of block 0 writes clock64 deltas: set-up, load (to the
-//         data in a register), store (to the end of its wait).
+// rt<ROWS, WARPS, FENCE, ARM_AFTER, SYNC_AFTER, SPIN, ADD, STORE>: a block
+// of 32 * WARPS threads moves ROWS rows of 128 int32 (ROWS / WARPS int4 a
+// thread) from A + (row + blockIdx.x * ROWS) * 128 to
+// out + blockIdx.x * ROWS * 128, + 1 when ADD.
+//   FENCE      0 none, 1 fence.mbarrier_init.release.cluster,
+//              2 fence.proxy.async.shared::cta
+//   ARM_AFTER  the copy is issued before mbarrier.arrive.expect_tx
+//   SYNC_AFTER only thread 0 waits; the block syncs after the wait
+//   SPIN       mbarrier.test_wait in a loop instead of try_wait
+//   STORE      1 st.global int4, 2 bulk store + wait_group.read 0,
+//              3 bulk store + wait_group 0, 4 thread 0 bulk-stores what
+//              landed (no thread reads it)
+// Also the PR 5 kernels as they were (old_manual_dma, old_dma_in_when) and
+// an empty one-warp kernel.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -22,157 +27,218 @@ __device__ __forceinline__ uint32_t smem(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int ROWS>
+template <int WARPS>
 __device__ __forceinline__ void block_sync() {
-  if (ROWS == 1) {
+  if (WARPS == 1) {
     __syncwarp();
   } else {
     __syncthreads();
   }
 }
 
+template <bool SPIN>
 __device__ __forceinline__ void wait_phase0(uint64_t* bar) {
   uint32_t done = 0;
   while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem(bar)), "r"(0u)
-        : "memory");
+    if (SPIN) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem(bar)), "r"(0u)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem(bar)), "r"(0u)
+          : "memory");
+    }
   }
 }
 
-template <int ROWS, int INIT, int LOAD, int STORE, bool STAMP>
+__device__ __forceinline__ void expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void load(void* dst, const void* src,
+                                     uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem(dst)),
+      "l"(src), "r"(bytes), "r"(smem(bar))
+      : "memory");
+}
+
+template <bool READ>
+__device__ __forceinline__ void store(void* dst, const void* src,
+                                      uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  if (READ) {
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+template <int ROWS, int WARPS, int FENCE, bool ARM_AFTER, bool SYNC_AFTER,
+          bool SPIN, bool ADD, int STORE>
 __global__ void __launch_bounds__(512)
-variant(const int32_t* __restrict__ A, int32_t* __restrict__ out,
-        long long* __restrict__ stamps, int row) {
+rt(const int32_t* __restrict__ A, int32_t* __restrict__ out, int row) {
   constexpr uint32_t BYTES = ROWS * 512;
+  constexpr int PER = ROWS / WARPS;  // int4 a thread
   __shared__ __align__(128) int4 s[ROWS * 32];
   __shared__ __align__(8) uint64_t bar;
   const int t = threadIdx.x;
-  const long long c0 = clock64();
   const int32_t* src = A + (size_t)(row + blockIdx.x * ROWS) * 128;
   int32_t* dst = out + (size_t)blockIdx.x * ROWS * 128;
-  if (INIT >= 0) {
-    if (t == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(&bar))
-                   : "memory");
-      if (INIT == 1 || INIT == 3)
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      if (INIT == 2 || INIT == 3)
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      if (LOAD == 1) {
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                smem(&bar)),
-            "r"(BYTES)
-            : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];" ::"r"(smem(s)),
-            "l"(src), "r"(BYTES), "r"(smem(&bar))
-            : "memory");
-      }
-    }
-    block_sync<ROWS>();
-  }
-  const long long c1 = clock64();
-  if (LOAD != 0) {
-    int4 v;
-    if (LOAD == 1) {
-      wait_phase0(&bar);
-      v = s[t];
-    } else {
-      v = reinterpret_cast<const int4*>(src)[t];
-    }
-    v = make_int4(v.x + 1, v.y + 1, v.z + 1, v.w + 1);
-    // a store that needs v, so the stamp below comes after the data
-    asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(smem(&s[t])),
-                 "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(&bar))
                  : "memory");
+    if (FENCE == 1)
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (FENCE == 2) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (!ARM_AFTER) expect(&bar, BYTES);
+    load(s, src, BYTES, &bar);
+    if (ARM_AFTER) expect(&bar, BYTES);
   }
-  const long long c2 = clock64();
-  if (STORE == 1) {
-    reinterpret_cast<int4*>(dst)[t] = s[t];
-  } else if (STORE >= 2) {
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    block_sync<ROWS>();
+  if (STORE == 4) {
     if (t == 0) {
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-              dst),
-          "r"(smem(s)), "r"(BYTES)
-          : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      if (STORE == 2) {
-        asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-      } else {
-        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-      }
+      wait_phase0<SPIN>(&bar);
+      store<true>(dst, s, BYTES);
+    }
+    return;
+  }
+  if (SYNC_AFTER) {
+    if (t == 0) wait_phase0<SPIN>(&bar);
+    block_sync<WARPS>();
+  } else {
+    block_sync<WARPS>();
+    wait_phase0<SPIN>(&bar);
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = t + k * WARPS * 32;
+    int4 v = s[i];
+    if (ADD) v = make_int4(v.x + 1, v.y + 1, v.z + 1, v.w + 1);
+    if (STORE == 1) {
+      reinterpret_cast<int4*>(dst)[i] = v;
+    } else {
+      s[i] = v;
     }
   }
-  if (STAMP && t == 0 && blockIdx.x == 0) {
-    const long long c3 = clock64();
-    stamps[0] = c1 - c0;
-    stamps[1] = c2 - c1;
-    stamps[2] = c3 - c2;
+  if (STORE == 2 || STORE == 3) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    block_sync<WARPS>();
+    if (t == 0) store<STORE == 2>(dst, s, BYTES);
   }
 }
 
-// (blocks, ROWS, INIT, LOAD, STORE) of each variant, in bulk_round_trip.py's
-// order
-#define VARIANTS(X)          \
-  X(0, 1, 1, -1, 0, 0)       \
-  X(1, 16, 1, -1, 0, 0)      \
-  X(2, 1, 1, 0, 0, 0)        \
-  X(3, 1, 1, 1, 0, 0)        \
-  X(4, 1, 1, 2, 0, 0)        \
-  X(5, 1, 1, 3, 0, 0)        \
-  X(6, 1, 16, 1, 0, 0)       \
-  X(7, 1, 1, 2, 1, 1)        \
-  X(8, 1, 8, 2, 1, 1)        \
-  X(9, 1, 16, 2, 1, 1)       \
-  X(10, 1, 1, -1, 2, 1)      \
-  X(11, 1, 8, -1, 2, 1)      \
-  X(12, 1, 16, -1, 2, 1)     \
-  X(13, 16, 1, -1, 2, 1)     \
-  X(14, 8, 1, 2, 1, 1)       \
-  X(15, 16, 1, 2, 1, 1)      \
-  X(16, 1, 16, 1, 1, 2)      \
-  X(17, 1, 16, 1, 1, 3)      \
-  X(18, 1, 16, 2, 1, 3)      \
-  X(19, 8, 2, 2, 1, 2)       \
-  X(20, 8, 2, 2, 1, 3)       \
-  X(21, 16, 1, 2, 1, 2)      \
-  X(22, 16, 1, 2, 1, 3)      \
-  X(23, 16, 1, 1, 1, 3)      \
-  X(24, 16, 1, 0, 1, 3)      \
-  X(25, 1, 8, 1, 1, 1)
+__global__ void empty_kernel(const int32_t* __restrict__, int32_t* __restrict__,
+                             int) {}
+
+// The PR 5 kernels, as they were.
+__device__ __forceinline__ void old_barrier_init(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(512)
+old_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
+               int row) {
+  constexpr uint32_t BYTES = 16 * 128 * 4;
+  __shared__ __align__(128) int32_t s[16 * 128];
+  __shared__ __align__(8) uint64_t bar;
+  old_barrier_init(&bar);
+  if (threadIdx.x == 0) {
+    expect(&bar, BYTES);
+    load(s, A + (size_t)row * 128, BYTES, &bar);
+  }
+  wait_phase0<false>(&bar);
+  for (int i = threadIdx.x; i < 16 * 128; i += blockDim.x) s[i] += 1;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) store<false>(out, s, BYTES);
+}
+
+__global__ void __launch_bounds__(256)
+old_dma_in_when(const int32_t* __restrict__ A, int32_t* __restrict__ out,
+                int slab) {
+  constexpr uint32_t BYTES = 8 * 128 * 4;
+  __shared__ __align__(128) int4 s[8 * 128 / 4];
+  __shared__ __align__(8) uint64_t bar;
+  if (blockIdx.x == 0) {
+    old_barrier_init(&bar);
+    if (threadIdx.x == 0) {
+      expect(&bar, BYTES);
+      load(s, A + (size_t)slab * 8 * 128, BYTES, &bar);
+    }
+    wait_phase0<false>(&bar);
+  }
+  reinterpret_cast<int4*>(out)[threadIdx.x] = s[threadIdx.x];
+}
 
 }  // namespace
 
-// Launches variant `v` (0..25) on `stream`; with `stamps` non-null, its
-// stamped twin. Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// an unknown variant.
-extern "C" int dg_bulk_variant(int v, const void* A, void* out, void* stamps,
-                               int row, cudaStream_t stream) {
+// Launches variant `v` on `stream` (`row`: the first row, or the slab of
+// old_dma_in_when). Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for an unknown variant.
+extern "C" int dg_bulk_variant(int v, const void* A, void* out, int row,
+                               cudaStream_t stream) {
   const int32_t* a = static_cast<const int32_t*>(A);
   int32_t* o = static_cast<int32_t*>(out);
-  long long* st = static_cast<long long*>(stamps);
   switch (v) {
-#define LAUNCH(ID, BLOCKS, ROWS, INIT, LOAD, STORE)                          \
+#define RT(ID, BLOCKS, ROWS, WARPS, FENCE, ARM_AFTER, SYNC_AFTER, SPIN, ADD, \
+           STORE)                                                            \
   case ID:                                                                   \
-    if (st)                                                                  \
-      variant<ROWS, INIT, LOAD, STORE, true>                                 \
-          <<<BLOCKS, 32 * ROWS, 0, stream>>>(a, o, st, row);                 \
-    else                                                                     \
-      variant<ROWS, INIT, LOAD, STORE, false>                                \
-          <<<BLOCKS, 32 * ROWS, 0, stream>>>(a, o, st, row);                 \
+    rt<ROWS, WARPS, FENCE, ARM_AFTER, SYNC_AFTER, SPIN, ADD, STORE>          \
+        <<<BLOCKS, 32 * WARPS, 0, stream>>>(a, o, row);                      \
     break;
-    VARIANTS(LAUNCH)
-#undef LAUNCH
+    // dma_in_when's shape: 4 KB, no add
+    RT(0, 8, 1, 1, 2, 0, 0, 0, 0, 1)
+    RT(1, 8, 1, 1, 1, 0, 0, 0, 0, 1)
+    RT(2, 8, 1, 1, 0, 0, 0, 0, 0, 1)
+    RT(3, 8, 1, 1, 2, 0, 1, 0, 0, 1)
+    RT(4, 8, 1, 1, 2, 1, 0, 0, 0, 1)
+    RT(5, 8, 1, 1, 2, 1, 1, 0, 0, 1)
+    RT(6, 8, 1, 1, 2, 0, 0, 1, 0, 1)
+    RT(7, 1, 8, 1, 2, 0, 0, 0, 0, 1)
+    RT(8, 1, 8, 8, 2, 0, 0, 0, 0, 1)
+    RT(9, 1, 8, 8, 1, 0, 0, 0, 0, 1)
+    RT(10, 8, 1, 1, 2, 0, 0, 0, 0, 4)
+    RT(11, 8, 1, 1, 1, 1, 1, 0, 0, 1)
+    // manual_dma's shape: 8 KB, + 1, out by a bulk store
+    RT(12, 16, 1, 1, 2, 0, 0, 0, 1, 2)
+    RT(13, 16, 1, 1, 1, 0, 0, 0, 1, 2)
+    RT(14, 16, 1, 1, 2, 1, 1, 0, 1, 2)
+    RT(15, 16, 1, 1, 1, 1, 1, 0, 1, 2)
+    RT(16, 16, 1, 1, 2, 0, 0, 0, 1, 3)
+    RT(17, 1, 16, 16, 1, 0, 0, 0, 1, 3)
+    RT(18, 8, 2, 2, 2, 0, 0, 0, 1, 2)
+    RT(19, 16, 1, 1, 2, 0, 0, 0, 1, 1)
+#undef RT
+    case 20:
+      empty_kernel<<<1, 32, 0, stream>>>(a, o, row);
+      break;
+    case 21:
+      old_manual_dma<<<1, 512, 0, stream>>>(a, o, row);
+      break;
+    case 22:
+      old_dma_in_when<<<1, 256, 0, stream>>>(a, o, row);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
