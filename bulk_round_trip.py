@@ -52,7 +52,17 @@ V = [
     ("empty 1x32", 0, 0, 0),
     ("PR 5 manual_dma (1x512)", 1, 16, 1),
     ("PR 5 dma_in_when (1x256)", 0, 0, 0),
+    ("when 8x32, mbarrier_init, bounds 32, copy at step 0 of a loop", 0, 0,
+     0),
+    ("when 8x32, mbarrier_init, bounds 512, copy at step 0 of a loop", 0, 0,
+     0),
+    ("when 8x32, mbarrier_init, bounds 32, copy before the loop", 0, 0, 0),
+    ("when 8x32, mbarrier_init, bounds 32, no loop", 0, 0, 0),
+    ("when 8x32, mbarrier_init, bounds 512, no loop", 0, 0, 0),
+    ("manual 16x32, mbarrier_init, .read, bounds 32", 16, 1, 1),
+    ("manual 16x32, mbarrier_init, .read, bounds 512", 16, 1, 1),
 ]
+WHEN = (22, 23, 24, 25, 26, 27)  # dma_in_when's kernels: A [4, 8, 128]
 
 
 def smi(query: str) -> str:
@@ -92,7 +102,7 @@ def main() -> int:
     fixed = torch.zeros(16, 128, dtype=torch.int32, device=dev)
 
     def args(v):
-        return (A3, 2) if v == 22 else (A, ROW)
+        return (A3, 2) if v in WHEN else (A, ROW)
 
     def direct(v):
         a, row = args(v)
@@ -123,7 +133,7 @@ def main() -> int:
     for v, (name, blocks, rows, add) in enumerate(V):
         got = wrapped(v)()
         torch.cuda.synchronize()
-        if v == 22:
+        if v in WHEN:
             ok = torch.equal(got[:8], A3[2])
         else:
             n = blocks * rows

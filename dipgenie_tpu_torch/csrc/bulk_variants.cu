@@ -191,6 +191,74 @@ old_dma_in_when(const int32_t* __restrict__ A, int32_t* __restrict__ out,
   reinterpret_cast<int4*>(out)[threadIdx.x] = s[threadIdx.x];
 }
 
+// The checks' kernels with the fence after mbarrier.init made
+// fence.mbarrier_init, under __launch_bounds__(LB), and (dma_in_when) the
+// copy at step 0 of a step loop (LOOP 1), before the loop (LOOP 2), or with
+// no loop (LOOP 0).
+__device__ __forceinline__ void arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  expect(bar, bytes);
+}
+
+template <int LB, int LOOP>
+__global__ void __launch_bounds__(LB)
+when_k(const int32_t* __restrict__ A, int4* __restrict__ out, int slab,
+       int steps) {
+  __shared__ __align__(128) int4 s[32];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x;
+  const int32_t* src = A + (size_t)(slab * 8 + blockIdx.x) * 128;
+  if (LOOP == 1) {
+    for (int step = 0; step < steps; ++step) {
+      if (step == 0) {
+        if (lane == 0) {
+          arm(&bar, 512);
+          load(s, src, 512, &bar);
+        }
+        __syncwarp();
+        wait_phase0<false>(&bar);
+      }
+      out[blockIdx.x * 32 + lane] = s[lane];
+    }
+  } else {
+    if (LOOP == 0 || steps > 0) {
+      if (lane == 0) {
+        arm(&bar, 512);
+        load(s, src, 512, &bar);
+      }
+      __syncwarp();
+      wait_phase0<false>(&bar);
+    }
+    if (LOOP == 0) {
+      out[blockIdx.x * 32 + lane] = s[lane];
+    } else {
+      for (int step = 0; step < steps; ++step)
+        out[blockIdx.x * 32 + lane] = s[lane];
+    }
+  }
+}
+
+template <int LB>
+__global__ void __launch_bounds__(LB)
+manual_k(const int32_t* __restrict__ A, int32_t* __restrict__ out, int row) {
+  __shared__ __align__(128) int4 s[32];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    arm(&bar, 512);
+    load(s, A + (size_t)(row + blockIdx.x) * 128, 512, &bar);
+  }
+  __syncwarp();
+  wait_phase0<false>(&bar);
+  int4 v = s[lane];
+  s[lane] = make_int4(v.x + 1, v.y + 1, v.z + 1, v.w + 1);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncwarp();
+  if (lane == 0) store<true>(out + (size_t)blockIdx.x * 128, s, 512);
+}
+
 }  // namespace
 
 // Launches variant `v` on `stream` (`row`: the first row, or the slab of
@@ -238,6 +306,27 @@ extern "C" int dg_bulk_variant(int v, const void* A, void* out, int row,
       break;
     case 22:
       old_dma_in_when<<<1, 256, 0, stream>>>(a, o, row);
+      break;
+    case 23:
+      when_k<32, 1><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 24:
+      when_k<512, 1><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 25:
+      when_k<32, 2><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 26:
+      when_k<32, 0><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 27:
+      when_k<512, 0><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 28:
+      manual_k<32><<<16, 32, 0, stream>>>(a, o, row);
+      break;
+    case 29:
+      manual_k<512><<<16, 32, 0, stream>>>(a, o, row);
       break;
     default:
       return (int)cudaErrorInvalidValue;
