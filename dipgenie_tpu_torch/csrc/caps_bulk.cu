@@ -38,18 +38,20 @@ __device__ __forceinline__ uint32_t smem(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// The issuing thread sets the barrier up for one arrival and arms it for
-// `bytes`; the caller then syncs the threads that wait on it. mbarrier.init
-// is a generic-proxy write, and the copy's complete_tx reaches the barrier
-// through the async proxy: PTX orders the two only across a proxy fence,
-// fence.proxy.async.shared::cta (as the CUDA C++ Programming Guide's TMA
-// example does for a block's barrier). fence.mbarrier_init.release.cluster
-// would publish the init to the other blocks of a cluster; these kernels
-// launch no cluster.
-__device__ __forceinline__ void arm_barrier(uint64_t* bar, uint32_t bytes) {
+// One thread sets the barrier up for one arrival; the caller then syncs
+// the threads that will wait on it. The fence is CUTLASS's
+// fence_barrier_init (cutlass/arch/barrier.h): it makes the init visible
+// across the warps, the block and the cluster (a launch without cluster
+// dimensions is a cluster of one) when composed with a sync of that scope.
+// ptxas emits it as a NOP here; fence.proxy.async.shared::cta in its place
+// costs a MEMBAR.ALL.CTA.
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(bar))
                : "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    smem(bar)),
                "r"(bytes)
@@ -80,16 +82,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// Each thread that wrote `src` fences its writes to the async proxy, and
-// the caller syncs those threads, before one thread calls bulk_store.
+// Every thread that wrote shared memory the bulk store reads makes its
+// writes visible to the async proxy, then the caller syncs those threads.
 __device__ __forceinline__ void fence_to_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// Shared -> global, `bytes`, waited for only until the copy has read
-// shared memory (wait_group.read), which must outlive the read; the end of
-// the grid makes the writes visible to the next kernel, so waiting for
-// them here (wait_group 0) would only lengthen the chain.
+// Shared -> global, `bytes`, by one thread, which waits until the copy has
+// read shared memory (wait_group.read): the block's shared memory must
+// outlive that read, and the end of the grid makes the writes visible.
+// Waiting for the writes themselves (wait_group 0) took the same time.
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
                                            uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
@@ -99,29 +101,37 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-constexpr uint32_t ROW_BYTES = 128 * 4;  // one int32 row, one int4 a lane
+constexpr uint32_t ROW_BYTES = 128 * 4;  // one int32 row: one int4 a lane
+
+// The two kernels below compute their addresses before mbarrier.init: the
+// asm's memory clobber keeps a load of a kernel parameter written after it
+// from moving up, which put that load between the init and the copy.
 
 // out [16, 128] = A[row:row + 16] + 1 of A [64, 128] int32: 16 blocks of
-// one warp, block b one row. Lane 0 arms the block's barrier and bulk-loads
-// row `row + b` (the offset comes at run time); the warp waits, adds,
-// fences, syncs; lane 0 bulk-stores the row.
+// one warp, block b one row (one block of 16 warps took 1.39 us, the
+// serial chain on one SM). Lane 0 sets the block's barrier up and
+// bulk-loads row `row + b` (the offset comes at run time); the warp waits,
+// adds, fences, syncs; lane 0 bulk-stores the row.
 __global__ void __launch_bounds__(32)
 caps_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
                 int row) {
   __shared__ __align__(128) int4 s[32];
   __shared__ __align__(8) uint64_t bar;
   const int lane = threadIdx.x;
+  const int32_t* src = A + (size_t)(row + blockIdx.x) * 128;
+  int32_t* dst = out + (size_t)blockIdx.x * 128;
   if (lane == 0) {
-    arm_barrier(&bar, ROW_BYTES);
-    bulk_load(s, A + (size_t)(row + blockIdx.x) * 128, ROW_BYTES, &bar);
+    barrier_init(&bar);
+    expect_bytes(&bar, ROW_BYTES);
+    bulk_load(s, src, ROW_BYTES, &bar);
   }
   __syncwarp();
   wait_phase0(&bar);
-  int4 v = s[lane];
+  const int4 v = s[lane];
   s[lane] = make_int4(v.x + 1, v.y + 1, v.z + 1, v.w + 1);
   fence_to_async();
   __syncwarp();
-  if (lane == 0) bulk_store(out + (size_t)blockIdx.x * 128, s, ROW_BYTES);
+  if (lane == 0) bulk_store(dst, s, ROW_BYTES);
 }
 
 // out [19, 8, 8] = A[slab, :, :8, :8] + 1 of A [4, 19, 16, 16] int16,
@@ -132,8 +142,10 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
   constexpr uint32_t BYTES = 19 * 8 * 8 * 2;
   __shared__ __align__(128) int16_t s[19 * 8 * 8];
   __shared__ __align__(8) uint64_t bar;
+  if (threadIdx.x == 0) barrier_init(&bar);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    arm_barrier(&bar, BYTES);
+    expect_bytes(&bar, BYTES);
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
         "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem(s)),
@@ -141,7 +153,6 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
         "r"(slab * 19), "r"(smem(&bar))
         : "memory");
   }
-  __syncthreads();
   wait_phase0(&bar);
   for (int i = threadIdx.x; i < 19 * 8 * 8; i += blockDim.x)
     s[i] = (int16_t)(s[i] + 1);
@@ -155,23 +166,26 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
 // the script's grid has one step) and bulk-loads its row only at step 0, as
 // pl.when(program_id(0) == 0) copies at the first step of a sequential
 // grid axis; every step stores what landed, which later steps would reuse.
+// The barrier, like the TPU kernel's semaphore, is set up before the steps.
 __global__ void __launch_bounds__(32)
 caps_dma_in_when(const int32_t* __restrict__ A, int4* __restrict__ out,
                  int slab, int steps) {
   __shared__ __align__(128) int4 s[32];
   __shared__ __align__(8) uint64_t bar;
   const int lane = threadIdx.x;
+  const int32_t* src = A + (size_t)(slab * 8 + blockIdx.x) * 128;
+  int4* dst = out + blockIdx.x * 32 + lane;
+  if (lane == 0) barrier_init(&bar);
   for (int step = 0; step < steps; ++step) {
     if (step == 0) {
       if (lane == 0) {
-        arm_barrier(&bar, ROW_BYTES);
-        bulk_load(s, A + (size_t)(slab * 8 + blockIdx.x) * 128, ROW_BYTES,
-                  &bar);
+        expect_bytes(&bar, ROW_BYTES);
+        bulk_load(s, src, ROW_BYTES, &bar);
       }
       __syncwarp();
       wait_phase0(&bar);
     }
-    out[blockIdx.x * 32 + lane] = s[lane];
+    *dst = s[lane];
   }
 }
 
