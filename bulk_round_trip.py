@@ -61,8 +61,16 @@ V = [
     ("when 8x32, mbarrier_init, bounds 512, no loop", 0, 0, 0),
     ("manual 16x32, mbarrier_init, .read, bounds 32", 16, 1, 1),
     ("manual 16x32, mbarrier_init, .read, bounds 512", 16, 1, 1),
+    ("when 8x32, loop, barrier before the steps", 0, 0, 0),
+    ("when 8x32, loop, barrier before the steps, addresses pinned", 0, 0, 0),
+    ("when 8x32, loop, barrier at step 0", 0, 0, 0),
+    ("when 8x32, loop, barrier at step 0, addresses pinned", 0, 0, 0),
+    ("when 1x256, loop, barrier before the steps", 0, 0, 0),
+    ("when 1x256, loop, barrier before the steps, addresses pinned", 0, 0,
+     0),
+    ("when 1x256, loop, barrier at step 0, addresses pinned", 0, 0, 0),
 ]
-WHEN = (22, 23, 24, 25, 26, 27)  # dma_in_when's kernels: A [4, 8, 128]
+WHEN = (22, 23, 24, 25, 26, 27, 30, 31, 32, 33, 34, 35, 36)  # dma_in_when's kernels: A [4, 8, 128]
 
 
 def smi(query: str) -> str:

@@ -259,6 +259,45 @@ manual_k(const int32_t* __restrict__ A, int32_t* __restrict__ out, int row) {
   if (lane == 0) store<true>(out + (size_t)blockIdx.x * 128, s, 512);
 }
 
+// dma_in_when with its step loop: WARPS warps a block (8 / WARPS blocks),
+// the addresses pinned before the barrier's set-up (PIN: an empty volatile
+// asm that takes them, so they are computed before the init), the barrier
+// set up before the steps or at step 0 (INIT_INSIDE).
+template <int WARPS, bool PIN, bool INIT_INSIDE>
+__global__ void __launch_bounds__(256)
+when_p(const int32_t* __restrict__ A, int4* __restrict__ out, int slab,
+       int steps) {
+  constexpr uint32_t BYTES = WARPS * 512;
+  __shared__ __align__(128) int4 s[WARPS * 32];
+  __shared__ __align__(8) uint64_t bar;
+  const int t = threadIdx.x;
+  const int32_t* src = A + (size_t)(slab * 8 + blockIdx.x * WARPS) * 128;
+  int4* dst = out + blockIdx.x * WARPS * 32 + t;
+  if (PIN) asm volatile("" ::"l"(src), "l"(dst));
+  if (!INIT_INSIDE && t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(&bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int step = 0; step < steps; ++step) {
+    if (step == 0) {
+      if (t == 0) {
+        if (INIT_INSIDE) {
+          asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                           smem(&bar))
+                       : "memory");
+          asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        }
+        expect(&bar, BYTES);
+        load(s, src, BYTES, &bar);
+      }
+      block_sync<WARPS>();
+      wait_phase0<false>(&bar);
+    }
+    *dst = s[t];
+  }
+}
+
 }  // namespace
 
 // Launches variant `v` on `stream` (`row`: the first row, or the slab of
@@ -327,6 +366,27 @@ extern "C" int dg_bulk_variant(int v, const void* A, void* out, int row,
       break;
     case 29:
       manual_k<512><<<16, 32, 0, stream>>>(a, o, row);
+      break;
+    case 30:
+      when_p<1, false, false><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 31:
+      when_p<1, true, false><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 32:
+      when_p<1, false, true><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 33:
+      when_p<1, true, true><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 34:
+      when_p<8, false, false><<<1, 256, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 35:
+      when_p<8, true, false><<<1, 256, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 36:
+      when_p<8, true, true><<<1, 256, 0, stream>>>(a, (int4*)o, row, 1);
       break;
     default:
       return (int)cudaErrorInvalidValue;
