@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Take one bulk round trip apart on one NVIDIA GPU.
 
-    python3 bulk_round_trip.py      # from the root of a checkout
+    python3 bulk_round_trip.py [word ...]   # from the root of a checkout
+
+With words, only the runs whose names hold one of them; REPEATS=n in the
+environment repeats the two passes n times.
 
 Times the variants of csrc/bulk_variants.cu, the two bulk-copy checks and
 the PyTorch calls that compute the same outputs: device us per launch from
@@ -25,6 +28,7 @@ from dipgenie_tpu_torch import kernels
 from dipgenie_tpu_torch.ops import caps
 
 N_PROFILED = 50
+REPEATS = int(os.environ.get("REPEATS", "1"))  # pairs of passes
 ROW = 8
 # (name, blocks, rows a block, + 1) in csrc/bulk_variants.cu's order
 V = [
@@ -69,8 +73,10 @@ V = [
     ("when 1x256, loop, barrier before the steps, addresses pinned", 0, 0,
      0),
     ("when 1x256, loop, barrier at step 0, addresses pinned", 0, 0, 0),
+    ("when 8x32, loop, barrier at step 0, output index inline", 0, 0, 0),
+    ("when 8x32, barrier armed for 0 bytes unless steps > 0", 0, 0, 0),
 ]
-WHEN = (22, 23, 24, 25, 26, 27, 30, 31, 32, 33, 34, 35, 36)  # dma_in_when's kernels: A [4, 8, 128]
+WHEN = (22, 23, 24, 25, 26, 27, 30, 31, 32, 33, 34, 35, 36, 37, 38)  # dma_in_when's kernels: A [4, 8, 128]
 
 
 def smi(query: str) -> str:
@@ -178,8 +184,10 @@ def main() -> int:
         ("torch.add(A[8:24], 1)", lambda: torch.add(view, 1)),
         ("A3[2].clone()", lambda: A3[2].clone()),
     ]
+    if len(sys.argv) > 1:  # only the runs whose names hold one of the words
+        runs = [(n, f) for n, f in runs if any(w in n for w in sys.argv[1:])]
     times = {name: [] for name, _ in runs}
-    for order in (runs, runs[::-1]):
+    for order in (runs, runs[::-1]) * REPEATS:
         for name, fn in order:
             times[name].append(device_us(fn))
     card = smi("name,power.limit")
@@ -191,9 +199,9 @@ def main() -> int:
         json.dump(result, fh, indent=1)
     print(card)
     print(f"SM clock now / max: {clocks}")
-    print(f"{'variant':70s} device us (2 passes)")
+    print(f"{'variant':70s} device us, passes in turns")
     for name, _ in runs:
-        print(f"{name:70s} {times[name][0]:7.3f} {times[name][1]:7.3f}")
+        print(f"{name:70s} " + " ".join(f"{t:7.3f}" for t in times[name]))
     if bad:
         print(f"WRONG: {bad}")
         return 1

@@ -298,6 +298,51 @@ when_p(const int32_t* __restrict__ A, int4* __restrict__ out, int slab,
   }
 }
 
+// dma_in_when forms at the same addresses: FORM 0 the step loop, barrier
+// set up at step 0, the output index inline in the store; FORM 1 lane 0
+// sets the barrier up, arms it for the row only where a step 0 exists
+// (steps > 0, else for 0 bytes, so the phase completes) and issues the copy
+// under that condition; the warp waits, then the steps store.
+template <int FORM>
+__global__ void __launch_bounds__(32)
+when_f(const int32_t* __restrict__ A, int4* __restrict__ out, int slab,
+       int steps) {
+  __shared__ __align__(128) int4 s[32];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x;
+  const int32_t* src = A + (size_t)(slab * 8 + blockIdx.x) * 128;
+  if (FORM == 0) {
+    for (int step = 0; step < steps; ++step) {
+      if (step == 0) {
+        if (lane == 0) {
+          asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                           smem(&bar))
+                       : "memory");
+          asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+          expect(&bar, 512);
+          load(s, src, 512, &bar);
+        }
+        __syncwarp();
+        wait_phase0<false>(&bar);
+      }
+      out[blockIdx.x * 32 + lane] = s[lane];
+    }
+  } else {
+    if (lane == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(&bar))
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      const bool first = steps > 0;
+      expect(&bar, first ? 512 : 0);
+      if (first) load(s, src, 512, &bar);
+    }
+    __syncwarp();
+    wait_phase0<false>(&bar);
+    for (int step = 0; step < steps; ++step)
+      out[blockIdx.x * 32 + lane] = s[lane];
+  }
+}
+
 }  // namespace
 
 // Launches variant `v` on `stream` (`row`: the first row, or the slab of
@@ -387,6 +432,12 @@ extern "C" int dg_bulk_variant(int v, const void* A, void* out, int row,
       break;
     case 36:
       when_p<8, true, true><<<1, 256, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 37:
+      when_f<0><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
+      break;
+    case 38:
+      when_f<1><<<8, 32, 0, stream>>>(a, (int4*)o, row, 1);
       break;
     default:
       return (int)cudaErrorInvalidValue;
