@@ -185,7 +185,8 @@ CAPS_PRODUCTS = ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32")
 TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # the redesigned capability checks and their device us per launch before
 # the redesign (PERF.md section 6, H100 80GB HBM3, 700 W)
-REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004}
+REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
+              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
 
