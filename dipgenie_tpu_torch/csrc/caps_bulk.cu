@@ -15,12 +15,13 @@
 // profiler): an empty one-warp kernel takes 0.87 us; a bulk load of 512 B
 // or 4 KB and its wait add 0.32 us to it, a plain ld.global of the same
 // bytes 0.19 us. The difference is the barrier's set-up: mbarrier.init,
-// arrive.expect_tx and the issue take 230-300 SM cycles before the copy
-// starts (clock64), and the copy then lands in ~300 against ~360 for a
-// plain load. The store's wait costs nothing measurable (wait_group 0 and
-// wait_group.read alike), and one block of 16 warps moving 8 KB through
-// one barrier took 0.2 us more than 16 one-warp blocks of 512 B. The
-// primitives probed are the ones the DP kernels' prefetch would use:
+// arrive.expect_tx and the cp.async.bulk instruction take 230-300 SM
+// cycles before the copy starts (clock64), and the copy then lands in
+// ~300 against ~360 for a plain load. The store's wait costs nothing
+// measurable (wait_group 0 and wait_group.read alike), and one block of
+// 16 warps moving 8 KB through one barrier took 0.2 us more than 16
+// one-warp blocks of 512 B. The primitives probed are the ones the DP
+// kernels' prefetch would use:
 //   * cp.async.bulk global -> shared at an offset passed at run time, the
 //     mbarrier armed with expect_tx by the issuing thread and waited on by
 //     all (try_wait.parity), then fence.proxy.async so that the bulk store
@@ -32,7 +33,7 @@
 //     here on the host with cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint (no -lcuda), and passed as a __grid_constant__
 //     kernel parameter;
-//   * a bulk copy issued under a run-time condition, the barrier armed for
+//   * a bulk copy started under a run-time condition, the barrier armed for
 //     0 bytes where the condition does not hold, then plain stores.
 // TMA wants 16-byte aligned global addresses and strides and a 128-byte
 // aligned shared destination; the wrapper passes the tensor's base (which
@@ -112,15 +113,16 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 
 constexpr uint32_t ROW_BYTES = 128 * 4;  // one int32 row: one int4 a lane
 
-// The two kernels below compute their addresses before mbarrier.init: the
-// asm's memory clobber keeps a load of a kernel parameter written after it
-// from moving up, which put that load between the init and the copy.
+// caps_manual_dma and caps_dma_in_when compute their addresses before
+// mbarrier.init: the asm's memory clobber keeps a load of a kernel
+// parameter written after it from moving up, which put that load between
+// the init and the copy.
 
 // out [16, 128] = A[row:row + 16] + 1 of A [64, 128] int32: 16 blocks of
 // one warp, block b one row (one block of 16 warps took 1.38-1.39 us on
-// the H100 above, 16 blocks 1.16-1.18). Lane 0 sets the block's barrier up and
-// bulk-loads row `row + b` (the offset comes at run time); the warp waits,
-// adds, fences, syncs; lane 0 bulk-stores the row.
+// the H100 above, 16 blocks 1.16-1.18). Lane 0 sets the block's barrier
+// up and bulk-loads row `row + b` (the offset comes at run time); the warp
+// waits, adds, fences, syncs; lane 0 bulk-stores the row.
 __global__ void __launch_bounds__(32)
 caps_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
                 int row) {
@@ -173,12 +175,12 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
 // out [8, 128] = A[slab] of A [4, 8, 128] int32: 8 blocks of one warp,
 // block b row b of the slab. Each block walks its own steps (`steps`, 1 as
 // the script's grid has one step); pl.when(program_id(0) == 0) copies at
-// the first step of that sequential axis, so lane 0 issues the bulk load
+// the first step of that sequential axis, so lane 0 starts the bulk load
 // only where the block has a step 0 (steps > 0, known at run time) and arms
 // the barrier for the row's bytes, else for 0 bytes, so the phase completes
 // without a copy and the warp's wait never blocks. Every step stores what
 // landed, which later steps would reuse. (Checking step == 0 inside the
-// step loop instead kept the copy's issue behind the loop's set-up.)
+// step loop instead kept the copy's start behind the loop's set-up.)
 __global__ void __launch_bounds__(32)
 caps_dma_in_when(const int32_t* __restrict__ A, int4* __restrict__ out,
                  int slab, int steps) {
