@@ -1,91 +1,345 @@
 // K1: one run of narrow pair-DP transitions.
 //
-// Replaces dipgenie_tpu/ops/diploid_pallas.py `_narrow_kernel` (launched by
-// `_narrow_call`). The TPU kernel gathered with one-hot MXU matmuls over
-// balanced s8 digit planes and took the per-destination max with a
-// lane-roll segmented scan; here the gather is an indexed load and the
-// max is a 64-bit atomicMax on an order-independent key (dg_common.cuh),
-// which gives the same tie rule (earliest pair in plan order).
+// Replaces dipgenie_tpu/ops/diploid_pallas.py `_narrow_kernel` (:861,
+// launched by `_narrow_call`). The TPU kernel gathered with one-hot MXU
+// matmuls over balanced s8 digit planes and took the per-destination max
+// with a lane-roll segmented scan. Here the gather is an indexed
+// shared-memory load and the max is a walk over each destination's pairs.
+//
+// The traffic it was designed for: the MHC-shaped plan of chip_smoke.py's
+// phase C (R = 18, 116,099 narrow transitions in 301 runs) has 100 real
+// pairs per transition at the median (mean 124, p99 441, max 1,089), 1.07
+// chunks of 256 pairs on average (at most 5), a destination extent of 256
+// lanes in all but 436 transitions, and at most 9 pairs into one
+// destination at the median transition (p99 64, max 361).
 //
 // What bounds it on the H100: the level chain is serial (each transition
-// reads the state the previous one wrote) and a narrow transition has
-// only ~0.3k-33k pairs x (R+1) rows of work, far too little to fill 132
-// SMs. So the cost is latency: per transition two block barriers plus a
-// few rounds of L1/L2 loads and L2 atomics, not bytes or FLOPs.
+// reads the state the previous one wrote), and a transition is ~2.4k
+// candidates, 2 KB of tables in and 10 KB of backpointers out: far below
+// what the card moves or computes in the time one block needs for it. The
+// cost is latency per transition: two block barriers (one more per extra
+// block of rows), then the longest walk of the block, i.e. the most pairs
+// into one destination, each pair one shared-memory load of its table word
+// and one dependent load of V per row.
 //
-// Design: ONE block of 1024 threads walks every transition of the run,
-// so a run is one launch (the TPU kernel's sequential grid becomes a
-// loop inside the block). The state V [R+1, 1024] int32 is updated in
-// place in global memory (L1/L2 resident): the candidate phase only reads
-// V and max-reduces into keys [R+1, 1024]; after a barrier the commit
-// phase swaps each key of the destination extent back to 0 and writes V
-// and the int16 backpointer. R is a run-time argument with no upper
-// limit (the TPU kernel padded to 24 or 32 rows); keys (8 KB a row) and V
-// (4 KB a row) would fit a block's 227 KB of shared memory only up to
-// R = 17, so they stay in global memory. Shared-memory state for small R,
-// and several blocks per transition, are later work.
+// Design: ONE block of 1,024 threads walks every transition of the run
+// (one launch per run; the TPU kernel's sequential grid is a loop in the
+// block).
+// * State. V [R+1, lanes] int32, lanes the run's widest extent, lives in
+//   dynamic shared memory where it fits (76 KB at R = 18 and 1,024 lanes,
+//   19 KB at C's usual 256), else in global memory (the same code with
+//   kSharedV false: R has no upper limit). It is updated in place.
+// * Max without atomics. The planner sorts a transition's pairs by
+//   destination over the whole transition and pads only at its end, so
+//   the pairs of one destination are one contiguous range. Thread (g, d)
+//   owns destination lane d on rows g, g + G, ... (G = 1024 / OUT row
+//   groups, RPT rows a thread per block of rows): it walks d's range in
+//   plan order and keeps the first maximum (a strict `>`) with its pair
+//   ordinal in registers. Blocks of rows run from the top row down: the
+//   walk of a block reads only its own rows and the two below it, so after
+//   one barrier it can write its rows while the next (lower) block is
+//   walked.
+// * Ranges. The first and one-past-last pair of each destination come from
+//   a boundary pass over the staged table words (a pair whose successor
+//   has another destination ends its range and starts the next one), into
+//   one of two buffers of [1024] uint16 each; a transition clears its
+//   buffer at its commit.
+// * Prefetch. Each thread holds its words of the next transition in
+//   registers (loaded while this one is walked) and stores them into
+//   shared memory at this transition's commit, with the boundary pass; the
+//   transition after that is prefetched into L2. Descriptors {first chunk,
+//   real pairs, OUT | bp1024 bit, bp row} go through a ring in shared
+//   memory, thread 0 loading each a transition before it is stored. A
+//   transition of more than STAGE pairs (8 chunks) is walked straight from
+//   global memory, its boundary pass reading global memory too.
+// * Backpointers stream out as int16 stores, coalesced over destinations;
+//   the forward pass never reads them back.
+//
+// Measured (PERF.md section 6): the kernel it replaces kept V and the keys
+// in global memory, max-reduced with 64-bit L2 atomics and swapped every
+// key back with atomicExch: 4.62 us a transition on C.
 #include "dg_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+using dg::CHUNK;
+using dg::NEG;
+using dg::REACH_T;
+
+constexpr int THREADS = 1024;
+constexpr int STAGE = 2048;    // pair lanes staged in shared memory
+constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
+constexpr int RPT = 5;         // rows a thread walks per block of rows
+constexpr int RING = 8;        // descriptor ring
+constexpr int MAX_LANES = 1024;
+constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
+
+// the dynamic shared-memory layout: the ring, the staged {packed, score}
+// words, two pairs of range buffers, then V
+constexpr int RING_BYTES = RING * 16;
+constexpr int STAGE_BYTES = STAGE * 8;
+constexpr int RANGE_BYTES = 2 * 2 * MAX_LANES * 2;
+constexpr int FIXED_BYTES = RING_BYTES + STAGE_BYTES + RANGE_BYTES;
+
+__device__ __forceinline__ int dst_of(int packed) {
+  return ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
+}
+
+__device__ __forceinline__ const int32_t* word(const int32_t* tbl, int c0,
+                                                int p) {
+  return tbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
+}
+
+// One end of a range: pair p (packed word pk) is followed by a pair with
+// word pkn (0 past the transition's last pair, which decodes as a pad).
+__device__ __forceinline__ void mark(int p, int pk, int pkn, int out,
+                                     uint16_t* first, uint16_t* end) {
+  const int dc = dst_of(pk), dn = dst_of(pkn);
+  if (dc == dn) return;
+  if (dc >= 0 && dc < out) end[dc] = (uint16_t)(p + 1);
+  if (dn >= 0 && dn < out) first[dn] = (uint16_t)(p + 1);
+}
+
+// This thread's table words of a transition: packed, score and the next
+// pair's packed word of lanes tid and tid + THREADS.
+__device__ __forceinline__ void fetch(const int32_t* tbl, int4 D, int tid,
+                                      int (&pk)[PER], int (&sc)[PER],
+                                      int (&pkn)[PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = tid + j * THREADS;
+    if (p < D.y) {
+      const int32_t* w = word(tbl, D.x, p);
+      pk[j] = w[0];
+      sc[j] = w[CHUNK];
+      pkn[j] = p + 1 < D.y ? *word(tbl, D.x, p + 1) : 0;
+    }
+  }
+}
+
+template <bool kStaged>
+__device__ __forceinline__ int2 pair_at(const int2* s_pair,
+                                        const int32_t* tbl, int c0, int e) {
+  if constexpr (kStaged) {
+    return s_pair[e];
+  } else {
+    const int32_t* w = word(tbl, c0, e);
+    return make_int2(w[0], w[CHUNK]);
+  }
+}
+
+// The best candidate of destination d on rows r0 + G * k (k < RPT, rows
+// below R1) over d's pairs [e0, e1): value (NONE if there is no valid
+// candidate) and pair ordinal.
+template <bool kStaged>
+__device__ __forceinline__ void walk(const int2* s_pair, const int32_t* tbl,
+                                     int c0, int e0, int e1, const int32_t* V,
+                                     int ldv, int lanes, int r0, int G,
+                                     int R1, int (&bv)[RPT], int (&bo)[RPT]) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    bv[k] = NONE;
+    bo[k] = 0;
+  }
+  for (int e = e0; e < e1; ++e) {
+    const int2 ps = pair_at<kStaged>(s_pair, tbl, c0, e);
+    // clamped so that a table outside its contract cannot read outside V
+    const int g = min(ps.x >> 13, lanes - 1);
+    const int w = ps.x & 3;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int r = r0 + G * k;
+      const int rs = r - w;
+      if (r < R1 && rs >= 0) {
+        const int c = V[rs * ldv + g];
+        const int v = c + ps.y;
+        if (c >= REACH_T && v > bv[k]) {
+          bv[k] = v;
+          bo[k] = e;
+        }
+      }
+    }
+  }
+}
+
+template <bool kSharedV>
+__global__ void __launch_bounds__(THREADS, 1)
 narrow_run_kernel(const int32_t* __restrict__ tbl,
-                  const int32_t* __restrict__ sbits,
-                  const int32_t* __restrict__ chunkbase,
-                  const int32_t* __restrict__ tb_bits,
-                  const int32_t* __restrict__ tb_bprow, int T, int nreal,
-                  int R1, int32_t* V, dg::Key* keys, int16_t* bp256,
-                  int16_t* bp1024) {
-  using namespace dg;
+                  const int4* __restrict__ desc, int T, int R1, int lanes,
+                  const int32_t* __restrict__ v_in, int32_t* v_out,
+                  int16_t* __restrict__ bp256, int16_t* __restrict__ bp1024) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* s_desc = reinterpret_cast<int4*>(smem);
+  int2* s_pair = reinterpret_cast<int2*>(smem + RING_BYTES);
+  uint16_t* s_range =
+      reinterpret_cast<uint16_t*>(smem + RING_BYTES + STAGE_BYTES);
+  // s_range: first[0], end[0], first[1], end[1], MAX_LANES each
+  int32_t* V = kSharedV ? reinterpret_cast<int32_t*>(smem + FIXED_BYTES)
+                        : v_out;
+  const int ldv = kSharedV ? lanes : 1024;
+  const int tid = threadIdx.x;
+
+  // the state: lanes [0, lanes) into V, the rest straight to v_out
+  for (int i = tid; i < R1 * 1024; i += THREADS) {
+    const int r = i >> 10, l = i & 1023;
+    if (!kSharedV || l >= lanes) v_out[i] = v_in[i];
+    if (kSharedV && l < lanes) V[r * lanes + l] = v_in[i];
+  }
+  for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
+  // the ring holds transitions t..t+3 at transition t; thread 0 holds t+4
+  int4 held = make_int4(0, 0, 0, 0);
+  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0 && 4 < T) held = desc[4];
+  __syncthreads();  // ring and range buffers in place
+
+  int pk[PER] = {}, sc[PER] = {}, pkn[PER] = {};
+  // transition 0 staged, transition 1 fetched
+  if (T > 0) {
+    const int4 D0 = s_desc[0];
+    const int out0 = D0.z & 0xFFFF;
+    if (D0.y <= STAGE) {
+      fetch(tbl, D0, tid, pk, sc, pkn);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int p = tid + j * THREADS;
+        if (p < D0.y) {
+          s_pair[p] = make_int2(pk[j], sc[j]);
+          mark(p, pk[j], pkn[j], out0, s_range, s_range + MAX_LANES);
+        }
+      }
+    } else {
+      for (int p = tid; p < D0.y; p += THREADS)
+        mark(p, *word(tbl, D0.x, p),
+             p + 1 < D0.y ? *word(tbl, D0.x, p + 1) : 0, out0, s_range,
+             s_range + MAX_LANES);
+    }
+    if (T > 1 && s_desc[1].y <= STAGE) fetch(tbl, s_desc[1], tid, pk, sc, pkn);
+  }
+  __syncthreads();
+
+  int4 D = T > 0 ? s_desc[0] : make_int4(0, 0, 0, 0);
   for (int t = 0; t < T; ++t) {
-    const int c0 = chunkbase[t];
-    const int c1 = (t + 1 < T) ? chunkbase[t + 1] : nreal;
-    const int nl = (c1 - c0) * CHUNK;  // pair lanes, pads included
-    const int out = CHUNK * (((sbits[c0] >> 7) & 3) + 1);
-
-    // candidates: work item (r, p), p fastest so a warp reads one row
-    for (int idx = threadIdx.x; idx < nl * R1; idx += blockDim.x) {
-      const int r = idx / nl;
-      const int p = idx - r * nl;
-      const int* row0 = tbl + ((size_t)(c0 + p / CHUNK) * 2) * CHUNK;
-      const int packed = row0[p % CHUNK];
-      const int dst = ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
-      const int rs = r - (packed & 3);
-      if (dst < 0 || rs < 0) continue;
-      const int c = V[rs * 1024 + (packed >> 13)];
-      if (c < REACH_T) continue;
-      atomicMax(&keys[r * 1024 + dst], make_key(c + row0[CHUNK + p % CHUNK], p));
-    }
-    __syncthreads();
-
-    // commit the destination extent [0, out); lanes past it keep stale
-    // values that no later transition gathers
-    const bool bp_wide = (tb_bits[t] & 2) != 0;
+    const int cb = t & 1;
+    const uint16_t* first = s_range + cb * 2 * MAX_LANES;
+    const uint16_t* end = first + MAX_LANES;
+    const int out = D.z & 0xFFFF;
+    const bool bp_wide = (D.z >> 16) & 1;
+    const int G = max(THREADS / out, 1);
+    const int g = tid / out, d = tid - g * out;
+    const bool mine = g < G;
+    const int rb_rows = G * RPT;
+    const int nrb = (R1 + rb_rows - 1) / rb_rows;
     const int ld = bp_wide ? 1024 : CHUNK;
-    int16_t* bp = (bp_wide ? bp1024 : bp256) + (size_t)tb_bprow[t] * R1 * ld;
-    for (int idx = threadIdx.x; idx < R1 * out; idx += blockDim.x) {
-      const int r = idx / out;
-      const int d = idx - r * out;
-      const Key k = atomicExch(&keys[r * 1024 + d], 0ull);
-      V[r * 1024 + d] = key_value(k);
-      bp[r * ld + d] = (int16_t)key_ordinal(k);
+    int16_t* bp = (bp_wide ? bp1024 : bp256) + (size_t)D.w * R1 * ld;
+    const int e0 = mine ? first[d] : 0, e1 = mine ? end[d] : 0;
+
+    for (int rb = nrb - 1; rb >= 0; --rb) {
+      const int r0 = rb * rb_rows + g;
+      int bv[RPT], bo[RPT];
+      if (D.y <= STAGE)
+        walk<true>(s_pair, tbl, D.x, e0, e1, V, ldv, lanes, r0, G, R1, bv,
+                   bo);
+      else
+        walk<false>(s_pair, tbl, D.x, e0, e1, V, ldv, lanes, r0, G, R1, bv,
+                    bo);
+      __syncthreads();  // every read of this block's rows is done
+      if (mine) {
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+          const int r = r0 + G * k;
+          if (r < R1) {
+            V[r * ldv + d] = bv[k] > REACH_T ? bv[k] : NEG;
+            bp[r * ld + d] = (int16_t)(bv[k] != NONE ? bo[k] : 0);
+          }
+        }
+      }
     }
-    __syncthreads();
+
+    // commit done; clear this transition's ranges, stage the next one,
+    // fetch the one after it and prefetch a third into L2
+    uint16_t* cfirst = s_range + cb * 2 * MAX_LANES;
+    for (int i = tid; i < out; i += THREADS) {
+      cfirst[i] = 0;
+      cfirst[MAX_LANES + i] = 0;
+    }
+    if (t + 1 < T) {
+      const int4 D1 = s_desc[(t + 1) & (RING - 1)];
+      const int out1 = D1.z & 0xFFFF;
+      uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
+      if (D1.y <= STAGE) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int p = tid + j * THREADS;
+          if (p < D1.y) {
+            s_pair[p] = make_int2(pk[j], sc[j]);
+            mark(p, pk[j], pkn[j], out1, nfirst, nfirst + MAX_LANES);
+          }
+        }
+      } else {
+        for (int p = tid; p < D1.y; p += THREADS)
+          mark(p, *word(tbl, D1.x, p),
+               p + 1 < D1.y ? *word(tbl, D1.x, p + 1) : 0, out1, nfirst,
+               nfirst + MAX_LANES);
+      }
+      if (t + 2 < T) {
+        const int4 D2 = s_desc[(t + 2) & (RING - 1)];
+        if (D2.y <= STAGE) fetch(tbl, D2, tid, pk, sc, pkn);
+      }
+      if (t + 3 < T) {
+        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
+        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
+        if (tid < lines) {
+          const char* a = reinterpret_cast<const char*>(
+                              tbl + (size_t)D3.x * 2 * CHUNK) + tid * 128;
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+        }
+      }
+      D = D1;
+    }
+    if (tid == 0 && t + 4 < T) {
+      s_desc[(t + 4) & (RING - 1)] = held;
+      if (t + 5 < T) held = desc[t + 5];
+    }
+    __syncthreads();  // V written, the next transition staged
+  }
+
+  if (kSharedV) {
+    for (int i = tid; i < R1 * lanes; i += THREADS) {
+      const int r = i / lanes, l = i - r * lanes;
+      v_out[r * 1024 + l] = V[i];
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int dg_narrow_run(const int32_t* tbl, const int32_t* sbits,
-                             const int32_t* chunkbase, const int32_t* tb_bits,
-                             const int32_t* tb_bprow, int T, int nreal, int R1,
-                             int32_t* V, dg::Key* keys, int16_t* bp256,
-                             int16_t* bp1024, cudaStream_t stream) {
-  if (T > 0) {
-    narrow_run_kernel<<<1, 1024, 0, stream>>>(tbl, sbits, chunkbase, tb_bits,
-                                              tb_bprow, T, nreal, R1, V, keys,
-                                              bp256, bp1024);
+// Dynamic shared memory of a launch: V [R1, lanes] only with shared_v.
+extern "C" int dg_narrow_smem_bytes(int R1, int lanes, int shared_v) {
+  return FIXED_BYTES + (shared_v ? R1 * lanes * 4 : 0);
+}
+
+extern "C" int dg_narrow_run(const int32_t* tbl, const int4* desc, int T,
+                             int R1, int lanes, int shared_v,
+                             const int32_t* v_in, int32_t* v_out,
+                             int16_t* bp256, int16_t* bp1024,
+                             cudaStream_t stream) {
+  const int bytes = dg_narrow_smem_bytes(R1, lanes, shared_v);
+  if (R1 < 1 || lanes < 1 || lanes > MAX_LANES || T < 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = shared_v ? narrow_run_kernel<true> : narrow_run_kernel<false>;
+  static bool raised[2] = {false, false};
+  if (!raised[shared_v ? 1 : 0]) {
+    int dev = 0, most = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    raised[shared_v ? 1 : 0] = true;
   }
+  kernel<<<1, THREADS, bytes, stream>>>(tbl, desc, T, R1, lanes, v_in, v_out,
+                                        bp256, bp1024);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of every C entry point (csrc/*.cu)
 _SIGNATURES = {
-    # tbl, sbits, chunkbase, tb_bits, tb_bprow, T, nreal, R1,
-    # V, keys, bp256, bp1024, stream
-    "dg_narrow_run": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # tbl, tb_desc [T, 4], T, R1, lanes, shared_v, v_in, v_out, bp256,
+    # bp1024, stream
+    "dg_narrow_run": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # R1, lanes, shared_v: K1's dynamic shared memory
+    "dg_narrow_smem_bytes": (_I, _I, _I),
     # dtbl, host chunk bounds [T + 1], T, R1, NB, V, keys, bp, stream
     "dg_wide_dense_run": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # tbl, wwin, wbase, host chunk bounds [T + 1], host bp rows [T],

@@ -13,6 +13,11 @@ ties going to the smallest pair ordinal; ``V' <= REACH_T`` commits as
 lanes past it keep stale values, which no later transition gathers. The
 backpointer of ``(r, d)`` is the winner's pair ordinal (0 where no
 candidate reached the lane).
+
+On the card the run is one launch of ``csrc/narrow_run.cu``: V lives in
+shared memory where ``[R+1, lanes]`` fits (``narrow_run``), else in global
+memory (``narrow_run_global``, the same source; each wrapper counts its own
+launches).
 """
 
 from __future__ import annotations
@@ -50,21 +55,22 @@ def _out_lanes(sbits_first_chunk: int) -> int:
     return CHUNK * (((int(sbits_first_chunk) >> 7) & 3) + 1)
 
 
-def _alloc(seg: DevSegment, v_in: torch.Tensor):
-    R1 = v_in.shape[0]
+def _backpointers(seg: DevSegment, R1: int, device):
+    """Zeroed ``(bp256, bp1024)`` of a run (lanes of a bp1024 block past
+    its transition's OUT stay 0)."""
     h = seg.host
-    bp256 = torch.zeros((h.n256, R1, CHUNK), dtype=torch.int16,
-                        device=v_in.device)
-    bp1024 = torch.zeros((h.n1024, R1, 1024), dtype=torch.int16,
-                         device=v_in.device)
-    return v_in.clone(), bp256, bp1024
+    return (torch.zeros((h.n256, R1, CHUNK), dtype=torch.int16,
+                        device=device),
+            torch.zeros((h.n1024, R1, 1024), dtype=torch.int16,
+                        device=device))
 
 
 def narrow_run_ref(seg: DevSegment, v_in: torch.Tensor):
     """Plain PyTorch version: ``(V_out [R+1, 1024] int32, bp256, bp1024)``
     from ``V_in [R+1, 1024] int32``."""
     h = seg.host
-    V, bp256, bp1024 = _alloc(seg, v_in)
+    V = v_in.clone()
+    bp256, bp1024 = _backpointers(seg, V.shape[0], V.device)
     tbl = seg.t["tbl"]
     bounds = chunk_bounds(h.tb_chunkbase, seg.nreal)
     for ti in range(h.t1 - h.t0):
@@ -89,34 +95,69 @@ def narrow_run_ref(seg: DevSegment, v_in: torch.Tensor):
     return V, bp256, bp1024
 
 
-def narrow_run(seg: DevSegment, v_in: torch.Tensor):
-    """K1. A CUDA ``v_in`` launches ``csrc/narrow_run.cu`` (one launch per
-    run); a CPU ``v_in`` takes ``narrow_run_ref``."""
-    if v_in.device.type == "cpu":
-        return narrow_run_ref(seg, v_in)
+# Dynamic shared memory a block may opt into on the H100 (and H200), and
+# K1's fixed share of it (csrc/narrow_run.cu: the descriptor ring, 2,048
+# staged {packed, score} words, two pairs of [1024] uint16 range buffers)
+SHARED_LIMIT = 232_448
+_FIXED_BYTES = 8 * 16 + 2048 * 8 + 2 * 2 * 1024 * 2
+
+
+def smem_bytes(R1: int, lanes: int, shared_v: bool) -> int:
+    """Dynamic shared memory of a K1 launch (``dg_narrow_smem_bytes``)."""
+    return _FIXED_BYTES + (R1 * lanes * 4 if shared_v else 0)
+
+
+def state_in_shared(seg: DevSegment, R1: int) -> bool:
+    """Whether K1 keeps this run's V ``[R1, seg.lanes]`` in shared memory
+    (``narrow_run``) or in global memory (``narrow_run_global``)."""
+    return smem_bytes(R1, seg.lanes, True) <= SHARED_LIMIT
+
+
+def _launch(seg: DevSegment, v_in: torch.Tensor, shared_v: bool):
     kernels.check_tensor(v_in, "v_in", torch.int32, (v_in.shape[0], 1024))
     h = seg.host
+    T = h.t1 - h.t0
     R1 = v_in.shape[0]
-    tensors = {k: seg.t[k] for k in
-               ("tbl", "sbits", "tb_chunkbase", "tb_bits", "tb_bprow")}
-    for name, t in tensors.items():
-        kernels.check_tensor(t, name, torch.int32, None, v_in.device)
+    tbl, desc = seg.t["tbl"], seg.t["tb_desc"]
+    kernels.check_tensor(tbl, "tbl", torch.int32, None, v_in.device)
+    kernels.check_tensor(desc, "tb_desc", torch.int32, (T, 4), v_in.device)
     if R1 < 1:
         raise ValueError(f"narrow_run: R + 1 = {R1} rows, want >= 1")
-    V, bp256, bp1024 = _alloc(seg, v_in)
-    keys = torch.zeros((R1, 1024), dtype=torch.int64, device=v_in.device)
-    T = h.t1 - h.t0
-    lib = kernels.lib()
-    rc = lib.dg_narrow_run(
-        tensors["tbl"].data_ptr(), tensors["sbits"].data_ptr(),
-        tensors["tb_chunkbase"].data_ptr(), tensors["tb_bits"].data_ptr(),
-        tensors["tb_bprow"].data_ptr(), T, seg.nreal, R1,
-        V.data_ptr(), keys.data_ptr(), bp256.data_ptr(), bp1024.data_ptr(),
+    bp256, bp1024 = _backpointers(seg, R1, v_in.device)
+    V = torch.empty_like(v_in)  # the kernel writes every lane
+    rc = kernels.lib().dg_narrow_run(
+        tbl.data_ptr(), desc.data_ptr(), T, R1, seg.lanes, int(shared_v),
+        v_in.data_ptr(), V.data_ptr(), bp256.data_ptr(), bp1024.data_ptr(),
         kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "narrow_run")
-    narrow_run.launches += 1
     return V, bp256, bp1024
 
 
+def narrow_run(seg: DevSegment, v_in: torch.Tensor):
+    """K1. A CUDA ``v_in`` launches ``csrc/narrow_run.cu`` (one launch per
+    run) with V in shared memory, or, where the run's V does not fit there
+    (``state_in_shared``), goes to ``narrow_run_global``; a CPU ``v_in``
+    takes ``narrow_run_ref``."""
+    if v_in.device.type == "cpu":
+        return narrow_run_ref(seg, v_in)
+    if not state_in_shared(seg, v_in.shape[0]):
+        return narrow_run_global(seg, v_in)
+    out = _launch(seg, v_in, True)
+    narrow_run.launches += 1
+    return out
+
+
+def narrow_run_global(seg: DevSegment, v_in: torch.Tensor):
+    """K1 with V in global memory: the same kernel, for the runs whose V
+    does not fit shared memory (any shape may take it). A CPU ``v_in``
+    takes ``narrow_run_ref``."""
+    if v_in.device.type == "cpu":
+        return narrow_run_ref(seg, v_in)
+    out = _launch(seg, v_in, False)
+    narrow_run_global.launches += 1
+    return out
+
+
 narrow_run.launches = 0
+narrow_run_global.launches = 0

@@ -21,6 +21,12 @@ Layouts the port's kernels (and their plain versions) decode:
   here), bits 7-8 the destination extent class - 1 (the transition writes
   ``OUT = 256 * (class + 1)`` lanes). The dataclass comment beside
   ``_NarrowRun.sbits`` predates this layout.
+* Narrow ``tb_desc [T, 4] int32`` (made by ``plan_to_device``, not by the
+  planner; ``narrow_desc``): per transition its first chunk row, its real
+  pairs ``n`` (lanes ``[0, n)`` of its chunks; the rest are pads), ``OUT |
+  (tb_bits & 2) << 15`` and its backpointer row ``tb_bprow``. The
+  segment's ``lanes`` is the run's widest extent, source or destination:
+  K1 keeps V ``[R+1, lanes]`` in shared memory where it fits.
 * Window-split wide chunk table ``tbl [nchunks, 2, 256] int32`` (every
   wide run has one): the narrow packing with ``dst`` relative to the
   chunk's destination window ``wwin``, so the global destination lane is
@@ -55,18 +61,21 @@ the run's whole ``tbl``, ``w1`` and ``symd`` for the traceback. Its merged
 backpointers are one int32 ``[R+1, NB * 1024]`` block per transition,
 ``bp [T, R+1, NB * 1024]``, in the window-split numbering.
 
-Reduction key. For every destination lane and row the kernels keep the
-best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
-(0xFFFFFFFF - ordinal)``, merged with a max. A larger key is a larger
-value, then a smaller ordinal: the reference tie rule (the earliest pair in
-plan order wins). The max is order-independent, so parallel atomics give
-deterministic results, and 0 means "no valid candidate". The high word
-stays below 2^31 (the card computes it in int32 and reads it back signed):
-the planner refuses a graph whose values could pass ``VALUE_MAX``
-(2,147,221,502). Padded pair lanes never make a key: K1 and K3 (and K4)
-drop them by their ``dst + 1 == 0`` sentinel, K2 by ``score == PAD_SC``,
-before ``value + score`` is formed, and a real score is a popcount (>= 0),
-so no real lane looks like a pad, whatever the values.
+Reduction key. For every destination lane and row the wide kernels and
+the plain versions keep the best candidate as one 64-bit key, ``(value -
+REACH_T + 1) << 32 | (0xFFFFFFFF - ordinal)``, merged with a max. A larger
+key is a larger value, then a smaller ordinal: the reference tie rule (the
+earliest pair in plan order wins). The max is order-independent, so
+parallel atomics give deterministic results, and 0 means "no valid
+candidate". The high word stays below 2^31 (the card computes it in int32
+and reads it back signed): the planner refuses a graph whose values could
+pass ``VALUE_MAX`` (2,147,221,502). K1 keeps no keys: each destination's
+pairs are one range in plan order, so it walks them and keeps the first
+maximum, which is the same winner. Padded pair lanes never make a
+candidate: K1 walks only a transition's real pairs, K3 (and K4) drop pads
+by their ``dst + 1 == 0`` sentinel, K2 by ``score == PAD_SC``, before
+``value + score`` is formed, and a real score is a popcount (>= 0), so no
+real lane looks like a pad, whatever the values.
 """
 
 from __future__ import annotations
@@ -125,6 +134,7 @@ class DevSegment:
     # wide_tp: [T + 1] host chunk bounds of the transitions in this rank's
     # share (stbl)
     bounds: np.ndarray | None = None
+    lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
 
     @property
     def t0(self) -> int:
@@ -194,8 +204,29 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
                 f"dense_nb_max={dense_nb_max} sends it there")
         bits, real = _REAL_BITS[kind]
         nreal = int(np.count_nonzero(getattr(seg, bits) & real))
-        segs.append(DevSegment(kind=kind, host=seg, t=t, nreal=nreal))
+        dseg = DevSegment(kind=kind, host=seg, t=t, nreal=nreal)
+        if kind == "narrow":
+            desc, dseg.lanes = narrow_desc(seg, nreal)
+            t["tb_desc"] = _tensor(desc, device)
+        segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
+
+
+def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
+    """``(tb_desc [T, 4] int32, lanes)`` of a narrow run (see the module
+    docstring): K1's per-transition descriptors and the run's widest
+    extent."""
+    base = np.asarray(seg.tb_chunkbase, np.int64)
+    bounds = chunk_bounds(seg.tb_chunkbase, nreal).astype(np.int64)
+    real = ((seg.tbl[:nreal, 0] >> 2) & 2047) != 0
+    cum = np.concatenate([[0], np.cumsum(real.sum(1))])
+    sb = seg.sbits[base]
+    out = CHUNK * (((sb >> 7) & 3) + 1)
+    src = CHUNK * ((sb & 3) + 1)
+    desc = np.stack([base, cum[bounds[1:]] - cum[bounds[:-1]],
+                     out | ((seg.tb_bits & 2) << 15), seg.tb_bprow], 1)
+    lanes = int(max(out.max(initial=CHUNK), src.max(initial=CHUNK)))
+    return desc.astype(np.int32), lanes
 
 
 def chunk_bounds(chunkbase: np.ndarray, nreal: int) -> np.ndarray:

@@ -50,16 +50,23 @@ def _csr(widths, adj, colors, chb):
 
 # (seed, L, kmax, R, ncolors) of the random instances in
 # tests/test_pallas_dp.py (CASES): narrow-only, 16/32 layout mixes, flat
-# 512/768 extents, and wide levels (width > 32)
+# 512/768 extents, and wide levels (width > 32); then one of the same
+# generator with widths to 32 (narrow only) whose last transition sends
+# 2,209 pairs (nine chunks, more than K1 stages) into the sink, and which
+# holds 512- and 1024-lane transitions
 CASES = (
     [(s, 12, 5, 5, 8) for s in range(6)]
     + [(100 + s, 8, 3, 2, 6) for s in range(3)]
     + [(200 + s, 16, 16, 5, 10) for s in range(3)]
     + [(300 + s, 10, 30, 4, 12) for s in range(3)]
     + [(600 + s, 14, 24, 5, 8) for s in range(2)]
+    + [(700, 8, 32, 5, 8)]
     + [(400 + s, 10, 40, 4, 8) for s in range(3)]
     + [(500 + s, 14, 36, 6, 9) for s in range(2)]
 )
+# a narrow run at an R where its V [R+1, 1024] does not fit a block's
+# shared memory, so K1 keeps it in global memory (widths to 30)
+GLOBAL_STATE_CASE = (300, 10, 30, 60, 12)
 
 
 def random_leveled_csr(seed: int, L: int, kmax: int, ncolors: int):

@@ -26,7 +26,8 @@ from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
 from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
-    CASES, LIMIT_CASES, limit_case, mhc_shaped_csr, random_leveled_csr,
+    CASES, GLOBAL_STATE_CASE, LIMIT_CASES, limit_case, mhc_shaped_csr,
+    random_leveled_csr,
 )
 
 pytestmark = pytest.mark.cuda
@@ -89,6 +90,43 @@ def cuda():
 def test_kernels_match_plain_versions(case, cuda):
     arrs, R = case_csr(case)
     _run_checked(plan_to_device(plan_pairs(*arrs, R), cuda), cuda)
+
+
+@pytest.mark.parametrize("case", CASES + [GLOBAL_STATE_CASE])
+def test_narrow_global_state_path_matches_plain_version(case, cuda):
+    """K1 with V in global memory (``narrow_run_global``) on every narrow
+    run of every CASES entry, against the plain version; on
+    GLOBAL_STATE_CASE, whose V does not fit shared memory, ``narrow_run``
+    itself takes that path (its launch counter moves, the shared path's
+    does not) and the DP equals the native tier."""
+    arrs, R = case_csr(case)
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, cuda)
+    V = initial_v(R, cuda)
+    for seg in dplan.segments:
+        kern = RUNS[seg.kind][0]
+        if seg.kind == "narrow":
+            kern = narrow.narrow_run_global
+        got, want = kern(seg, V), RUNS[seg.kind][1](seg, V)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (seg.kind, seg.t0)
+        V = got[0]
+    if case == GLOBAL_STATE_CASE:
+        for r1, lanes in ((19, 1024), (61, 1024), (19, 256)):
+            for shared_v in (False, True):
+                assert kernels.lib().dg_narrow_smem_bytes(
+                    r1, lanes, shared_v) == narrow.smem_bytes(
+                        r1, lanes, shared_v)
+        assert not all(narrow.state_in_shared(s, R + 1)
+                       for s in dplan.segments if s.kind == "narrow")
+        shared, glob = narrow.narrow_run.launches, \
+            narrow.narrow_run_global.launches
+        _run_checked(dplan, cuda)
+        assert narrow.narrow_run_global.launches > glob
+        assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
+        assert narrow.narrow_run.launches == shared + sum(
+            narrow.state_in_shared(s, R + 1) for s in dplan.segments
+            if s.kind == "narrow") * 2
 
 
 @pytest.mark.parametrize("case", WIDE)

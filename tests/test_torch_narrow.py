@@ -19,9 +19,14 @@ from dipgenie_tpu.ops.diploid_pallas import (
     NEG, _narrow_call, _NarrowRun, _r1p, _wide_call, _wide_split_call,
 )
 from dipgenie_tpu.ops.diploid_pallas import plan_pairs as jax_plan_pairs
-from dipgenie_tpu_torch.ops.narrow import narrow_run
-from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
-from dipgenie_tpu_torch.utils.synth import CASES, random_leveled_csr
+from dipgenie_tpu_torch.ops.narrow import (
+    SHARED_LIMIT, narrow_run, narrow_run_global, narrow_run_ref, smem_bytes,
+    state_in_shared,
+)
+from dipgenie_tpu_torch.ops.plan import initial_v, plan_pairs, plan_to_device
+from dipgenie_tpu_torch.utils.synth import (
+    CASES, GLOBAL_STATE_CASE, random_leveled_csr,
+)
 from tests.test_torch_kernels_gpu import case_csr
 
 # the CASES whose plans hold narrow runs only (seeds 400-501 have wide
@@ -153,9 +158,33 @@ def test_narrow_run_matches_jax_kernel(case):
     assert n_narrow
 
 
+def desc_of(seg):
+    """K1's per-transition descriptors of a narrow run, computed
+    transition by transition from the plan's arrays: (rows, lanes)."""
+    nreal = int(np.count_nonzero(seg.sbits & 16))
+    bounds = np.append(seg.tb_chunkbase, nreal)
+    rows, lanes = [], 256
+    for ti in range(seg.t1 - seg.t0):
+        c0, c1 = int(bounds[ti]), int(bounds[ti + 1])
+        dst = ((seg.tbl[c0:c1, 0].ravel() >> 2) & 2047) - 1
+        n = int(np.count_nonzero(dst >= 0))
+        assert (dst[:n] >= 0).all() and (dst[n:] < 0).all()  # pads last
+        out = 256 * (((int(seg.sbits[c0]) >> 7) & 3) + 1)
+        src = 256 * ((int(seg.sbits[c0]) & 3) + 1)
+        wide = int(seg.tb_bits[ti]) & 2
+        assert bool(wide) == (out > 256)
+        rows.append([c0, n, out + (65536 if wide else 0),
+                     int(seg.tb_bprow[ti])])
+        lanes = max(lanes, out, src)
+    return rows, lanes
+
+
 @pytest.mark.parametrize("case", [(0, 12, 5, 5, 8), (401, 10, 40, 4, 8),
-                                  "mhc_slice_wide_csr"])
+                                  "mhc_slice_wide_csr", (700, 8, 32, 5, 8)])
 def test_plan_to_device_round_trips_every_array(case):
+    """Every numpy array of every segment arrives on the device unchanged;
+    a narrow run also carries K1's descriptors (``tb_desc``) and its widest
+    extent (``lanes``), which the planner does not make."""
     arrs, R = case_csr(case)
     plan = plan_pairs(*arrs, R)
     dplan = plan_to_device(plan, "cpu")
@@ -163,10 +192,72 @@ def test_plan_to_device_round_trips_every_array(case):
     for seg, dseg in zip(plan.segments, dplan.segments):
         assert dseg.host is seg
         names = [f for f, v in vars(seg).items() if isinstance(v, np.ndarray)]
-        assert sorted(names) == sorted(dseg.t)
+        made = ["tb_desc"] if dseg.kind == "narrow" else []
+        assert sorted(names + made) == sorted(dseg.t)
         for name in names:
             a, t = getattr(seg, name), dseg.t[name]
             assert t.numpy().dtype == a.dtype and np.array_equal(t.numpy(), a)
+        if made:
+            rows, lanes = desc_of(seg)
+            desc = dseg.t["tb_desc"].numpy()
+            assert desc.dtype == np.int32 and desc.tolist() == rows
+            assert dseg.lanes == lanes
+
+
+def most_pairs_into_one_destination(seg):
+    """(pairs, whether they span more than one chunk, pairs of that
+    transition) of the destination that takes the most pairs in a narrow
+    run."""
+    nreal = int(np.count_nonzero(seg.sbits & 16))
+    bounds = np.append(seg.tb_chunkbase, nreal)
+    best = (0, False, 0)
+    for ti in range(seg.t1 - seg.t0):
+        dst = ((seg.tbl[bounds[ti]:bounds[ti + 1], 0].ravel() >> 2)
+               & 2047) - 1
+        real = dst[dst >= 0]
+        if not len(real):
+            continue
+        d = int(np.bincount(real).argmax())
+        lanes = np.flatnonzero(dst == d)
+        assert np.array_equal(lanes, np.arange(lanes[0], lanes[-1] + 1))
+        best = max(best, (len(lanes), bool(lanes[0] // 256 != lanes[-1] // 256),
+                          len(real)))
+    return best
+
+
+def test_a_case_sends_more_than_a_chunk_into_one_destination():
+    """CASES holds a narrow-only instance where one destination takes more
+    than 256 pairs, one contiguous range that crosses a chunk boundary, in a
+    transition of more than the 2,048 pairs K1 stages in shared memory."""
+    case = (700, 8, 32, 5, 8)
+    assert case in CASES and case in NARROW_CASES
+    arrs, R = case_csr(case)
+    plan = plan_pairs(*arrs, R)
+    assert {type(s).__name__ for s in plan.segments} == {"_NarrowRun"}
+    pairs, crosses, n = max(most_pairs_into_one_destination(s)
+                            for s in plan.segments)
+    assert pairs > 256 and crosses and n > 2048
+
+
+def test_k1_keeps_v_in_global_memory_only_where_shared_cannot_hold_it():
+    """K1's state path by shape: the run of GLOBAL_STATE_CASE (widths to
+    30, so 1,024 lanes) keeps V [61, 1024] in global memory; at the R of
+    the JAX tests, and at R = 18 on 1,024 lanes, V is in shared memory."""
+    seed, L, kmax, R, nc = GLOBAL_STATE_CASE
+    arrs = random_leveled_csr(seed, L, kmax, nc)
+    for r, want in ((R, False), (4, True), (18, True)):
+        dplan = plan_to_device(plan_pairs(*arrs, r), "cpu")
+        narrow = [s for s in dplan.segments if s.kind == "narrow"]
+        assert max(s.lanes for s in narrow) == 1024
+        assert min(state_in_shared(s, r + 1) for s in narrow) is want
+    assert smem_bytes(19, 1024, True) <= SHARED_LIMIT < smem_bytes(
+        61, 1024, True)
+    # on CPU tensors both wrappers are the plain version
+    seg = narrow[0]
+    v = initial_v(18, "cpu")
+    for got in (narrow_run(seg, v), narrow_run_global(seg, v)):
+        for g, w in zip(got, narrow_run_ref(seg, v)):
+            assert torch.equal(g, w)
 
 
 def test_random_leveled_csr_matches_test_generator():
