@@ -17,7 +17,10 @@ result line):
      oracles and the random instances' native-tier results; the same, K4's
      shards included, on three graphs past the TPU planner's limits
      (LIMIT_B: R = 40, a wide run of 36 windows, values past 4,100,000)
-     against the native tier;
+     against the native tier; and K1's global-state path
+     (GLOBAL_STATE_CASE, R = 60: a narrow run whose V does not fit shared
+     memory) the same way, then through PairDiploidDP with its launches
+     counted, and beside its plain version;
   G. the level-chain probes (K5a chain_floor, K5b chain_step16, K6
      chain_pair, K7 chain_edge: one block walks a chain of DP levels in one
      launch): G1 each kernel against its plain version on short chains
@@ -111,6 +114,10 @@ CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
 KERNELS = {
     "narrow_run": ("dipgenie_tpu_torch/csrc/narrow_run.cu",
                    "dipgenie_tpu/ops/diploid_pallas.py:861"),
+    # K1 with V in global memory, for runs whose V does not fit shared
+    # memory (phase B's GLOBAL_STATE_CASE)
+    "narrow_run_global": ("dipgenie_tpu_torch/csrc/narrow_run.cu",
+                          "dipgenie_tpu/ops/diploid_pallas.py:861"),
     "wide_dense_run": ("dipgenie_tpu_torch/csrc/wide_dense_run.cu",
                        "dipgenie_tpu/ops/diploid_pallas.py:1388"),
     "wide_split_run": ("dipgenie_tpu_torch/csrc/wide_split_run.cu",
@@ -134,9 +141,9 @@ CHAINS = ("chain_floor", "chain_step16", "chain_pair", "chain_edge")
 KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
                "wide_split": "wide_split_run", "wide_tp": "wide_step"}
 # the path whose launch counts the result line reports for each kernel
-MAIN_PATH = {"narrow_run": "C", "wide_dense_run": "C",
-             "wide_split_run": "E", "trace": "C", "wide_step": "F1",
-             **{name: "G" for name in CHAINS}}
+MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
+             "wide_dense_run": "C", "wide_split_run": "E", "trace": "C",
+             "wide_step": "F1", **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2 and F3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
@@ -186,7 +193,8 @@ TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # the redesigned capability checks and their device us per launch before
 # the redesign (PERF.md section 6, H100 80GB HBM3, 700 W)
 REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
-              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
+              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214,
+              "reshape_lane_groups": 1.074}
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
 
@@ -209,9 +217,11 @@ def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
 
 
 def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
-    """(bytes, operations) of one run: each table byte of its real chunks
-    read once, V in and out once, each backpointer byte written once; an
-    add and a max per (real pair, row it reaches)."""
+    """(bytes, operations) of one run: each table byte it needs read once
+    (K1: the real pairs' words and one descriptor a transition; K2 / K3:
+    its real chunks, with wwin and wbase for K3), V in and out once, each
+    backpointer byte written once; an add and a max per (real pair, row it
+    reaches)."""
     import numpy as np
 
     h = seg.host
@@ -219,10 +229,12 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     real = tbl[: seg.nreal, 1] != -(2**22)
     wsum = tbl[: seg.nreal, 0] & 3
     ops = 2 * int(np.where(real, R1 - wsum, 0).sum())
-    # the chunk's table rows, plus sbits (K1) or wwin and wbase (K3)
-    per_chunk = 4 * 2 * 256 + {"narrow": 4, "wide": 0, "wide_split": 8}[
-        seg.kind]
-    return seg.nreal * per_chunk + 2 * R1 * 1024 * 4 + bp_bytes, ops
+    if seg.kind == "narrow":
+        tables = 8 * int(real.sum()) + 16 * (h.t1 - h.t0)
+    else:
+        tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
+                                             else 0))
+    return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
 
 
 class Smoke:
@@ -242,6 +254,8 @@ class Smoke:
             "chain_pair": (chain_pair.chain_pair, chain_pair.chain_pair_ref),
             "chain_edge": (chain_edge.chain_edge, chain_edge.chain_edge_ref),
             "narrow_run": (narrow.narrow_run, narrow.narrow_run_ref),
+            "narrow_run_global": (narrow.narrow_run_global,
+                                  narrow.narrow_run_ref),
             "wide_dense_run": (wide.wide_dense_run, wide.wide_dense_run_ref),
             "wide_split_run": (wide_split.wide_split_run,
                                wide_split.wide_split_run_ref),
@@ -299,10 +313,14 @@ class Smoke:
         from dipgenie_tpu_torch.ops.diploid_pair import assemble
         from dipgenie_tpu_torch.ops.plan import initial_v
 
+        from dipgenie_tpu_torch.ops.narrow import state_in_shared
+
         V = initial_v(dplan.R, DEVICE)
         bps = []
         for seg in dplan.segments:
             name = KIND_KERNEL[seg.kind]
+            if name == "narrow_run" and not state_in_shared(seg, dplan.R + 1):
+                name = "narrow_run_global"
             kern, plain = self.fns[name]
             got = kern(seg, V)
             self.compare(name, got, plain(seg, V))
@@ -367,8 +385,76 @@ class Smoke:
                 f"{max(nbs, default=0)} windows, value bound "
                 f"{plan.max_abs_value}, value {want[0]} s_het {want[1]} == "
                 "native tier")
+        n_seg += self.phase_b_global()
         log(f"B kernels == plain on {n_seg} segments, each on both routes "
             f"(calls compared: {self.compared}) in {time.time() - t0:.1f}s")
+
+    def phase_b_global(self):
+        """K1's global-state path on GLOBAL_STATE_CASE, whose V does not
+        fit shared memory: every call against the plain version on both
+        routes; the DP through PairDiploidDP with the launch counts set to 0
+        just before and read just after, against the native tier; the
+        kernel beside its plain version on the case's narrow runs (CUDA
+        events, in turns plain, kernel, kernel, plain) and its bound.
+        Returns the plan's segment count."""
+        from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
+        from dipgenie_tpu_torch.ops.narrow import state_in_shared
+        from dipgenie_tpu_torch.ops.plan import (
+            initial_v, plan_pairs, plan_to_device,
+        )
+        from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+        from dipgenie_tpu_torch.utils.synth import (
+            GLOBAL_STATE_CASE, random_leveled_csr,
+        )
+
+        seed, L, kmax, r, nc = GLOBAL_STATE_CASE
+        arrs = random_leveled_csr(seed, L, kmax, nc)
+        plan = plan_pairs(*arrs, r)
+        want = native_forward_csr(arrs, r)
+        self.checked_both_routes(plan, want, "global-state case")
+        dplan = plan_to_device(plan, DEVICE)
+        narrow = [s for s in dplan.segments if s.kind == "narrow"]
+        big = [s for s in narrow if not state_in_shared(s, r + 1)]
+        check(bool(big), "B global-state case: every run fits shared memory")
+        self.reset_counts()
+        got = PairDiploidDP(dplan, DEVICE).run()
+        self.sync()
+        launches = self.launches["B"] = self.counts()
+        check(got == want, f"B global-state case: DP {got[:2]} differs from "
+              f"the native tier's {want[:2]}")
+        check(launches["narrow_run_global"] == len(big)
+              and launches["narrow_run"] == len(narrow) - len(big),
+              f"B global-state case: launches {launches}")
+        inputs, V = [], initial_v(r, DEVICE)
+        for seg in dplan.segments:
+            if any(seg is b for b in big):
+                inputs.append((seg, V))
+            V = self.fns[KIND_KERNEL[seg.kind]][0](seg, V)[0]
+        run = {w: (lambda w=w: [self.fns["narrow_run_global"][w](s, v)
+                                for s, v in inputs]) for w in (0, 1)}
+        times, outs = {0: [], 1: []}, {}
+        for which in (1, 0, 0, 1):
+            ms, outs[which] = self.timed(run[which])
+            times[which].append(ms)
+        for g, w in zip(outs[0], outs[1]):
+            self.compare("narrow_run_global", g, w)
+        nb, no = 0, 0
+        for (seg, _), out in zip(inputs, outs[0]):
+            b, o = work(seg, sum(t.numel() * t.element_size()
+                                 for t in out[1:]), r + 1)
+            nb, no = nb + b, no + o
+        name = "narrow_run_global"
+        self.ms[name], self.plain_ms[name] = min(times[0]), min(times[1])
+        self.bound[name] = bound(nb, no)
+        self.prefix_tr[name] = sum(s.t1 - s.t0 for s, _ in inputs)
+        log(f"B global-state case: R={r}, {len(big)} of {len(narrow)} narrow "
+            f"runs keep V in global memory (lanes "
+            f"{[s.lanes for s in big]}); launches {launches}; value "
+            f"{want[0]} s_het {want[1]} == native tier; {name} on its "
+            f"{self.prefix_tr[name]} transitions: kernel {times[0]} ms, plain "
+            f"{times[1]} ms, bound {self.bound[name][0]:.6g} ms "
+            f"({self.bound[name][1]})")
+        return len(plan.segments)
 
     def tp_shards_checked(self, plan):
         """K4 on every (transition, rank) shard of every wide run for each
@@ -1356,7 +1442,8 @@ class Smoke:
             n_narrow, n_wide, n_split, n_big, widest = (
                 int(x) for x in m.groups())
             want = {"narrow_run": n_narrow, "wide_dense_run": n_wide - n_split,
-                    "wide_split_run": n_split, "wide_step": 0, "trace": 1}
+                    "wide_split_run": n_split, "wide_step": 0,
+                    "narrow_run_global": 0, "trace": 1}
             check(counts == want, f"{tag} launches {counts}, want {want}")
             if n_walks > 8:
                 check(n_split > 0, f"{tag} no run of more than 18 windows")

@@ -70,6 +70,7 @@ constexpr int THREADS = 1024;
 constexpr int STAGE = 2048;    // pair lanes staged in shared memory
 constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
 constexpr int RPT = 5;         // rows a thread walks per block of rows
+constexpr int UNROLL = 4;      // pairs a walk takes at a time
 constexpr int RING = 8;        // descriptor ring
 constexpr int MAX_LANES = 1024;
 constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
@@ -77,7 +78,7 @@ constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
 // the dynamic shared-memory layout: the ring, the staged {packed, score}
 // words, two pairs of range buffers, then V
 constexpr int RING_BYTES = RING * 16;
-constexpr int STAGE_BYTES = STAGE * 8;
+constexpr int STAGE_BYTES = 2 * STAGE * 8;  // two transitions
 constexpr int RANGE_BYTES = 2 * 2 * MAX_LANES * 2;
 constexpr int FIXED_BYTES = RING_BYTES + STAGE_BYTES + RANGE_BYTES;
 
@@ -117,47 +118,102 @@ __device__ __forceinline__ void fetch(const int32_t* tbl, int4 D, int tid,
   }
 }
 
-template <bool kStaged>
-__device__ __forceinline__ int2 pair_at(const int2* s_pair,
-                                        const int32_t* tbl, int c0, int e) {
-  if constexpr (kStaged) {
-    return s_pair[e];
-  } else {
-    const int32_t* w = word(tbl, c0, e);
-    return make_int2(w[0], w[CHUNK]);
-  }
-}
+// The best candidate of a destination on each of its rows: value (NONE if
+// there is no valid candidate) and pair ordinal (0 if none).
+struct Best {
+  int v[RPT];
+  int o[RPT];
+};
 
-// The best candidate of destination d on rows r0 + G * k (k < RPT, rows
-// below R1) over d's pairs [e0, e1): value (NONE if there is no valid
-// candidate) and pair ordinal.
+// The best candidates of a destination over its pairs [e0, e1) on the rows
+// whose offsets in V are rowoff[k] (row r at (r + 2) * ldv: two rows of NEG
+// lie below row 0, so a source row r - wsum < 0 needs no test). UNROLL
+// pairs at a time: their table words, then their RPT loads of V each, are
+// issued together, and the candidates are then taken in plan order. Pairs
+// come from the staged words, or (kStaged false, a transition of more than
+// STAGE pairs) from the tables.
 template <bool kStaged>
-__device__ __forceinline__ void walk(const int2* s_pair, const int32_t* tbl,
+__device__ __forceinline__ Best walk(const int2* s_pair, const int32_t* tbl,
                                      int c0, int e0, int e1, const int32_t* V,
-                                     int ldv, int lanes, int r0, int G,
-                                     int R1, int (&bv)[RPT], int (&bo)[RPT]) {
+                                     int ldv, int lanes,
+                                     const int (&rowoff)[RPT]) {
+  Best b;
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
-    bv[k] = NONE;
-    bo[k] = 0;
+    b.v[k] = NONE;
+    b.o[k] = 0;
   }
-  for (int e = e0; e < e1; ++e) {
-    const int2 ps = pair_at<kStaged>(s_pair, tbl, c0, e);
-    // clamped so that a table outside its contract cannot read outside V
-    const int g = min(ps.x >> 13, lanes - 1);
-    const int w = ps.x & 3;
+#pragma unroll 1
+  for (int e = e0; e < e1; e += UNROLL) {
+    int2 ps[UNROLL];
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int r = r0 + G * k;
-      const int rs = r - w;
-      if (r < R1 && rs >= 0) {
-        const int c = V[rs * ldv + g];
-        const int v = c + ps.y;
-        if (c >= REACH_T && v > bv[k]) {
-          bv[k] = v;
-          bo[k] = e;
+    for (int j = 0; j < UNROLL; ++j) {
+      const int ej = min(e + j, e1 - 1);
+      if constexpr (kStaged) {
+        ps[j] = s_pair[ej];
+      } else {
+        const int32_t* w = word(tbl, c0, ej);
+        ps[j] = make_int2(w[0], w[CHUNK]);
+      }
+    }
+    int c[UNROLL][RPT];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      // the source lane, clamped so that a table outside its contract
+      // cannot read outside V, less wsum rows
+      const int src =
+          min(ps[j].x >> 13, lanes - 1) - min(ps[j].x & 3, 2) * ldv;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) c[j][k] = V[rowoff[k] + src];
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int v = c[j][k] + ps[j].y;
+        if (e + j < e1 && c[j][k] >= REACH_T && v > b.v[k]) {
+          b.v[k] = v;
+          b.o[k] = e + j;
         }
       }
+    }
+  }
+  return b;
+}
+
+// The rare paths, kept out of the transition loop's code: the walk and the
+// boundary pass of a transition of more than STAGE pairs, from the tables.
+struct RowOff {
+  int off[RPT];
+};
+
+__device__ __noinline__ Best walk_unstaged(const int32_t* tbl, int c0,
+                                           int e0, int e1, const int32_t* V,
+                                           int ldv, int lanes, RowOff r) {
+  return walk<false>(nullptr, tbl, c0, e0, e1, V, ldv, lanes, r.off);
+}
+
+__device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
+                                           uint16_t* first) {
+  const int out = D.z & 0xFFFF;
+  for (int p = threadIdx.x; p < D.y; p += THREADS)
+    mark(p, *word(tbl, D.x, p), p + 1 < D.y ? *word(tbl, D.x, p + 1) : 0,
+         out, first, first + MAX_LANES);
+}
+
+// Stage a transition's words held in registers: {packed, score} into
+// s_pair, its range ends into first / end.
+__device__ __forceinline__ void stage(int4 D, int tid, const int (&pk)[PER],
+                                      const int (&sc)[PER],
+                                      const int (&pkn)[PER], int2* s_pair,
+                                      uint16_t* first) {
+  const int out = D.z & 0xFFFF;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = tid + j * THREADS;
+    if (p < D.y) {
+      s_pair[p] = make_int2(pk[j], sc[j]);
+      mark(p, pk[j], pkn[j], out, first, first + MAX_LANES);
     }
   }
 }
@@ -171,20 +227,22 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
   extern __shared__ __align__(16) unsigned char smem[];
   int4* s_desc = reinterpret_cast<int4*>(smem);
   int2* s_pair = reinterpret_cast<int2*>(smem + RING_BYTES);
+  // first[0], end[0], first[1], end[1], MAX_LANES each
   uint16_t* s_range =
       reinterpret_cast<uint16_t*>(smem + RING_BYTES + STAGE_BYTES);
-  // s_range: first[0], end[0], first[1], end[1], MAX_LANES each
+  // V with its two rows of NEG: in shared memory [R1 + 2, lanes], or the
+  // output [R1 + 2, 1024] itself (v_out points at its row 0)
   int32_t* V = kSharedV ? reinterpret_cast<int32_t*>(smem + FIXED_BYTES)
-                        : v_out;
+                        : v_out - 2 * 1024;
   const int ldv = kSharedV ? lanes : 1024;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // the state: lanes [0, lanes) into V, the rest straight to v_out
   for (int i = tid; i < R1 * 1024; i += THREADS) {
     const int r = i >> 10, l = i & 1023;
     if (!kSharedV || l >= lanes) v_out[i] = v_in[i];
-    if (kSharedV && l < lanes) V[r * lanes + l] = v_in[i];
+    if (kSharedV && l < lanes) V[(r + 2) * lanes + l] = v_in[i];
   }
+  for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
   for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
   // the ring holds transitions t..t+3 at transition t; thread 0 holds t+4
   int4 held = make_int4(0, 0, 0, 0);
@@ -192,130 +250,132 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
   if (tid == 0 && 4 < T) held = desc[4];
   __syncthreads();  // ring and range buffers in place
 
+  // Staging runs on the highest threads first: the low destination lanes,
+  // which hold a narrow level's pairs, are walked by the low warps.
+  const int sid = THREADS - 1 - tid;
   int pk[PER] = {}, sc[PER] = {}, pkn[PER] = {};
   // transition 0 staged, transition 1 fetched
   if (T > 0) {
     const int4 D0 = s_desc[0];
-    const int out0 = D0.z & 0xFFFF;
     if (D0.y <= STAGE) {
-      fetch(tbl, D0, tid, pk, sc, pkn);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int p = tid + j * THREADS;
-        if (p < D0.y) {
-          s_pair[p] = make_int2(pk[j], sc[j]);
-          mark(p, pk[j], pkn[j], out0, s_range, s_range + MAX_LANES);
-        }
-      }
+      fetch(tbl, D0, sid, pk, sc, pkn);
+      stage(D0, sid, pk, sc, pkn, s_pair, s_range);
     } else {
-      for (int p = tid; p < D0.y; p += THREADS)
-        mark(p, *word(tbl, D0.x, p),
-             p + 1 < D0.y ? *word(tbl, D0.x, p + 1) : 0, out0, s_range,
-             s_range + MAX_LANES);
+      mark_unstaged(tbl, D0, s_range);
     }
-    if (T > 1 && s_desc[1].y <= STAGE) fetch(tbl, s_desc[1], tid, pk, sc, pkn);
+    if (T > 1 && s_desc[1].y <= STAGE) fetch(tbl, s_desc[1], sid, pk, sc, pkn);
   }
   __syncthreads();
 
+  // blocks of rows for G = 4, 2, 1 row groups
+  const int nrb4 = (R1 + 4 * RPT - 1) / (4 * RPT);
+  const int nrb2 = (R1 + 2 * RPT - 1) / (2 * RPT);
+  const int nrb1 = (R1 + RPT - 1) / RPT;
   int4 D = T > 0 ? s_desc[0] : make_int4(0, 0, 0, 0);
+  int hi = lanes;  // lanes [hi, lanes) of V hold NEG
   for (int t = 0; t < T; ++t) {
     const int cb = t & 1;
-    const uint16_t* first = s_range + cb * 2 * MAX_LANES;
-    const uint16_t* end = first + MAX_LANES;
+    uint16_t* first = s_range + cb * 2 * MAX_LANES;
+    const int4 D1 = s_desc[(t + 1) & (RING - 1)];
+
+    // stage the next transition into the other buffers while this one is
+    // walked, fetch the one after it, prefetch a third into L2
+    if (t + 1 < T) {
+      uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
+      if (D1.y <= STAGE)
+        stage(D1, sid, pk, sc, pkn, s_pair + (cb ^ 1) * STAGE, nfirst);
+      else
+        mark_unstaged(tbl, D1, nfirst);
+      if (t + 2 < T) {
+        const int4 D2 = s_desc[(t + 2) & (RING - 1)];
+        if (D2.y <= STAGE) fetch(tbl, D2, sid, pk, sc, pkn);
+      }
+      if (t + 3 < T) {
+        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
+        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
+        if (sid < lines) {
+          const char* a = reinterpret_cast<const char*>(
+                              tbl + (size_t)D3.x * 2 * CHUNK) + sid * 128;
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+        }
+      }
+    }
+
     const int out = D.z & 0xFFFF;
-    const bool bp_wide = (D.z >> 16) & 1;
-    const int G = max(THREADS / out, 1);
-    const int g = tid / out, d = tid - g * out;
-    const bool mine = g < G;
-    const int rb_rows = G * RPT;
-    const int nrb = (R1 + rb_rows - 1) / rb_rows;
-    const int ld = bp_wide ? 1024 : CHUNK;
-    int16_t* bp = (bp_wide ? bp1024 : bp256) + (size_t)D.w * R1 * ld;
-    const int e0 = mine ? first[d] : 0, e1 = mine ? end[d] : 0;
+    // G = 1024 / OUT row groups (one for 768 lanes), taken by consecutive
+    // warps so that the low destination lanes, which hold a narrow level's
+    // pairs, spread over the SM's four schedulers
+    const int lg = out == 256 ? 2 : out == 512 ? 1 : 0;
+    const int G = 1 << lg;
+    const int g = warp & (G - 1);
+    const int d = ((warp >> lg) << 5) + lane;
+    const int nrb = lg == 2 ? nrb4 : lg == 1 ? nrb2 : nrb1;
+    // lanes [wr, OUT) hold NEG already: only [0, wr) are walked and written
+    const int ndst = D.z >> 16;
+    const int wr = min(max(ndst, hi), out);
+    hi = hi > out ? hi : ndst;
+    const int ld = out > CHUNK ? 1024 : CHUNK;
+    int16_t* bpd = (out > CHUNK ? bp1024 : bp256) + (size_t)D.w * R1 * ld + d;
+    const bool mine = d < wr;
+    const int e0 = mine ? first[d] : 0;
+    const int e1 = mine ? first[MAX_LANES + d] : 0;
 
     for (int rb = nrb - 1; rb >= 0; --rb) {
-      const int r0 = rb * rb_rows + g;
-      int bv[RPT], bo[RPT];
-      if (D.y <= STAGE)
-        walk<true>(s_pair, tbl, D.x, e0, e1, V, ldv, lanes, r0, G, R1, bv,
-                   bo);
-      else
-        walk<false>(s_pair, tbl, D.x, e0, e1, V, ldv, lanes, r0, G, R1, bv,
-                    bo);
+      const int r0 = rb * G * RPT + g;
+      int rowoff[RPT];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        rowoff[k] = (min(r0 + G * k, R1 - 1) + 2) * ldv;
+      Best b;
+      if (D.y <= STAGE) {
+        b = walk<true>(s_pair + cb * STAGE, tbl, D.x, e0, e1, V, ldv, lanes,
+                       rowoff);
+      } else {
+        RowOff ro;
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) ro.off[k] = rowoff[k];
+        b = walk_unstaged(tbl, D.x, e0, e1, V, ldv, lanes, ro);
+      }
       __syncthreads();  // every read of this block's rows is done
       if (mine) {
 #pragma unroll
         for (int k = 0; k < RPT; ++k) {
           const int r = r0 + G * k;
           if (r < R1) {
-            V[r * ldv + d] = bv[k] > REACH_T ? bv[k] : NEG;
-            bp[r * ld + d] = (int16_t)(bv[k] != NONE ? bo[k] : 0);
+            V[rowoff[k] + d] = b.v[k] > REACH_T ? b.v[k] : NEG;
+            // the backpointers start zeroed: write only an ordinal
+            if (b.o[k] != 0) bpd[r * ld] = (int16_t)b.o[k];
           }
         }
       }
     }
 
-    // commit done; clear this transition's ranges, stage the next one,
-    // fetch the one after it and prefetch a third into L2
-    uint16_t* cfirst = s_range + cb * 2 * MAX_LANES;
-    for (int i = tid; i < out; i += THREADS) {
-      cfirst[i] = 0;
-      cfirst[MAX_LANES + i] = 0;
-    }
-    if (t + 1 < T) {
-      const int4 D1 = s_desc[(t + 1) & (RING - 1)];
-      const int out1 = D1.z & 0xFFFF;
-      uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
-      if (D1.y <= STAGE) {
-#pragma unroll
-        for (int j = 0; j < PER; ++j) {
-          const int p = tid + j * THREADS;
-          if (p < D1.y) {
-            s_pair[p] = make_int2(pk[j], sc[j]);
-            mark(p, pk[j], pkn[j], out1, nfirst, nfirst + MAX_LANES);
-          }
-        }
-      } else {
-        for (int p = tid; p < D1.y; p += THREADS)
-          mark(p, *word(tbl, D1.x, p),
-               p + 1 < D1.y ? *word(tbl, D1.x, p + 1) : 0, out1, nfirst,
-               nfirst + MAX_LANES);
-      }
-      if (t + 2 < T) {
-        const int4 D2 = s_desc[(t + 2) & (RING - 1)];
-        if (D2.y <= STAGE) fetch(tbl, D2, tid, pk, sc, pkn);
-      }
-      if (t + 3 < T) {
-        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
-        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
-        if (tid < lines) {
-          const char* a = reinterpret_cast<const char*>(
-                              tbl + (size_t)D3.x * 2 * CHUNK) + tid * 128;
-          asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
-        }
-      }
-      D = D1;
+    // clear the ranges this transition set
+    if (g == 0 && e1 > e0) {
+      first[d] = 0;
+      first[MAX_LANES + d] = 0;
     }
     if (tid == 0 && t + 4 < T) {
       s_desc[(t + 4) & (RING - 1)] = held;
       if (t + 5 < T) held = desc[t + 5];
     }
+    D = D1;
     __syncthreads();  // V written, the next transition staged
   }
 
   if (kSharedV) {
     for (int i = tid; i < R1 * lanes; i += THREADS) {
       const int r = i / lanes, l = i - r * lanes;
-      v_out[r * 1024 + l] = V[i];
+      v_out[r * 1024 + l] = V[2 * lanes + i];
     }
   }
 }
 
 }  // namespace
 
-// Dynamic shared memory of a launch: V [R1, lanes] only with shared_v.
+// Dynamic shared memory of a launch: V [R1 + 2, lanes] only with shared_v.
 extern "C" int dg_narrow_smem_bytes(int R1, int lanes, int shared_v) {
-  return FIXED_BYTES + (shared_v ? R1 * lanes * 4 : 0);
+  return FIXED_BYTES + (shared_v ? (R1 + 2) * lanes * 4 : 0);
 }
 
 extern "C" int dg_narrow_run(const int32_t* tbl, const int4* desc, int T,

@@ -14,6 +14,8 @@
 //   atomicMax per segment.
 // * reshape_variant: layouts of caps_copy16 (the reshape_lane_groups
 //   check, 1,216 16-byte words).
+#include <climits>
+
 #include "dg_common.cuh"
 
 namespace {
@@ -179,7 +181,7 @@ narrow_pair_owned(const int32_t* __restrict__ tbl,
       }
     }
     __syncthreads();
-    const bool bp_wide = (D.z >> 16) & 1;
+    const bool bp_wide = out > CHUNK;
     const int ld = bp_wide ? 1024 : CHUNK;
     int16_t* bp = (bp_wide ? bp1024 : bp256) + (size_t)D.w * R1 * ld;
     for (int idx = tid; idx < R1 * out; idx += THREADS) {
@@ -227,6 +229,26 @@ __global__ void copy_words_k(const int4* __restrict__ A,
 #pragma unroll
   for (int k = 0; k < K; ++k)
     if (i + k * stride < n) out[i + k * stride] = v[k];
+}
+
+__global__ void copy_words_nc(const int4* __restrict__ A,
+                              int4* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) __stcs(out + i, __ldg(A + i));
+}
+
+// 0 nothing, 1 loads only, 2 stores only
+template <int kPart>
+__global__ void copy_part(const int4* __restrict__ A, int4* __restrict__ out,
+                          int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (kPart == 1) {
+    const int4 v = A[i];
+    if (__all_sync(0xFFFFFFFFu, v.x == INT_MIN)) out[i] = v;
+  } else if (kPart == 2) {
+    out[i] = make_int4(i, i, i, i);
+  }
 }
 
 template <typename F>
@@ -281,9 +303,10 @@ extern "C" int dg_narrow_pair_owned(const int32_t* tbl, const int4* desc,
 }
 
 // layouts of the 1,216-word copy: 0 today's 5 x 256; 1 38 one-warp blocks
-// of one word; 2 19 blocks x 64; 3 16 one-warp blocks, 3 words a thread,
-// loads first; 4 8 one-warp blocks, 5 words a thread, loads first;
-// 5 1 x 1024, 2 words a thread, loads first
+// of one word; 2 19 x 64; 3 16 one-warp blocks, 3 words a thread, loads
+// first; 4 10 x 128; 5 2 x 608; 6 5 x 256 with ld.global.nc and st.cs;
+// the decomposition: 7 an empty 5 x 256 kernel; 8 5 x 256 loads only
+// (stored only if a word is INT_MIN in every lane); 9 5 x 256 stores only
 extern "C" int dg_reshape_variant(int which, const void* in, void* out,
                                   cudaStream_t s) {
   const auto* a = static_cast<const int4*>(in);
@@ -294,9 +317,376 @@ extern "C" int dg_reshape_variant(int which, const void* in, void* out,
     case 1: copy_words<<<38, 32, 0, s>>>(a, o, n); break;
     case 2: copy_words<<<19, 64, 0, s>>>(a, o, n); break;
     case 3: copy_words_k<3><<<16, 32, 0, s>>>(a, o, n); break;
-    case 4: copy_words_k<5><<<8, 32, 0, s>>>(a, o, n); break;
-    case 5: copy_words_k<2><<<1, 1024, 0, s>>>(a, o, n); break;
+    case 4: copy_words<<<10, 128, 0, s>>>(a, o, n); break;
+    case 5: copy_words<<<2, 608, 0, s>>>(a, o, n); break;
+    case 6: copy_words_nc<<<5, 256, 0, s>>>(a, o, n); break;
+    case 7: copy_part<0><<<5, 256, 0, s>>>(a, o, n); break;
+    case 8: copy_part<1><<<5, 256, 0, s>>>(a, o, n); break;
+    case 9: copy_part<2><<<5, 256, 0, s>>>(a, o, n); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// A copy of narrow_run.cu's kernel with clock64 stamps (thread 0, and the
+// slowest warp of each phase), for narrow_variants.py: per run, sums over
+// its transitions of [0] loop top to the walk's barrier (thread 0), [1] to
+// the commit's end, [2] to the end of the staging, [3] to the last
+// barrier, [4] the slowest warp's walk, [5] the slowest warp's staging,
+// [6] transitions.
+namespace probe {
+using dg::CHUNK;
+using dg::NEG;
+using dg::REACH_T;
+
+
+constexpr int THREADS = 1024;
+constexpr int STAGE = 2048;    // pair lanes staged in shared memory
+constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
+constexpr int RPT = 5;         // rows a thread walks per block of rows
+constexpr int UNROLL = 4;      // pairs a walk takes at a time
+constexpr int RING = 8;        // descriptor ring
+constexpr int MAX_LANES = 1024;
+constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
+
+// the dynamic shared-memory layout: the ring, the staged {packed, score}
+// words, two pairs of range buffers, then V
+constexpr int RING_BYTES = RING * 16;
+constexpr int STAGE_BYTES = 2 * STAGE * 8;  // two transitions
+constexpr int RANGE_BYTES = 2 * 2 * MAX_LANES * 2;
+constexpr int FIXED_BYTES = RING_BYTES + STAGE_BYTES + RANGE_BYTES;
+
+__device__ __forceinline__ int dst_of(int packed) {
+  return ((packed >> 2) & 2047) - 1;  // -1 on padded lanes
+}
+
+__device__ __forceinline__ const int32_t* word(const int32_t* tbl, int c0,
+                                                int p) {
+  return tbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
+}
+
+// One end of a range: pair p (packed word pk) is followed by a pair with
+// word pkn (0 past the transition's last pair, which decodes as a pad).
+__device__ __forceinline__ void mark(int p, int pk, int pkn, int out,
+                                     uint16_t* first, uint16_t* end) {
+  const int dc = dst_of(pk), dn = dst_of(pkn);
+  if (dc == dn) return;
+  if (dc >= 0 && dc < out) end[dc] = (uint16_t)(p + 1);
+  if (dn >= 0 && dn < out) first[dn] = (uint16_t)(p + 1);
+}
+
+// This thread's table words of a transition: packed, score and the next
+// pair's packed word of lanes tid and tid + THREADS.
+__device__ __forceinline__ void fetch(const int32_t* tbl, int4 D, int tid,
+                                      int (&pk)[PER], int (&sc)[PER],
+                                      int (&pkn)[PER]) {
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = tid + j * THREADS;
+    if (p < D.y) {
+      const int32_t* w = word(tbl, D.x, p);
+      pk[j] = w[0];
+      sc[j] = w[CHUNK];
+      pkn[j] = p + 1 < D.y ? *word(tbl, D.x, p + 1) : 0;
+    }
+  }
+}
+
+// The best candidate of a destination on each of its rows: value (NONE if
+// there is no valid candidate) and pair ordinal (0 if none).
+struct Best {
+  int v[RPT];
+  int o[RPT];
+};
+
+// The best candidates of a destination over its pairs [e0, e1) on the rows
+// whose offsets in V are rowoff[k] (row r at (r + 2) * ldv: two rows of NEG
+// lie below row 0, so a source row r - wsum < 0 needs no test). UNROLL
+// pairs at a time: their table words, then their RPT loads of V each, are
+// issued together, and the candidates are then taken in plan order. Pairs
+// come from the staged words, or (kStaged false, a transition of more than
+// STAGE pairs) from the tables.
+template <bool kStaged>
+__device__ __forceinline__ Best walk(const int2* s_pair, const int32_t* tbl,
+                                     int c0, int e0, int e1, const int32_t* V,
+                                     int ldv, int lanes,
+                                     const int (&rowoff)[RPT], int mode) {
+  Best b;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    b.v[k] = NONE;
+    b.o[k] = 0;
+  }
+#pragma unroll 1
+  for (int e = e0; e < e1; e += UNROLL) {
+    int2 ps[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const int ej = min(e + j, e1 - 1);
+      if constexpr (kStaged) {
+        ps[j] = s_pair[ej];
+      } else {
+        const int32_t* w = word(tbl, c0, ej);
+        ps[j] = make_int2(w[0], w[CHUNK]);
+      }
+    }
+    int c[UNROLL][RPT];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      // the source lane, clamped so that a table outside its contract
+      // cannot read outside V, less wsum rows
+      const int src =
+          min(ps[j].x >> 13, lanes - 1) - min(ps[j].x & 3, 2) * ldv;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) c[j][k] = (mode & 16) ? src - k : V[rowoff[k] + src];
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        const int v = c[j][k] + ps[j].y;
+        if (e + j < e1 && c[j][k] >= REACH_T && v > b.v[k]) {
+          b.v[k] = v;
+          b.o[k] = e + j;
+        }
+      }
+    }
+  }
+  return b;
+}
+
+// The rare paths, kept out of the transition loop's code: the walk and the
+// boundary pass of a transition of more than STAGE pairs, from the tables.
+struct RowOff {
+  int off[RPT];
+};
+
+__device__ __noinline__ Best walk_unstaged(const int32_t* tbl, int c0,
+                                           int e0, int e1, const int32_t* V,
+                                           int ldv, int lanes, RowOff r) {
+  return walk<false>(nullptr, tbl, c0, e0, e1, V, ldv, lanes, r.off, 0);
+}
+
+__device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
+                                           uint16_t* first) {
+  const int out = D.z & 0xFFFF;
+  for (int p = threadIdx.x; p < D.y; p += THREADS)
+    mark(p, *word(tbl, D.x, p), p + 1 < D.y ? *word(tbl, D.x, p + 1) : 0,
+         out, first, first + MAX_LANES);
+}
+
+// Stage a transition's words held in registers: {packed, score} into
+// s_pair, its range ends into first / end.
+__device__ __forceinline__ void stage(int4 D, int tid, const int (&pk)[PER],
+                                      const int (&sc)[PER],
+                                      const int (&pkn)[PER], int2* s_pair,
+                                      uint16_t* first) {
+  const int out = D.z & 0xFFFF;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = tid + j * THREADS;
+    if (p < D.y) {
+      s_pair[p] = make_int2(pk[j], sc[j]);
+      mark(p, pk[j], pkn[j], out, first, first + MAX_LANES);
+    }
+  }
+}
+
+template <bool kSharedV>
+__global__ void __launch_bounds__(THREADS, 1)
+narrow_probe_kernel(const int32_t* __restrict__ tbl,
+                  const int4* __restrict__ desc, int T, int R1, int lanes,
+                  const int32_t* __restrict__ v_in, int32_t* v_out,
+                  int16_t* __restrict__ bp256, int16_t* __restrict__ bp1024,
+                  long long* prof, int mode) {
+  __shared__ long long s_max[4];
+  __shared__ int s_len[2];
+  if (threadIdx.x < 2) s_len[threadIdx.x] = 0;
+  long long acc[8] = {};
+  if (threadIdx.x < 4) s_max[threadIdx.x] = 0;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* s_desc = reinterpret_cast<int4*>(smem);
+  int2* s_pair = reinterpret_cast<int2*>(smem + RING_BYTES);
+  // first[0], end[0], first[1], end[1], MAX_LANES each
+  uint16_t* s_range =
+      reinterpret_cast<uint16_t*>(smem + RING_BYTES + STAGE_BYTES);
+  // V with its two rows of NEG: in shared memory [R1 + 2, lanes], or the
+  // output [R1 + 2, 1024] itself (v_out points at its row 0)
+  int32_t* V = kSharedV ? reinterpret_cast<int32_t*>(smem + FIXED_BYTES)
+                        : v_out - 2 * 1024;
+  const int ldv = kSharedV ? lanes : 1024;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < R1 * 1024; i += THREADS) {
+    const int r = i >> 10, l = i & 1023;
+    if (!kSharedV || l >= lanes) v_out[i] = v_in[i];
+    if (kSharedV && l < lanes) V[(r + 2) * lanes + l] = v_in[i];
+  }
+  for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
+  for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
+  // the ring holds transitions t..t+3 at transition t; thread 0 holds t+4
+  int4 held = make_int4(0, 0, 0, 0);
+  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0 && 4 < T) held = desc[4];
+  __syncthreads();  // ring and range buffers in place
+
+  // Staging runs on the highest threads first: the low destination lanes,
+  // which hold a narrow level's pairs, are walked by the low warps.
+  const int sid = THREADS - 1 - tid;
+  int pk[PER] = {}, sc[PER] = {}, pkn[PER] = {};
+  // transition 0 staged, transition 1 fetched
+  if (T > 0) {
+    const int4 D0 = s_desc[0];
+    if (D0.y <= STAGE) {
+      fetch(tbl, D0, sid, pk, sc, pkn);
+      stage(D0, sid, pk, sc, pkn, s_pair, s_range);
+    } else {
+      mark_unstaged(tbl, D0, s_range);
+    }
+    if (T > 1 && s_desc[1].y <= STAGE) fetch(tbl, s_desc[1], sid, pk, sc, pkn);
+  }
+  __syncthreads();
+
+  // blocks of rows for G = 4, 2, 1 row groups
+  const int nrb4 = (R1 + 4 * RPT - 1) / (4 * RPT);
+  const int nrb2 = (R1 + 2 * RPT - 1) / (2 * RPT);
+  const int nrb1 = (R1 + RPT - 1) / RPT;
+  int4 D = T > 0 ? s_desc[0] : make_int4(0, 0, 0, 0);
+  int hi = lanes;  // lanes [hi, lanes) of V hold NEG
+  for (int t = 0; t < T; ++t) {
+    const long long s0 = clock64();
+    const int cb = t & 1;
+    uint16_t* first = s_range + cb * 2 * MAX_LANES;
+    const int4 D1 = s_desc[(t + 1) & (RING - 1)];
+
+    // stage the next transition into the other buffers while this one is
+    // walked, fetch the one after it, prefetch a third into L2
+    if (t + 1 < T) {
+      uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
+      if (D1.y <= STAGE)
+        stage(D1, sid, pk, sc, pkn, s_pair + (cb ^ 1) * STAGE, nfirst);
+      else
+        mark_unstaged(tbl, D1, nfirst);
+      if (t + 2 < T) {
+        const int4 D2 = s_desc[(t + 2) & (RING - 1)];
+        if (D2.y <= STAGE && !(mode & 4)) fetch(tbl, D2, sid, pk, sc, pkn);
+      }
+      if (t + 3 < T) {
+        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
+        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
+        if (sid < lines) {
+          const char* a = reinterpret_cast<const char*>(
+                              tbl + (size_t)D3.x * 2 * CHUNK) + sid * 128;
+          if (!(mode & 8)) asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+        }
+      }
+    }
+
+    const int out = D.z & 0xFFFF;
+    // G = 1024 / OUT row groups (one for 768 lanes), taken by consecutive
+    // warps so that the low destination lanes, which hold a narrow level's
+    // pairs, spread over the SM's four schedulers
+    const int lg = out == 256 ? 2 : out == 512 ? 1 : 0;
+    const int G = 1 << lg;
+    const int g = warp & (G - 1);
+    const int d = ((warp >> lg) << 5) + lane;
+    const int nrb = lg == 2 ? nrb4 : lg == 1 ? nrb2 : nrb1;
+    // lanes [wr, OUT) hold NEG already: only [0, wr) are walked and written
+    const int ndst = D.z >> 16;
+    const int wr = min(max(ndst, hi), out);
+    hi = hi > out ? hi : ndst;
+    const int ld = out > CHUNK ? 1024 : CHUNK;
+    int16_t* bpd = (out > CHUNK ? bp1024 : bp256) + (size_t)D.w * R1 * ld + d;
+    const bool mine = d < wr;
+    const int e0 = mine ? first[d] : 0;
+    const int e1 = (mode & 2) ? e0 : mine ? first[MAX_LANES + d] : 0;
+    if (e1 > e0) atomicMax(&s_len[t & 1], e1 - e0);
+
+    for (int rb = nrb - 1; rb >= 0; --rb) {
+      const int r0 = rb * G * RPT + g;
+      int rowoff[RPT];
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        rowoff[k] = (min(r0 + G * k, R1 - 1) + 2) * ldv;
+      Best b;
+      if (D.y <= STAGE) {
+        b = walk<true>(s_pair + cb * STAGE, tbl, D.x, e0, (mode & 32) ? min(e1, e0 + 1) : e1, V, ldv, lanes, rowoff, mode);
+      } else {
+        RowOff ro;
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) ro.off[k] = rowoff[k];
+        b = walk_unstaged(tbl, D.x, e0, e1, V, ldv, lanes, ro);
+      }
+      if (rb == 0 && (tid & 31) == 0)
+        atomicMax((unsigned long long*)&s_max[(t & 1) * 2], (unsigned long long)(clock64() - s0));
+      __syncthreads();  // every read of this block's rows is done
+      if (rb == 0 && tid == 0) acc[0] += clock64() - s0;
+      if (mine) {
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+          const int r = r0 + G * k;
+          if (r < R1) {
+            V[rowoff[k] + d] = b.v[k] > REACH_T ? b.v[k] : NEG;
+            // the backpointers start zeroed: write only an ordinal
+            if (b.o[k] != 0 && !(mode & 1)) bpd[r * ld] = (int16_t)b.o[k];
+          }
+        }
+      }
+    }
+
+    const long long s2 = clock64();
+    if (tid == 0) acc[1] += s2 - s0;
+    if (g == 0 && e1 > e0) {
+      first[d] = 0;
+      first[MAX_LANES + d] = 0;
+    }
+    if (tid == 0 && t + 4 < T) {
+      s_desc[(t + 4) & (RING - 1)] = held;
+      if (t + 5 < T) held = desc[t + 5];
+    }
+    if ((tid & 31) == 0)
+      atomicMax((unsigned long long*)&s_max[(t & 1) * 2 + 1], (unsigned long long)(clock64() - s2));
+    if (tid == 0) acc[2] += clock64() - s0;
+    __syncthreads();  // V written, the next transition staged
+    if (tid == 0) {
+      acc[3] += clock64() - s0;
+      acc[4] += s_max[(t & 1) * 2];
+      acc[5] += s_max[(t & 1) * 2 + 1];
+      s_max[(t & 1) * 2] = 0;
+      s_max[(t & 1) * 2 + 1] = 0;
+      acc[6] += 1;
+      acc[7] += s_len[t & 1];
+      s_len[t & 1] = 0;
+    }
+  }
+  if (tid == 0)
+    for (int i = 0; i < 8; ++i) atomicAdd((unsigned long long*)&prof[i], (unsigned long long)acc[i]);
+
+  if (kSharedV) {
+    for (int i = tid; i < R1 * lanes; i += THREADS) {
+      const int r = i / lanes, l = i - r * lanes;
+      v_out[r * 1024 + l] = V[2 * lanes + i];
+    }
+  }
+}
+
+}  // namespace probe
+
+extern "C" int dg_narrow_probe(const int32_t* tbl, const int4* desc, int T,
+                               int R1, int lanes, int shared_v,
+                               const int32_t* v_in, int32_t* v_out,
+                               int16_t* bp256, int16_t* bp1024,
+                               long long* prof, int mode,
+                               cudaStream_t stream) {
+  const int bytes = probe::FIXED_BYTES + (shared_v ? (R1 + 2) * lanes * 4 : 0);
+  auto kernel = shared_v ? probe::narrow_probe_kernel<true>
+                         : probe::narrow_probe_kernel<false>;
+  int dev = 0, most = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       most - 1024);
+  kernel<<<1, probe::THREADS, bytes, stream>>>(tbl, desc, T, R1, lanes, v_in,
+                                               v_out, bp256, bp1024, prof, mode);
   return (int)cudaGetLastError();
 }

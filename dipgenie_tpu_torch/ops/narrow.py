@@ -96,15 +96,17 @@ def narrow_run_ref(seg: DevSegment, v_in: torch.Tensor):
 
 
 # Dynamic shared memory a block may opt into on the H100 (and H200), and
-# K1's fixed share of it (csrc/narrow_run.cu: the descriptor ring, 2,048
-# staged {packed, score} words, two pairs of [1024] uint16 range buffers)
+# K1's fixed share of it (csrc/narrow_run.cu: the descriptor ring, two
+# transitions' 2,048 staged {packed, score} words and [1024] uint16 range
+# pairs)
 SHARED_LIMIT = 232_448
-_FIXED_BYTES = 8 * 16 + 2048 * 8 + 2 * 2 * 1024 * 2
+_FIXED_BYTES = 8 * 16 + 2 * 2048 * 8 + 2 * 2 * 1024 * 2
 
 
 def smem_bytes(R1: int, lanes: int, shared_v: bool) -> int:
-    """Dynamic shared memory of a K1 launch (``dg_narrow_smem_bytes``)."""
-    return _FIXED_BYTES + (R1 * lanes * 4 if shared_v else 0)
+    """Dynamic shared memory of a K1 launch (``dg_narrow_smem_bytes``): V
+    with two rows of NEG below row 0."""
+    return _FIXED_BYTES + ((R1 + 2) * lanes * 4 if shared_v else 0)
 
 
 def state_in_shared(seg: DevSegment, R1: int) -> bool:
@@ -123,8 +125,11 @@ def _launch(seg: DevSegment, v_in: torch.Tensor, shared_v: bool):
     kernels.check_tensor(desc, "tb_desc", torch.int32, (T, 4), v_in.device)
     if R1 < 1:
         raise ValueError(f"narrow_run: R + 1 = {R1} rows, want >= 1")
+    # zeroed: the kernel writes only the ordinals that are not 0
     bp256, bp1024 = _backpointers(seg, R1, v_in.device)
-    V = torch.empty_like(v_in)  # the kernel writes every lane
+    # the kernel writes every lane of rows 0..R; with V in global memory it
+    # keeps two rows of NEG below row 0 (rows 0 and 1 here)
+    V = torch.empty((R1 + 2, 1024), dtype=torch.int32, device=v_in.device)[2:]
     rc = kernels.lib().dg_narrow_run(
         tbl.data_ptr(), desc.data_ptr(), T, R1, seg.lanes, int(shared_v),
         v_in.data_ptr(), V.data_ptr(), bp256.data_ptr(), bp1024.data_ptr(),

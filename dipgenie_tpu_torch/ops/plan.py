@@ -24,7 +24,9 @@ Layouts the port's kernels (and their plain versions) decode:
 * Narrow ``tb_desc [T, 4] int32`` (made by ``plan_to_device``, not by the
   planner; ``narrow_desc``): per transition its first chunk row, its real
   pairs ``n`` (lanes ``[0, n)`` of its chunks; the rest are pads), ``OUT |
-  (tb_bits & 2) << 15`` and its backpointer row ``tb_bprow``. The
+  tb_bout ** 2 << 16`` (the destination extent and its real pair lanes;
+  the bp1024 bit ``tb_bits & 2`` is ``OUT > 256``) and its backpointer
+  row ``tb_bprow``. The
   segment's ``lanes`` is the run's widest extent, source or destination:
   K1 keeps V ``[R+1, lanes]`` in shared memory where it fits.
 * Window-split wide chunk table ``tbl [nchunks, 2, 256] int32`` (every
@@ -223,8 +225,9 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
     sb = seg.sbits[base]
     out = CHUNK * (((sb >> 7) & 3) + 1)
     src = CHUNK * ((sb & 3) + 1)
+    ndst = np.asarray(seg.tb_bout, np.int64) ** 2
     desc = np.stack([base, cum[bounds[1:]] - cum[bounds[:-1]],
-                     out | ((seg.tb_bits & 2) << 15), seg.tb_bprow], 1)
+                     out | (ndst << 16), seg.tb_bprow], 1)
     lanes = int(max(out.max(initial=CHUNK), src.max(initial=CHUNK)))
     return desc.astype(np.int32), lanes
 

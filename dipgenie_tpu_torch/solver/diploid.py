@@ -32,6 +32,7 @@ from .. import native
 from ..graph.expanded import AnchorRec, ExpandedGraph, FlatAnchors
 from ..graph.pangenome import PangenomeIndex
 from ..ops.diploid_pair import RUNS, PairDiploidDP
+from ..ops.narrow import narrow_run_global
 from ..ops.plan import DENSE_NB_LIMIT, DENSE_NB_MAX, plan_pairs, segment_kind
 from ..ops.trace import trace
 from ..utils.synth import dp_states
@@ -259,7 +260,7 @@ def torch_forward(arrs, R: int, device, mesh=None):
         + (f"; wide runs over a tp mesh of {mesh.n_tp} ranks"
            if mesh is not None else ""),
     )
-    wrappers = (*RUNS.values(), trace)
+    wrappers = (*RUNS.values(), narrow_run_global, trace)
     before = [w.launches for w in wrappers]
     t0 = time.time()
     dp = PairDiploidDP(plan, device, mesh=mesh)

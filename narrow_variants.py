@@ -55,8 +55,12 @@ RESHAPE = ("5 x 256, one word a thread (today's)",
            "38 one-warp blocks, one word a thread",
            "19 x 64, one word a thread",
            "16 one-warp blocks, 3 words a thread, loads first",
-           "8 one-warp blocks, 5 words a thread, loads first",
-           "1 x 1024, 2 words a thread, loads first")
+           "10 x 128, one word a thread",
+           "2 x 608, one word a thread",
+           "5 x 256, ld.global.nc and st.cs")
+# the decomposition of a copy: not copies, their outputs are not checked
+RESHAPE_PARTS = ("empty 5 x 256 kernel", "5 x 256, loads only",
+                 "5 x 256, stores only")
 
 
 def log(msg):
@@ -69,8 +73,10 @@ def bind(lib):
     lib.dg_narrow_pair_owned.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P,
                                          _P]
     lib.dg_reshape_variant.argtypes = [_I, _P, _P, _P]
+    lib.dg_narrow_probe.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                    _P, _I, _P]
     for f in (lib.dg_narrow_old, lib.dg_narrow_pair_owned,
-              lib.dg_reshape_variant):
+              lib.dg_reshape_variant, lib.dg_narrow_probe):
         f.restype = _I
 
 
@@ -136,10 +142,19 @@ def device_us(fn, calls=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = {e.key: e.self_device_time_total for e in prof.key_averages()
+    rows = {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0}
-    return sum(rows.values()) / calls, rows
+    return sum(t for t, _ in rows.values()) / calls, rows
+
+
+def per_launch_us(fn, calls):
+    """Device us per kernel launch (one kernel a call): the profile's time
+    over the launches it recorded."""
+    _, rows = device_us(fn, calls)
+    n = sum(c for _, c in rows.values())
+    return sum(t for t, _ in rows.values()) / n if n else float("nan")
 
 
 def in_turns(names, repeats):
@@ -153,7 +168,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--L", type=int, default=120_000)
     ap.add_argument("--repeats", type=int, default=2)
+    ap.add_argument("--only", default="check,time,probe,stages,reshape",
+                    help="sections to run, comma-separated")
     args = ap.parse_args()
+    only = args.only.split(",")
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -184,28 +202,32 @@ def main() -> int:
 
     fns = variants(lib)
     ok = True
-    want = [narrow.narrow_run(s, v) for s, v in runs]
-    for i, (s, v) in enumerate(prefix):
+    if "check" not in only:
+        runs_checked = []
+    else:
+        runs_checked = runs
+    want = [narrow.narrow_run(s, v) for s, v in runs_checked]
+    for i, (s, v) in enumerate(prefix if runs_checked else []):
         ref = narrow.narrow_run_ref(s, v)
         if not all(torch.equal(a, b) for a, b in zip(want[i], ref)):
             log(f"K1 differs from the plain version on run {i}")
             ok = False
     for name, fn in fns.items():
         bad = sum(not all(torch.equal(a, b) for a, b in zip(fn(s, v), w))
-                  for (s, v), w in zip(runs, want))
+                  for (s, v), w in zip(runs_checked, want))
         log(f"{name}: {'==' if not bad else f'{bad} runs differ from'} K1 "
-            f"on all {len(runs)} runs")
+            f"on {len(runs_checked)} runs")
         ok &= not bad
     del want
 
     res = {n: {"all_ms": [], "prefix_ms": []} for n in fns}
-    for name in in_turns(list(fns), args.repeats):
+    for name in in_turns(list(fns), args.repeats if "time" in only else 0):
         fn = fns[name]
         res[name]["all_ms"].append(events_ms(
             lambda: [fn(s, v) for s, v in runs]))
         res[name]["prefix_ms"].append(events_ms(
             lambda: [fn(s, v) for s, v in prefix]))
-    for name, fn in fns.items():
+    for name, fn in fns.items() if "time" in only else ():
         dev_us, _ = device_us(lambda: [fn(s, v) for s, v in prefix])
         r = res[name]
         r["all_us_per_transition"] = min(r["all_ms"]) * 1e3 / n_all
@@ -218,10 +240,40 @@ def main() -> int:
     out["narrow"] = res
     out["transitions"] = {"all": n_all, "prefix": n_pre}
 
+    # K1's transition taken apart by clock64 stamps (a copy of the kernel)
+    # modes: 0 as K1; knocked out (outputs wrong, times only): 1 the
+    # backpointer stores, 2 the walks, 4 the table fetch, 8 the L2
+    # prefetch, 16 the loads of V in the walk, 32 every walk but its first
+    # pair
+    modes = [(1, int(m)) for m in
+             os.environ.get("PROBE_MODES", "0,1,2,3,4,8,15").split(",")]
+    for shared_v, mode in modes if "probe" in only else ():
+        prof = torch.zeros(8, dtype=torch.int64, device=dev)
+        for seg, v in runs:
+            h, R1 = seg.host, v.shape[0]
+            V = torch.empty((R1 + 2, 1024), dtype=torch.int32,
+                            device=dev)[2:]
+            bp256, bp1024 = narrow._backpointers(seg, R1, dev)
+            rc = lib.dg_narrow_probe(
+                seg.t["tbl"].data_ptr(), seg.t["tb_desc"].data_ptr(),
+                h.t1 - h.t0, R1, seg.lanes, shared_v, v.data_ptr(),
+                V.data_ptr(), bp256.data_ptr(), bp1024.data_ptr(),
+                prof.data_ptr(), mode, kernels.stream_of(v))
+            kernels.raise_on_error(rc, "narrow_probe")
+        p = prof.cpu().tolist()
+        per = [x / p[6] for x in p[:6]] + [p[7] / p[6]]
+        out[f"probe_shared_v{shared_v}_mode{mode}"] = per
+        log(f"K1 probe (V {'shared' if shared_v else 'global'}, knocked "
+            f"out {mode}), clock64 cycles per transition, thread 0 from the "
+            f"loop top: walk barrier passed {per[0]:.0f}, commit done "
+            f"{per[1]:.0f}, staging done {per[2]:.0f}, last barrier passed "
+            f"{per[3]:.0f}; slowest warp's walk {per[4]:.0f}, slowest "
+            f"warp's staging {per[5]:.0f}; longest walk {per[6]:.2f} pairs")
+
     # dp-stages itself, its narrow runs on K1 and on the replaced kernel
     stages = {"K1": narrow.narrow_run, "replaced": fns["replaced kernel"]}
     out["dp_stages"] = {k: [] for k in stages}
-    for name in in_turns(list(stages), 2):
+    for name in in_turns(list(stages), 2 if "stages" in only else 0):
         diploid_pair.RUNS["narrow"] = stages[name]
         got = dp_stages.stages(plan, dev, log=lambda m: None)
         n, tr, s = got["kinds"]["narrow"]
@@ -234,6 +286,9 @@ def main() -> int:
     diploid_pair.RUNS["narrow"] = narrow.narrow_run
 
     # reshape_lane_groups: the layouts beside torch.clone
+    if "reshape" not in only:
+        log("ok" if ok else "FAILED: an output differs")
+        return 0 if ok else 1
     ins, expect = caps_tables.make("reshape_lane_groups")
     a = to_device(ins, dev)[0]
     want = torch.from_numpy(expect).to(dev)
@@ -246,7 +301,9 @@ def main() -> int:
             kernels.raise_on_error(rc, "reshape variant")
         return run
 
-    calls = {name: layout(i) for i, name in enumerate(RESHAPE)}
+    outs += [torch.empty_like(want) for _ in RESHAPE_PARTS]
+    calls = {name: layout(i)
+             for i, name in enumerate(RESHAPE + RESHAPE_PARTS)}
     calls["the check's wrapper (ops/caps.py)"] = \
         lambda: caps.CHECKS["reshape_lane_groups"][0](a)
     view = a.view(16, 19, 16)
@@ -254,16 +311,16 @@ def main() -> int:
     for i in range(len(RESHAPE)):
         calls[RESHAPE[i]]()
     torch.cuda.synchronize()
-    for i, o in enumerate(outs):
+    for name, o in zip(RESHAPE, outs):
         if not torch.equal(o, want):
-            log(f"reshape layout {RESHAPE[i]} differs")
+            log(f"reshape layout {name} differs")
             ok = False
     rres = {n: [] for n in calls}
     for name in in_turns(list(calls), 6):
-        rres[name].append(device_us(calls[name], N_PROFILED)[0])
+        rres[name].append(per_launch_us(calls[name], N_PROFILED))
     for name, v in rres.items():
-        log(f"reshape_lane_groups {name}: device {min(v):.4f} us per launch "
-            f"({[round(x, 4) for x in v]})")
+        log(f"reshape_lane_groups {name}: device {min(v):.4f} us per launch, "
+            f"median {sorted(v)[len(v) // 2]:.4f} ({[round(x, 4) for x in v]})")
     out["reshape"] = rres
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/narrow_variants.json", "w") as fh:

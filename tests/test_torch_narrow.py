@@ -171,10 +171,10 @@ def desc_of(seg):
         assert (dst[:n] >= 0).all() and (dst[n:] < 0).all()  # pads last
         out = 256 * (((int(seg.sbits[c0]) >> 7) & 3) + 1)
         src = 256 * ((int(seg.sbits[c0]) & 3) + 1)
-        wide = int(seg.tb_bits[ti]) & 2
-        assert bool(wide) == (out > 256)
-        rows.append([c0, n, out + (65536 if wide else 0),
-                     int(seg.tb_bprow[ti])])
+        assert bool(int(seg.tb_bits[ti]) & 2) == (out > 256)
+        ndst = int(seg.tb_bout[ti]) ** 2  # real destination pair lanes
+        assert n == 0 or ((dst[:n] >= 0) & (dst[:n] < ndst)).all()
+        rows.append([c0, n, out + ndst * 65536, int(seg.tb_bprow[ti])])
         lanes = max(lanes, out, src)
     return rows, lanes
 
