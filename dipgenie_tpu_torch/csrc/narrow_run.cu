@@ -201,6 +201,23 @@ __device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
          out, first, first + MAX_LANES);
 }
 
+// Thread 0 keeps the descriptor ring ahead of the transitions: at
+// transition t it copies descriptor t + 6 into its slot, asynchronously
+// (cp.async, no register waits on it), and waits for the copy it issued at
+// transition t - 1, so that after the barrier the ring holds t + 1 .. t + 5.
+__device__ __forceinline__ void ring_fill(int4* s_desc, const int4* desc,
+                                          int i, int T) {
+  if (i < T) {
+    const unsigned slot =
+        (unsigned)__cvta_generic_to_shared(s_desc + (i & (RING - 1)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(slot),
+                 "l"(desc + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
 // Stage a transition's words held in registers: {packed, score} into
 // s_pair, its range ends into first / end.
 __device__ __forceinline__ void stage(int4 D, int tid, const int (&pk)[PER],
@@ -244,10 +261,9 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
   }
   for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
   for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
-  // the ring holds transitions t..t+3 at transition t; thread 0 holds t+4
-  int4 held = make_int4(0, 0, 0, 0);
-  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
-  if (tid == 0 && 4 < T) held = desc[4];
+  // the ring holds transitions t .. t + 4 at transition t (RING slots)
+  if (tid < 5) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0) ring_fill(s_desc, desc, 5, T);
   __syncthreads();  // ring and range buffers in place
 
   // Staging runs on the highest threads first: the low destination lanes,
@@ -355,10 +371,7 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
       first[d] = 0;
       first[MAX_LANES + d] = 0;
     }
-    if (tid == 0 && t + 4 < T) {
-      s_desc[(t + 4) & (RING - 1)] = held;
-      if (t + 5 < T) held = desc[t + 5];
-    }
+    if (tid == 0) ring_fill(s_desc, desc, t + 6, T);
     D = D1;
     __syncthreads();  // V written, the next transition staged
   }

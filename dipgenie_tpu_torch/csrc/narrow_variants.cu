@@ -475,6 +475,23 @@ __device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
          out, first, first + MAX_LANES);
 }
 
+// Thread 0 keeps the descriptor ring ahead of the transitions: at
+// transition t it copies descriptor t + 6 into its slot, asynchronously
+// (cp.async, no register waits on it), and waits for the copy it issued at
+// transition t - 1, so that after the barrier the ring holds t + 1 .. t + 5.
+__device__ __forceinline__ void ring_fill(int4* s_desc, const int4* desc,
+                                          int i, int T) {
+  if (i < T) {
+    const unsigned slot =
+        (unsigned)__cvta_generic_to_shared(s_desc + (i & (RING - 1)));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(slot),
+                 "l"(desc + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
 // Stage a transition's words held in registers: {packed, score} into
 // s_pair, its range ends into first / end.
 __device__ __forceinline__ void stage(int4 D, int tid, const int (&pk)[PER],
@@ -499,11 +516,6 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
                   const int32_t* __restrict__ v_in, int32_t* v_out,
                   int16_t* __restrict__ bp256, int16_t* __restrict__ bp1024,
                   long long* prof, int mode) {
-  __shared__ long long s_max[4];
-  __shared__ int s_len[2];
-  if (threadIdx.x < 2) s_len[threadIdx.x] = 0;
-  long long acc[8] = {};
-  if (threadIdx.x < 4) s_max[threadIdx.x] = 0;
   extern __shared__ __align__(16) unsigned char smem[];
   int4* s_desc = reinterpret_cast<int4*>(smem);
   int2* s_pair = reinterpret_cast<int2*>(smem + RING_BYTES);
@@ -524,10 +536,9 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
   }
   for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
   for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
-  // the ring holds transitions t..t+3 at transition t; thread 0 holds t+4
-  int4 held = make_int4(0, 0, 0, 0);
-  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
-  if (tid == 0 && 4 < T) held = desc[4];
+  // the ring holds transitions t .. t + 4 at transition t (RING slots)
+  if (tid < 5) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0) ring_fill(s_desc, desc, 5, T);
   __syncthreads();  // ring and range buffers in place
 
   // Staging runs on the highest threads first: the low destination lanes,
@@ -554,7 +565,6 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
   int4 D = T > 0 ? s_desc[0] : make_int4(0, 0, 0, 0);
   int hi = lanes;  // lanes [hi, lanes) of V hold NEG
   for (int t = 0; t < T; ++t) {
-    const long long s0 = clock64();
     const int cb = t & 1;
     uint16_t* first = s_range + cb * 2 * MAX_LANES;
     const int4 D1 = s_desc[(t + 1) & (RING - 1)];
@@ -564,7 +574,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
     if (t + 1 < T) {
       uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
       if (D1.y <= STAGE)
-        stage(D1, sid, pk, sc, pkn, s_pair + (cb ^ 1) * STAGE, nfirst);
+        { if (!(mode & 128)) stage(D1, sid, pk, sc, pkn, s_pair + (cb ^ 1) * STAGE, nfirst); }
       else
         mark_unstaged(tbl, D1, nfirst);
       if (t + 2 < T) {
@@ -600,7 +610,6 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
     const bool mine = d < wr;
     const int e0 = mine ? first[d] : 0;
     const int e1 = (mode & 2) ? e0 : mine ? first[MAX_LANES + d] : 0;
-    if (e1 > e0) atomicMax(&s_len[t & 1], e1 - e0);
 
     for (int rb = nrb - 1; rb >= 0; --rb) {
       const int r0 = rb * G * RPT + g;
@@ -610,23 +619,21 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
         rowoff[k] = (min(r0 + G * k, R1 - 1) + 2) * ldv;
       Best b;
       if (D.y <= STAGE) {
-        b = walk<true>(s_pair + cb * STAGE, tbl, D.x, e0, (mode & 32) ? min(e1, e0 + 1) : e1, V, ldv, lanes, rowoff, mode);
+        b = walk<true>(s_pair + cb * STAGE, tbl, D.x, e0, e1, V, ldv, lanes,
+                       rowoff, mode);
       } else {
         RowOff ro;
 #pragma unroll
         for (int k = 0; k < RPT; ++k) ro.off[k] = rowoff[k];
         b = walk_unstaged(tbl, D.x, e0, e1, V, ldv, lanes, ro);
       }
-      if (rb == 0 && (tid & 31) == 0)
-        atomicMax((unsigned long long*)&s_max[(t & 1) * 2], (unsigned long long)(clock64() - s0));
       __syncthreads();  // every read of this block's rows is done
-      if (rb == 0 && tid == 0) acc[0] += clock64() - s0;
       if (mine) {
 #pragma unroll
         for (int k = 0; k < RPT; ++k) {
           const int r = r0 + G * k;
           if (r < R1) {
-            V[rowoff[k] + d] = b.v[k] > REACH_T ? b.v[k] : NEG;
+            if (!(mode & 64)) V[rowoff[k] + d] = b.v[k] > REACH_T ? b.v[k] : NEG;
             // the backpointers start zeroed: write only an ordinal
             if (b.o[k] != 0 && !(mode & 1)) bpd[r * ld] = (int16_t)b.o[k];
           }
@@ -634,33 +641,15 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
       }
     }
 
-    const long long s2 = clock64();
-    if (tid == 0) acc[1] += s2 - s0;
+    // clear the ranges this transition set
     if (g == 0 && e1 > e0) {
       first[d] = 0;
       first[MAX_LANES + d] = 0;
     }
-    if (tid == 0 && t + 4 < T) {
-      s_desc[(t + 4) & (RING - 1)] = held;
-      if (t + 5 < T) held = desc[t + 5];
-    }
-    if ((tid & 31) == 0)
-      atomicMax((unsigned long long*)&s_max[(t & 1) * 2 + 1], (unsigned long long)(clock64() - s2));
-    if (tid == 0) acc[2] += clock64() - s0;
+    if (tid == 0) ring_fill(s_desc, desc, t + 6, T);
+    D = D1;
     __syncthreads();  // V written, the next transition staged
-    if (tid == 0) {
-      acc[3] += clock64() - s0;
-      acc[4] += s_max[(t & 1) * 2];
-      acc[5] += s_max[(t & 1) * 2 + 1];
-      s_max[(t & 1) * 2] = 0;
-      s_max[(t & 1) * 2 + 1] = 0;
-      acc[6] += 1;
-      acc[7] += s_len[t & 1];
-      s_len[t & 1] = 0;
-    }
   }
-  if (tid == 0)
-    for (int i = 0; i < 8; ++i) atomicAdd((unsigned long long*)&prof[i], (unsigned long long)acc[i]);
 
   if (kSharedV) {
     for (int i = tid; i < R1 * lanes; i += THREADS) {
@@ -685,7 +674,7 @@ extern "C" int dg_narrow_probe(const int32_t* tbl, const int4* desc, int T,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       most - 1024);
+                       most);
   kernel<<<1, probe::THREADS, bytes, stream>>>(tbl, desc, T, R1, lanes, v_in,
                                                v_out, bp256, bp1024, prof, mode);
   return (int)cudaGetLastError();

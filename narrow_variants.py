@@ -241,14 +241,15 @@ def main() -> int:
     out["transitions"] = {"all": n_all, "prefix": n_pre}
 
     # K1's transition taken apart by clock64 stamps (a copy of the kernel)
-    # modes: 0 as K1; knocked out (outputs wrong, times only): 1 the
-    # backpointer stores, 2 the walks, 4 the table fetch, 8 the L2
-    # prefetch, 16 the loads of V in the walk, 32 every walk but its first
-    # pair
-    modes = [(1, int(m)) for m in
-             os.environ.get("PROBE_MODES", "0,1,2,3,4,8,15").split(",")]
-    for shared_v, mode in modes if "probe" in only else ():
-        prof = torch.zeros(8, dtype=torch.int64, device=dev)
+    # K1 with parts knocked out (a copy of its kernel; outputs wrong, times
+    # only): 1 the backpointer stores, 2 the walks, 4 the table fetch, 8 the
+    # L2 prefetch, 16 the loads of V in the walk, 64 the stores of V, 128
+    # the staging
+    modes = [int(m) for m in
+             os.environ.get("PROBE_MODES", "0,1,2,4,8,16,64,128").split(",")]
+    prof = torch.zeros(8, dtype=torch.int64, device=dev)
+
+    def knocked(mode):
         for seg, v in runs:
             h, R1 = seg.host, v.shape[0]
             V = torch.empty((R1 + 2, 1024), dtype=torch.int32,
@@ -256,19 +257,19 @@ def main() -> int:
             bp256, bp1024 = narrow._backpointers(seg, R1, dev)
             rc = lib.dg_narrow_probe(
                 seg.t["tbl"].data_ptr(), seg.t["tb_desc"].data_ptr(),
-                h.t1 - h.t0, R1, seg.lanes, shared_v, v.data_ptr(),
-                V.data_ptr(), bp256.data_ptr(), bp1024.data_ptr(),
-                prof.data_ptr(), mode, kernels.stream_of(v))
+                h.t1 - h.t0, R1, seg.lanes, 1, v.data_ptr(), V.data_ptr(),
+                bp256.data_ptr(), bp1024.data_ptr(), prof.data_ptr(), mode,
+                kernels.stream_of(v))
             kernels.raise_on_error(rc, "narrow_probe")
-        p = prof.cpu().tolist()
-        per = [x / p[6] for x in p[:6]] + [p[7] / p[6]]
-        out[f"probe_shared_v{shared_v}_mode{mode}"] = per
-        log(f"K1 probe (V {'shared' if shared_v else 'global'}, knocked "
-            f"out {mode}), clock64 cycles per transition, thread 0 from the "
-            f"loop top: walk barrier passed {per[0]:.0f}, commit done "
-            f"{per[1]:.0f}, staging done {per[2]:.0f}, last barrier passed "
-            f"{per[3]:.0f}; slowest warp's walk {per[4]:.0f}, slowest "
-            f"warp's staging {per[5]:.0f}; longest walk {per[6]:.2f} pairs")
+
+    kt = {m: [] for m in modes}
+    for m in in_turns(modes, 2) if "probe" in only else ():
+        kt[m].append(events_ms(lambda: knocked(m)))
+    for m in modes if "probe" in only else ():
+        us = min(kt[m]) * 1e3 / n_all
+        out[f"knocked_out_{m}"] = us
+        log(f"K1 with {m} knocked out: {us:.4f} us per transition "
+            f"({kt[m]} ms)")
 
     # dp-stages itself, its narrow runs on K1 and on the replaced kernel
     stages = {"K1": narrow.narrow_run, "replaced": fns["replaced kernel"]}
