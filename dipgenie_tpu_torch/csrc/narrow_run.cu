@@ -70,7 +70,7 @@ constexpr int THREADS = 1024;
 constexpr int STAGE = 2048;    // pair lanes staged in shared memory
 constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
 constexpr int RPT = 5;         // rows a thread walks per block of rows
-constexpr int UNROLL = 4;      // pairs a walk takes at a time
+constexpr int UNROLL = 2;      // pairs a walk takes at a time
 constexpr int RING = 8;        // descriptor ring
 constexpr int MAX_LANES = 1024;
 constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
@@ -295,7 +295,7 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
     const int4 D1 = s_desc[(t + 1) & (RING - 1)];
 
     // stage the next transition into the other buffers while this one is
-    // walked, fetch the one after it, prefetch a third into L2
+    // walked, and fetch the one after it
     if (t + 1 < T) {
       uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
       if (D1.y <= STAGE)
@@ -305,15 +305,6 @@ narrow_run_kernel(const int32_t* __restrict__ tbl,
       if (t + 2 < T) {
         const int4 D2 = s_desc[(t + 2) & (RING - 1)];
         if (D2.y <= STAGE) fetch(tbl, D2, sid, pk, sc, pkn);
-      }
-      if (t + 3 < T) {
-        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
-        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
-        if (sid < lines) {
-          const char* a = reinterpret_cast<const char*>(
-                              tbl + (size_t)D3.x * 2 * CHUNK) + sid * 128;
-          asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
-        }
       }
     }
 

@@ -344,8 +344,8 @@ constexpr int THREADS = 1024;
 constexpr int STAGE = 2048;    // pair lanes staged in shared memory
 constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
 constexpr int RPT = 5;         // rows a thread walks per block of rows
-constexpr int UNROLL = 4;      // pairs a walk takes at a time
-constexpr int RING = 8;        // descriptor ring
+constexpr int UNROLL = 2;      // pairs a walk takes at a time
+constexpr int RING = 16;       // descriptor ring
 constexpr int MAX_LANES = 1024;
 constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
 
@@ -476,11 +476,12 @@ __device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
 }
 
 // Thread 0 keeps the descriptor ring ahead of the transitions: at
-// transition t it copies descriptor t + 6 into its slot, asynchronously
-// (cp.async, no register waits on it), and waits for the copy it issued at
-// transition t - 1, so that after the barrier the ring holds t + 1 .. t + 5.
-__device__ __forceinline__ void ring_fill(int4* s_desc, const int4* desc,
-                                          int i, int T) {
+// transition t it copies descriptor t + 10 into its slot, asynchronously
+// (cp.async: no register waits on it), and waits for the copies issued
+// five transitions or more before, so that the ring holds t + 1 .. t + 5
+// once the barrier is passed.
+__device__ __forceinline__ void ring_issue(int4* s_desc, const int4* desc,
+                                           int i, int T) {
   if (i < T) {
     const unsigned slot =
         (unsigned)__cvta_generic_to_shared(s_desc + (i & (RING - 1)));
@@ -489,7 +490,10 @@ __device__ __forceinline__ void ring_fill(int4* s_desc, const int4* desc,
                  : "memory");
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__device__ __forceinline__ void ring_wait() {
+  asm volatile("cp.async.wait_group 5;" ::: "memory");
 }
 
 // Stage a transition's words held in registers: {packed, score} into
@@ -536,9 +540,11 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
   }
   for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
   for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
-  // the ring holds transitions t .. t + 4 at transition t (RING slots)
-  if (tid < 5) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
-  if (tid == 0) ring_fill(s_desc, desc, 5, T);
+  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int i = 4; i < 10; ++i) ring_issue(s_desc, desc, i, T);
+    ring_wait();
+  }
   __syncthreads();  // ring and range buffers in place
 
   // Staging runs on the highest threads first: the low destination lanes,
@@ -570,7 +576,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
     const int4 D1 = s_desc[(t + 1) & (RING - 1)];
 
     // stage the next transition into the other buffers while this one is
-    // walked, fetch the one after it, prefetch a third into L2
+    // walked, and fetch the one after it
     if (t + 1 < T) {
       uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
       if (D1.y <= STAGE)
@@ -580,15 +586,6 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
       if (t + 2 < T) {
         const int4 D2 = s_desc[(t + 2) & (RING - 1)];
         if (D2.y <= STAGE && !(mode & 4)) fetch(tbl, D2, sid, pk, sc, pkn);
-      }
-      if (t + 3 < T) {
-        const int4 D3 = s_desc[(t + 3) & (RING - 1)];
-        const int lines = ((D3.y + CHUNK - 1) / CHUNK) * (2 * CHUNK * 4 / 128);
-        if (sid < lines) {
-          const char* a = reinterpret_cast<const char*>(
-                              tbl + (size_t)D3.x * 2 * CHUNK) + sid * 128;
-          if (!(mode & 8)) asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
-        }
       }
     }
 
@@ -628,7 +625,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
         b = walk_unstaged(tbl, D.x, e0, e1, V, ldv, lanes, ro);
       }
       __syncthreads();  // every read of this block's rows is done
-      if (mine) {
+      if (mine && !(mode & 256)) {
 #pragma unroll
         for (int k = 0; k < RPT; ++k) {
           const int r = r0 + G * k;
@@ -646,7 +643,10 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
       first[d] = 0;
       first[MAX_LANES + d] = 0;
     }
-    if (tid == 0) ring_fill(s_desc, desc, t + 6, T);
+    if (tid == 0) {
+      ring_issue(s_desc, desc, t + 10, T);
+      ring_wait();
+    }
     D = D1;
     __syncthreads();  // V written, the next transition staged
   }
