@@ -17,47 +17,59 @@
 // reads the state the previous one wrote), and a transition is ~2.4k
 // candidates, 2 KB of tables in and 10 KB of backpointers out: far below
 // what the card moves or computes in the time one block needs for it. The
-// cost is latency per transition: two block barriers (one more per extra
-// block of rows), then the longest walk of the block, i.e. the most pairs
-// into one destination, each pair one shared-memory load of its table word
-// and one dependent load of V per row.
+// cost is latency and issue per transition on one SM: two block barriers
+// (one more per extra block of rows), the longest walk of the block (the
+// most pairs into one destination; each pair one shared-memory load of
+// its table words and one load of V per row), and the instructions every
+// warp runs around them.
 //
 // Design: ONE block of 1,024 threads walks every transition of the run
 // (one launch per run; the TPU kernel's sequential grid is a loop in the
 // block).
 // * State. V [R+1, lanes] int32, lanes the run's widest extent, lives in
-//   dynamic shared memory where it fits (76 KB at R = 18 and 1,024 lanes,
-//   19 KB at C's usual 256), else in global memory (the same code with
-//   kSharedV false: R has no upper limit). It is updated in place.
+//   dynamic shared memory where it fits (86 KB at R = 18 and 1,024 lanes,
+//   21 KB at C's usual 256), else in global memory (the same code with
+//   kSharedV false: R has no upper limit). It is updated in place, with two
+//   rows of NEG below row 0 so that a source row r - wsum < 0 needs no
+//   test. Lanes [hi, lanes) are known to hold NEG, so a transition writes
+//   only lanes below max(hi, its real destination lanes).
 // * Max without atomics. The planner sorts a transition's pairs by
 //   destination over the whole transition and pads only at its end, so
 //   the pairs of one destination are one contiguous range. Thread (g, d)
 //   owns destination lane d on rows g, g + G, ... (G = 1024 / OUT row
-//   groups, RPT rows a thread per block of rows): it walks d's range in
-//   plan order and keeps the first maximum (a strict `>`) with its pair
-//   ordinal in registers. Blocks of rows run from the top row down: the
-//   walk of a block reads only its own rows and the two below it, so after
-//   one barrier it can write its rows while the next (lower) block is
-//   walked.
+//   groups, RPT rows a thread per block of rows; consecutive warps take
+//   consecutive groups, so the low lanes that hold a narrow level's pairs
+//   spread over the SM's four schedulers): it walks d's range in plan
+//   order, two pairs a step, and keeps the first maximum (a strict `>`)
+//   with its pair ordinal in registers. Blocks of rows run from the top
+//   row down: the walk of a block reads only its own rows and the two
+//   below it, so after one barrier it can write its rows while the next
+//   (lower) block is walked.
 // * Ranges. The first and one-past-last pair of each destination come from
 //   a boundary pass over the staged table words (a pair whose successor
 //   has another destination ends its range and starts the next one), into
-//   one of two buffers of [1024] uint16 each; a transition clears its
-//   buffer at its commit.
-// * Prefetch. Each thread holds its words of the next transition in
-//   registers (loaded while this one is walked) and stores them into
-//   shared memory at this transition's commit, with the boundary pass; the
-//   transition after that is prefetched into L2. Descriptors {first chunk,
-//   real pairs, OUT | bp1024 bit, bp row} go through a ring in shared
-//   memory, thread 0 loading each a transition before it is stored. A
-//   transition of more than STAGE pairs (8 chunks) is walked straight from
-//   global memory, its boundary pass reading global memory too.
-// * Backpointers stream out as int16 stores, coalesced over destinations;
-//   the forward pass never reads them back.
+//   one of two buffers of [1024] uint16 each; a transition clears the
+//   entries it used at its commit.
+// * Staging. The highest threads, idle in the walk of a narrow level,
+//   store the next transition's words (loaded into their registers a
+//   transition earlier) into the other of two shared-memory buffers and
+//   run its boundary pass while this transition is walked, then load the
+//   words of the one after it. Descriptors {first chunk, real pairs, OUT |
+//   real destination lanes << 16, bp row} reach a ring in shared memory
+//   by cp.async, which no thread waits on. A transition of more than STAGE
+//   pairs (8 chunks) is walked straight from global memory, its boundary
+//   pass reading global memory too (kept out of the loop's code).
+// * Backpointers start zeroed; a thread writes an ordinal only where it is
+//   not 0, as int16 stores coalesced over destinations. The forward pass
+//   never reads them back.
 //
-// Measured (PERF.md section 6): the kernel it replaces kept V and the keys
-// in global memory, max-reduced with 64-bit L2 atomics and swapped every
-// key back with atomicExch: 4.62 us a transition on C.
+// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): 2.42 us a
+// narrow transition on C against the replaced kernel's 4.64 in the same
+// run. The replaced kernel kept V and the keys in global memory,
+// max-reduced with 64-bit L2 atomics and swapped every key back with
+// atomicExch; those three cost 0.24 us of its 4.64 together. Of the new
+// kernel's time the walks take about half; the other half is the code every
+// warp runs per transition, and the commit.
 #include "dg_common.cuh"
 
 namespace {

@@ -237,6 +237,14 @@ __global__ void copy_words_nc(const int4* __restrict__ A,
   if (i < n) __stcs(out + i, __ldg(A + i));
 }
 
+// the copy in smaller words
+template <typename W>
+__global__ void copy_narrow(const W* __restrict__ A, W* __restrict__ out,
+                            int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = A[i];
+}
+
 // 0 nothing, 1 loads only, 2 stores only
 template <int kPart>
 __global__ void copy_part(const int4* __restrict__ A, int4* __restrict__ out,
@@ -305,6 +313,7 @@ extern "C" int dg_narrow_pair_owned(const int32_t* tbl, const int4* desc,
 // layouts of the 1,216-word copy: 0 today's 5 x 256; 1 38 one-warp blocks
 // of one word; 2 19 x 64; 3 16 one-warp blocks, 3 words a thread, loads
 // first; 4 10 x 128; 5 2 x 608; 6 5 x 256 with ld.global.nc and st.cs;
+// 10 4 x 304; 11 19 x 256 of 4-byte words; 12 10 x 256 of 8-byte words;
 // the decomposition: 7 an empty 5 x 256 kernel; 8 5 x 256 loads only
 // (stored only if a word is INT_MIN in every lane); 9 5 x 256 stores only
 extern "C" int dg_reshape_variant(int which, const void* in, void* out,
@@ -320,6 +329,15 @@ extern "C" int dg_reshape_variant(int which, const void* in, void* out,
     case 4: copy_words<<<10, 128, 0, s>>>(a, o, n); break;
     case 5: copy_words<<<2, 608, 0, s>>>(a, o, n); break;
     case 6: copy_words_nc<<<5, 256, 0, s>>>(a, o, n); break;
+    case 10: copy_words<<<4, 304, 0, s>>>(a, o, n); break;
+    case 11:
+      copy_narrow<int><<<19, 256, 0, s>>>(static_cast<const int*>(in),
+                                          static_cast<int*>(out), 4 * n);
+      break;
+    case 12:
+      copy_narrow<int2><<<10, 256, 0, s>>>(static_cast<const int2*>(in),
+                                           static_cast<int2*>(out), 2 * n);
+      break;
     case 7: copy_part<0><<<5, 256, 0, s>>>(a, o, n); break;
     case 8: copy_part<1><<<5, 256, 0, s>>>(a, o, n); break;
     case 9: copy_part<2><<<5, 256, 0, s>>>(a, o, n); break;
@@ -345,7 +363,7 @@ constexpr int STAGE = 2048;    // pair lanes staged in shared memory
 constexpr int PER = STAGE / THREADS;  // staged lanes a thread holds
 constexpr int RPT = 5;         // rows a thread walks per block of rows
 constexpr int UNROLL = 2;      // pairs a walk takes at a time
-constexpr int RING = 16;       // descriptor ring
+constexpr int RING = 8;        // descriptor ring
 constexpr int MAX_LANES = 1024;
 constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
 
@@ -476,12 +494,11 @@ __device__ __noinline__ void mark_unstaged(const int32_t* tbl, int4 D,
 }
 
 // Thread 0 keeps the descriptor ring ahead of the transitions: at
-// transition t it copies descriptor t + 10 into its slot, asynchronously
-// (cp.async: no register waits on it), and waits for the copies issued
-// five transitions or more before, so that the ring holds t + 1 .. t + 5
-// once the barrier is passed.
-__device__ __forceinline__ void ring_issue(int4* s_desc, const int4* desc,
-                                           int i, int T) {
+// transition t it copies descriptor t + 6 into its slot, asynchronously
+// (cp.async, no register waits on it), and waits for the copy it issued at
+// transition t - 1, so that after the barrier the ring holds t + 1 .. t + 5.
+__device__ __forceinline__ void ring_fill(int4* s_desc, const int4* desc,
+                                          int i, int T) {
   if (i < T) {
     const unsigned slot =
         (unsigned)__cvta_generic_to_shared(s_desc + (i & (RING - 1)));
@@ -490,10 +507,7 @@ __device__ __forceinline__ void ring_issue(int4* s_desc, const int4* desc,
                  : "memory");
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void ring_wait() {
-  asm volatile("cp.async.wait_group 5;" ::: "memory");
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // Stage a transition's words held in registers: {packed, score} into
@@ -540,11 +554,9 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
   }
   for (int i = tid; i < 2 * ldv; i += THREADS) V[i] = NEG;
   for (int i = tid; i < 4 * MAX_LANES; i += THREADS) s_range[i] = 0;
-  if (tid < 4) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
-  if (tid == 0) {
-    for (int i = 4; i < 10; ++i) ring_issue(s_desc, desc, i, T);
-    ring_wait();
-  }
+  // the ring holds transitions t .. t + 4 at transition t (RING slots)
+  if (tid < 5) s_desc[tid] = tid < T ? desc[tid] : make_int4(0, 0, 0, 0);
+  if (tid == 0) ring_fill(s_desc, desc, 5, T);
   __syncthreads();  // ring and range buffers in place
 
   // Staging runs on the highest threads first: the low destination lanes,
@@ -577,7 +589,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
 
     // stage the next transition into the other buffers while this one is
     // walked, and fetch the one after it
-    if (t + 1 < T) {
+    if (t + 1 < T && !(mode & 4096)) {
       uint16_t* nfirst = s_range + (cb ^ 1) * 2 * MAX_LANES;
       if (D1.y <= STAGE)
         { if (!(mode & 128)) stage(D1, sid, pk, sc, pkn, s_pair + (cb ^ 1) * STAGE, nfirst); }
@@ -608,6 +620,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
     const int e0 = mine ? first[d] : 0;
     const int e1 = (mode & 2) ? e0 : mine ? first[MAX_LANES + d] : 0;
 
+    if (mode & 2048) { __syncthreads(); } else
     for (int rb = nrb - 1; rb >= 0; --rb) {
       const int r0 = rb * G * RPT + g;
       int rowoff[RPT];
@@ -643,10 +656,7 @@ narrow_probe_kernel(const int32_t* __restrict__ tbl,
       first[d] = 0;
       first[MAX_LANES + d] = 0;
     }
-    if (tid == 0) {
-      ring_issue(s_desc, desc, t + 10, T);
-      ring_wait();
-    }
+    if (tid == 0) ring_fill(s_desc, desc, t + 6, T);
     D = D1;
     __syncthreads();  // V written, the next transition staged
   }

@@ -57,7 +57,10 @@ RESHAPE = ("5 x 256, one word a thread (today's)",
            "16 one-warp blocks, 3 words a thread, loads first",
            "10 x 128, one word a thread",
            "2 x 608, one word a thread",
-           "5 x 256, ld.global.nc and st.cs")
+           "5 x 256, ld.global.nc and st.cs",
+           "4 x 304, one word a thread",
+           "19 x 256, 4-byte words",
+           "10 x 256, 8-byte words")
 # the decomposition of a copy: not copies, their outputs are not checked
 RESHAPE_PARTS = ("empty 5 x 256 kernel", "5 x 256, loads only",
                  "5 x 256, stores only")
@@ -295,9 +298,12 @@ def main() -> int:
     want = torch.from_numpy(expect).to(dev)
     outs = [torch.empty_like(want) for _ in RESHAPE]
 
+    ids = [0, 1, 2, 3, 4, 5, 6, 10, 11, 12, 7, 8, 9]  # RESHAPE, then parts
+
     def layout(i):
         def run():
-            rc = lib.dg_reshape_variant(i, a.data_ptr(), outs[i].data_ptr(),
+            rc = lib.dg_reshape_variant(ids[i], a.data_ptr(),
+                                        outs[i].data_ptr(),
                                         kernels.stream_of(a))
             kernels.raise_on_error(rc, "reshape variant")
         return run
