@@ -192,6 +192,9 @@ CAPS_PRODUCTS = ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32")
 TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # the redesigned capability checks and their device us per launch before
 # the redesign (PERF.md section 6, H100 80GB HBM3, 700 W)
+# K1's us per narrow transition on phase C's prefix before its redesign (the
+# kernel it replaced, timed beside it on the same card: PERF.md section 6)
+K1_BEFORE_US = 4.7145
 REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
               "manual_dma_dynoff": 1.501, "dma_in_when": 1.214,
               "reshape_lane_groups": 1.074}
@@ -449,7 +452,8 @@ class Smoke:
         self.prefix_tr[name] = sum(s.t1 - s.t0 for s, _ in inputs)
         log(f"B global-state case: R={r}, {len(big)} of {len(narrow)} narrow "
             f"runs keep V in global memory (lanes "
-            f"{[s.lanes for s in big]}); launches {launches}; value "
+            f"{[s.lanes for s in big]}); launches "
+            f"{ {k: n for k, n in launches.items() if n} }; value "
             f"{want[0]} s_het {want[1]} == native tier; {name} on its "
             f"{self.prefix_tr[name]} transitions: kernel {times[0]} ms, plain "
             f"{times[1]} ms, bound {self.bound[name][0]:.6g} ms "
@@ -1076,8 +1080,8 @@ class Smoke:
         dp_stages.stages(plan, DEVICE, log=lambda m: log("C dp-stages " + m))
         k1_us = self.ms["narrow_run"] / self.prefix_tr["narrow_run"] * 1e3
         log(f"C K1 narrow_run {k1_us:.4f} us per transition on the prefix "
-            "(host-timed, one launch per run) beside phase G's level-chain "
-            "floors: " + ", ".join(
+            f"(host-timed, one launch per run; {K1_BEFORE_US} before the "
+            "redesign) beside phase G's level-chain floors: " + ", ".join(
                 f"{v} {s.per_level * 1e6:.4f} us/level"
                 for v, s in self.slopes.items()
                 if v not in ("scan1", "scandus")))
