@@ -196,8 +196,7 @@ TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # kernel it replaced, timed beside it on the same card: PERF.md section 6)
 K1_BEFORE_US = 4.7145
 REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
-              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214,
-              "reshape_lane_groups": 1.074}
+              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
 

@@ -63,7 +63,7 @@
 //   not 0, as int16 stores coalesced over destinations. The forward pass
 //   never reads them back.
 //
-// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): 2.42 us a
+// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): 2.44 us a
 // narrow transition on C against the replaced kernel's 4.64 in the same
 // run. The replaced kernel kept V and the keys in global memory,
 // max-reduced with 64-bit L2 atomics and swapped every key back with
@@ -88,7 +88,7 @@ constexpr int MAX_LANES = 1024;
 constexpr int NONE = -2147483647 - 1;  // no valid candidate yet
 
 // the dynamic shared-memory layout: the ring, the staged {packed, score}
-// words, two pairs of range buffers, then V
+// words of two transitions, two pairs of range buffers, then V
 constexpr int RING_BYTES = RING * 16;
 constexpr int STAGE_BYTES = 2 * STAGE * 8;  // two transitions
 constexpr int RANGE_BYTES = 2 * 2 * MAX_LANES * 2;
@@ -403,17 +403,10 @@ extern "C" int dg_narrow_run(const int32_t* tbl, const int4* desc, int T,
   if (R1 < 1 || lanes < 1 || lanes > MAX_LANES || T < 0)
     return (int)cudaErrorInvalidValue;
   auto kernel = shared_v ? narrow_run_kernel<true> : narrow_run_kernel<false>;
-  static bool raised[2] = {false, false};
-  if (!raised[shared_v ? 1 : 0]) {
-    int dev = 0, most = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return (int)e;
-    raised[shared_v ? 1 : 0] = true;
-  }
+  // above 48 KB only after this opt-in; past the card's limit it fails
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<1, THREADS, bytes, stream>>>(tbl, desc, T, R1, lanes, v_in, v_out,
                                         bp256, bp1024);
   return (int)cudaGetLastError();
