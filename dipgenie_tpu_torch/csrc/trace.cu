@@ -1,76 +1,370 @@
 // K-T: the traceback, one sequential walk over every segment.
 //
-// Replaces dipgenie_tpu/ops/diploid_pallas.py `_narrow_trace` (a reverse
-// lax.scan per segment over backpointers rematerialised by re-running
-// the segment) and the per-segment dispatch around it. Here every
-// segment's backpointers stay resident on the card, so one launch walks
-// all L-1 transitions from the sink back to level 0.
+// Replaces dipgenie_tpu/ops/diploid_pallas.py `_narrow_trace` (:1914, a
+// reverse lax.scan per segment over backpointers rematerialised by
+// re-running the segment) and the per-segment dispatch around it. Here
+// every segment's backpointers stay resident on the card, so one launch
+// walks all L-1 transitions from the sink back to level 0.
 //
-// What bounds it on the H100: a chain of dependent loads (bp -> packed
-// pair entry -> next bp row), ~4 L2/HBM latencies per transition, with
-// no parallelism to exploit: the walk is inherently serial. Design: one
-// thread; each transition's addresses come from a descriptor row built
-// on the host (ops/trace.py), so narrow (int16 bp, `gidx << 13` packing),
-// dense wide (int32 bp, `gidx << 17` packing) and window-split wide
-// (int32 bp, one row per 1024-lane window, `gidx << 13` packing) segments
-// share one loop. As in `_narrow_trace`, a lane of a 1024-class block is
-// row `lane / lanes`, column `lane % lanes` from the block's row (a split
-// run's lane `win * 1024 + rel` lies in its window's row); a 256-class
-// block clamps the column.
+// What bounds it on the H100: the walk is serial. Transition t's bp word
+// depends on the lane the walk reached at t + 1, and its table word on that
+// bp word, so each transition is a chain of dependent reads. Read from
+// global memory, each is a miss: MHC-scale plans hold ~8 GB of
+// backpointers, far past the 50 MB L2, so ~3 HBM latencies a transition
+// (the bytes the walk needs, ~125 B a transition, take microseconds for the
+// whole plan). The design takes the misses out of the chain: one producer
+// stages each transition's words in shared memory ahead of the walk, and
+// the walker's chain is shared-memory reads only.
+//
+// Design: one block of two warps.
+// * The descriptors were made with the plan (ops/plan.py trace_columns:
+//   lanes, element size, row class, rows, the block's row, first chunk and
+//   real chunks, bin, bout, dense, which bp array: one int32 row of 48 B a
+//   transition); the launch gets one row of addresses per segment (its bp
+//   arrays, chunk table, w1, symd).
+// * Ring. Shared memory holds RING bytes cut into slots of `slot` bytes,
+//   one transition each in walk order (t descending), each with an
+//   mbarrier and a 64-byte Meta record. Warp 1 is the producer: its first
+//   BATCH lanes take BATCH transitions at a time (one each, their
+//   descriptors loaded a batch ahead, their segment's addresses kept until
+//   the segment changes), wait until the walker has freed the batch's
+//   slots, write the Meta records and arm the barriers, then issue 1-D bulk
+//   copies (cp.async.bulk, completing on the slot's barrier): rows [lo, hi]
+//   of the transition's bp block, where hi is the walker's current r
+//   (published in shared memory; r only falls) and lo = hi - band (rows the
+//   walk can still reach if r falls by at most `band` before it gets
+//   there; a walk that falls further reads global memory), and row 0 of
+//   each of its real table chunks with their w1 and symd. What does not fit
+//   the slot (or is asked not to be staged) takes the L2 path: the
+//   producer issues cp.async.bulk.prefetch.L2 for the same rows (for each
+//   bp row the transition's lanes can fall in) or the table chunks, and the
+//   walker reads its word from global memory. The choice is by size, not
+//   by kind: on C the narrow 256-class blocks are staged, the dense wide
+//   blocks ([R+1, NB * 1024] int32) are prefetched.
+// * The walker (thread 0) waits on a slot's barrier, reads its bp word and
+//   its table words from the slot, writes the record into one of two
+//   shared-memory buffers of UNIT records, and publishes r and the count of
+//   transitions done. A full buffer leaves in one bulk store (the output
+//   is padded to whole units by the wrapper).
+// * The clamps of the plain version stay: a 256-class block clamps the
+//   column, a lane past a 1024-class block steps rows (clamped to the
+//   array), r < 0 reads row 0. Only a walk from an unreachable sink needs
+//   them.
 #include "dg_common.cuh"
 
 namespace {
 
-// descriptor columns (ops/trace.py `_descriptors`)
-enum { D_BP, D_LANES, D_ESIZE, D_TBL, D_W1, D_SY, D_DENSE, D_BIN, D_BOUT,
-       D_ROWSTEP, D_ROWS, D_COLS };
+using dg::CHUNK;
 
-__global__ void trace_kernel(const long long* __restrict__ desc, int T, int R,
-                             int32_t* recs) {
-  using namespace dg;
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  int lane = 0, r = R;
-  for (int t = T - 1; t >= 0; --t) {
-    const long long* d = desc + (size_t)t * D_COLS;
-    const int lanes = (int)d[D_LANES];
-    // clamped like the reference's dynamic_slice: only a walk from an
-    // unreachable sink leaves [0, R] or the bp array
-    int row = 0, col = lane < lanes ? lane : lanes - 1;
-    if (d[D_ROWSTEP]) {
-      row = lane / lanes;
-      if (row > (int)d[D_ROWS] - 1) row = (int)d[D_ROWS] - 1;
-      col = lane % lanes;
+// descriptor columns (ops/plan.py TRACE_COLS)
+enum { C_SEG, C_LANES, C_ESIZE, C_ROWSTEP, C_ROWS, C_BPROW, C_CB, C_NCH,
+       C_BIN, C_BOUT, C_DENSE, C_BP1, NCOL };
+// address columns (ops/trace.py bases)
+enum { B_BP0, B_BP1, B_TBL, B_W1, B_SY, NBASE = 6 };
+
+constexpr int RING = 196608;  // staging bytes
+constexpr int MAX_SLOTS = 64;
+constexpr int BATCH = 8;      // transitions the producer takes at a time
+constexpr int UNIT = 64;      // records a bulk store carries
+constexpr int UNIT_BYTES = UNIT * 7 * 4;
+// staged table bytes of one chunk: row 0 (1 KB), w1 (256 B), symd (512 B)
+constexpr int CHUNK_STAGE = CHUNK * (4 + 1 + 2);
+
+enum { F_DENSE = 1, F_ROWSTEP = 2, F_BP16 = 4 };
+
+// What the producer tells the walker about a transition. Staged: bp rows
+// [lo, hi] at the slot's start (none if lo > hi), then nst chunks' row 0,
+// w1 and symd. Global: the bp block's first row and the tables at the
+// transition's first chunk.
+struct __align__(16) Meta {
+  const char* bp;
+  const int32_t* tbl;
+  const int8_t* w1;
+  const int16_t* sy;
+  int lanes, rows, bin, bout;
+  int lo, hi, nst, flags;
+};
+
+struct Smem {
+  Meta meta[MAX_SLOTS];
+  unsigned long long bar[MAX_SLOTS];
+  int32_t recs[2][UNIT * 7];
+  volatile int done;  // transitions the walker has finished
+  volatile int r;     // the walker's current r
+};
+
+constexpr int SMEM_BYTES = RING + (int)sizeof(Smem);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_parity(unsigned long long* bar,
+                                            uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void load_desc(const int4* desc, int t, bool on,
+                                          int4 (&d)[3]) {
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = __ldg(desc + (size_t)t * 3 + k);
+  }
+}
+
+__device__ __forceinline__ int col_of(const int4 (&d)[3], int c) {
+  const int4 v = d[c >> 2];
+  const int j = c & 3;
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The producer's part for transition i (one lane): meta, barrier, copies.
+__device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
+                                      int nslot, int i, const int4 (&d)[3],
+                                      const long long (&b)[5], int R1,
+                                      int rnow, int band, bool stage_bp) {
+  const int si = i % nslot;
+  unsigned char* sp = ring + (size_t)si * slot;
+  const int lanes = col_of(d, C_LANES), esize = col_of(d, C_ESIZE);
+  const int rows = col_of(d, C_ROWS), bout = col_of(d, C_BOUT);
+  const int nch = col_of(d, C_NCH);
+  const bool rowstep = col_of(d, C_ROWSTEP) != 0;
+  const size_t rowbytes = (size_t)lanes * esize;
+  const char* bpa = (const char*)(col_of(d, C_BP1) ? b[B_BP1] : b[B_BP0]) +
+                    (size_t)col_of(d, C_BPROW) * R1 * rowbytes;
+  const int32_t* tbl = (const int32_t*)b[B_TBL] + (size_t)col_of(d, C_CB) * 2 * CHUNK;
+  const int8_t* w1 = (const int8_t*)b[B_W1] + (size_t)col_of(d, C_CB) * CHUNK;
+  const int16_t* sy = (const int16_t*)b[B_SY] + (size_t)col_of(d, C_CB) * CHUNK;
+
+  const int hi = min(max(rnow, 0), R1 - 1);
+  const int lo = max(hi - band, 0);
+  // the bp rows of the array the transition's lanes [0, bout^2) fall in
+  const int nwin = rowstep ? min((bout * bout + lanes - 1) / lanes, rows) : 1;
+  const uint32_t bpbytes = (uint32_t)((hi - lo + 1) * rowbytes);
+  const bool sbp = stage_bp && nwin == 1 && bpbytes <= (uint32_t)slot &&
+                   aligned16(bpa);
+  const uint32_t bpst = sbp ? bpbytes : 0;
+  const bool stbl = nch > 0 && bpst + (uint32_t)nch * CHUNK_STAGE <= (uint32_t)slot &&
+                    aligned16(tbl) && aligned16(w1) && aligned16(sy);
+  const int nst = stbl ? nch : 0;
+
+  Meta& m = s.meta[si];
+  m.bp = bpa;
+  m.tbl = tbl;
+  m.w1 = w1;
+  m.sy = sy;
+  m.lanes = lanes;
+  m.rows = rows;
+  m.bin = col_of(d, C_BIN);
+  m.bout = bout;
+  m.lo = sbp ? lo : hi + 1;
+  m.hi = hi;
+  m.nst = nst;
+  m.flags = (col_of(d, C_DENSE) ? F_DENSE : 0) | (rowstep ? F_ROWSTEP : 0) |
+            (esize == 2 ? F_BP16 : 0);
+  unsigned long long* bar = &s.bar[si];
+  const uint32_t tx = bpst + (uint32_t)nst * CHUNK_STAGE;
+  // release: the walker's wait on this phase sees the Meta record
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(tx)
+               : "memory");
+  if (sbp) {
+    bulk_load(sp, bpa + lo * rowbytes, bpst, bar);
+  } else if (aligned16(bpa)) {
+    for (int w = 0; w < nwin; ++w)
+      prefetch_l2(bpa + ((size_t)w * R1 + lo) * rowbytes, bpbytes);
+  }
+  if (nst) {
+    unsigned char* tp = sp + bpst;
+    for (int c = 0; c < nst; ++c)
+      bulk_load(tp + c * CHUNK * 4, tbl + (size_t)c * 2 * CHUNK, CHUNK * 4, bar);
+    bulk_load(tp + nst * CHUNK * 4, w1, nst * CHUNK, bar);
+    bulk_load(tp + nst * CHUNK * 5, sy, nst * CHUNK * 2, bar);
+  } else if (nch > 0 && aligned16(tbl) && aligned16(w1) && aligned16(sy)) {
+    prefetch_l2(tbl, nch * CHUNK * 8);
+    prefetch_l2(w1, nch * CHUNK);
+    prefetch_l2(sy, nch * CHUNK * 2);
+  }
+}
+
+__global__ void __launch_bounds__(64, 1)
+trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
+             int T, int R, int band, int stage_bp, int slot,
+             int32_t* recs) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  Smem& s = *reinterpret_cast<Smem*>(smem + RING);
+  const int nslot = min(RING / slot, MAX_SLOTS);
+  const int R1 = R + 1;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int k = 0; k < nslot; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_addr(&s.bar[k]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    s.done = 0;
+    s.r = R;
+  }
+  __syncthreads();
+
+  if (tid >= 32) {  // the producer
+    const int lane = tid - 32;
+    if (lane >= BATCH) return;
+    int4 d[3], dn[3];
+    long long b[5] = {};
+    int seg = -1;
+    load_desc(desc, T - 1 - lane, lane < T, dn);
+    for (int i0 = 0; i0 < T; i0 += BATCH) {
+      const int i = i0 + lane;
+      const bool on = i < T;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) d[k] = dn[k];
+      load_desc(desc, T - 1 - (i + BATCH), i + BATCH < T, dn);
+      if (on && col_of(d, C_SEG) != seg) {
+        seg = col_of(d, C_SEG);
+#pragma unroll
+        for (int k = 0; k < 5; ++k) b[k] = __ldg(base + (size_t)seg * NBASE + k);
+      }
+      // the batch's slots are free once the walker has finished the
+      // transitions nslot before them
+      const int need = min(i0 + BATCH, T) - nslot;
+      while (s.done < need) {
+      }
+      const int rnow = s.r;
+      if (on)
+        stage(s, ring, slot, nslot, i, d, b, R1, rnow, band, stage_bp != 0);
     }
-    const size_t off = ((size_t)row * (R + 1) + (r < 0 ? 0 : r)) * lanes + col;
-    const int slot = d[D_ESIZE] == 2
-                         ? (int)((const int16_t*)d[D_BP])[off]
-                         : ((const int32_t*)d[D_BP])[off];
-    const int crow = slot / CHUNK;
-    const int lc = slot % CHUNK;
-    const int packed = ((const int32_t*)d[D_TBL])[(size_t)crow * 2 * CHUNK + lc];
-    const int gidx = d[D_DENSE] ? ((packed >> 17) & 32767) : (packed >> 13);
+    return;
+  }
+  if (tid != 0) return;
+
+  // the walker
+  int lane = 0, r = R, si = 0;
+  uint32_t parity = 0;
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i;
+    wait_parity(&s.bar[si], parity);
+    const Meta m = s.meta[si];
+    const unsigned char* sp = ring + (size_t)si * slot;
+    int rowoff = 0, col;
+    if (m.flags & F_ROWSTEP) {
+      rowoff = lane / m.lanes;
+      col = lane - rowoff * m.lanes;
+      rowoff = min(rowoff, m.rows - 1);
+    } else {
+      col = min(lane, m.lanes - 1);
+    }
+    const int rr = max(r, 0);
+    const bool bp16 = (m.flags & F_BP16) != 0;
+    int slotv;
+    if (rowoff == 0 && rr >= m.lo && rr <= m.hi) {
+      const size_t k = (size_t)(rr - m.lo) * m.lanes + col;
+      slotv = bp16 ? (int)((const int16_t*)sp)[k] : ((const int32_t*)sp)[k];
+    } else {
+      const size_t k = ((size_t)rowoff * R1 + rr) * m.lanes + col;
+      slotv = bp16 ? (int)__ldg((const int16_t*)m.bp + k)
+                   : __ldg((const int32_t*)m.bp + k);
+    }
+    const int crow = slotv / CHUNK;
+    const int lc = slotv % CHUNK;
+    int packed, w1, sy;
+    if (crow >= 0 && crow < m.nst) {
+      const int bpst = m.lo <= m.hi ? (m.hi - m.lo + 1) * m.lanes * (bp16 ? 2 : 4) : 0;
+      const unsigned char* tp = sp + bpst;
+      packed = ((const int32_t*)tp)[crow * CHUNK + lc];
+      w1 = ((const int8_t*)(tp + m.nst * CHUNK * 4))[crow * CHUNK + lc];
+      sy = ((const int16_t*)(tp + m.nst * CHUNK * 5))[crow * CHUNK + lc];
+    } else {
+      packed = __ldg(m.tbl + (size_t)crow * 2 * CHUNK + lc);
+      w1 = __ldg(m.w1 + (size_t)crow * CHUNK + lc);
+      sy = __ldg(m.sy + (size_t)crow * CHUNK + lc);
+    }
+    const int gidx = (m.flags & F_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
     const int wsum = packed & 3;
-    const int w1 = ((const int8_t*)d[D_W1])[(size_t)crow * CHUNK + lc];
-    const int sy = ((const int16_t*)d[D_SY])[(size_t)crow * CHUNK + lc];
-    const int bin = (int)d[D_BIN];
-    const int bout = (int)d[D_BOUT];
-    int32_t* o = recs + (size_t)t * 7;
-    o[0] = gidx / bin;
-    o[1] = gidx % bin;
-    o[2] = lane / bout;
-    o[3] = lane % bout;
+    int32_t* o = s.recs[(t / UNIT) & 1] + (t % UNIT) * 7;
+    o[0] = gidx / m.bin;
+    o[1] = gidx % m.bin;
+    o[2] = lane / m.bout;
+    o[3] = lane % m.bout;
     o[4] = w1;
     o[5] = wsum - w1;
     o[6] = sy;
     lane = gidx;
     r -= wsum;
+    // every read of this slot is done (its values are in registers): free it
+    asm volatile("" ::: "memory");
+    s.r = r;
+    s.done = i + 1;
+    if (++si == nslot) {
+      si = 0;
+      parity ^= 1;
+    }
+    if (t % UNIT == 0) {
+      // records [t, t + UNIT) leave in one bulk store; the other buffer's
+      // store (UNIT transitions ago) must have read its source before the
+      // next record lands there
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              recs + (size_t)t * 7),
+          "r"(smem_addr(s.recs[(t / UNIT) & 1])), "r"(UNIT_BYTES)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+    }
   }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 }  // namespace
 
-extern "C" int dg_trace(const long long* desc, int T, int R, int32_t* recs,
+// desc [T, 12] int32 (DevPlan.desc), base [segments, 6] int64 (trace.py
+// bases); recs [ceil(T / 64) * 64, 7] int32. band: bp rows staged below r;
+// stage_bp 0: every bp word read from global memory after an L2 prefetch;
+// slot: ring bytes a transition, a multiple of 16, at most 12 KB (the ring
+// keeps at least 16 transitions).
+extern "C" int dg_trace(const int4* desc, const long long* base, int T, int R,
+                        int band, int stage_bp, int slot, int32_t* recs,
                         cudaStream_t stream) {
-  if (T > 0) trace_kernel<<<1, 32, 0, stream>>>(desc, T, R, recs);
+  if (T <= 0) return 0;
+  if (slot < 16 || slot % 16 || slot > RING / (2 * BATCH) || band < 0 || R < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  trace_kernel<<<1, 64, SMEM_BYTES, stream>>>(desc, base, T, R, band, stage_bp,
+                                              slot, recs);
   return (int)cudaGetLastError();
 }

@@ -1,77 +1,330 @@
 // K2: one run of wide pair-DP transitions over dense 256-pair chunks.
 //
-// Replaces dipgenie_tpu/ops/diploid_pallas.py `_wide_dense_kernel`
-// (launched by `_wide_call`). On the TPU a chunk's gather was a block-
-// masked one-hot matmul per source window and its results were extracted
-// and read-modify-written per spanned destination window under static
-// branches; here a chunk's lanes gather by indexed load from anywhere in
-// the [R+1, NB * 1024] state and max-reduce straight into the global
-// destination lane with a 64-bit atomicMax (dg_common.cuh), so window
-// spans and first-touch masks disappear. The commit rewrites every lane
-// of every window, so lanes no kept pair reaches (holes, windows past the
-// extent: the round-4 stale-window bug) become NEG by construction.
+// Replaces dipgenie_tpu/ops/diploid_pallas.py `_wide_dense_kernel` (:1388,
+// launched by `_wide_call`). On the TPU a chunk's gather was a block-masked
+// one-hot matmul per source window and its results were extracted and
+// read-modify-written per spanned destination window under static
+// branches. Here each destination's pairs are walked in plan order by the
+// threads that own it, reading the source state by indexed loads from
+// anywhere in the [R+1, NB * 1024] state.
 //
-// What bounds it on the H100: a wide transition has up to ~30k pairs x
-// (R+1) rows, i.e. tens to a few hundred blocks of work: latency of
-// L2-resident gathers and atomics (at R = 18 the state is at most
-// 19 x 31 x 4 KB = 2.4 MB and the keys twice that, inside the 50 MB L2), plus
-// two launches per transition. Design: a host loop over the run's
-// transitions launches (1) one block per chunk, one thread per pair lane,
-// looping over rows, and (2) a commit grid over the whole state that
-// swaps the keys back to 0 and writes V and the int32 backpointers of the
-// transition. Fusing a run into one persistent launch is later work.
+// The traffic it was designed for: phase C of chip_smoke.py (R = 18) has
+// 3,900 dense wide transitions in 300 runs, all at NB 18, with 28 dense
+// chunks a transition on average (at most 71), 6,400 real pairs at the
+// median, and pairs into one destination median 2, mean 3.9, p99 20, max
+// 2,304 (a band's last transition into a narrow level).
+//
+// What bounds it on the H100: a transition is ~7k pairs x 19 rows of
+// candidates against a state of 1.4 MB (L2-resident), far below what the
+// card moves or computes in the time it takes; the level chain is serial,
+// so the cost is the latency of one transition across the grid, and the
+// longest range of pairs into one destination. The kernel it replaced took
+// two launches a transition and max-reduced 64-bit keys with L2 atomics.
+//
+// Design: ONE cooperative launch a run, K2_SLICES (128) blocks of 1,024
+// threads, co-resident (the wrapper's launch fails, and it raises, if they
+// cannot be), a grid-wide barrier between transitions.
+// * State. V is double-buffered in global memory, [2, R+1, NB * 1024]
+//   (1.4 MB a buffer at NB 18, 2.4 MB at NB 31: both stay in L2);
+//   transition t reads buffer t & 1 (V_in itself at t = 0) and writes
+//   buffer (t + 1) & 1, so no block reads what another is writing. Reads of
+//   V bypass L1 (ld.global.cg): other SMs wrote them.
+// * Slices, no atomics. plan_to_device cuts each transition's written lanes
+//   [0, W) into K2_SLICES slices of equal width and records the first pair
+//   of each (ops/plan.py wide_slices): the planner sorts a transition's
+//   pairs by destination, so a slice's pairs are one range and so are each
+//   destination's. Block k owns slice k on every row. W covers this
+//   transition's destination extent and that of the one two before it, the
+//   last to write the same buffer (the whole state for the first two), so
+//   lanes past it hold NEG from an earlier write, as the plain version's
+//   full rewrite leaves them.
+// * Walks. A boundary pass over the slice's pairs marks each destination's
+//   range (first, end, and a stamp of the transition) in shared memory.
+//   Thread (r, d) walks d's range in plan order and keeps the first maximum
+//   (strict >) with its ordinal, the winner of the 64-bit key. A range of
+//   more than LONG pairs is walked by a warp per row, each lane a
+//   contiguous piece, the pieces' winners reduced by __shfl_xor_sync on the
+//   key of dg_common.cuh (value, then the smaller ordinal), so the tie rule
+//   holds. Unreached lanes commit NEG with ordinal 0; a winner at a value
+//   <= REACH_T commits NEG and keeps its ordinal.
+// * Staging. The slice's {packed, score} words of transition t + 1 reach
+//   the other of two shared-memory buffers by cp.async while t is walked;
+//   a slice of more than STAGE pairs is walked straight from the table.
+// * Backpointers start zeroed; only ordinals that are not 0 are written.
+#include <climits>
+#include <cooperative_groups.h>
+
 #include "dg_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void __launch_bounds__(dg::CHUNK)
-wide_candidates(const int32_t* __restrict__ dtbl, int c0, int R1, int lanes,
-                const int32_t* __restrict__ V, dg::Key* keys) {
-  using namespace dg;
-  const int32_t* row0 = dtbl + ((size_t)(c0 + blockIdx.x) * 2) * CHUNK;
-  const int packed = row0[threadIdx.x];
-  const int score = row0[CHUNK + threadIdx.x];
-  if (score == PAD_SC) return;  // dense pads decode as a real lane
-  const int gidx = (packed >> 17) & 32767;
-  const int dst = (packed >> 2) & 32767;  // win << 10 | rel
-  const int wsum = packed & 3;
-  const int ordinal = blockIdx.x * CHUNK + threadIdx.x;
-  for (int r = wsum; r < R1; ++r) {
-    const int c = V[(size_t)(r - wsum) * lanes + gidx];
-    if (c < REACH_T) continue;
-    atomicMax(&keys[(size_t)r * lanes + dst], make_key(c + score, ordinal));
+using dg::CHUNK;
+using dg::NEG;
+using dg::REACH_T;
+
+constexpr int THREADS = 1024;
+constexpr int STAGE = 4096;  // pairs of a slice staged in shared memory
+constexpr int MAX_W = 256;   // lanes of a slice (31 windows / 128 slices: 248)
+constexpr int LONG = 32;     // a longer range is walked by a warp
+constexpr int NONE = INT_MIN;  // no valid candidate yet
+constexpr int SMEM_BYTES = 2 * STAGE * 8 + 3 * MAX_W * 4;
+
+__device__ __forceinline__ const int32_t* word(const int32_t* dtbl, int c0,
+                                                int p) {
+  return dtbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
+}
+
+__device__ __forceinline__ int dst_of(int packed) {
+  return (packed >> 2) & 32767;
+}
+
+// {packed, score} of pair p: staged (index p - plo) or from the table
+template <bool kStaged>
+__device__ __forceinline__ int2 pair(const int2* s, const int32_t* dtbl,
+                                     int c0, int plo, int p) {
+  if constexpr (kStaged) {
+    return s[p - plo];
+  } else {
+    const int32_t* w = word(dtbl, c0, p);
+    return make_int2(w[0], w[CHUNK]);
   }
 }
 
-__global__ void wide_commit(int n, int32_t* V, dg::Key* keys, int32_t* bp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const dg::Key k = keys[i];
-  keys[i] = 0;
-  V[i] = dg::key_value(k);
-  bp[i] = dg::key_ordinal(k);
+// The first maximum over pairs [e0, e1) on row r: value (NONE if no
+// candidate is valid) and ordinal. Two pairs a step, their loads of V
+// issued together.
+template <bool kStaged>
+__device__ __forceinline__ void walk(const int2* s, const int32_t* dtbl,
+                                     int c0, int plo, int e0, int e1,
+                                     const int32_t* src, int lds, int r,
+                                     int& best, int& ord) {
+#pragma unroll 1
+  for (int e = e0; e < e1; e += 2) {
+    int2 ps[2];
+    int c[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ps[j] = pair<kStaged>(s, dtbl, c0, plo, min(e + j, e1 - 1));
+      const int rs = r - (ps[j].x & 3);
+      // the source lane, clamped so that a table outside its contract
+      // cannot read outside the state
+      const int g = min((ps[j].x >> 17) & 32767, lds - 1);
+      c[j] = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int v = c[j] + ps[j].y;
+      if (e + j < e1 && c[j] >= REACH_T && v > best) {
+        best = v;
+        ord = e + j;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void commit(int32_t* dstV, int32_t* bpt,
+                                       size_t at, int best, int ord) {
+  dstV[at] = best > REACH_T ? best : NEG;
+  if (ord != 0) bpt[at] = ord;
+}
+
+// Mark each destination's range among the slice's pairs [plo, phi):
+// first, end and the stamp t + 1 (slots of destinations without pairs keep
+// an older stamp).
+template <bool kStaged>
+__device__ __forceinline__ void mark(const int2* s, const int32_t* dtbl,
+                                     int c0, int plo, int phi, int d_lo,
+                                     int stamp, int* first, int* end,
+                                     int* stamps) {
+  for (int p = plo + (int)threadIdx.x; p < phi; p += THREADS) {
+    const int dc = dst_of(pair<kStaged>(s, dtbl, c0, plo, p).x) - d_lo;
+    const int dp = p > plo ? dst_of(pair<kStaged>(s, dtbl, c0, plo, p - 1).x)
+                                 - d_lo : -1;
+    const int dn = p + 1 < phi
+                       ? dst_of(pair<kStaged>(s, dtbl, c0, plo, p + 1).x) - d_lo
+                       : -1;
+    if (dc != dp) {
+      first[dc] = p;
+      stamps[dc] = stamp;
+    }
+    if (dc != dn) end[dc] = p + 1;
+  }
+}
+
+// The slice's cells: thread (r, d) for ranges of at most LONG pairs, then
+// a warp per (long range, row).
+template <bool kStaged>
+__device__ __forceinline__ void walk_slice(
+    const int2* s, const int32_t* dtbl, int c0, int plo, int d_lo, int nd,
+    int R1, int stamp, const int* first, const int* end, const int* stamps,
+    const int32_t* src, int lds, int32_t* dstV, int32_t* bpt, int lanes) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int c = tid; c < nd * R1; c += THREADS) {
+    const int r = c / nd, dl = c - r * nd;
+    const bool has = stamps[dl] == stamp;
+    const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
+    if (e1 - e0 > LONG) continue;
+    int best = NONE, ord = 0;
+    walk<kStaged>(s, dtbl, c0, plo, e0, e1, src, lds, r, best, ord);
+    commit(dstV, bpt, (size_t)r * lanes + d_lo + dl, best, ord);
+  }
+  // every warp lists the long ranges and takes tasks (range, row) q with
+  // q % 32 == warp
+  int q = 0;
+  for (int b = 0; b < nd; b += 32) {
+    const int dl = b + lane;
+    const bool is_long = dl < nd && stamps[dl] == stamp &&
+                         end[dl] - first[dl] > LONG;
+    unsigned m = __ballot_sync(0xffffffffu, is_long);
+    while (m) {
+      const int dj = b + __ffs(m) - 1;
+      m &= m - 1;
+      const int e0 = first[dj], e1 = end[dj], n = e1 - e0;
+      const int per = (n + 31) >> 5;
+      const int a0 = min(e0 + lane * per, e1), a1 = min(a0 + per, e1);
+      for (int r = 0; r < R1; ++r, ++q) {
+        if ((q & 31) != warp) continue;
+        int best = NONE, ord = 0;
+        walk<kStaged>(s, dtbl, c0, plo, a0, a1, src, lds, r, best, ord);
+        dg::Key k = best == NONE ? 0 : dg::make_key(best, ord);
+#pragma unroll
+        for (int o = 16; o; o >>= 1) {
+          const dg::Key x = __shfl_xor_sync(0xffffffffu, k, o);
+          k = x > k ? x : k;
+        }
+        if (lane == 0) {
+          const size_t at = (size_t)r * lanes + d_lo + dj;
+          dstV[at] = dg::key_value(k);
+          const int o = dg::key_ordinal(k);
+          if (o != 0) bpt[at] = o;
+        }
+      }
+    }
+  }
+}
+
+// Issue cp.async copies of the slice's words [plo, phi) into s (no wait).
+__device__ __forceinline__ void stage(const int32_t* dtbl, int c0, int plo,
+                                      int phi, int2* s) {
+  if (phi - plo > STAGE) return;
+  for (int p = plo + (int)threadIdx.x; p < phi; p += THREADS) {
+    const int32_t* w = word(dtbl, c0, p);
+    const unsigned d =
+        (unsigned)__cvta_generic_to_shared(s + (p - plo));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(w)
+                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d + 4),
+                 "l"(w + CHUNK)
+                 : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+wide_dense_kernel(const int32_t* __restrict__ dtbl,
+                  const int4* __restrict__ desc,
+                  const int32_t* __restrict__ cuts, int T, int R1, int lanes,
+                  int S, const int32_t* __restrict__ v_in, int32_t* V,
+                  int32_t* __restrict__ bp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* s_pair = reinterpret_cast<int2*>(smem);
+  int* first = reinterpret_cast<int*>(smem + 2 * STAGE * 8);
+  int* end = first + MAX_W;
+  int* stamps = end + MAX_W;
+  cg::grid_group grid = cg::this_grid();
+  const int k = blockIdx.x;
+  for (int i = threadIdx.x; i < MAX_W; i += THREADS) stamps[i] = 0;
+
+  // transition t's descriptor {first chunk, pairs, W, slice width} and the
+  // slice's pair range, and the same of t + 1
+  int4 D = __ldg(desc);
+  int plo = __ldg(cuts + k), phi = __ldg(cuts + k + 1);
+  int4 D1 = make_int4(0, 0, 0, 0);
+  int plo1 = 0, phi1 = 0;
+  if (T > 1) {
+    D1 = __ldg(desc + 1);
+    plo1 = __ldg(cuts + (S + 1) + k);
+    phi1 = __ldg(cuts + (S + 1) + k + 1);
+  }
+  stage(dtbl, D.x, plo, phi, s_pair);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+
+  const size_t plane = (size_t)R1 * lanes;
+  for (int t = 0; t < T; ++t) {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // t's words staged, the range slots free
+    if (t + 1 < T) stage(dtbl, D1.x, plo1, phi1, s_pair + ((t + 1) & 1) * STAGE);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    int4 D2 = make_int4(0, 0, 0, 0);
+    int plo2 = 0, phi2 = 0;
+    if (t + 2 < T) {
+      D2 = __ldg(desc + t + 2);
+      plo2 = __ldg(cuts + (size_t)(t + 2) * (S + 1) + k);
+      phi2 = __ldg(cuts + (size_t)(t + 2) * (S + 1) + k + 1);
+    }
+
+    const int W = D.z, w = D.w;
+    const int d_lo = k * w, nd = max(min(w, W - d_lo), 0);
+    const bool staged = phi - plo <= STAGE;
+    const int2* s = s_pair + (t & 1) * STAGE;
+    const int stamp = t + 1;
+    if (staged)
+      mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+    else
+      mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+    __syncthreads();  // ranges marked
+
+    const int32_t* src = t == 0 ? v_in : V + (t & 1) * plane;
+    const int lds = t == 0 ? 1024 : lanes;
+    int32_t* dstV = V + ((t + 1) & 1) * plane;
+    int32_t* bpt = bp + (size_t)t * plane;
+    if (staged)
+      walk_slice<true>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
+                       stamps, src, lds, dstV, bpt, lanes);
+    else
+      walk_slice<false>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
+                        stamps, src, lds, dstV, bpt, lanes);
+    grid.sync();  // buffer (t + 1) & 1 complete before t + 1 reads it
+
+    D = D1, plo = plo1, phi = phi1;
+    D1 = D2, plo1 = plo2, phi1 = phi2;
+  }
 }
 
 }  // namespace
 
-// bounds: HOST array [T + 1] of the transitions' dense chunk ranges.
-extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* bounds,
-                                 int T, int R1, int NB, int32_t* V,
-                                 dg::Key* keys, int32_t* bp,
-                                 cudaStream_t stream) {
+// dtbl [nchunks, 2, 256]; desc [T, 4] and cuts [T, S + 1] (ops/plan.py
+// wide_slices, S slices); v_in [R1, 1024]; V [2, R1, NB * 1024] (the output
+// state is buffer T & 1); bp [T, R1, NB * 1024] zeroed. One cooperative
+// launch of S blocks; cudaErrorCooperativeLaunchTooLarge where the card
+// cannot hold them at once.
+extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int4* desc,
+                                 const int32_t* cuts, int T, int R1, int NB,
+                                 int S, const int32_t* v_in, int32_t* V,
+                                 int32_t* bp, cudaStream_t stream) {
   const int lanes = NB * 1024;
-  const int n = R1 * lanes;
-  const int commit_blocks = (n + 255) / 256;
-  for (int t = 0; t < T; ++t) {
-    const int nch = bounds[t + 1] - bounds[t];
-    if (nch > 0) {
-      wide_candidates<<<nch, dg::CHUNK, 0, stream>>>(dtbl, bounds[t], R1,
-                                                     lanes, V, keys);
-    }
-    wide_commit<<<commit_blocks, 256, 0, stream>>>(n, V, keys,
-                                                   bp + (size_t)t * n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (T < 0 || R1 < 1 || S < 1 || lanes > S * MAX_W)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      wide_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per, wide_dense_kernel, THREADS, SMEM_BYTES)) != cudaSuccess)
+    return (int)e;
+  if (per * sms < S) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&dtbl, (void*)&desc, (void*)&cuts, (void*)&T,
+                  (void*)&R1,   (void*)&lanes, (void*)&S,  (void*)&v_in,
+                  (void*)&V,    (void*)&bp};
+  e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(S),
+                                  dim3(THREADS), args, SMEM_BYTES, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

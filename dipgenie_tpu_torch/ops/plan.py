@@ -43,6 +43,26 @@ Layouts the port's kernels (and their plain versions) decode:
   of more than ``DENSE_NB_LIMIT`` (31) windows has no dense table (its
   ``dtbl`` has 0 chunks), so only K3 or K4 run it.
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
+* Dense wide slices (made by ``plan_to_device``; ``wide_slices``): K2
+  splits each transition's written lanes ``[0, W)`` into ``K2_SLICES``
+  slices of ``ceil(W / K2_SLICES)`` lanes, one per block of its
+  cooperative grid. ``dense_desc [T, 4] int32`` holds per transition its
+  first dense chunk, its real pairs ``n`` (lanes ``[0, n)`` of its chunks,
+  sorted by destination), ``W`` and the slice width; ``dense_cuts [T,
+  K2_SLICES + 1] int32`` the first pair of each slice, so slice ``k``'s
+  pairs are ``[cuts[k], cuts[k + 1])``. ``W`` is the whole state for the
+  first two transitions (the two state buffers start uninitialised), then
+  the larger of this transition's destination extent ``tb_bout ** 2`` and
+  that of the transition two before it (the last to write the same buffer).
+* Traceback columns (made by ``plan_to_device``; ``trace_columns``):
+  ``DevPlan.desc [L - 1, 12] int32``, one row per transition, the columns
+  of ``TRACE_COLS``: the segment, the bp block's lanes, element size and
+  class (1: a lane past the block steps rows, 0: it clamps), the rows of
+  its bp array from the block on, the block's row, the first chunk row of
+  the table the walk reads and the transition's real chunks there, bin,
+  bout, the dense flag and whether the block lies in the segment's second
+  bp array (a narrow run's bp1024). Only the arrays' addresses wait for
+  the traceback (``ops/trace.py``).
 * Pair ordinals (the backpointers): a pair's index in its transition's
   preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``
   (window-split and dense chunks number the same pairs differently).
@@ -111,6 +131,12 @@ DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
 
+# blocks of K2's cooperative grid, one lane slice each (wide_slices)
+K2_SLICES = 128
+# the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu)
+TRACE_COLS = ("seg", "lanes", "esize", "rowstep", "rows", "bprow",
+              "chunkbase", "nch", "bin", "bout", "dense", "bp1")
+
 
 def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None) -> str:
     """``narrow`` (K1), ``wide`` (K2, dense chunks), ``wide_split`` (K3,
@@ -137,6 +163,12 @@ class DevSegment:
     # share (stbl)
     bounds: np.ndarray | None = None
     lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
+    # [T, 12] int32 traceback columns (trace_columns; segment column 0)
+    trace_cols: np.ndarray | None = None
+    # wide (K2): dense_desc [T, 4] and dense_cuts [T, K2_SLICES + 1]
+    # (wide_slices)
+    dense_desc: torch.Tensor | None = None
+    dense_cuts: torch.Tensor | None = None
 
     @property
     def t0(self) -> int:
@@ -149,10 +181,23 @@ class DevSegment:
 
 @dataclass
 class DevPlan:
+    """A plan on a device. ``desc`` (the traceback's columns of every
+    transition, see the module docstring) is made from the segments'
+    ``trace_cols`` when the plan is made, so a plan of some of another's
+    segments has its own."""
+
     R: int
     L: int
     device: torch.device
     segments: list
+    desc: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        cols = [s.trace_cols for s in self.segments]
+        desc = (np.concatenate(cols) if cols
+                else np.zeros((0, len(TRACE_COLS)), np.int32))
+        desc[:, 0] = np.repeat(np.arange(len(cols)), [len(c) for c in cols])
+        self.desc = _tensor(desc, self.device)
 
 
 _REAL_BITS = {"narrow": ("sbits", 16), "wide": ("dbits", 4),
@@ -175,7 +220,7 @@ def shard_to_device(seg: _WideRun, n_tp: int, rank: int, device) -> DevSegment:
     t["sbase"] = _tensor(seg.wbase[rows], device)
     t["present"] = _tensor(present.astype(bool), device)
     return DevSegment(kind="wide_tp", host=seg, t=t, nreal=len(rows),
-                      bounds=bounds)
+                      bounds=bounds, trace_cols=trace_columns("wide_tp", seg))
 
 
 def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
@@ -206,10 +251,15 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
                 f"dense_nb_max={dense_nb_max} sends it there")
         bits, real = _REAL_BITS[kind]
         nreal = int(np.count_nonzero(getattr(seg, bits) & real))
-        dseg = DevSegment(kind=kind, host=seg, t=t, nreal=nreal)
+        dseg = DevSegment(kind=kind, host=seg, t=t, nreal=nreal,
+                          trace_cols=trace_columns(kind, seg))
         if kind == "narrow":
             desc, dseg.lanes = narrow_desc(seg, nreal)
             t["tb_desc"] = _tensor(desc, device)
+        elif kind == "wide":
+            desc, cuts = wide_slices(seg, nreal)
+            dseg.dense_desc = _tensor(desc, device)
+            dseg.dense_cuts = _tensor(cuts, device)
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 
@@ -230,6 +280,70 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
                      out | (ndst << 16), seg.tb_bprow], 1)
     lanes = int(max(out.max(initial=CHUNK), src.max(initial=CHUNK)))
     return desc.astype(np.int32), lanes
+
+
+def wide_slices(seg: _WideRun, nreal: int,
+                slices: int = K2_SLICES) -> tuple[np.ndarray, np.ndarray]:
+    """``(dense_desc [T, 4], dense_cuts [T, slices + 1])`` int32 of a dense
+    wide run (see the module docstring): K2's lane slices and the pair
+    range of each. Raises unless every transition's real pairs come first
+    and are sorted by destination, which K2's walks rely on."""
+    T = seg.t1 - seg.t0
+    full = seg.NB * 1024
+    bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
+    ext = np.minimum(np.asarray(seg.tb_bout, np.int64) ** 2, full)
+    W = np.full(T, full, np.int64)
+    W[2:] = np.maximum(ext[2:], ext[:-2])
+    width = -(-W // slices)
+    desc = np.stack([bounds[:-1], np.zeros(T), W, width], 1).astype(np.int32)
+    cuts = np.zeros((T, slices + 1), np.int32)
+    for ti in range(T):
+        words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
+        real = words[:, 1].ravel() != PAD_SC
+        n = int(real.sum())
+        dst = (words[:, 0].ravel()[:n] >> 2) & 32767
+        if not real[:n].all() or np.any(np.diff(dst) < 0):
+            raise ValueError(
+                f"wide_slices: transition {seg.t0 + ti}'s dense pairs are "
+                "not sorted by destination ahead of the pads")
+        desc[ti, 1] = n
+        cuts[ti] = np.searchsorted(dst, np.arange(slices + 1) * width[ti])
+        cuts[ti, -1] = n
+    return desc, cuts
+
+
+def trace_columns(kind: str, seg) -> np.ndarray:
+    """[T, 12] int32: the traceback's columns (``TRACE_COLS``) of a
+    segment's transitions, with the segment column 0 (``DevPlan`` sets
+    it). The bp arrays' shapes are the ones the kernels allocate: a narrow
+    run's ``bp256 [n256, R+1, 256]`` and ``bp1024 [n1024, R+1, 1024]``
+    (int16), a window-split run's ``[nrows, R+1, 1024]``, a dense or tp
+    run's ``[T, R+1, NB * 1024]`` (int32)."""
+    T = seg.t1 - seg.t0
+    c = dict.fromkeys(TRACE_COLS, 0)
+    ti = np.arange(T)
+    if kind == "narrow":
+        big = (np.asarray(seg.tb_bits) & 2) != 0
+        c.update(lanes=np.where(big, 1024, CHUNK), esize=2, rowstep=big,
+                 rows=np.where(big, seg.n1024, seg.n256) - seg.tb_bprow,
+                 bprow=seg.tb_bprow, bp1=big)
+        cb, real = seg.tb_chunkbase, seg.sbits & 16
+    elif kind == "wide_split":
+        c.update(lanes=1024, esize=4, rowstep=1, rows=seg.nrows - seg.tb_bprow,
+                 bprow=seg.tb_bprow)
+        cb, real = seg.tb_chunkbase, seg.wbits & 4
+    else:  # one [R+1, NB * 1024] block per transition
+        c.update(lanes=seg.NB * 1024, esize=4, rowstep=1, rows=T - ti,
+                 bprow=ti)
+        if kind == "wide_tp":
+            cb, real = seg.tb_chunkbase, seg.wbits & 4
+        else:
+            cb, real = seg.tb2_chunkbase, seg.dbits & 4
+            c["dense"] = 1
+    c.update(chunkbase=cb, bin=seg.tb_bin, bout=seg.tb_bout,
+             nch=np.diff(chunk_bounds(cb, int(np.count_nonzero(real)))))
+    return np.stack([np.broadcast_to(np.asarray(c[k]), (T,))
+                     for k in TRACE_COLS], 1).astype(np.int32)
 
 
 def chunk_bounds(chunkbase: np.ndarray, nreal: int) -> np.ndarray:

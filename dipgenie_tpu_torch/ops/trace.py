@@ -21,18 +21,27 @@ window-split run's lane ``win * 1024 + rel`` is read from its window's
 row. The 256-class narrow blocks clamp the column to 255 instead. Rows
 are clamped to the array and ``r`` to 0, which only a walk from an
 unreachable sink needs.
+
+On the card the walk is one launch of ``csrc/trace.cu``. Everything it
+reads about a transition but the arrays' addresses was shipped with the
+plan (``DevPlan.desc``, ``ops/plan.py:trace_columns``); ``trace`` sends one
+row of addresses per segment.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import kernels
 from .plan import CHUNK, DevPlan
 
-# columns of the per-transition descriptor the CUDA walk reads
-_DESC_COLS = 11
+# The staging of the walk (csrc/trace.cu): each transition's share of the
+# shared-memory ring (SLOT bytes); the backpointer rows fetched below the
+# walk's current r (BAND), staged in the ring (STAGE_BP) or, if not, read
+# from global memory after an L2 prefetch
+SLOT = 6144
+BAND = 2
+STAGE_BP = True
 
 
 def _tables(seg, ti: int):
@@ -87,76 +96,68 @@ def trace_ref(dplan: DevPlan, bps: list) -> torch.Tensor:
     return recs.to(dplan.device)
 
 
-def _descriptors(dplan: DevPlan, bps: list) -> np.ndarray:
-    """[L - 1, 11] int64: per transition the address of its bp block, the
-    block's lane count, its element size, the addresses of its table,
-    w1 and symd rows at the transition's first chunk, the dense flag,
-    bin and bout, the block's class (1: a lane past the block steps rows,
-    0: it clamps) and the rows of the bp array from the block on."""
-    def addr(t, rows):
-        return t.data_ptr() + rows.astype(np.int64) * (
-            t.stride(0) * t.element_size()
-        )
-
-    desc = np.zeros((max(dplan.L - 1, 0), _DESC_COLS), np.int64)
-    for seg, bp in zip(dplan.segments, bps):
-        h = seg.host
-        d = desc[h.t0 : h.t1]
-        T = h.t1 - h.t0
-        if seg.kind == "narrow":
-            wide_bp = (h.tb_bits & 2) != 0
-            d[:, 0] = np.where(wide_bp, addr(bp[1], h.tb_bprow),
-                               addr(bp[0], h.tb_bprow))
-            d[:, 1] = np.where(wide_bp, bp[1].shape[2], bp[0].shape[2])
-            d[:, 9] = wide_bp
-            d[:, 10] = np.where(wide_bp, bp[1].shape[0], bp[0].shape[0]) \
-                - h.tb_bprow
-            cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
-        elif seg.kind == "wide_split":
-            d[:, 0] = addr(bp[0], h.tb_bprow)
-            d[:, 9] = 1
-            d[:, 10] = bp[0].shape[0] - h.tb_bprow
-            cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
-        else:  # one [R+1, NB * 1024] block per transition
-            d[:, 0] = addr(bp[0], np.arange(T))
-            d[:, 9] = 1
-            d[:, 10] = T - np.arange(T)
-            if seg.kind == "wide_tp":
-                cb, names, d[:, 6] = h.tb_chunkbase, ("tbl", "w1", "symd"), 0
-            else:
-                cb, names, d[:, 6] = (h.tb2_chunkbase,
-                                      ("dtbl", "dw1", "dsymd"), 1)
-        if seg.kind != "narrow":
-            d[:, 1] = bp[0].shape[2]
-        d[:, 2] = bp[0].element_size()
-        for col, name in zip((3, 4, 5), names):
-            d[:, col] = addr(seg.t[name], cb)
-        d[:, 7] = h.tb_bin
-        d[:, 8] = h.tb_bout
-    return desc
+def _bp_shapes(seg, R1: int) -> list:
+    """The shapes of a segment's backpointer arrays (``trace_columns``)."""
+    h = seg.host
+    if seg.kind == "narrow":
+        return [(h.n256, R1, CHUNK), (h.n1024, R1, 1024)]
+    if seg.kind == "wide_split":
+        return [(h.nrows, R1, 1024)]
+    return [(h.t1 - h.t0, R1, h.NB * 1024)]
 
 
-def trace(dplan: DevPlan, bps: list) -> torch.Tensor:
+def _walk_tables(seg):
+    """The chunk table, w1 and symd the walk reads for a segment."""
+    names = ("dtbl", "dw1", "dsymd") if seg.kind == "wide" else (
+        "tbl", "w1", "symd")
+    return [seg.t[n] for n in names]
+
+
+def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
+    """[segments, 6] int64 on the plan's device: per segment the addresses
+    of its first and last backpointer array (a narrow run's bp256 and
+    bp1024; the one array of a wide run twice), its chunk table, w1 and
+    symd, and a 0 that pads the row to 48 bytes. Checks every array."""
+    rows = []
+    R1 = dplan.R + 1
+    for seg, blocks in zip(dplan.segments, bps):
+        dtype = torch.int16 if seg.kind == "narrow" else torch.int32
+        shapes = _bp_shapes(seg, R1)
+        if len(blocks) != len(shapes):
+            raise ValueError(f"trace: {len(blocks)} backpointer arrays for "
+                             f"a {seg.kind} segment")
+        for b, shape in zip(blocks, shapes):
+            kernels.check_tensor(b, "bp", dtype, shape, dplan.device)
+        rows.append([blocks[0].data_ptr(), blocks[-1].data_ptr(),
+                     *(t.data_ptr() for t in _walk_tables(seg)), 0])
+    return torch.tensor(rows, dtype=torch.int64).to(dplan.device)
+
+
+def trace(dplan: DevPlan, bps: list, band: int = BAND,
+          stage_bp: bool = STAGE_BP, slot: int = SLOT) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
-    the whole plan); backpointers on the CPU take ``trace_ref``."""
+    the whole plan); backpointers on the CPU take ``trace_ref``. ``band``,
+    ``stage_bp`` and ``slot`` set the staging (the module's constants)."""
     if all(b.device.type == "cpu" for blocks in bps for b in blocks):
         return trace_ref(dplan, bps)
     if len(bps) != len(dplan.segments):
         raise ValueError(f"trace: {len(bps)} backpointer sets for "
                          f"{len(dplan.segments)} segments")
-    for seg, blocks in zip(dplan.segments, bps):
-        dtype = torch.int16 if seg.kind == "narrow" else torch.int32
-        for b in blocks:
-            kernels.check_tensor(b, "bp", dtype, None, dplan.device)
-    desc = torch.from_numpy(_descriptors(dplan, bps)).to(dplan.device)
-    recs = torch.zeros((max(dplan.L - 1, 0), 7), dtype=torch.int32,
+    T = max(dplan.L - 1, 0)
+    if dplan.desc.shape[0] != T:
+        raise ValueError(f"trace: {dplan.desc.shape[0]} transitions in the "
+                         f"plan's columns, want {T}")
+    base = bases(dplan, bps)
+    # whole blocks of 64 records leave shared memory in one bulk store each
+    recs = torch.empty((-(-T // 64) * 64, 7), dtype=torch.int32,
                        device=dplan.device)
-    lib = kernels.lib()
-    rc = lib.dg_trace(desc.data_ptr(), desc.shape[0], dplan.R,
-                      recs.data_ptr(), kernels.stream_of(recs))
-    kernels.raise_on_error(rc, "trace")
-    trace.launches += 1
-    return recs
+    if T:
+        rc = kernels.lib().dg_trace(
+            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, band,
+            int(stage_bp), slot, recs.data_ptr(), kernels.stream_of(recs))
+        kernels.raise_on_error(rc, "trace")
+        trace.launches += 1
+    return recs[:T]
 
 
 trace.launches = 0

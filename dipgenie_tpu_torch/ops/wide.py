@@ -9,7 +9,8 @@ dense_nb_max=31)``): the runs that have dense tables. The transition is the one 
 ``narrow.py`` over a ``[R+1, NB * 1024]`` state; every lane of every
 window is rewritten at each transition, so lanes no kept pair reaches
 (holes, windows past the extent) become ``NEG``. The run's output state
-is the first 1024 lanes.
+is the first 1024 lanes. The kernel writes only the lanes it must for the
+same result (``ops/plan.py:wide_slices``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from .. import kernels
 from .narrow import transition_keys
 from .plan import (
-    DENSE_NB_LIMIT, NEG, PAD_SC, DevSegment, chunk_bounds, decode_keys,
+    DENSE_NB_LIMIT, K2_SLICES, NEG, PAD_SC, DevSegment, chunk_bounds,
+    decode_keys,
 )
 
 
@@ -57,32 +59,40 @@ def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
 
 
 def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
-    """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one host
-    call per run, two kernels per transition); a CPU ``v_in`` takes
-    ``wide_dense_run_ref``."""
+    """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one
+    cooperative launch per run, ``K2_SLICES`` blocks over the slices
+    ``plan_to_device`` made); a CPU ``v_in`` takes ``wide_dense_run_ref``."""
     if v_in.device.type == "cpu":
         return wide_dense_run_ref(seg, v_in)
     kernels.check_tensor(v_in, "v_in", torch.int32, (v_in.shape[0], 1024))
     h = seg.host
+    T, R1 = h.t1 - h.t0, v_in.shape[0]
     dtbl = seg.t["dtbl"]
     kernels.check_tensor(dtbl, "dtbl", torch.int32, None, v_in.device)
     if not 1 <= h.NB <= DENSE_NB_LIMIT:
         raise ValueError(
             f"wide_dense_run: NB = {h.NB}, want 1..{DENSE_NB_LIMIT} (a run "
             "of more windows has no dense tables; K3 runs it)")
-    V, bp = _alloc(seg, v_in)
-    R1 = v_in.shape[0]
-    keys = torch.zeros(V.shape, dtype=torch.int64, device=v_in.device)
-    bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
-    lib = kernels.lib()
-    rc = lib.dg_wide_dense_run(
-        dtbl.data_ptr(), bounds.ctypes.data, h.t1 - h.t0, R1, h.NB,
-        V.data_ptr(), keys.data_ptr(), bp.data_ptr(),
+    if seg.dense_desc is None:
+        raise ValueError("wide_dense_run: no slices (plan_to_device makes "
+                         "them for the runs it sends to K2)")
+    kernels.check_tensor(seg.dense_desc, "dense_desc", torch.int32, (T, 4),
+                         v_in.device)
+    kernels.check_tensor(seg.dense_cuts, "dense_cuts", torch.int32,
+                         (T, K2_SLICES + 1), v_in.device)
+    lanes = h.NB * 1024
+    # two state buffers, written before they are read; zeroed backpointers
+    # (the kernel writes only the ordinals that are not 0)
+    V = torch.empty((2, R1, lanes), dtype=torch.int32, device=v_in.device)
+    bp = torch.zeros((T, R1, lanes), dtype=torch.int32, device=v_in.device)
+    rc = kernels.lib().dg_wide_dense_run(
+        dtbl.data_ptr(), seg.dense_desc.data_ptr(), seg.dense_cuts.data_ptr(),
+        T, R1, h.NB, K2_SLICES, v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
         kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "wide_dense_run")
     wide_dense_run.launches += 1
-    return V[:, :1024].contiguous(), bp
+    return V[T & 1, :, :1024].contiguous(), bp
 
 
 wide_dense_run.launches = 0

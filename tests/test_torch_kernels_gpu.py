@@ -20,14 +20,15 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    DENSE_NB_MAX, initial_v, plan_pairs, plan_to_device, shard_to_device,
+    DENSE_NB_MAX, K2_SLICES, NEG, REACH_T, initial_v, plan_pairs,
+    plan_to_device, shard_to_device,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
 from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
-    CASES, GLOBAL_STATE_CASE, LIMIT_CASES, limit_case, mhc_shaped_csr,
-    random_leveled_csr,
+    CASES, GLOBAL_STATE_CASE, LIMIT_CASES, dense_graph, hand_graph,
+    limit_case, mhc_shaped_csr, random_leveled_csr,
 )
 
 pytestmark = pytest.mark.cuda
@@ -255,6 +256,181 @@ def test_kernels_past_the_tpu_limits(case, cuda):
                 assert torch.equal(_tp_run_checked(seg, n_tp, V, cuda), out)
         V = out
     assert PairDiploidDP(plan, cuda).run() == want
+
+
+def _k2_case(name):
+    """(CSR arrays, R) of K2's edge cases: a destination-window hole and a
+    shrinking extent (tests/test_pallas_dp.py:187, :158), the lane-0 pad
+    tail of ROADMAP.md Queue 3 item 2 (``[1, 40, 1]``), 2,304 pairs into
+    one destination (``[1, 48, 1]``), a colourless level of ties, and runs
+    of 2, 5, 18 and 31 windows."""
+    if name == "hole_window":
+        W = 56
+        keep = list(range(18)) + list(range(37, W))
+        g = hand_graph([1, W, W, 1], [[(0, i, 0) for i in range(W)],
+                                      [(i, i, 0) for i in keep],
+                                      [(i, 0, 0) for i in range(W)]],
+                       {1 + 5: [0], 1 + W + 5: [0]})
+        return csr_arrays(g, [True]), 0
+    if name == "stale_window":
+        W = 40
+        starts = np.cumsum([0, 1, W, W, W])
+        g = hand_graph([1, W, W, W, 1], [
+            [(0, i, 0) for i in range(W)], [(i, i, 0) for i in range(25)],
+            [(i, i, 0) for i in range(W)], [(i, 0, 0) for i in range(W)]],
+            {int(starts[2] + 30): [0], int(starts[3] + 30): [0]})
+        return csr_arrays(g, [True]), 0
+    if name in ("pad_tail", "range2304"):
+        W = 40 if name == "pad_tail" else 48
+        g = hand_graph([1, W, 1], [[(0, i, 0) for i in range(W)],
+                                   [(i, 0, 0) for i in range(W)]],
+                       {v: [0] for v in [0, 1 + W] + list(range(1, W))})
+        return csr_arrays(g, [False]), 0
+    if name == "ties":
+        W = 40
+        g = hand_graph([1, W, W, 1], [
+            [(0, i, 0) for i in range(W)],
+            [(i, j, 0) for i in range(W) for j in range(W)],
+            [(i, 0, 0) for i in range(W)]])
+        return csr_arrays(g, [False]), 2
+    width = {"nb2": 40, "nb5": 64, "nb18": 96, "nb31": 140}[name]
+    rng = np.random.default_rng(11)
+    g = dense_graph(rng, [1, width, width, 1], deg=2, pw=0.2)
+    return csr_arrays(g, [bool(x) for x in rng.random(6) < 0.5]), 2
+
+
+def _reach_t_commits(seg, v):
+    """Destination lanes of the run's first transition whose best valid
+    candidate has the value REACH_T (committed NEG, ordinal kept)."""
+    from dipgenie_tpu_torch.ops.narrow import transition_keys
+    from dipgenie_tpu_torch.ops.plan import PAD_SC, chunk_bounds, decode_keys
+
+    h = seg.host
+    c0, c1 = chunk_bounds(h.tb2_chunkbase, seg.nreal)[:2]
+    words = seg.t["dtbl"][int(c0):int(c1)]
+    real = words[:, 1].reshape(-1) != PAD_SC
+    packed = words[:, 0].reshape(-1)[real]
+    keys = transition_keys(v, (packed >> 17) & 32767, packed & 3,
+                           words[:, 1].reshape(-1)[real],
+                           (packed >> 2) & 32767,
+                           torch.nonzero(real).reshape(-1), h.NB * 1024)
+    return int(((keys != 0) & (decode_keys(keys)[0] == NEG)).sum())
+
+
+@pytest.mark.parametrize("name", ["hole_window", "stale_window", "pad_tail",
+                                  "range2304", "ties", "nb2", "nb5", "nb18",
+                                  "nb31"])
+def test_wide_dense_kernel_edge_cases(name, cuda):
+    """K2 (one cooperative launch a run) against its plain version, bit
+    for bit, on every wide run from the DP's own input state and from two
+    drawn states (values around REACH_T, NEG and small scores: ties
+    everywhere, and lanes whose winner commits NEG at the value REACH_T
+    and keeps its ordinal); then the DP against the native tier."""
+    arrs, R = _k2_case(name)
+    plan = plan_pairs(*arrs, R)
+    dplan = plan_to_device(plan, cuda, dense_nb_max=31)
+    wides = [s for s in dplan.segments if s.kind == "wide"]
+    assert wides and {s.host.NB for s in wides} <= {2, 5, 18, 31}
+    if name.startswith("nb"):
+        assert max(s.host.NB for s in wides) == int(name[2:])
+    rng = np.random.default_rng(5)
+    draws = [(NEG, REACH_T - 1, REACH_T, REACH_T + 1, 0, 1, 2),
+             (NEG, REACH_T - 1, REACH_T)]
+    V, at_reach_t = initial_v(R, cuda), 0
+    for seg in dplan.segments:
+        kern, plain = RUNS[seg.kind]
+        ins = [V]
+        if seg.kind == "wide":
+            ins += [torch.from_numpy(rng.choice(d, size=(R + 1, 1024))
+                                     .astype(np.int32)).to(cuda)
+                    for d in draws]
+            at_reach_t += _reach_t_commits(seg, ins[-1])
+        for v in ins:
+            before = kern.launches
+            got, want = kern(seg, v), plain(seg, v)
+            assert kern.launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, seg.kind, seg.t0)
+        V = kern(seg, V)[0]
+    if name == "ties":
+        assert at_reach_t > 0
+    if name == "range2304":
+        cuts = wides[0].dense_cuts.cpu().numpy()
+        assert np.diff(cuts, axis=1).max() >= 2000
+    assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
+
+
+def test_wide_dense_refused_launch_raises(cuda):
+    """A grid the card cannot hold at once is refused, and the wrapper's
+    check raises: K2 has no fallback."""
+    arrs, R = _k2_case("nb2")
+    dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
+    seg = next(s for s in dplan.segments if s.kind == "wide")
+    h, T = seg.host, seg.t1 - seg.t0
+    V = torch.empty((2, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
+    bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
+    v = initial_v(R, cuda)
+    slices = 1 << 16  # far more blocks than fit on any card at once
+    cuts = torch.zeros((T, slices + 1), dtype=torch.int32, device=cuda)
+    rc = kernels.lib().dg_wide_dense_run(
+        seg.t["dtbl"].data_ptr(), seg.dense_desc.data_ptr(), cuts.data_ptr(),
+        T, R + 1, h.NB, slices, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
+        kernels.stream_of(v))
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="wide_dense_run"):
+        kernels.raise_on_error(rc, "wide_dense_run")
+    assert seg.dense_cuts.shape == (T, K2_SLICES + 1)
+
+
+# the traceback's staging settings (ops/trace.py): the default; every bp
+# row below r in slots of 12 KB; bp words from global memory after an L2
+# prefetch, a band of rows or all; and slots too small for anything
+STAGINGS = {"default": {},
+            "all_rows": dict(band=1000, slot=12288),
+            "l2_band": dict(stage_bp=False),
+            "l2_all_rows": dict(band=1000, stage_bp=False),
+            "no_room": dict(slot=16)}
+
+
+def _trace_case(name):
+    """(plan on the card, backpointers' plan) of K-T's cases: the walks
+    cross narrow 256- and 1024-class blocks, dense wide blocks (kept in L2),
+    window-split blocks (K3's routing and the big-window graph), and R = 60
+    (GLOBAL_STATE_CASE: with every row below r, no block fits a slot)."""
+    if name == "bands":
+        return plan_pairs(*mhc_shaped_csr(L=800, seed=10, n_bands=2), 18), 18
+    if name == "bands_split":
+        return plan_pairs(*mhc_shaped_csr(L=800, seed=10, n_bands=2), 18), 0
+    arrs, R = case_csr({"global_state": GLOBAL_STATE_CASE}.get(name, name))
+    return plan_pairs(*arrs, R), 18
+
+
+@pytest.mark.parametrize("bps_kind", ["forward", "zero", "random"])
+@pytest.mark.parametrize("name", ["bands", "bands_split", "big_window",
+                                  "global_state", "mhc_slice_wide_csr"])
+def test_trace_kernel_matches_plain_version(name, bps_kind, cuda):
+    """K-T (one launch) against ``trace_ref`` under every staging setting,
+    on the forward pass's backpointers, on zeroed ones (every state
+    unreachable: the walk takes pair 0 each time) and on drawn ordinals
+    below 256 (the walk's r falls below 0 and is read as row 0)."""
+    plan, nb_max = _trace_case(name)
+    dplan = plan_to_device(plan, cuda, dense_nb_max=nb_max)
+    bps = PairDiploidDP(dplan, cuda).forward()[1]
+    if bps_kind == "zero":
+        bps = [tuple(torch.zeros_like(b) for b in blocks) for blocks in bps]
+    elif bps_kind == "random":
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        bps = [tuple(torch.randint(0, 256, b.shape, generator=gen,
+                                   device=cuda, dtype=b.dtype)
+                     for b in blocks) for blocks in bps]
+    want = trace.trace_ref(dplan, bps)
+    if bps_kind == "random" and name.startswith("bands"):
+        assert (want[:, 4] + want[:, 5]).sum() > dplan.R  # r went below 0
+    for staging, kw in STAGINGS.items():
+        before = trace.trace.launches
+        got = trace.trace(dplan, bps, **kw)
+        assert trace.trace.launches == before + 1
+        assert got.shape == want.shape and torch.equal(got, want), staging
 
 
 # the level-chain kernels: (wrapper, plain version, tables of a chain)
