@@ -34,12 +34,15 @@ result line):
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
      graph, wide levels 33-96): launch counts of the main path, forward
      and traceback times, states/s and peak memory, equality with the
-     native C++ tier, and K1's, K2's and K-T's times beside their plain
+     native C++ tier, K-T on the whole plan under both staging options
+     (trace() and the launch alone by CUDA events, the host part by the
+     host clock), and K1's, K2's and K-T's times beside their plain
      versions' and their bounds on a plan prefix; the DP stage probe on
      the same plan, and K1's time per transition beside phase G's floors;
   E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
      states, every wide run 31 windows): the same readings for its main
-     path through K3, K3 beside its plain version and its bound on a prefix, and K2 against K3 on the same big runs
+     path through K3 (K-T on the whole plan too), K3 beside its plain
+     version and its bound on a prefix, and K2 against K3 on the same big runs
      (equal V and traceback records, both times);
   F. the tp-sharded wide path (every wide run through K4 on this rank's
      destination windows, merged by all_reduce(MAX) after each
@@ -195,6 +198,11 @@ TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # K1's us per narrow transition on phase C's prefix before its redesign (the
 # kernel it replaced, timed beside it on the same card: PERF.md section 6)
 K1_BEFORE_US = 4.7145
+# K-T's two staging options timed on the whole plans of phases C and E
+# (ops/trace.py): the narrow backpointer rows staged in shared memory with
+# the tables (the default), or only the tables, every bp word read from
+# global memory after an L2 prefetch
+TRACE_OPTIONS = {"staged": dict(stage_bp=True), "l2": dict(stage_bp=False)}
 REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
               "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
@@ -221,7 +229,8 @@ def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
 def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     """(bytes, operations) of one run: each table byte it needs read once
     (K1: the real pairs' words and one descriptor a transition; K2 / K3:
-    its real chunks, with wwin and wbase for K3), V in and out once, each
+    its real chunks, with wwin and wbase for K3, and K2's slices), V in and
+    out once, each
     backpointer byte written once; an add and a max per (real pair, row it
     reaches)."""
     import numpy as np
@@ -236,6 +245,8 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     else:
         tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
                                              else 0))
+    if seg.kind == "wide":  # K2's slices (ops/plan.py wide_slices)
+        tables += 4 * (seg.dense_desc.numel() + seg.dense_cuts.numel())
     return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
 
 
@@ -272,6 +283,7 @@ class Smoke:
         self.library_ms = {}  # one PyTorch call computing the same output
         self.prefix_tr = {}  # transitions of each kernel's timed prefix
         self.slopes = {}  # phase G2: probe variant -> Slope
+        self.trace_full = {}  # phases C and E: K-T on the whole plan
         self.big = {}  # phase E's plan and result, for phase F
         self.d18 = None  # phase D's 18-walk pangenome and native FASTA
 
@@ -902,6 +914,7 @@ class Smoke:
         want = {**dict.fromkeys(KERNELS, 0), "trace": 1,
                 **{KIND_KERNEL[k]: kinds.count(k) for k in KIND_KERNEL}}
         check(launches == want, f"{tag} launches {launches}, want {want}")
+        self.time_trace_full(tag, dplan, bps, recs)
         del bps, recs
         self.profile_forward(tag, dp)
 
@@ -913,6 +926,42 @@ class Smoke:
         log(f"{tag} value {got[0]} s_het {got[1]} and {len(got[2])} "
             "transitions == native tier")
         return plan, dplan, got
+
+    def time_trace_full(self, tag, dplan, bps, want):
+        """K-T on the whole plan's backpointers, each staging option of
+        TRACE_OPTIONS in turns (A B B A), by CUDA events around trace() and
+        around its one launch; the host part (the per-segment address rows)
+        by the host clock on a line of its own. Every result equals the
+        counted pass's records."""
+        from dipgenie_tpu_torch.ops import trace
+
+        times = {k: {"window": [], "launch": []} for k in TRACE_OPTIONS}
+        for name in (*TRACE_OPTIONS, *reversed(TRACE_OPTIONS)):
+            with self.launch_events("dg_trace") as pairs:
+                ms, recs = self.timed(
+                    lambda: trace.trace(dplan, bps, **TRACE_OPTIONS[name]))
+            check(len(pairs) == 1, f"{tag} trace: {len(pairs)} launches")
+            check(bool(self.torch.equal(recs, want)),
+                  f"{tag} trace ({name}) differs from the counted pass")
+            times[name]["window"].append(ms)
+            times[name]["launch"].append(
+                pairs[0][0].elapsed_time(pairs[0][1]))
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trace.bases(dplan, bps)
+            self.sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+        log(f"{tag} K-T host part (one address row per segment, "
+            f"{len(dplan.segments)} rows): {min(host):.4f} ms (host clock; "
+            f"all {[round(x, 4) for x in host]})")
+        for name, t in times.items():
+            log(f"{tag} K-T on the whole plan ({dplan.L - 1} transitions), "
+                f"{name}: trace() {min(t['window']):.4f} ms, the launch alone "
+                f"{min(t['launch']):.4f} ms (CUDA events; all "
+                f"{[round(x, 4) for x in t['window']]} / "
+                f"{[round(x, 4) for x in t['launch']]})")
+        self.trace_full[tag] = times
 
     def profile_forward(self, tag, dp):
         """Device busy and idle share of one more forward pass, from a
@@ -1018,7 +1067,9 @@ class Smoke:
                        for w in (0, 1)}
                 n_tr = sub.L - 1
                 recs = run[0]()
-                nbytes = (sub.L - 1) * (11 * 8 + 4 + 4 + 1 + 2 + 7 * 4)
+                # per transition: its descriptor row, its bp word (int32
+                # at most), its packed word, w1 and symd in, its record out
+                nbytes = (sub.L - 1) * (12 * 4 + 4 + 4 + 1 + 2 + 7 * 4)
                 nbound = bound(nbytes, 12 * (sub.L - 1))
             else:
                 idx = [i for i, s in enumerate(prefix)

@@ -62,38 +62,48 @@ enum { C_SEG, C_LANES, C_ESIZE, C_ROWSTEP, C_ROWS, C_BPROW, C_CB, C_NCH,
 // address columns (ops/trace.py bases)
 enum { B_BP0, B_BP1, B_TBL, B_W1, B_SY, NBASE = 6 };
 
+constexpr int THREADS = 96;   // walker, producer, recorder
 constexpr int RING = 196608;  // staging bytes
 constexpr int MAX_SLOTS = 64;
 constexpr int BATCH = 8;      // transitions the producer takes at a time
 constexpr int UNIT = 64;      // records a bulk store carries
 constexpr int UNIT_BYTES = UNIT * 7 * 4;
-// staged table bytes of one chunk: row 0 (1 KB), w1 (256 B), symd (512 B)
-constexpr int CHUNK_STAGE = CHUNK * (4 + 1 + 2);
+constexpr int RAW_UNITS = 4;  // units of raw records the walker runs ahead
+// back-off of the producer's and the recorder's polls of the walker's
+// progress, so that they leave shared memory to the walker's reads
+constexpr unsigned SPIN_NS = 64;
+constexpr unsigned RECORD_SPIN_NS = 1000;
 
 enum { F_DENSE = 1, F_ROWSTEP = 2, F_BP16 = 4 };
 
 // What the producer tells the walker about a transition. Staged: bp rows
-// [lo, hi] at the slot's start (none if lo > hi), then nst chunks' row 0,
-// w1 and symd. Global: the bp block's first row and the tables at the
-// transition's first chunk.
+// [lo, hi] at the slot's start (none if lo > hi), then row 0 of the first
+// nst chunks at tbl_off. Global: the bp block's first row and the table at
+// the transition's first chunk.
 struct __align__(16) Meta {
   const char* bp;
   const int32_t* tbl;
-  const int8_t* w1;
-  const int16_t* sy;
-  int lanes, rows, bin, bout;
-  int lo, hi, nst, flags;
+  int lanes, rows, lo, hi;
+  int nst, flags, tbl_off, pad;
 };
 
 struct Smem {
   Meta meta[MAX_SLOTS];
-  unsigned long long bar[MAX_SLOTS];
+  unsigned long long bar[MAX_SLOTS / BATCH];  // one a batch of slots
+  int4 raw[RAW_UNITS * UNIT];  // {lane, packed, slot, -} a transition
   int32_t recs[2][UNIT * 7];
-  volatile int done;  // transitions the walker has finished
-  volatile int r;     // the walker's current r
+  volatile int done;      // transitions the walker has finished
+  volatile int r;         // the walker's current r
+  volatile int rec_low;   // the lowest unit the recorder has stored
 };
 
 constexpr int SMEM_BYTES = RING + (int)sizeof(Smem);
+
+__device__ __forceinline__ long long gtime() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -148,10 +158,18 @@ __device__ __forceinline__ int col_of(const int4 (&d)[3], int c) {
 }
 
 // The producer's part for transition i (one lane): meta, barrier, copies.
+__device__ __forceinline__ void arrive(unsigned long long* bar, uint32_t tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(tx)
+               : "memory");
+}
+
 __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
                                       int nslot, int i, const int4 (&d)[3],
-                                      const long long (&b)[5], int R1,
-                                      int rnow, int band, bool stage_bp) {
+                                      const long long (&b)[NBASE], int R1,
+                                      int rnow, int band, bool stage_bp,
+                                      unsigned long long* bar) {
   const int si = i % nslot;
   unsigned char* sp = ring + (size_t)si * slot;
   const int lanes = col_of(d, C_LANES), esize = col_of(d, C_ESIZE);
@@ -161,9 +179,8 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
   const size_t rowbytes = (size_t)lanes * esize;
   const char* bpa = (const char*)(col_of(d, C_BP1) ? b[B_BP1] : b[B_BP0]) +
                     (size_t)col_of(d, C_BPROW) * R1 * rowbytes;
-  const int32_t* tbl = (const int32_t*)b[B_TBL] + (size_t)col_of(d, C_CB) * 2 * CHUNK;
-  const int8_t* w1 = (const int8_t*)b[B_W1] + (size_t)col_of(d, C_CB) * CHUNK;
-  const int16_t* sy = (const int16_t*)b[B_SY] + (size_t)col_of(d, C_CB) * CHUNK;
+  const int32_t* tbl =
+      (const int32_t*)b[B_TBL] + (size_t)col_of(d, C_CB) * 2 * CHUNK;
 
   const int hi = min(max(rnow, 0), R1 - 1);
   const int lo = max(hi - band, 0);
@@ -173,31 +190,23 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
   const bool sbp = stage_bp && nwin == 1 && bpbytes <= (uint32_t)slot &&
                    aligned16(bpa);
   const uint32_t bpst = sbp ? bpbytes : 0;
-  const bool stbl = nch > 0 && bpst + (uint32_t)nch * CHUNK_STAGE <= (uint32_t)slot &&
-                    aligned16(tbl) && aligned16(w1) && aligned16(sy);
+  const bool stbl = nch > 0 && bpst + (uint32_t)nch * CHUNK * 4 <= (uint32_t)slot &&
+                    aligned16(tbl);
   const int nst = stbl ? nch : 0;
 
   Meta& m = s.meta[si];
   m.bp = bpa;
   m.tbl = tbl;
-  m.w1 = w1;
-  m.sy = sy;
   m.lanes = lanes;
   m.rows = rows;
-  m.bin = col_of(d, C_BIN);
-  m.bout = bout;
   m.lo = sbp ? lo : hi + 1;
   m.hi = hi;
   m.nst = nst;
   m.flags = (col_of(d, C_DENSE) ? F_DENSE : 0) | (rowstep ? F_ROWSTEP : 0) |
             (esize == 2 ? F_BP16 : 0);
-  unsigned long long* bar = &s.bar[si];
-  const uint32_t tx = bpst + (uint32_t)nst * CHUNK_STAGE;
+  m.tbl_off = (int)bpst;
   // release: the walker's wait on this phase sees the Meta record
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(tx)
-               : "memory");
+  arrive(bar, bpst + (uint32_t)nst * CHUNK * 4);
   if (sbp) {
     bulk_load(sp, bpa + lo * rowbytes, bpst, bar);
   } else if (aligned16(bpa)) {
@@ -205,86 +214,175 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
       prefetch_l2(bpa + ((size_t)w * R1 + lo) * rowbytes, bpbytes);
   }
   if (nst) {
-    unsigned char* tp = sp + bpst;
     for (int c = 0; c < nst; ++c)
-      bulk_load(tp + c * CHUNK * 4, tbl + (size_t)c * 2 * CHUNK, CHUNK * 4, bar);
-    bulk_load(tp + nst * CHUNK * 4, w1, nst * CHUNK, bar);
-    bulk_load(tp + nst * CHUNK * 5, sy, nst * CHUNK * 2, bar);
-  } else if (nch > 0 && aligned16(tbl) && aligned16(w1) && aligned16(sy)) {
+      bulk_load(sp + bpst + c * CHUNK * 4, tbl + (size_t)c * 2 * CHUNK,
+                CHUNK * 4, bar);
+  } else if (nch > 0 && aligned16(tbl)) {
     prefetch_l2(tbl, nch * CHUNK * 8);
-    prefetch_l2(w1, nch * CHUNK);
-    prefetch_l2(sy, nch * CHUNK * 2);
   }
 }
 
-__global__ void __launch_bounds__(64, 1)
+// The producer (lanes 0 .. BATCH - 1 of warp 1).
+template <bool kProf>
+__device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
+                        const long long* base, int T, int R1, int band,
+                        bool stage_bp, int slot, int nslot, int lane,
+                        long long* prof) {
+  long long spin = 0, t_start = kProf ? gtime() : 0;
+  int4 d[3], dn[3];
+  long long b[NBASE] = {};
+  int seg = -1;
+  load_desc(desc, T - 1 - lane, lane < T, dn);
+  for (int i0 = 0; i0 < T; i0 += BATCH) {
+    const int i = i0 + lane;
+    const bool on = i < T;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = dn[k];
+    load_desc(desc, T - 1 - (i + BATCH), i + BATCH < T, dn);
+    if (on && col_of(d, C_SEG) != seg) {
+      seg = col_of(d, C_SEG);
+#pragma unroll
+      for (int k = 0; k < NBASE; ++k)
+        b[k] = __ldg(base + (size_t)seg * NBASE + k);
+    }
+    // the batch's slots are free once the walker has finished the
+    // transitions nslot before them
+    const int need = min(i0 + BATCH, T) - nslot;
+    const long long a = kProf ? gtime() : 0;
+    while (s.done < need) __nanosleep(SPIN_NS);
+    if (kProf) spin += gtime() - a;
+    const int rnow = s.r;
+    // the batch's barrier takes one arrival from each of the BATCH lanes
+    unsigned long long* bar = &s.bar[(i0 / BATCH) % (nslot / BATCH)];
+    if (on)
+      stage(s, ring, slot, nslot, i, d, b, R1, rnow, band, stage_bp, bar);
+    else
+      arrive(bar, 0);
+  }
+  if (kProf && lane == 0) {
+    prof[2] = spin;
+    prof[3] = gtime() - t_start;
+  }
+}
+
+// The recorder (warp 2): unit u's raw triples {lane, packed, slot} of
+// transitions [64u, 64u + 64) become the records (gidx / bin, gidx % bin,
+// lane / bout, lane % bout, w1, wsum - w1, symd), w1 and symd read from the
+// tables, and leave in one bulk store.
+__device__ void record(Smem& s, const int4* desc, const long long* base,
+                       int T, int32_t* recs, int lane) {
+  const int top = (T - 1) / UNIT;
+  for (int u = top; u >= 0; --u) {
+    while (s.done < T - u * UNIT) __nanosleep(RECORD_SPIN_NS);
+    int32_t* buf = s.recs[u & 1];
+    for (int j = lane; j < UNIT; j += 32) {
+      const int t = u * UNIT + j;
+      if (t >= T) continue;  // the wrapper's padding rows
+      int4 d[3];
+      load_desc(desc, t, true, d);
+      const int4 raw = s.raw[t % (RAW_UNITS * UNIT)];
+      const long long* b = base + (size_t)col_of(d, C_SEG) * NBASE;
+      const int packed = raw.y, slotv = raw.z, dl = raw.x;
+      const int gidx =
+          col_of(d, C_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
+      const long long k = (long long)(col_of(d, C_CB) + (slotv >> 8)) * CHUNK +
+                          (slotv & (CHUNK - 1));
+      const int w1 = __ldg((const int8_t*)__ldg(b + B_W1) + k);
+      const int sy = __ldg((const int16_t*)__ldg(b + B_SY) + k);
+      const int bin = col_of(d, C_BIN), bout = col_of(d, C_BOUT);
+      int32_t* o = buf + j * 7;
+      o[0] = gidx / bin;
+      o[1] = gidx % bin;
+      o[2] = dl / bout;
+      o[3] = dl % bout;
+      o[4] = w1;
+      o[5] = (packed & 3) - w1;
+      o[6] = sy;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+              recs + (size_t)u * UNIT * 7),
+          "r"(smem_addr(buf)), "r"(UNIT_BYTES)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      // the other buffer's store has read it before unit u - 1 fills it
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      s.rec_low = u;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <bool kProf>
+__global__ void __launch_bounds__(THREADS, 1)
 trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
              int T, int R, int band, int stage_bp, int slot,
-             int32_t* recs) {
+             int32_t* recs, long long* prof) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   Smem& s = *reinterpret_cast<Smem*>(smem + RING);
-  const int nslot = min(RING / slot, MAX_SLOTS);
+  const int nslot = min(RING / slot, MAX_SLOTS) / BATCH * BATCH;
   const int R1 = R + 1;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int top = (T - 1) / UNIT;
 
   if (tid == 0) {
-    for (int k = 0; k < nslot; ++k)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                       smem_addr(&s.bar[k]))
+    for (int k = 0; k < nslot / BATCH; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_addr(&s.bar[k])),
+                   "r"(BATCH)
                    : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     s.done = 0;
     s.r = R;
+    s.rec_low = top + 1;
   }
   __syncthreads();
 
-  if (tid >= 32) {  // the producer
-    const int lane = tid - 32;
-    if (lane >= BATCH) return;
-    int4 d[3], dn[3];
-    long long b[5] = {};
-    int seg = -1;
-    load_desc(desc, T - 1 - lane, lane < T, dn);
-    for (int i0 = 0; i0 < T; i0 += BATCH) {
-      const int i = i0 + lane;
-      const bool on = i < T;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) d[k] = dn[k];
-      load_desc(desc, T - 1 - (i + BATCH), i + BATCH < T, dn);
-      if (on && col_of(d, C_SEG) != seg) {
-        seg = col_of(d, C_SEG);
-#pragma unroll
-        for (int k = 0; k < 5; ++k) b[k] = __ldg(base + (size_t)seg * NBASE + k);
-      }
-      // the batch's slots are free once the walker has finished the
-      // transitions nslot before them
-      const int need = min(i0 + BATCH, T) - nslot;
-      while (s.done < need) {
-      }
-      const int rnow = s.r;
-      if (on)
-        stage(s, ring, slot, nslot, i, d, b, R1, rnow, band, stage_bp != 0);
-    }
+  if (warp == 1) {
+    if (lane < BATCH)
+      produce<kProf>(s, ring, desc, base, T, R1, band, stage_bp != 0, slot,
+                     nslot, lane, prof);
+    return;
+  }
+  if (warp == 2) {
+    record(s, desc, base, T, recs, lane);
     return;
   }
   if (tid != 0) return;
 
-  // the walker
-  int lane = 0, r = R, si = 0;
-  uint32_t parity = 0;
+  // the walker: transition i's chain is its bp word (from the lane), then
+  // its packed table word; the next slot's Meta record (and once a batch
+  // its barrier) is read while the bp word is in flight
+  int dl = 0, r = R, si = 0;
+  uint32_t parity = 0;  // of the batch barrier of slot si
+  long long waited = 0, recwait = 0, t_start = kProf ? gtime() : 0;
+  long long c_dense = 0, n_bpg = 0, n_tblg = 0, c_prev = kProf ? clock64() : 0;
+  const long long c_start = c_prev;
+  wait_parity(&s.bar[0], 0);
+  Meta m = s.meta[0];
   for (int i = 0; i < T; ++i) {
     const int t = T - 1 - i;
-    wait_parity(&s.bar[si], parity);
-    const Meta m = s.meta[si];
+    // a unit's raw triples overwrite those of the unit RAW_UNITS above it
+    if (((t & (UNIT - 1)) == UNIT - 1 || i == 0) &&
+        t / UNIT + RAW_UNITS <= top) {
+      const long long a = kProf ? gtime() : 0;
+      while (s.rec_low > t / UNIT + RAW_UNITS) {
+      }
+      if (kProf) recwait += gtime() - a;
+    }
     const unsigned char* sp = ring + (size_t)si * slot;
     int rowoff = 0, col;
     if (m.flags & F_ROWSTEP) {
-      rowoff = lane / m.lanes;
-      col = lane - rowoff * m.lanes;
+      rowoff = dl / m.lanes;
+      col = dl - rowoff * m.lanes;
       rowoff = min(rowoff, m.rows - 1);
     } else {
-      col = min(lane, m.lanes - 1);
+      col = min(dl, m.lanes - 1);
     }
     const int rr = max(r, 0);
     const bool bp16 = (m.flags & F_BP16) != 0;
@@ -296,56 +394,57 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
       const size_t k = ((size_t)rowoff * R1 + rr) * m.lanes + col;
       slotv = bp16 ? (int)__ldg((const int16_t*)m.bp + k)
                    : __ldg((const int32_t*)m.bp + k);
+      if (kProf) ++n_bpg;
     }
-    const int crow = slotv / CHUNK;
-    const int lc = slotv % CHUNK;
-    int packed, w1, sy;
-    if (crow >= 0 && crow < m.nst) {
-      const int bpst = m.lo <= m.hi ? (m.hi - m.lo + 1) * m.lanes * (bp16 ? 2 : 4) : 0;
-      const unsigned char* tp = sp + bpst;
-      packed = ((const int32_t*)tp)[crow * CHUNK + lc];
-      w1 = ((const int8_t*)(tp + m.nst * CHUNK * 4))[crow * CHUNK + lc];
-      sy = ((const int16_t*)(tp + m.nst * CHUNK * 5))[crow * CHUNK + lc];
-    } else {
-      packed = __ldg(m.tbl + (size_t)crow * 2 * CHUNK + lc);
-      w1 = __ldg(m.w1 + (size_t)crow * CHUNK + lc);
-      sy = __ldg(m.sy + (size_t)crow * CHUNK + lc);
+    int sn = si + 1;
+    uint32_t pn = parity;
+    if (sn == nslot) {
+      sn = 0;
+      pn ^= 1;
     }
-    const int gidx = (m.flags & F_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
-    const int wsum = packed & 3;
-    int32_t* o = s.recs[(t / UNIT) & 1] + (t % UNIT) * 7;
-    o[0] = gidx / m.bin;
-    o[1] = gidx % m.bin;
-    o[2] = lane / m.bout;
-    o[3] = lane % m.bout;
-    o[4] = w1;
-    o[5] = wsum - w1;
-    o[6] = sy;
-    lane = gidx;
-    r -= wsum;
-    // every read of this slot is done (its values are in registers): free it
+    Meta mn = m;
+    if (i + 1 < T) {
+      if (sn % BATCH == 0) {  // the next batch's copies have landed
+        const long long a = kProf ? gtime() : 0;
+        wait_parity(&s.bar[sn / BATCH], pn);
+        if (kProf) waited += gtime() - a;
+      }
+      mn = s.meta[sn];
+    }
+    // the plain version's floor division of the ordinal by 256
+    const int crow = slotv >> 8;
+    const int lc = slotv & (CHUNK - 1);
+    const bool staged = crow >= 0 && crow < m.nst;
+    const int packed =
+        staged ? ((const int32_t*)(sp + m.tbl_off))[crow * CHUNK + lc]
+               : __ldg(m.tbl + (long long)crow * 2 * CHUNK + lc);
+    if (kProf && !staged) ++n_tblg;
+    s.raw[t & (RAW_UNITS * UNIT - 1)] = make_int4(dl, packed, slotv, 0);
+    dl = (m.flags & F_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
+    r -= packed & 3;
+    // every read of this slot is done (its values are in registers): free
+    // it, and hand the raw triple to the recorder
     asm volatile("" ::: "memory");
     s.r = r;
     s.done = i + 1;
-    if (++si == nslot) {
-      si = 0;
-      parity ^= 1;
+    if (kProf) {
+      const long long c = clock64();
+      if (m.flags & F_DENSE) c_dense += c - c_prev;
+      c_prev = c;
     }
-    if (t % UNIT == 0) {
-      // records [t, t + UNIT) leave in one bulk store; the other buffer's
-      // store (UNIT transitions ago) must have read its source before the
-      // next record lands there
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-              recs + (size_t)t * 7),
-          "r"(smem_addr(s.recs[(t / UNIT) & 1])), "r"(UNIT_BYTES)
-          : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-    }
+    si = sn;
+    parity = pn;
+    m = mn;
   }
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (kProf) {
+    prof[0] = waited;
+    prof[1] = gtime() - t_start;
+    prof[4] = recwait;
+    prof[5] = c_dense;
+    prof[6] = n_bpg;
+    prof[7] = n_tblg;
+    prof[8] = clock64() - c_start;
+  }
 }
 
 }  // namespace
@@ -357,14 +456,15 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
 // keeps at least 16 transitions).
 extern "C" int dg_trace(const int4* desc, const long long* base, int T, int R,
                         int band, int stage_bp, int slot, int32_t* recs,
-                        cudaStream_t stream) {
+                        long long* prof, cudaStream_t stream) {
   if (T <= 0) return 0;
   if (slot < 16 || slot % 16 || slot > RING / (2 * BATCH) || band < 0 || R < 0)
     return (int)cudaErrorInvalidValue;
+  auto kernel = prof ? trace_kernel<true> : trace_kernel<false>;
   const cudaError_t e = cudaFuncSetAttribute(
-      trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  trace_kernel<<<1, 64, SMEM_BYTES, stream>>>(desc, base, T, R, band, stage_bp,
-                                              slot, recs);
+  kernel<<<1, THREADS, SMEM_BYTES, stream>>>(desc, base, T, R, band, stage_bp,
+                                             slot, recs, prof);
   return (int)cudaGetLastError();
 }

@@ -65,15 +65,22 @@ using dg::NEG;
 using dg::REACH_T;
 
 constexpr int THREADS = 1024;
-constexpr int STAGE = 4096;  // pairs of a slice staged in shared memory
-constexpr int MAX_W = 256;   // lanes of a slice (31 windows / 128 slices: 248)
-constexpr int LONG = 32;     // a longer range is walked by a warp
-constexpr int NONE = INT_MIN;  // no valid candidate yet
-constexpr int SMEM_BYTES = 2 * STAGE * 8 + 3 * MAX_W * 4;
+constexpr int STAGE = 2560;  // pairs of a slice staged in shared memory
+constexpr int CAND = 45056;  // candidate values a block holds at once
+constexpr int MAX_W = 256;   // lanes of a slice (ops/plan.py K2_SLICE_LANES)
+constexpr int LONG = 32;     // a longer range is reduced by a warp
+constexpr int NONE = INT_MIN;  // no valid candidate
+constexpr int SMEM_BYTES = 2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4;
 
 __device__ __forceinline__ const int32_t* word(const int32_t* dtbl, int c0,
                                                 int p) {
   return dtbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
+}
+
+__device__ __forceinline__ long long gtime() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 __device__ __forceinline__ int dst_of(int packed) {
@@ -205,6 +212,106 @@ __device__ __forceinline__ void walk_slice(
   }
 }
 
+// Candidates of the staged pairs [plo, plo + np) on rows [g0, g0 + rg):
+// cand[(r - g0) * np + p - plo] = V[r - wsum, gidx] + score, or NONE where
+// the source row is below 0 or the source value below REACH_T. One load of V
+// per candidate, all of the block's in flight at once.
+__device__ __forceinline__ void candidates(const int2* s, int np, int g0,
+                                           int rg, const int32_t* src,
+                                           int lds, int* cand) {
+  for (int i = threadIdx.x; i < np * rg; i += THREADS) {
+    const int rl = i / np, p = i - rl * np;
+    const int2 w = s[p];
+    const int rs = g0 + rl - (w.x & 3);
+    const int g = min((w.x >> 17) & 32767, lds - 1);
+    const int c = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
+    cand[i] = c >= REACH_T ? c + w.y : NONE;
+  }
+}
+
+// The cells of rows [g0, g0 + rg) from the candidates: thread (r, d) takes
+// the first maximum of d's range (strict >, four values a step), a warp
+// per (range, row) where the range is longer than LONG, its lanes' winners
+// reduced on the 64-bit key (value, then the smaller ordinal).
+__device__ __forceinline__ void reduce_cells(
+    const int* cand, int np, int plo, int g0, int rg, int d_lo, int nd,
+    int stamp, const int* first, const int* end, const int* stamps,
+    int32_t* dstV, int32_t* bpt, int lanes) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int c = tid; c < nd * rg; c += THREADS) {
+    const int rl = c / nd, dl = c - rl * nd;
+    const bool has = stamps[dl] == stamp;
+    const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
+    if (e1 - e0 > LONG) continue;
+    const int* cv = cand + rl * np - plo;
+    int best = NONE, ord = 0;
+#pragma unroll 1
+    for (int e = e0; e < e1; e += 4) {
+      int v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = cv[min(e + j, e1 - 1)];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e + j < e1 && v[j] > best) {
+          best = v[j];
+          ord = e + j;
+        }
+      }
+    }
+    commit(dstV, bpt, (size_t)(g0 + rl) * lanes + d_lo + dl, best, ord);
+  }
+  int q = 0;
+  for (int b = 0; b < nd; b += 32) {
+    const int dl = b + lane;
+    const bool is_long = dl < nd && stamps[dl] == stamp &&
+                         end[dl] - first[dl] > LONG;
+    unsigned m = __ballot_sync(0xffffffffu, is_long);
+    while (m) {
+      const int dj = b + __ffs(m) - 1;
+      m &= m - 1;
+      const int e0 = first[dj], e1 = end[dj];
+      for (int rl = 0; rl < rg; ++rl, ++q) {
+        if ((q & 31) != warp) continue;
+        const int* cv = cand + rl * np - plo;
+        int best = NONE, ord = 0;
+#pragma unroll 1
+        for (int e = e0 + lane; e < e1; e += 128) {
+          int v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = cv[min(e + 32 * j, e1 - 1)];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (e + 32 * j < e1 && v[j] > best) {
+              best = v[j];
+              ord = e + 32 * j;
+            }
+          }
+        }
+        dg::Key k = best == NONE ? 0 : dg::make_key(best, ord);
+#pragma unroll
+        for (int o = 16; o; o >>= 1) {
+          const dg::Key x = __shfl_xor_sync(0xffffffffu, k, o);
+          k = x > k ? x : k;
+        }
+        if (lane == 0) {
+          const size_t at = (size_t)(g0 + rl) * lanes + d_lo + dj;
+          dstV[at] = dg::key_value(k);
+          const int o = dg::key_ordinal(k);
+          if (o != 0) bpt[at] = o;
+        }
+      }
+    }
+  }
+}
+
+// Slice k of transition t: {first lane, end lane, first pair, end pair}.
+__device__ __forceinline__ int4 slice_of(const int32_t* cuts, int S, int t,
+                                         int k) {
+  const int32_t* c = cuts + (size_t)t * 2 * (S + 1) + k;
+  return make_int4(__ldg(c), __ldg(c + 1), __ldg(c + S + 1),
+                   __ldg(c + S + 2));
+}
+
 // Issue cp.async copies of the slice's words [plo, phi) into s (no wait).
 __device__ __forceinline__ void stage(const int32_t* dtbl, int c0, int plo,
                                       int phi, int2* s) {
@@ -226,75 +333,86 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
                   const int4* __restrict__ desc,
                   const int32_t* __restrict__ cuts, int T, int R1, int lanes,
                   int S, const int32_t* __restrict__ v_in, int32_t* V,
-                  int32_t* __restrict__ bp) {
+                  int32_t* __restrict__ bp, long long* prof) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_pair = reinterpret_cast<int2*>(smem);
-  int* first = reinterpret_cast<int*>(smem + 2 * STAGE * 8);
+  int* cand = reinterpret_cast<int*>(smem + 2 * STAGE * 8);
+  int* first = cand + CAND;
   int* end = first + MAX_W;
   int* stamps = end + MAX_W;
   cg::grid_group grid = cg::this_grid();
   const int k = blockIdx.x;
   for (int i = threadIdx.x; i < MAX_W; i += THREADS) stamps[i] = 0;
 
-  // transition t's descriptor {first chunk, pairs, W, slice width} and the
-  // slice's pair range, and the same of t + 1
-  int4 D = __ldg(desc);
-  int plo = __ldg(cuts + k), phi = __ldg(cuts + k + 1);
-  int4 D1 = make_int4(0, 0, 0, 0);
-  int plo1 = 0, phi1 = 0;
+  // transition t's descriptor {first chunk, pairs, W, 0} and the slice
+  // {first lane, end lane, first pair, end pair}, and the same of t + 1
+  int4 D = __ldg(desc), C = slice_of(cuts, S, 0, k);
+  int4 D1 = make_int4(0, 0, 0, 0), C1 = make_int4(0, 0, 0, 0);
   if (T > 1) {
     D1 = __ldg(desc + 1);
-    plo1 = __ldg(cuts + (S + 1) + k);
-    phi1 = __ldg(cuts + (S + 1) + k + 1);
+    C1 = slice_of(cuts, S, 1, k);
   }
-  stage(dtbl, D.x, plo, phi, s_pair);
+  stage(dtbl, D.x, C.z, C.w, s_pair);
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   const size_t plane = (size_t)R1 * lanes;
   for (int t = 0; t < T; ++t) {
+    long long* pf = prof ? prof + ((size_t)t * S + k) * 5 : nullptr;
+    if (pf && threadIdx.x == 0) pf[0] = gtime();
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();  // t's words staged, the range slots free
-    if (t + 1 < T) stage(dtbl, D1.x, plo1, phi1, s_pair + ((t + 1) & 1) * STAGE);
+    if (pf && threadIdx.x == 0) pf[1] = gtime();
+    if (t + 1 < T) stage(dtbl, D1.x, C1.z, C1.w, s_pair + ((t + 1) & 1) * STAGE);
     asm volatile("cp.async.commit_group;" ::: "memory");
-    int4 D2 = make_int4(0, 0, 0, 0);
-    int plo2 = 0, phi2 = 0;
+    int4 D2 = make_int4(0, 0, 0, 0), C2 = make_int4(0, 0, 0, 0);
     if (t + 2 < T) {
       D2 = __ldg(desc + t + 2);
-      plo2 = __ldg(cuts + (size_t)(t + 2) * (S + 1) + k);
-      phi2 = __ldg(cuts + (size_t)(t + 2) * (S + 1) + k + 1);
+      C2 = slice_of(cuts, S, t + 2, k);
     }
 
-    const int W = D.z, w = D.w;
-    const int d_lo = k * w, nd = max(min(w, W - d_lo), 0);
-    const bool staged = phi - plo <= STAGE;
+    const int d_lo = C.x, nd = C.y - C.x;
+    const int plo = C.z, phi = C.w;
+    const int np = phi - plo;
+    const bool staged = np <= STAGE;
     const int2* s = s_pair + (t & 1) * STAGE;
     const int stamp = t + 1;
-    if (staged)
-      mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
-    else
-      mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
-    __syncthreads();  // ranges marked
-
     const int32_t* src = t == 0 ? v_in : V + (t & 1) * plane;
     const int lds = t == 0 ? 1024 : lanes;
     int32_t* dstV = V + ((t + 1) & 1) * plane;
     int32_t* bpt = bp + (size_t)t * plane;
-    if (staged)
-      walk_slice<true>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
-                       stamps, src, lds, dstV, bpt, lanes);
-    else
+    // rows a pass of candidates holds (all R + 1 for all but the longest
+    // slices)
+    const int rg = np ? min(R1, CAND / np) : R1;
+    if (staged && rg > 0) {
+      mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+      for (int g0 = 0; g0 < R1; g0 += rg) {
+        const int n = min(rg, R1 - g0);
+        if (g0) __syncthreads();  // the last pass's candidates are read
+        candidates(s, np, g0, n, src, lds, cand);
+        __syncthreads();  // ranges marked, candidates in place
+        if (pf && threadIdx.x == 0 && !g0) pf[2] = gtime();
+        reduce_cells(cand, np, plo, g0, n, d_lo, nd, stamp, first, end,
+                     stamps, dstV, bpt, lanes);
+      }
+    } else {  // a slice of more than STAGE pairs: walks from the table
+      mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+      __syncthreads();  // ranges marked
       walk_slice<false>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
                         stamps, src, lds, dstV, bpt, lanes);
+    }
+    if (pf) __syncthreads();
+    if (pf && threadIdx.x == 0) pf[3] = gtime();
     grid.sync();  // buffer (t + 1) & 1 complete before t + 1 reads it
+    if (pf && threadIdx.x == 0) pf[4] = gtime();
 
-    D = D1, plo = plo1, phi = phi1;
-    D1 = D2, plo1 = plo2, phi1 = phi2;
+    D = D1, C = C1;
+    D1 = D2, C1 = C2;
   }
 }
 
 }  // namespace
 
-// dtbl [nchunks, 2, 256]; desc [T, 4] and cuts [T, S + 1] (ops/plan.py
+// dtbl [nchunks, 2, 256]; desc [T, 4] and cuts [T, 2, S + 1] (ops/plan.py
 // wide_slices, S slices); v_in [R1, 1024]; V [2, R1, NB * 1024] (the output
 // state is buffer T & 1); bp [T, R1, NB * 1024] zeroed. One cooperative
 // launch of S blocks; cudaErrorCooperativeLaunchTooLarge where the card
@@ -302,7 +420,8 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
 extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int4* desc,
                                  const int32_t* cuts, int T, int R1, int NB,
                                  int S, const int32_t* v_in, int32_t* V,
-                                 int32_t* bp, cudaStream_t stream) {
+                                 int32_t* bp, long long* prof,
+                                 cudaStream_t stream) {
   const int lanes = NB * 1024;
   if (T < 0 || R1 < 1 || S < 1 || lanes > S * MAX_W)
     return (int)cudaErrorInvalidValue;
@@ -322,7 +441,7 @@ extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int4* desc,
   if (per * sms < S) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&dtbl, (void*)&desc, (void*)&cuts, (void*)&T,
                   (void*)&R1,   (void*)&lanes, (void*)&S,  (void*)&v_in,
-                  (void*)&V,    (void*)&bp};
+                  (void*)&V,    (void*)&bp,    (void*)&prof};
   e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(S),
                                   dim3(THREADS), args, SMEM_BYTES, stream);
   if (e != cudaSuccess) return (int)e;

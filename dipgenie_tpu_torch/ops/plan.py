@@ -44,16 +44,18 @@ Layouts the port's kernels (and their plain versions) decode:
   ``dtbl`` has 0 chunks), so only K3 or K4 run it.
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
 * Dense wide slices (made by ``plan_to_device``; ``wide_slices``): K2
-  splits each transition's written lanes ``[0, W)`` into ``K2_SLICES``
-  slices of ``ceil(W / K2_SLICES)`` lanes, one per block of its
-  cooperative grid. ``dense_desc [T, 4] int32`` holds per transition its
-  first dense chunk, its real pairs ``n`` (lanes ``[0, n)`` of its chunks,
-  sorted by destination), ``W`` and the slice width; ``dense_cuts [T,
-  K2_SLICES + 1] int32`` the first pair of each slice, so slice ``k``'s
-  pairs are ``[cuts[k], cuts[k + 1])``. ``W`` is the whole state for the
-  first two transitions (the two state buffers start uninitialised), then
-  the larger of this transition's destination extent ``tb_bout ** 2`` and
-  that of the transition two before it (the last to write the same buffer).
+  cuts each transition's written lanes ``[0, W)`` into ``K2_SLICES``
+  contiguous slices of about equal work (a lane and its pairs), at most
+  ``K2_SLICE_LANES`` lanes each, one per block of its cooperative grid.
+  ``dense_desc [T, 4] int32`` holds per transition its first dense chunk,
+  its real pairs ``n`` (lanes ``[0, n)`` of its chunks, sorted by
+  destination), ``W`` and a 0; ``dense_cuts [T, 2, K2_SLICES + 1] int32``
+  the slices' first lanes and their first pairs, so slice ``k`` holds lanes
+  ``[cuts[0, k], cuts[0, k + 1])`` and pairs ``[cuts[1, k], cuts[1, k +
+  1])``. ``W`` is the whole state for the first two transitions (the two
+  state buffers start uninitialised), then the larger of this transition's
+  destination extent ``tb_bout ** 2`` and that of the transition two before
+  it (the last to write the same buffer).
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
   ``DevPlan.desc [L - 1, 12] int32``, one row per transition, the columns
   of ``TRACE_COLS``: the segment, the bp block's lanes, element size and
@@ -131,8 +133,10 @@ DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
 
-# blocks of K2's cooperative grid, one lane slice each (wide_slices)
+# blocks of K2's cooperative grid, one lane slice each (wide_slices), and
+# the widest slice (csrc/wide_dense_run.cu MAX_W)
 K2_SLICES = 128
+K2_SLICE_LANES = 256
 # the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu)
 TRACE_COLS = ("seg", "lanes", "esize", "rowstep", "rows", "bprow",
               "chunkbase", "nch", "bin", "bout", "dense", "bp1")
@@ -165,7 +169,7 @@ class DevSegment:
     lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
     # [T, 12] int32 traceback columns (trace_columns; segment column 0)
     trace_cols: np.ndarray | None = None
-    # wide (K2): dense_desc [T, 4] and dense_cuts [T, K2_SLICES + 1]
+    # wide (K2): dense_desc [T, 4] and dense_cuts [T, 2, K2_SLICES + 1]
     # (wide_slices)
     dense_desc: torch.Tensor | None = None
     dense_cuts: torch.Tensor | None = None
@@ -284,19 +288,19 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
 
 def wide_slices(seg: _WideRun, nreal: int,
                 slices: int = K2_SLICES) -> tuple[np.ndarray, np.ndarray]:
-    """``(dense_desc [T, 4], dense_cuts [T, slices + 1])`` int32 of a dense
-    wide run (see the module docstring): K2's lane slices and the pair
-    range of each. Raises unless every transition's real pairs come first
-    and are sorted by destination, which K2's walks rely on."""
+    """``(dense_desc [T, 4], dense_cuts [T, 2, slices + 1])`` int32 of a
+    dense wide run (see the module docstring): K2's lane slices and the
+    pair range of each. Raises unless every transition's real pairs come
+    first and are sorted by destination, which K2's walks rely on."""
     T = seg.t1 - seg.t0
     full = seg.NB * 1024
     bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
     ext = np.minimum(np.asarray(seg.tb_bout, np.int64) ** 2, full)
     W = np.full(T, full, np.int64)
     W[2:] = np.maximum(ext[2:], ext[:-2])
-    width = -(-W // slices)
-    desc = np.stack([bounds[:-1], np.zeros(T), W, width], 1).astype(np.int32)
-    cuts = np.zeros((T, slices + 1), np.int32)
+    desc = np.stack([bounds[:-1], np.zeros(T), W, np.zeros(T)],
+                    1).astype(np.int32)
+    cuts = np.zeros((T, 2, slices + 1), np.int32)
     for ti in range(T):
         words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
         real = words[:, 1].ravel() != PAD_SC
@@ -307,9 +311,29 @@ def wide_slices(seg: _WideRun, nreal: int,
                 f"wide_slices: transition {seg.t0 + ti}'s dense pairs are "
                 "not sorted by destination ahead of the pads")
         desc[ti, 1] = n
-        cuts[ti] = np.searchsorted(dst, np.arange(slices + 1) * width[ti])
-        cuts[ti, -1] = n
+        cuts[ti, 0] = balanced_cuts(np.bincount(dst, minlength=W[ti]) + 1,
+                                    slices, K2_SLICE_LANES)
+        cuts[ti, 1] = np.searchsorted(dst, cuts[ti, 0])
     return desc, cuts
+
+
+def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:
+    """[slices + 1] lane bounds cutting ``work`` (one entry a lane) into
+    contiguous slices of about equal sums, none wider than ``cap`` lanes."""
+    W = len(work)
+    if W > slices * cap:
+        raise ValueError(f"balanced_cuts: {W} lanes do not fit {slices} "
+                         f"slices of {cap}")
+    cum = np.concatenate([[0], np.cumsum(work)])
+    cuts = np.searchsorted(cum, cum[-1] * np.arange(slices + 1) / slices)
+    cuts = np.minimum(cuts, W)
+    cuts[0], cuts[-1] = 0, W
+    if np.all(np.diff(cuts) <= cap):
+        return cuts
+    for k in range(1, slices):  # cap the widths, leaving room for the rest
+        cuts[k] = min(max(cuts[k], cuts[k - 1], W - (slices - k) * cap),
+                      cuts[k - 1] + cap)
+    return cuts
 
 
 def trace_columns(kind: str, seg) -> np.ndarray:

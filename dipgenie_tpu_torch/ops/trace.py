@@ -134,7 +134,8 @@ def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
 
 
 def trace(dplan: DevPlan, bps: list, band: int = BAND,
-          stage_bp: bool = STAGE_BP, slot: int = SLOT) -> torch.Tensor:
+          stage_bp: bool = STAGE_BP, slot: int = SLOT,
+          prof=None) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
     the whole plan); backpointers on the CPU take ``trace_ref``. ``band``,
     ``stage_bp`` and ``slot`` set the staging (the module's constants)."""
@@ -154,7 +155,8 @@ def trace(dplan: DevPlan, bps: list, band: int = BAND,
     if T:
         rc = kernels.lib().dg_trace(
             dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, band,
-            int(stage_bp), slot, recs.data_ptr(), kernels.stream_of(recs))
+            int(stage_bp), slot, recs.data_ptr(),
+            0 if prof is None else prof.data_ptr(), kernels.stream_of(recs))
         kernels.raise_on_error(rc, "trace")
         trace.launches += 1
     return recs[:T]

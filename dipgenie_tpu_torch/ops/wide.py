@@ -58,7 +58,7 @@ def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
     return V[:, :1024].contiguous(), bp
 
 
-def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
+def wide_dense_run(seg: DevSegment, v_in: torch.Tensor, prof=None):
     """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one
     cooperative launch per run, ``K2_SLICES`` blocks over the slices
     ``plan_to_device`` made); a CPU ``v_in`` takes ``wide_dense_run_ref``."""
@@ -79,7 +79,7 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
     kernels.check_tensor(seg.dense_desc, "dense_desc", torch.int32, (T, 4),
                          v_in.device)
     kernels.check_tensor(seg.dense_cuts, "dense_cuts", torch.int32,
-                         (T, K2_SLICES + 1), v_in.device)
+                         (T, 2, K2_SLICES + 1), v_in.device)
     lanes = h.NB * 1024
     # two state buffers, written before they are read; zeroed backpointers
     # (the kernel writes only the ordinals that are not 0)
@@ -88,7 +88,7 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
     rc = kernels.lib().dg_wide_dense_run(
         dtbl.data_ptr(), seg.dense_desc.data_ptr(), seg.dense_cuts.data_ptr(),
         T, R1, h.NB, K2_SLICES, v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        kernels.stream_of(v_in),
+        0 if prof is None else prof.data_ptr(), kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "wide_dense_run")
     wide_dense_run.launches += 1

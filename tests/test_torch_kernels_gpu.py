@@ -356,7 +356,7 @@ def test_wide_dense_kernel_edge_cases(name, cuda):
         assert at_reach_t > 0
     if name == "range2304":
         cuts = wides[0].dense_cuts.cpu().numpy()
-        assert np.diff(cuts, axis=1).max() >= 2000
+        assert np.diff(cuts[:, 1], axis=1).max() >= 2000
     assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
 
 
@@ -371,15 +371,15 @@ def test_wide_dense_refused_launch_raises(cuda):
     bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     v = initial_v(R, cuda)
     slices = 1 << 16  # far more blocks than fit on any card at once
-    cuts = torch.zeros((T, slices + 1), dtype=torch.int32, device=cuda)
+    cuts = torch.zeros((T, 2, slices + 1), dtype=torch.int32, device=cuda)
     rc = kernels.lib().dg_wide_dense_run(
         seg.t["dtbl"].data_ptr(), seg.dense_desc.data_ptr(), cuts.data_ptr(),
         T, R + 1, h.NB, slices, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        kernels.stream_of(v))
+        0, kernels.stream_of(v))
     assert rc != 0
     with pytest.raises(RuntimeError, match="wide_dense_run"):
         kernels.raise_on_error(rc, "wide_dense_run")
-    assert seg.dense_cuts.shape == (T, K2_SLICES + 1)
+    assert seg.dense_cuts.shape == (T, 2, K2_SLICES + 1)
 
 
 # the traceback's staging settings (ops/trace.py): the default; every bp

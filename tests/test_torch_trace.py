@@ -21,8 +21,8 @@ import torch
 from dipgenie_tpu_torch.ops import trace
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    K2_SLICES, PAD_SC, TRACE_COLS, DevPlan, chunk_bounds, plan_pairs,
-    plan_to_device,
+    K2_SLICE_LANES, K2_SLICES, PAD_SC, TRACE_COLS, DevPlan, balanced_cuts,
+    chunk_bounds, plan_pairs, plan_to_device,
 )
 from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
@@ -162,8 +162,9 @@ def test_shipped_chunk_counts_hold_each_transitions_pairs(plan):
 
 def test_wide_slices_cover_each_destination_once(plan):
     """Per dense wide transition: the K2_SLICES lane slices partition
-    [0, W), W covers the lanes the plain version leaves non-NEG in this
-    transition's buffer, and each slice's pair range is the
+    [0, W) into runs of at most K2_SLICE_LANES lanes, balanced by work (a
+    lane and its pairs); W covers the lanes the plain version leaves
+    non-NEG in this transition's buffer; each slice's pair range is the
     destination-sorted range of its lanes in ``dtbl``; the band end's
     1,089-pair destination lies in one slice."""
     dplan = plan_to_device(plan, "cpu")
@@ -174,11 +175,11 @@ def test_wide_slices_cover_each_destination_once(plan):
         h = seg.host
         desc, cuts = seg.dense_desc.numpy(), seg.dense_cuts.numpy()
         T = h.t1 - h.t0
-        assert desc.shape == (T, 4) and cuts.shape == (T, K2_SLICES + 1)
+        assert desc.shape == (T, 4) and cuts.shape == (T, 2, K2_SLICES + 1)
         bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
         ext = h.tb_bout.astype(np.int64) ** 2
         for ti in range(T):
-            c0, n, W, w = (int(x) for x in desc[ti])
+            c0, n, W, _ = (int(x) for x in desc[ti])
             assert c0 == bounds[ti]
             words = h.dtbl[bounds[ti]:bounds[ti + 1]]
             real = words[:, 1].ravel() != PAD_SC
@@ -187,19 +188,38 @@ def test_wide_slices_cover_each_destination_once(plan):
             assert W == (h.NB * 1024 if ti < 2
                          else max(ext[ti], ext[ti - 2]))
             assert dst.max(initial=0) < W <= h.NB * 1024
-            lanes = np.concatenate([
-                np.arange(k * w, min((k + 1) * w, W))
-                for k in range(K2_SLICES)])
+            lane_cuts, pair_cuts = cuts[ti]
+            assert lane_cuts[0] == 0 and lane_cuts[-1] == W
+            widths = np.diff(lane_cuts)
+            assert widths.min() >= 0 and widths.max() <= K2_SLICE_LANES
+            lanes = np.concatenate([np.arange(a, b) for a, b in
+                                    zip(lane_cuts[:-1], lane_cuts[1:])])
             np.testing.assert_array_equal(lanes, np.arange(W))
-            assert cuts[ti, 0] == 0 and cuts[ti, -1] == n
+            assert pair_cuts[0] == 0 and pair_cuts[-1] == n
+            work = np.bincount(dst, minlength=W) + 1
             for k in range(K2_SLICES):
-                mine = np.flatnonzero((dst >= k * w) & (dst < (k + 1) * w))
+                lo, hi = lane_cuts[k], lane_cuts[k + 1]
+                mine = np.flatnonzero((dst >= lo) & (dst < hi))
                 np.testing.assert_array_equal(
-                    mine, np.arange(cuts[ti, k], cuts[ti, k + 1]))
+                    mine, np.arange(pair_cuts[k], pair_cuts[k + 1]))
+                assert work[lo:hi].sum() <= (work.sum() / K2_SLICES
+                                             + work.max())
             if n:
                 longest = max(longest, np.unique(dst, return_counts=True)[1]
                               .max())
     assert longest > 1000
+
+
+@pytest.mark.parametrize("W", [1, 300, 18432, 31744])
+def test_balanced_cuts_respect_the_width_cap(W):
+    """Work piled on a few lanes still leaves no slice wider than the cap,
+    and the cuts cover every lane once."""
+    work = np.ones(W, np.int64)
+    work[:min(W, 40)] += 5000
+    cuts = balanced_cuts(work, K2_SLICES, K2_SLICE_LANES)
+    assert cuts[0] == 0 and cuts[-1] == W
+    assert np.diff(cuts).min() >= 0
+    assert np.diff(cuts).max() <= K2_SLICE_LANES
 
 
 def test_wide_slices_refuse_unsorted_pairs(plan):
