@@ -246,7 +246,7 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
         tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
                                              else 0))
     if seg.kind == "wide":  # K2's slices (ops/plan.py wide_slices)
-        tables += 4 * (seg.dense_desc.numel() + seg.dense_cuts.numel())
+        tables += 4 * seg.dense_slices.numel()
     return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
 
 

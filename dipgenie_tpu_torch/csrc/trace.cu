@@ -8,57 +8,62 @@
 //
 // What bounds it on the H100: the walk is serial. Transition t's bp word
 // depends on the lane the walk reached at t + 1, and its table word on that
-// bp word, so each transition is a chain of dependent reads. Read from
-// global memory, each is a miss: MHC-scale plans hold ~8 GB of
-// backpointers, far past the 50 MB L2, so ~3 HBM latencies a transition
-// (the bytes the walk needs, ~125 B a transition, take microseconds for the
-// whole plan). The design takes the misses out of the chain: one producer
-// stages each transition's words in shared memory ahead of the walk, and
-// the walker's chain is shared-memory reads only.
+// bp word. Read from global memory each is a miss: MHC-scale plans hold ~8
+// GB of backpointers, far past the 50 MB L2 (the kernel this one replaced,
+// one thread reading a host-built descriptor row, its bp word and its table
+// word from global memory, took 147 ms for C's 119,999 transitions, 1.2 us
+// each). The bytes the walk needs (~90 B a transition) take microseconds.
+// The design takes the misses out of the chain; what is left is the
+// walker's own instructions, one dependent chain in one thread.
 //
-// Design: one block of two warps.
-// * The descriptors were made with the plan (ops/plan.py trace_columns:
-//   lanes, element size, row class, rows, the block's row, first chunk and
-//   real chunks, bin, bout, dense, which bp array: one int32 row of 48 B a
-//   transition); the launch gets one row of addresses per segment (its bp
-//   arrays, chunk table, w1, symd).
+// Design: one block of three warps.
+// * The descriptors were made with the plan (ops/plan.py trace_columns: 8
+//   int32 a transition); the launch gets one row of addresses per segment
+//   (its bp arrays, chunk table, w1, symd).
 // * Ring. Shared memory holds RING bytes cut into slots of `slot` bytes,
-//   one transition each in walk order (t descending), each with an
-//   mbarrier and a 64-byte Meta record. Warp 1 is the producer: its first
-//   BATCH lanes take BATCH transitions at a time (one each, their
-//   descriptors loaded a batch ahead, their segment's addresses kept until
-//   the segment changes), wait until the walker has freed the batch's
-//   slots, write the Meta records and arm the barriers, then issue 1-D bulk
-//   copies (cp.async.bulk, completing on the slot's barrier): rows [lo, hi]
-//   of the transition's bp block, where hi is the walker's current r
-//   (published in shared memory; r only falls) and lo = hi - band (rows the
-//   walk can still reach if r falls by at most `band` before it gets
-//   there; a walk that falls further reads global memory), and row 0 of
-//   each of its real table chunks with their w1 and symd. What does not fit
-//   the slot (or is asked not to be staged) takes the L2 path: the
-//   producer issues cp.async.bulk.prefetch.L2 for the same rows (for each
-//   bp row the transition's lanes can fall in) or the table chunks, and the
-//   walker reads its word from global memory. The choice is by size, not
-//   by kind: on C the narrow 256-class blocks are staged, the dense wide
-//   blocks ([R+1, NB * 1024] int32) are prefetched.
-// * The walker (thread 0) waits on a slot's barrier, reads its bp word and
-//   its table words from the slot, writes the record into one of two
-//   shared-memory buffers of UNIT records, and publishes r and the count of
-//   transitions done. A full buffer leaves in one bulk store (the output
-//   is padded to whole units by the wrapper).
+//   one transition each in walk order (t descending), with a Meta record
+//   each and an mbarrier for each BATCH slots. Warp 1 is the producer: its
+//   BATCH lanes take BATCH transitions at a time (one each, descriptors
+//   loaded a batch ahead, the segment's addresses kept until it changes),
+//   wait until the walker has freed the batch's slots, write the Meta
+//   records and arrive on the batch's barrier, and issue 1-D bulk copies
+//   (cp.async.bulk) that complete on it: rows [lo, hi] of the
+//   transition's bp block, hi the walker's current r (published in shared
+//   memory; r only falls) and lo = hi - band (a walk whose r falls further
+//   before it gets there reads global memory), and row 0 of each of its
+//   real table chunks. What does not fit the slot (or, with stage_bp 0,
+//   every bp block) takes the L2 path: the producer issues
+//   cp.async.bulk.prefetch.L2 for the same rows (of every bp row the
+//   transition's lanes can fall in) or chunks, and the walker reads its
+//   word from global memory. The choice is by size: on C the narrow blocks
+//   are staged and the dense wide blocks ([R+1, NB * 1024] int32) take the
+//   L2 path.
+// * The walker (thread 0) reads its bp word and its packed table word from
+//   the slot, the next slot's Meta record (and once a batch its barrier)
+//   while the bp word is in flight, and hands {lane, packed, ordinal} to
+//   the recorder through shared memory, publishing r and its progress.
+// * The recorder (warp 2) turns each UNIT of those into records: the
+//   divisions by bin and bout, w1 and symd read from the tables (off the
+//   walker's chain), one bulk store a unit (the wrapper pads the output to
+//   whole units).
 // * The clamps of the plain version stay: a 256-class block clamps the
 //   column, a lane past a 1024-class block steps rows (clamped to the
-//   array), r < 0 reads row 0. Only a walk from an unreachable sink needs
-//   them.
+//   array), r < 0 reads row 0; the ordinal's chunk is its floor division
+//   by 256. Only a walk from an unreachable sink needs them.
+//
+// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's whole
+// plan in 25.6 ms (the launch alone) against the replaced kernel's 146.8 ms
+// in the same run; the narrow transitions take ~420 SM cycles each, all
+// reads from shared memory (the walker's instructions), the dense ones
+// ~0.75 us (two L2 reads). Only tables staged, bp words from L2: 41.9 ms.
 #include "dg_common.cuh"
 
 namespace {
 
 using dg::CHUNK;
 
-// descriptor columns (ops/plan.py TRACE_COLS)
-enum { C_SEG, C_LANES, C_ESIZE, C_ROWSTEP, C_ROWS, C_BPROW, C_CB, C_NCH,
-       C_BIN, C_BOUT, C_DENSE, C_BP1, NCOL };
+// descriptor columns (ops/plan.py TRACE_COLS; C_BINS is bin | bout << 16)
+enum { C_SEG, C_LANES, C_ROWS, C_BPROW, C_CB, C_NCH, C_BINS, C_FLAGS };
 // address columns (ops/trace.py bases)
 enum { B_BP0, B_BP1, B_TBL, B_W1, B_SY, NBASE = 6 };
 
@@ -74,7 +79,8 @@ constexpr int RAW_UNITS = 4;  // units of raw records the walker runs ahead
 constexpr unsigned SPIN_NS = 64;
 constexpr unsigned RECORD_SPIN_NS = 1000;
 
-enum { F_DENSE = 1, F_ROWSTEP = 2, F_BP16 = 4 };
+// descriptor flags (ops/plan.py TRACE_FLAGS), also the Meta record's
+enum { F_DENSE = 1, F_ROWSTEP = 2, F_BP1 = 4, F_BP16 = 8 };
 
 // What the producer tells the walker about a transition. Staged: bp rows
 // [lo, hi] at the slot's start (none if lo > hi), then row 0 of the first
@@ -98,12 +104,6 @@ struct Smem {
 };
 
 constexpr int SMEM_BYTES = RING + (int)sizeof(Smem);
-
-__device__ __forceinline__ long long gtime() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -144,14 +144,14 @@ __device__ __forceinline__ void wait_parity(unsigned long long* bar,
 }
 
 __device__ __forceinline__ void load_desc(const int4* desc, int t, bool on,
-                                          int4 (&d)[3]) {
+                                          int4 (&d)[2]) {
   if (on) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) d[k] = __ldg(desc + (size_t)t * 3 + k);
+    d[0] = __ldg(desc + (size_t)t * 2);
+    d[1] = __ldg(desc + (size_t)t * 2 + 1);
   }
 }
 
-__device__ __forceinline__ int col_of(const int4 (&d)[3], int c) {
+__device__ __forceinline__ int col_of(const int4 (&d)[2], int c) {
   const int4 v = d[c >> 2];
   const int j = c & 3;
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
@@ -166,18 +166,18 @@ __device__ __forceinline__ void arrive(unsigned long long* bar, uint32_t tx) {
 }
 
 __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
-                                      int nslot, int i, const int4 (&d)[3],
+                                      int nslot, int i, const int4 (&d)[2],
                                       const long long (&b)[NBASE], int R1,
                                       int rnow, int band, bool stage_bp,
                                       unsigned long long* bar) {
   const int si = i % nslot;
   unsigned char* sp = ring + (size_t)si * slot;
-  const int lanes = col_of(d, C_LANES), esize = col_of(d, C_ESIZE);
-  const int rows = col_of(d, C_ROWS), bout = col_of(d, C_BOUT);
+  const int lanes = col_of(d, C_LANES), flags = col_of(d, C_FLAGS);
+  const int rows = col_of(d, C_ROWS), bout = col_of(d, C_BINS) >> 16;
   const int nch = col_of(d, C_NCH);
-  const bool rowstep = col_of(d, C_ROWSTEP) != 0;
-  const size_t rowbytes = (size_t)lanes * esize;
-  const char* bpa = (const char*)(col_of(d, C_BP1) ? b[B_BP1] : b[B_BP0]) +
+  const bool rowstep = (flags & F_ROWSTEP) != 0;
+  const size_t rowbytes = (size_t)lanes * ((flags & F_BP16) ? 2 : 4);
+  const char* bpa = (const char*)((flags & F_BP1) ? b[B_BP1] : b[B_BP0]) +
                     (size_t)col_of(d, C_BPROW) * R1 * rowbytes;
   const int32_t* tbl =
       (const int32_t*)b[B_TBL] + (size_t)col_of(d, C_CB) * 2 * CHUNK;
@@ -202,8 +202,7 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
   m.lo = sbp ? lo : hi + 1;
   m.hi = hi;
   m.nst = nst;
-  m.flags = (col_of(d, C_DENSE) ? F_DENSE : 0) | (rowstep ? F_ROWSTEP : 0) |
-            (esize == 2 ? F_BP16 : 0);
+  m.flags = flags;
   m.tbl_off = (int)bpst;
   // release: the walker's wait on this phase sees the Meta record
   arrive(bar, bpst + (uint32_t)nst * CHUNK * 4);
@@ -223,21 +222,18 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
 }
 
 // The producer (lanes 0 .. BATCH - 1 of warp 1).
-template <bool kProf>
 __device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
                         const long long* base, int T, int R1, int band,
-                        bool stage_bp, int slot, int nslot, int lane,
-                        long long* prof) {
-  long long spin = 0, t_start = kProf ? gtime() : 0;
-  int4 d[3], dn[3];
+                        bool stage_bp, int slot, int nslot, int lane) {
+  int4 d[2], dn[2];
   long long b[NBASE] = {};
   int seg = -1;
   load_desc(desc, T - 1 - lane, lane < T, dn);
   for (int i0 = 0; i0 < T; i0 += BATCH) {
     const int i = i0 + lane;
     const bool on = i < T;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) d[k] = dn[k];
+    d[0] = dn[0];
+    d[1] = dn[1];
     load_desc(desc, T - 1 - (i + BATCH), i + BATCH < T, dn);
     if (on && col_of(d, C_SEG) != seg) {
       seg = col_of(d, C_SEG);
@@ -248,9 +244,7 @@ __device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
     // the batch's slots are free once the walker has finished the
     // transitions nslot before them
     const int need = min(i0 + BATCH, T) - nslot;
-    const long long a = kProf ? gtime() : 0;
     while (s.done < need) __nanosleep(SPIN_NS);
-    if (kProf) spin += gtime() - a;
     const int rnow = s.r;
     // the batch's barrier takes one arrival from each of the BATCH lanes
     unsigned long long* bar = &s.bar[(i0 / BATCH) % (nslot / BATCH)];
@@ -258,10 +252,6 @@ __device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
       stage(s, ring, slot, nslot, i, d, b, R1, rnow, band, stage_bp, bar);
     else
       arrive(bar, 0);
-  }
-  if (kProf && lane == 0) {
-    prof[2] = spin;
-    prof[3] = gtime() - t_start;
   }
 }
 
@@ -278,18 +268,19 @@ __device__ void record(Smem& s, const int4* desc, const long long* base,
     for (int j = lane; j < UNIT; j += 32) {
       const int t = u * UNIT + j;
       if (t >= T) continue;  // the wrapper's padding rows
-      int4 d[3];
+      int4 d[2];
       load_desc(desc, t, true, d);
       const int4 raw = s.raw[t % (RAW_UNITS * UNIT)];
       const long long* b = base + (size_t)col_of(d, C_SEG) * NBASE;
       const int packed = raw.y, slotv = raw.z, dl = raw.x;
-      const int gidx =
-          col_of(d, C_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
+      const int gidx = (col_of(d, C_FLAGS) & F_DENSE) ? ((packed >> 17) & 32767)
+                                                      : (packed >> 13);
       const long long k = (long long)(col_of(d, C_CB) + (slotv >> 8)) * CHUNK +
                           (slotv & (CHUNK - 1));
       const int w1 = __ldg((const int8_t*)__ldg(b + B_W1) + k);
       const int sy = __ldg((const int16_t*)__ldg(b + B_SY) + k);
-      const int bin = col_of(d, C_BIN), bout = col_of(d, C_BOUT);
+      const int bin = col_of(d, C_BINS) & 0xFFFF;
+      const int bout = col_of(d, C_BINS) >> 16;
       int32_t* o = buf + j * 7;
       o[0] = gidx / bin;
       o[1] = gidx % bin;
@@ -317,11 +308,10 @@ __device__ void record(Smem& s, const int4* desc, const long long* base,
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-template <bool kProf>
 __global__ void __launch_bounds__(THREADS, 1)
 trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
              int T, int R, int band, int stage_bp, int slot,
-             int32_t* recs, long long* prof) {
+             int32_t* recs) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   Smem& s = *reinterpret_cast<Smem*>(smem + RING);
@@ -345,8 +335,8 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
 
   if (warp == 1) {
     if (lane < BATCH)
-      produce<kProf>(s, ring, desc, base, T, R1, band, stage_bp != 0, slot,
-                     nslot, lane, prof);
+      produce(s, ring, desc, base, T, R1, band, stage_bp != 0, slot, nslot,
+              lane);
     return;
   }
   if (warp == 2) {
@@ -360,9 +350,6 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
   // its barrier) is read while the bp word is in flight
   int dl = 0, r = R, si = 0;
   uint32_t parity = 0;  // of the batch barrier of slot si
-  long long waited = 0, recwait = 0, t_start = kProf ? gtime() : 0;
-  long long c_dense = 0, n_bpg = 0, n_tblg = 0, c_prev = kProf ? clock64() : 0;
-  const long long c_start = c_prev;
   wait_parity(&s.bar[0], 0);
   Meta m = s.meta[0];
   for (int i = 0; i < T; ++i) {
@@ -370,10 +357,8 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
     // a unit's raw triples overwrite those of the unit RAW_UNITS above it
     if (((t & (UNIT - 1)) == UNIT - 1 || i == 0) &&
         t / UNIT + RAW_UNITS <= top) {
-      const long long a = kProf ? gtime() : 0;
       while (s.rec_low > t / UNIT + RAW_UNITS) {
       }
-      if (kProf) recwait += gtime() - a;
     }
     const unsigned char* sp = ring + (size_t)si * slot;
     int rowoff = 0, col;
@@ -394,7 +379,6 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
       const size_t k = ((size_t)rowoff * R1 + rr) * m.lanes + col;
       slotv = bp16 ? (int)__ldg((const int16_t*)m.bp + k)
                    : __ldg((const int32_t*)m.bp + k);
-      if (kProf) ++n_bpg;
     }
     int sn = si + 1;
     uint32_t pn = parity;
@@ -405,9 +389,7 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
     Meta mn = m;
     if (i + 1 < T) {
       if (sn % BATCH == 0) {  // the next batch's copies have landed
-        const long long a = kProf ? gtime() : 0;
         wait_parity(&s.bar[sn / BATCH], pn);
-        if (kProf) waited += gtime() - a;
       }
       mn = s.meta[sn];
     }
@@ -418,7 +400,6 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
     const int packed =
         staged ? ((const int32_t*)(sp + m.tbl_off))[crow * CHUNK + lc]
                : __ldg(m.tbl + (long long)crow * 2 * CHUNK + lc);
-    if (kProf && !staged) ++n_tblg;
     s.raw[t & (RAW_UNITS * UNIT - 1)] = make_int4(dl, packed, slotv, 0);
     dl = (m.flags & F_DENSE) ? ((packed >> 17) & 32767) : (packed >> 13);
     r -= packed & 3;
@@ -427,44 +408,29 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
     asm volatile("" ::: "memory");
     s.r = r;
     s.done = i + 1;
-    if (kProf) {
-      const long long c = clock64();
-      if (m.flags & F_DENSE) c_dense += c - c_prev;
-      c_prev = c;
-    }
     si = sn;
     parity = pn;
     m = mn;
-  }
-  if (kProf) {
-    prof[0] = waited;
-    prof[1] = gtime() - t_start;
-    prof[4] = recwait;
-    prof[5] = c_dense;
-    prof[6] = n_bpg;
-    prof[7] = n_tblg;
-    prof[8] = clock64() - c_start;
   }
 }
 
 }  // namespace
 
-// desc [T, 12] int32 (DevPlan.desc), base [segments, 6] int64 (trace.py
+// desc [T, 8] int32 (DevPlan.desc), base [segments, 6] int64 (trace.py
 // bases); recs [ceil(T / 64) * 64, 7] int32. band: bp rows staged below r;
 // stage_bp 0: every bp word read from global memory after an L2 prefetch;
 // slot: ring bytes a transition, a multiple of 16, at most 12 KB (the ring
 // keeps at least 16 transitions).
 extern "C" int dg_trace(const int4* desc, const long long* base, int T, int R,
                         int band, int stage_bp, int slot, int32_t* recs,
-                        long long* prof, cudaStream_t stream) {
+                        cudaStream_t stream) {
   if (T <= 0) return 0;
   if (slot < 16 || slot % 16 || slot > RING / (2 * BATCH) || band < 0 || R < 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = prof ? trace_kernel<true> : trace_kernel<false>;
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<1, THREADS, SMEM_BYTES, stream>>>(desc, base, T, R, band, stage_bp,
-                                             slot, recs, prof);
+  trace_kernel<<<1, THREADS, SMEM_BYTES, stream>>>(desc, base, T, R, band,
+                                                   stage_bp, slot, recs);
   return (int)cudaGetLastError();
 }

@@ -4,53 +4,68 @@
 // launched by `_wide_call`). On the TPU a chunk's gather was a block-masked
 // one-hot matmul per source window and its results were extracted and
 // read-modify-written per spanned destination window under static
-// branches. Here each destination's pairs are walked in plan order by the
-// threads that own it, reading the source state by indexed loads from
-// anywhere in the [R+1, NB * 1024] state.
+// branches. Here every candidate is an indexed load from anywhere in the
+// [R+1, NB * 1024] state, and each destination's maximum a reduction over
+// its pairs, which are one range in plan order.
 //
 // The traffic it was designed for: phase C of chip_smoke.py (R = 18) has
 // 3,900 dense wide transitions in 300 runs, all at NB 18, with 28 dense
 // chunks a transition on average (at most 71), 6,400 real pairs at the
 // median, and pairs into one destination median 2, mean 3.9, p99 20, max
-// 2,304 (a band's last transition into a narrow level).
+// 2,304 (a band's last transition into a narrow level, where all of a
+// transition's pairs land on fewer than 1,024 destinations).
 //
 // What bounds it on the H100: a transition is ~7k pairs x 19 rows of
 // candidates against a state of 1.4 MB (L2-resident), far below what the
 // card moves or computes in the time it takes; the level chain is serial,
-// so the cost is the latency of one transition across the grid, and the
-// longest range of pairs into one destination. The kernel it replaced took
-// two launches a transition and max-reduced 64-bit keys with L2 atomics.
+// so the cost is one transition's latency across the grid: a grid-wide
+// barrier, one round of L2 loads, shared-memory reductions, and the
+// slowest block. The kernel it replaced took two launches a transition and
+// max-reduced 64-bit keys with L2 atomics (12.5 us a transition on C).
 //
 // Design: ONE cooperative launch a run, K2_SLICES (128) blocks of 1,024
-// threads, co-resident (the wrapper's launch fails, and it raises, if they
-// cannot be), a grid-wide barrier between transitions.
+// threads, co-resident (where they cannot be, the launch is refused and
+// the wrapper raises), a grid-wide barrier between transitions.
 // * State. V is double-buffered in global memory, [2, R+1, NB * 1024]
 //   (1.4 MB a buffer at NB 18, 2.4 MB at NB 31: both stay in L2);
 //   transition t reads buffer t & 1 (V_in itself at t = 0) and writes
 //   buffer (t + 1) & 1, so no block reads what another is writing. Reads of
 //   V bypass L1 (ld.global.cg): other SMs wrote them.
 // * Slices, no atomics. plan_to_device cuts each transition's written lanes
-//   [0, W) into K2_SLICES slices of equal width and records the first pair
-//   of each (ops/plan.py wide_slices): the planner sorts a transition's
-//   pairs by destination, so a slice's pairs are one range and so are each
-//   destination's. Block k owns slice k on every row. W covers this
+//   [0, W) into K2_SLICES contiguous slices of about equal work (a lane and
+//   its pairs; ops/plan.py wide_slices) and records each slice's first lane
+//   and first pair: the planner sorts a transition's pairs by destination,
+//   so a slice's pairs are one range and so are each destination's. Slices
+//   of equal width left a band end's pairs on 15 blocks, which then took
+//   130-200 us. Block k owns slice k on every row. W covers this
 //   transition's destination extent and that of the one two before it, the
 //   last to write the same buffer (the whole state for the first two), so
 //   lanes past it hold NEG from an earlier write, as the plain version's
 //   full rewrite leaves them.
-// * Walks. A boundary pass over the slice's pairs marks each destination's
-//   range (first, end, and a stamp of the transition) in shared memory.
-//   Thread (r, d) walks d's range in plan order and keeps the first maximum
-//   (strict >) with its ordinal, the winner of the 64-bit key. A range of
-//   more than LONG pairs is walked by a warp per row, each lane a
-//   contiguous piece, the pieces' winners reduced by __shfl_xor_sync on the
-//   key of dg_common.cuh (value, then the smaller ordinal), so the tie rule
-//   holds. Unreached lanes commit NEG with ordinal 0; a winner at a value
-//   <= REACH_T commits NEG and keeps its ordinal.
+// * Candidates, then reductions. A boundary pass over the slice's pairs
+//   marks each destination's range (first, end, a stamp of the transition)
+//   in shared memory while every thread computes candidates V[r - wsum,
+//   gidx] + score of (pair, row) into shared memory (CAND values: all rows
+//   at once but for the heaviest slices, which take a few passes), so all
+//   of the block's loads of V are in flight together: a walk per cell had
+//   each step wait for an L2 round trip. Thread (r, d) then takes the first
+//   maximum of d's candidates (strict >) with its ordinal, the winner of
+//   the 64-bit key; a range of more than LONG pairs is reduced by a warp,
+//   its lanes' winners combined by __shfl_xor_sync on the key of
+//   dg_common.cuh (value, then the smaller ordinal), so the tie rule holds.
+//   Unreached lanes commit NEG with ordinal 0; a winner at a value <=
+//   REACH_T commits NEG and keeps its ordinal.
 // * Staging. The slice's {packed, score} words of transition t + 1 reach
-//   the other of two shared-memory buffers by cp.async while t is walked;
-//   a slice of more than STAGE pairs is walked straight from the table.
+//   the other of two shared-memory buffers by cp.async while t runs; a
+//   slice of more than STAGE pairs reads them from the table, and one of
+//   more than CAND pairs walks each cell's range from the table.
 // * Backpointers start zeroed; only ordinals that are not 0 are written.
+//
+// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's wide runs
+// 0.0250 s of the forward in `dp-stages` (6.4 us a transition) against the
+// replaced kernel's 0.0488 s in the same run; a transition is ~1.3 us of
+// grid barrier after the last block, ~1.5 us of candidates and ~1.5 us of
+// reductions in the mean block, the slowest block up to 2-3 us later.
 #include <climits>
 #include <cooperative_groups.h>
 
@@ -75,12 +90,6 @@ constexpr int SMEM_BYTES = 2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4;
 __device__ __forceinline__ const int32_t* word(const int32_t* dtbl, int c0,
                                                 int p) {
   return dtbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
-}
-
-__device__ __forceinline__ long long gtime() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 __device__ __forceinline__ int dst_of(int packed) {
@@ -212,16 +221,19 @@ __device__ __forceinline__ void walk_slice(
   }
 }
 
-// Candidates of the staged pairs [plo, plo + np) on rows [g0, g0 + rg):
+// Candidates of the pairs [plo, plo + np) on rows [g0, g0 + rg), their
+// words staged or read from the table:
 // cand[(r - g0) * np + p - plo] = V[r - wsum, gidx] + score, or NONE where
 // the source row is below 0 or the source value below REACH_T. One load of V
 // per candidate, all of the block's in flight at once.
-__device__ __forceinline__ void candidates(const int2* s, int np, int g0,
+template <bool kStaged>
+__device__ __forceinline__ void candidates(const int2* s, const int32_t* dtbl,
+                                           int c0, int plo, int np, int g0,
                                            int rg, const int32_t* src,
                                            int lds, int* cand) {
   for (int i = threadIdx.x; i < np * rg; i += THREADS) {
     const int rl = i / np, p = i - rl * np;
-    const int2 w = s[p];
+    const int2 w = pair<kStaged>(s, dtbl, c0, plo, plo + p);
     const int rs = g0 + rl - (w.x & 3);
     const int g = min((w.x >> 17) & 32767, lds - 1);
     const int c = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
@@ -304,10 +316,15 @@ __device__ __forceinline__ void reduce_cells(
   }
 }
 
+// Transition t's row of the slices table: {first chunk, pairs, W, 0}.
+__device__ __forceinline__ int4 desc_of(const int32_t* tab, int cols, int t) {
+  return __ldg(reinterpret_cast<const int4*>(tab + (size_t)t * cols));
+}
+
 // Slice k of transition t: {first lane, end lane, first pair, end pair}.
-__device__ __forceinline__ int4 slice_of(const int32_t* cuts, int S, int t,
-                                         int k) {
-  const int32_t* c = cuts + (size_t)t * 2 * (S + 1) + k;
+__device__ __forceinline__ int4 slice_of(const int32_t* tab, int cols, int S,
+                                         int t, int k) {
+  const int32_t* c = tab + (size_t)t * cols + 4 + k;
   return make_int4(__ldg(c), __ldg(c + 1), __ldg(c + S + 1),
                    __ldg(c + S + 2));
 }
@@ -330,10 +347,9 @@ __device__ __forceinline__ void stage(const int32_t* dtbl, int c0, int plo,
 
 __global__ void __launch_bounds__(THREADS, 1)
 wide_dense_kernel(const int32_t* __restrict__ dtbl,
-                  const int4* __restrict__ desc,
-                  const int32_t* __restrict__ cuts, int T, int R1, int lanes,
-                  int S, const int32_t* __restrict__ v_in, int32_t* V,
-                  int32_t* __restrict__ bp, long long* prof) {
+                  const int32_t* __restrict__ tab, int T, int R1, int lanes,
+                  int S, int cols, const int32_t* __restrict__ v_in, int32_t* V,
+                  int32_t* __restrict__ bp) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_pair = reinterpret_cast<int2*>(smem);
   int* cand = reinterpret_cast<int*>(smem + 2 * STAGE * 8);
@@ -346,28 +362,25 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
 
   // transition t's descriptor {first chunk, pairs, W, 0} and the slice
   // {first lane, end lane, first pair, end pair}, and the same of t + 1
-  int4 D = __ldg(desc), C = slice_of(cuts, S, 0, k);
+  int4 D = desc_of(tab, cols, 0), C = slice_of(tab, cols, S, 0, k);
   int4 D1 = make_int4(0, 0, 0, 0), C1 = make_int4(0, 0, 0, 0);
   if (T > 1) {
-    D1 = __ldg(desc + 1);
-    C1 = slice_of(cuts, S, 1, k);
+    D1 = desc_of(tab, cols, 1);
+    C1 = slice_of(tab, cols, S, 1, k);
   }
   stage(dtbl, D.x, C.z, C.w, s_pair);
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   const size_t plane = (size_t)R1 * lanes;
   for (int t = 0; t < T; ++t) {
-    long long* pf = prof ? prof + ((size_t)t * S + k) * 5 : nullptr;
-    if (pf && threadIdx.x == 0) pf[0] = gtime();
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     __syncthreads();  // t's words staged, the range slots free
-    if (pf && threadIdx.x == 0) pf[1] = gtime();
     if (t + 1 < T) stage(dtbl, D1.x, C1.z, C1.w, s_pair + ((t + 1) & 1) * STAGE);
     asm volatile("cp.async.commit_group;" ::: "memory");
     int4 D2 = make_int4(0, 0, 0, 0), C2 = make_int4(0, 0, 0, 0);
     if (t + 2 < T) {
-      D2 = __ldg(desc + t + 2);
-      C2 = slice_of(cuts, S, t + 2, k);
+      D2 = desc_of(tab, cols, t + 2);
+      C2 = slice_of(tab, cols, S, t + 2, k);
     }
 
     const int d_lo = C.x, nd = C.y - C.x;
@@ -383,27 +396,29 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
     // rows a pass of candidates holds (all R + 1 for all but the longest
     // slices)
     const int rg = np ? min(R1, CAND / np) : R1;
-    if (staged && rg > 0) {
-      mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+    if (rg > 0) {
+      if (staged)
+        mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+      else
+        mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
       for (int g0 = 0; g0 < R1; g0 += rg) {
         const int n = min(rg, R1 - g0);
         if (g0) __syncthreads();  // the last pass's candidates are read
-        candidates(s, np, g0, n, src, lds, cand);
+        if (staged)
+          candidates<true>(s, dtbl, D.x, plo, np, g0, n, src, lds, cand);
+        else
+          candidates<false>(s, dtbl, D.x, plo, np, g0, n, src, lds, cand);
         __syncthreads();  // ranges marked, candidates in place
-        if (pf && threadIdx.x == 0 && !g0) pf[2] = gtime();
         reduce_cells(cand, np, plo, g0, n, d_lo, nd, stamp, first, end,
                      stamps, dstV, bpt, lanes);
       }
-    } else {  // a slice of more than STAGE pairs: walks from the table
+    } else {  // a slice of more than CAND pairs: walks from the table
       mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
       __syncthreads();  // ranges marked
       walk_slice<false>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
                         stamps, src, lds, dstV, bpt, lanes);
     }
-    if (pf) __syncthreads();
-    if (pf && threadIdx.x == 0) pf[3] = gtime();
     grid.sync();  // buffer (t + 1) & 1 complete before t + 1 reads it
-    if (pf && threadIdx.x == 0) pf[4] = gtime();
 
     D = D1, C = C1;
     D1 = D2, C1 = C2;
@@ -412,18 +427,19 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
 
 }  // namespace
 
-// dtbl [nchunks, 2, 256]; desc [T, 4] and cuts [T, 2, S + 1] (ops/plan.py
-// wide_slices, S slices); v_in [R1, 1024]; V [2, R1, NB * 1024] (the output
-// state is buffer T & 1); bp [T, R1, NB * 1024] zeroed. One cooperative
-// launch of S blocks; cudaErrorCooperativeLaunchTooLarge where the card
-// cannot hold them at once.
-extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int4* desc,
-                                 const int32_t* cuts, int T, int R1, int NB,
-                                 int S, const int32_t* v_in, int32_t* V,
-                                 int32_t* bp, long long* prof,
-                                 cudaStream_t stream) {
+// dtbl [nchunks, 2, 256]; tab [T, cols] (ops/plan.py wide_slices: per
+// transition {first chunk, pairs, W, 0}, the S + 1 slice starts in lanes,
+// then in pairs; cols a multiple of 4); v_in [R1, 1024]; V [2, R1, NB *
+// 1024] (the output state is buffer T & 1); bp [T, R1, NB * 1024] zeroed.
+// One cooperative launch of S blocks; cudaErrorCooperativeLaunchTooLarge
+// where the card cannot hold them at once.
+extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* tab,
+                                 int T, int R1, int NB, int S, int cols,
+                                 const int32_t* v_in, int32_t* V,
+                                 int32_t* bp, cudaStream_t stream) {
   const int lanes = NB * 1024;
-  if (T < 0 || R1 < 1 || S < 1 || lanes > S * MAX_W)
+  if (T < 0 || R1 < 1 || S < 1 || lanes > S * MAX_W || cols % 4 ||
+      cols < 2 * S + 6)
     return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(
@@ -439,9 +455,9 @@ extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int4* desc,
            &per, wide_dense_kernel, THREADS, SMEM_BYTES)) != cudaSuccess)
     return (int)e;
   if (per * sms < S) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&dtbl, (void*)&desc, (void*)&cuts, (void*)&T,
-                  (void*)&R1,   (void*)&lanes, (void*)&S,  (void*)&v_in,
-                  (void*)&V,    (void*)&bp,    (void*)&prof};
+  void* args[] = {(void*)&dtbl, (void*)&tab, (void*)&T,    (void*)&R1,
+                  (void*)&lanes, (void*)&S,  (void*)&cols, (void*)&v_in,
+                  (void*)&V,    (void*)&bp};
   e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(S),
                                   dim3(THREADS), args, SMEM_BYTES, stream);
   if (e != cudaSuccess) return (int)e;

@@ -47,24 +47,25 @@ Layouts the port's kernels (and their plain versions) decode:
   cuts each transition's written lanes ``[0, W)`` into ``K2_SLICES``
   contiguous slices of about equal work (a lane and its pairs), at most
   ``K2_SLICE_LANES`` lanes each, one per block of its cooperative grid.
-  ``dense_desc [T, 4] int32`` holds per transition its first dense chunk,
-  its real pairs ``n`` (lanes ``[0, n)`` of its chunks, sorted by
-  destination), ``W`` and a 0; ``dense_cuts [T, 2, K2_SLICES + 1] int32``
-  the slices' first lanes and their first pairs, so slice ``k`` holds lanes
-  ``[cuts[0, k], cuts[0, k + 1])`` and pairs ``[cuts[1, k], cuts[1, k +
-  1])``. ``W`` is the whole state for the first two transitions (the two
-  state buffers start uninitialised), then the larger of this transition's
-  destination extent ``tb_bout ** 2`` and that of the transition two before
-  it (the last to write the same buffer).
+  ``dense_slices [T, SLICE_COLS] int32`` holds per transition its first
+  dense chunk, its real pairs ``n`` (lanes ``[0, n)`` of its chunks, sorted
+  by destination), ``W`` and a 0, then the slices' first lanes (``K2_SLICES
+  + 1``, the last ``W``) and their first pairs (the last ``n``). ``W`` is
+  the whole state for the first two transitions (the two state buffers
+  start uninitialised), then the larger of this transition's destination
+  extent ``tb_bout ** 2`` and that of the transition two before it (the
+  last to write the same buffer). A CUDA plan keeps it in pinned host
+  memory; K2 copies a run's rows to the card when it launches.
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
-  ``DevPlan.desc [L - 1, 12] int32``, one row per transition, the columns
-  of ``TRACE_COLS``: the segment, the bp block's lanes, element size and
-  class (1: a lane past the block steps rows, 0: it clamps), the rows of
-  its bp array from the block on, the block's row, the first chunk row of
-  the table the walk reads and the transition's real chunks there, bin,
-  bout, the dense flag and whether the block lies in the segment's second
-  bp array (a narrow run's bp1024). Only the arrays' addresses wait for
-  the traceback (``ops/trace.py``).
+  ``DevPlan.desc [L - 1, 8] int32``, one row per transition, the columns
+  of ``TRACE_COLS``: the segment, the bp block's lanes, the rows of its bp
+  array from the block on, the block's row, the first chunk row of the
+  table the walk reads and the transition's real chunks there, ``bin |
+  bout << 16``, and the flags of ``TRACE_FLAGS``: the dense packing, the
+  block's class (``rowstep``: a lane past the block steps rows; else it
+  clamps), the block in the segment's second bp array (a narrow run's
+  bp1024) and int16 backpointers. Only the arrays' addresses wait for the
+  traceback (``ops/trace.py``).
 * Pair ordinals (the backpointers): a pair's index in its transition's
   preference-sorted pair list, i.e. ``chunk_in_transition * 256 + lane``
   (window-split and dense chunks number the same pairs differently).
@@ -133,13 +134,18 @@ DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
 
-# blocks of K2's cooperative grid, one lane slice each (wide_slices), and
-# the widest slice (csrc/wide_dense_run.cu MAX_W)
+# blocks of K2's cooperative grid, one lane slice each (wide_slices), the
+# widest slice (csrc/wide_dense_run.cu MAX_W), and the columns of a
+# transition's row of slices: {first chunk, pairs, W, 0}, the slices' first
+# lanes and their first pairs (K2_SLICES + 1 each), padded to 16 bytes
 K2_SLICES = 128
 K2_SLICE_LANES = 256
-# the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu)
-TRACE_COLS = ("seg", "lanes", "esize", "rowstep", "rows", "bprow",
-              "chunkbase", "nch", "bin", "bout", "dense", "bp1")
+SLICE_COLS = -(-(4 + 2 * (K2_SLICES + 1)) // 4) * 4
+# the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu):
+# "bins" is bin | bout << 16, "flags" ORs TRACE_FLAGS
+TRACE_COLS = ("seg", "lanes", "rows", "bprow", "chunkbase", "nch", "bins",
+              "flags")
+TRACE_FLAGS = {"dense": 1, "rowstep": 2, "bp1": 4, "bp16": 8}
 
 
 def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None) -> str:
@@ -167,12 +173,11 @@ class DevSegment:
     # share (stbl)
     bounds: np.ndarray | None = None
     lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
-    # [T, 12] int32 traceback columns (trace_columns; segment column 0)
+    # [T, 8] int32 traceback columns (trace_columns; segment column 0)
     trace_cols: np.ndarray | None = None
-    # wide (K2): dense_desc [T, 4] and dense_cuts [T, 2, K2_SLICES + 1]
-    # (wide_slices)
-    dense_desc: torch.Tensor | None = None
-    dense_cuts: torch.Tensor | None = None
+    # wide (K2): its slices [T, SLICE_COLS] int32 (wide_slices), in pinned
+    # host memory for a CUDA plan: copied to the card at each launch
+    dense_slices: torch.Tensor | None = None
 
     @property
     def t0(self) -> int:
@@ -261,9 +266,9 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             desc, dseg.lanes = narrow_desc(seg, nreal)
             t["tb_desc"] = _tensor(desc, device)
         elif kind == "wide":
-            desc, cuts = wide_slices(seg, nreal)
-            dseg.dense_desc = _tensor(desc, device)
-            dseg.dense_cuts = _tensor(cuts, device)
+            dseg.dense_slices = torch.from_numpy(wide_slices(seg, nreal))
+            if device.type == "cuda":
+                dseg.dense_slices = dseg.dense_slices.pin_memory()
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 
@@ -286,21 +291,20 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
     return desc.astype(np.int32), lanes
 
 
-def wide_slices(seg: _WideRun, nreal: int,
-                slices: int = K2_SLICES) -> tuple[np.ndarray, np.ndarray]:
-    """``(dense_desc [T, 4], dense_cuts [T, 2, slices + 1])`` int32 of a
-    dense wide run (see the module docstring): K2's lane slices and the
-    pair range of each. Raises unless every transition's real pairs come
-    first and are sorted by destination, which K2's walks rely on."""
-    T = seg.t1 - seg.t0
+def wide_slices(seg: _WideRun, nreal: int) -> np.ndarray:
+    """[T, SLICE_COLS] int32 of a dense wide run (see the module
+    docstring): per transition {first chunk, real pairs, W, 0}, K2's
+    slices' first lanes, then their first pairs. Raises unless every
+    transition's real pairs come first and are sorted by destination,
+    which K2's walks rely on."""
+    T, S = seg.t1 - seg.t0, K2_SLICES
     full = seg.NB * 1024
     bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
     ext = np.minimum(np.asarray(seg.tb_bout, np.int64) ** 2, full)
     W = np.full(T, full, np.int64)
     W[2:] = np.maximum(ext[2:], ext[:-2])
-    desc = np.stack([bounds[:-1], np.zeros(T), W, np.zeros(T)],
-                    1).astype(np.int32)
-    cuts = np.zeros((T, 2, slices + 1), np.int32)
+    out = np.zeros((T, SLICE_COLS), np.int32)
+    out[:, 0], out[:, 2] = bounds[:-1], W
     for ti in range(T):
         words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
         real = words[:, 1].ravel() != PAD_SC
@@ -310,11 +314,12 @@ def wide_slices(seg: _WideRun, nreal: int,
             raise ValueError(
                 f"wide_slices: transition {seg.t0 + ti}'s dense pairs are "
                 "not sorted by destination ahead of the pads")
-        desc[ti, 1] = n
-        cuts[ti, 0] = balanced_cuts(np.bincount(dst, minlength=W[ti]) + 1,
-                                    slices, K2_SLICE_LANES)
-        cuts[ti, 1] = np.searchsorted(dst, cuts[ti, 0])
-    return desc, cuts
+        lanes = balanced_cuts(np.bincount(dst, minlength=W[ti]) + 1, S,
+                              K2_SLICE_LANES)
+        out[ti, 1] = n
+        out[ti, 4:5 + S] = lanes
+        out[ti, 5 + S:6 + 2 * S] = np.searchsorted(dst, lanes)
+    return out
 
 
 def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:
@@ -337,37 +342,40 @@ def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:
 
 
 def trace_columns(kind: str, seg) -> np.ndarray:
-    """[T, 12] int32: the traceback's columns (``TRACE_COLS``) of a
+    """[T, 8] int32: the traceback's columns (``TRACE_COLS``) of a
     segment's transitions, with the segment column 0 (``DevPlan`` sets
     it). The bp arrays' shapes are the ones the kernels allocate: a narrow
     run's ``bp256 [n256, R+1, 256]`` and ``bp1024 [n1024, R+1, 1024]``
     (int16), a window-split run's ``[nrows, R+1, 1024]``, a dense or tp
     run's ``[T, R+1, NB * 1024]`` (int32)."""
     T = seg.t1 - seg.t0
-    c = dict.fromkeys(TRACE_COLS, 0)
     ti = np.arange(T)
+    f = TRACE_FLAGS
     if kind == "narrow":
         big = (np.asarray(seg.tb_bits) & 2) != 0
-        c.update(lanes=np.where(big, 1024, CHUNK), esize=2, rowstep=big,
-                 rows=np.where(big, seg.n1024, seg.n256) - seg.tb_bprow,
-                 bprow=seg.tb_bprow, bp1=big)
+        lanes = np.where(big, 1024, CHUNK)
+        rows = np.where(big, seg.n1024, seg.n256) - seg.tb_bprow
+        bprow = seg.tb_bprow
+        flags = f["bp16"] | np.where(big, f["rowstep"] | f["bp1"], 0)
         cb, real = seg.tb_chunkbase, seg.sbits & 16
     elif kind == "wide_split":
-        c.update(lanes=1024, esize=4, rowstep=1, rows=seg.nrows - seg.tb_bprow,
-                 bprow=seg.tb_bprow)
+        lanes, rows, bprow = 1024, seg.nrows - seg.tb_bprow, seg.tb_bprow
+        flags = f["rowstep"]
         cb, real = seg.tb_chunkbase, seg.wbits & 4
     else:  # one [R+1, NB * 1024] block per transition
-        c.update(lanes=seg.NB * 1024, esize=4, rowstep=1, rows=T - ti,
-                 bprow=ti)
+        lanes, rows, bprow = seg.NB * 1024, T - ti, ti
         if kind == "wide_tp":
+            flags = f["rowstep"]
             cb, real = seg.tb_chunkbase, seg.wbits & 4
         else:
+            flags = f["rowstep"] | f["dense"]
             cb, real = seg.tb2_chunkbase, seg.dbits & 4
-            c["dense"] = 1
-    c.update(chunkbase=cb, bin=seg.tb_bin, bout=seg.tb_bout,
-             nch=np.diff(chunk_bounds(cb, int(np.count_nonzero(real)))))
-    return np.stack([np.broadcast_to(np.asarray(c[k]), (T,))
-                     for k in TRACE_COLS], 1).astype(np.int32)
+    nch = np.diff(chunk_bounds(cb, int(np.count_nonzero(real))))
+    bins = np.asarray(seg.tb_bin, np.int64) | np.asarray(seg.tb_bout,
+                                                         np.int64) << 16
+    cols = (0, lanes, rows, bprow, cb, nch, bins, flags)
+    return np.stack([np.broadcast_to(np.asarray(c, np.int64), (T,))
+                     for c in cols], 1).astype(np.int32)
 
 
 def chunk_bounds(chunkbase: np.ndarray, nreal: int) -> np.ndarray:

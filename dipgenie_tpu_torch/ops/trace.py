@@ -120,22 +120,27 @@ def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
     symd, and a 0 that pads the row to 48 bytes. Checks every array."""
     rows = []
     R1 = dplan.R + 1
+    card = torch.device(dplan.device)
+    card = card.index if card.index is not None else torch.cuda.current_device()
     for seg, blocks in zip(dplan.segments, bps):
         dtype = torch.int16 if seg.kind == "narrow" else torch.int32
         shapes = _bp_shapes(seg, R1)
-        if len(blocks) != len(shapes):
-            raise ValueError(f"trace: {len(blocks)} backpointer arrays for "
-                             f"a {seg.kind} segment")
-        for b, shape in zip(blocks, shapes):
-            kernels.check_tensor(b, "bp", dtype, shape, dplan.device)
+        if len(blocks) != len(shapes) or not all(
+                b.is_cuda and b.get_device() == card and b.dtype == dtype
+                and b.shape == sh and b.is_contiguous()
+                for b, sh in zip(blocks, shapes)):
+            if len(blocks) != len(shapes):
+                raise ValueError(f"trace: {len(blocks)} backpointer arrays "
+                                 f"for a {seg.kind} segment")
+            for b, sh in zip(blocks, shapes):
+                kernels.check_tensor(b, "bp", dtype, sh, dplan.device)
         rows.append([blocks[0].data_ptr(), blocks[-1].data_ptr(),
                      *(t.data_ptr() for t in _walk_tables(seg)), 0])
     return torch.tensor(rows, dtype=torch.int64).to(dplan.device)
 
 
 def trace(dplan: DevPlan, bps: list, band: int = BAND,
-          stage_bp: bool = STAGE_BP, slot: int = SLOT,
-          prof=None) -> torch.Tensor:
+          stage_bp: bool = STAGE_BP, slot: int = SLOT) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
     the whole plan); backpointers on the CPU take ``trace_ref``. ``band``,
     ``stage_bp`` and ``slot`` set the staging (the module's constants)."""
@@ -155,8 +160,7 @@ def trace(dplan: DevPlan, bps: list, band: int = BAND,
     if T:
         rc = kernels.lib().dg_trace(
             dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, band,
-            int(stage_bp), slot, recs.data_ptr(),
-            0 if prof is None else prof.data_ptr(), kernels.stream_of(recs))
+            int(stage_bp), slot, recs.data_ptr(), kernels.stream_of(recs))
         kernels.raise_on_error(rc, "trace")
         trace.launches += 1
     return recs[:T]

@@ -15,13 +15,15 @@ same result (``ops/plan.py:wide_slices``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import kernels
 from .narrow import transition_keys
 from .plan import (
-    DENSE_NB_LIMIT, K2_SLICES, NEG, PAD_SC, DevSegment, chunk_bounds,
-    decode_keys,
+    DENSE_NB_LIMIT, K2_SLICES, NEG, PAD_SC, SLICE_COLS, DevSegment,
+    chunk_bounds, decode_keys,
 )
 
 
@@ -58,7 +60,26 @@ def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
     return V[:, :1024].contiguous(), bp
 
 
-def wide_dense_run(seg: DevSegment, v_in: torch.Tensor, prof=None):
+@functools.cache
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device)
+
+
+def _slices_on(seg: DevSegment, device) -> torch.Tensor:
+    """The run's slices, copied from pinned host memory on a stream of
+    their own (which allocates from its own pool), so that the copy runs
+    beside the kernel before it; the current stream waits for it, and the
+    buffer is not reused before the current stream is done with it."""
+    main = torch.cuda.current_stream(device)
+    side = _copy_stream(torch.device(device))
+    with torch.cuda.stream(side):
+        slices = seg.dense_slices.to(device, non_blocking=True)
+    main.wait_stream(side)
+    slices.record_stream(main)
+    return slices
+
+
+def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
     """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one
     cooperative launch per run, ``K2_SLICES`` blocks over the slices
     ``plan_to_device`` made); a CPU ``v_in`` takes ``wide_dense_run_ref``."""
@@ -73,22 +94,23 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor, prof=None):
         raise ValueError(
             f"wide_dense_run: NB = {h.NB}, want 1..{DENSE_NB_LIMIT} (a run "
             "of more windows has no dense tables; K3 runs it)")
-    if seg.dense_desc is None:
-        raise ValueError("wide_dense_run: no slices (plan_to_device makes "
-                         "them for the runs it sends to K2)")
-    kernels.check_tensor(seg.dense_desc, "dense_desc", torch.int32, (T, 4),
-                         v_in.device)
-    kernels.check_tensor(seg.dense_cuts, "dense_cuts", torch.int32,
-                         (T, 2, K2_SLICES + 1), v_in.device)
+    if seg.dense_slices is None or tuple(seg.dense_slices.shape) != (
+            T, SLICE_COLS):
+        raise ValueError("wide_dense_run: no slices of this run "
+                         "(plan_to_device makes them for the runs it sends "
+                         "to K2)")
+    slices = _slices_on(seg, v_in.device)
+    kernels.check_tensor(slices, "dense_slices", torch.int32,
+                         (T, SLICE_COLS), v_in.device)
     lanes = h.NB * 1024
     # two state buffers, written before they are read; zeroed backpointers
     # (the kernel writes only the ordinals that are not 0)
     V = torch.empty((2, R1, lanes), dtype=torch.int32, device=v_in.device)
     bp = torch.zeros((T, R1, lanes), dtype=torch.int32, device=v_in.device)
     rc = kernels.lib().dg_wide_dense_run(
-        dtbl.data_ptr(), seg.dense_desc.data_ptr(), seg.dense_cuts.data_ptr(),
-        T, R1, h.NB, K2_SLICES, v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        0 if prof is None else prof.data_ptr(), kernels.stream_of(v_in),
+        dtbl.data_ptr(), slices.data_ptr(), T, R1, h.NB, K2_SLICES,
+        SLICE_COLS, v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
+        kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "wide_dense_run")
     wide_dense_run.launches += 1

@@ -252,56 +252,46 @@ def time_wide(so, dplan, repeats, out):
     out["stages"] = stages
 
 
-def profile(so, dplan, out):
-    """globaltimer stamps of one traceback and of a few K2 runs (ns)."""
-    V, bps = PairDiploidDP(dplan, DEV).forward()
-    for name, kw in STAGINGS.items():
-        prof = torch.zeros(16, dtype=torch.int64, device=DEV)
-        trace.trace(dplan, bps, prof=prof, **kw)
-        p = prof.tolist()
-        log(f"trace {name} walker: {p[5]} cycles in dense transitions, bp "
-            f"words read from global memory {p[6]}, table words {p[7]}, all "
-            f"{p[8]} cycles")
-        log(f"trace {name} profile: walker {p[1] / 1e6:.3f} ms, of it waiting "
-            f"for the producer {p[0] / 1e6:.3f} ms, for the recorder "
-            f"{p[4] / 1e6:.3f} ms; producer {p[3] / 1e6:.3f} ms, of it "
-            f"waiting for free slots {p[2] / 1e6:.3f} ms")
-    del bps
-    from dipgenie_tpu_torch.ops.plan import K2_SLICES, initial_v
+def memory(so, dplan, out):
+    """Device memory of the forward pass and of the traceback, with the
+    replaced kernels and with the new ones (allocated bytes above what the
+    plan holds, max_memory_allocated)."""
+    import gc
 
-    V = initial_v(R, DEV)
-    rows = []
-    for i, seg in enumerate(dplan.segments):
-        if seg.kind == "wide" and i in (1, 101, 201):
-            T = seg.t1 - seg.t0
-            prof = torch.zeros((T, K2_SLICES, 5), dtype=torch.int64,
-                               device=DEV)
-            wide.wide_dense_run(seg, V, prof=prof)
+    dp = PairDiploidDP(dplan, DEV)
+    kern = diploid_pair.RUNS["wide"]
+    log(f"memory: the plan's traceback columns {dplan.desc.numel() * 4} B")
+    rows = {}
+    try:
+        for name in ("old", "new", "new", "old"):
+            diploid_pair.RUNS["wide"] = (
+                kern if name == "new"
+                else (lambda seg, v: old_k2(so, seg, v)))
+            gc.collect()
             torch.cuda.synchronize()
-            p = prof.cpu().numpy().astype(np.float64)
-            t0 = p[:, :, 0].min()
-            for t in range(T):
-                q = p[t]
-                row = dict(
-                    t=t, span=q[:, 4].max() - q[:, 0].min(),
-                    wait_sync=np.mean(q[:, 1] - q[:, 0]),
-                    mark_cand=np.mean(q[:, 2] - q[:, 1]),
-                    reduce_max=np.max(q[:, 3] - q[:, 2]),
-                    reduce_mean=np.mean(q[:, 3] - q[:, 2]),
-                    arrive_spread=q[:, 3].max() - q[:, 3].min(),
-                    grid_sync_after_last=q[:, 4].max() - q[:, 3].max(),
-                    start_spread=q[:, 0].max() - q[:, 0].min(),
-                    since_first=q[:, 0].min() - t0)
-                rows.append(row)
-                log(f"K2 run {i} t {t}: " + ", ".join(
-                    f"{k} {v:.0f}" for k, v in row.items()))
-        V = diploid_pair.RUNS[seg.kind](seg, V)[0]
-    out["k2_profile"] = rows
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            V, bps = dp.forward()
+            torch.cuda.synchronize()
+            fwd = torch.cuda.max_memory_allocated() - base
+            end = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            recs = (old_trace(so, dplan, bps) if name == "old"
+                    else trace.trace(dplan, bps))
+            torch.cuda.synchronize()
+            tb = torch.cuda.max_memory_allocated() - base
+            del V, bps, recs
+            rows[name] = (fwd, end, tb)
+            log(f"memory {name}: forward peak {fwd} B, after it {end} B, "
+                f"traceback peak {tb} B (above {base} B)")
+    finally:
+        diploid_pair.RUNS["wide"] = kern
+    out["memory"] = rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="trace,wide,profile")
+    ap.add_argument("--only", default="trace,wide")
     ap.add_argument("--repeats", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -328,8 +318,8 @@ def main() -> int:
         del V, bps
     if "wide" in only:
         time_wide(so, dplan, args.repeats, out)
-    if "profile" in only:
-        profile(so, dplan, out)
+    if "memory" in only:
+        memory(so, dplan, out)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "kt_k2_variants.json"),
               "w") as fh:

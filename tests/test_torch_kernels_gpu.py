@@ -20,8 +20,8 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    DENSE_NB_MAX, K2_SLICES, NEG, REACH_T, initial_v, plan_pairs,
-    plan_to_device, shard_to_device,
+    DENSE_NB_MAX, K2_SLICES, NEG, REACH_T, SLICE_COLS, initial_v,
+    plan_pairs, plan_to_device, shard_to_device,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
@@ -355,8 +355,8 @@ def test_wide_dense_kernel_edge_cases(name, cuda):
     if name == "ties":
         assert at_reach_t > 0
     if name == "range2304":
-        cuts = wides[0].dense_cuts.cpu().numpy()
-        assert np.diff(cuts[:, 1], axis=1).max() >= 2000
+        pair_cuts = wides[0].dense_slices.numpy()[:, 5 + K2_SLICES:]
+        assert np.diff(pair_cuts[:, :K2_SLICES + 1], axis=1).max() >= 2000
     assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
 
 
@@ -367,19 +367,21 @@ def test_wide_dense_refused_launch_raises(cuda):
     dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
     seg = next(s for s in dplan.segments if s.kind == "wide")
     h, T = seg.host, seg.t1 - seg.t0
+    assert seg.dense_slices.shape == (T, SLICE_COLS)
+    assert seg.dense_slices.is_pinned()
     V = torch.empty((2, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     v = initial_v(R, cuda)
     slices = 1 << 16  # far more blocks than fit on any card at once
-    cuts = torch.zeros((T, 2, slices + 1), dtype=torch.int32, device=cuda)
+    cols = 2 * slices + 8
+    tab = torch.zeros((T, cols), dtype=torch.int32, device=cuda)
     rc = kernels.lib().dg_wide_dense_run(
-        seg.t["dtbl"].data_ptr(), seg.dense_desc.data_ptr(), cuts.data_ptr(),
-        T, R + 1, h.NB, slices, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        0, kernels.stream_of(v))
+        seg.t["dtbl"].data_ptr(), tab.data_ptr(), T, R + 1, h.NB, slices,
+        cols, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
+        kernels.stream_of(v))
     assert rc != 0
     with pytest.raises(RuntimeError, match="wide_dense_run"):
         kernels.raise_on_error(rc, "wide_dense_run")
-    assert seg.dense_cuts.shape == (T, 2, K2_SLICES + 1)
 
 
 # the traceback's staging settings (ops/trace.py): the default; every bp

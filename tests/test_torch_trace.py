@@ -21,7 +21,8 @@ import torch
 from dipgenie_tpu_torch.ops import trace
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    K2_SLICE_LANES, K2_SLICES, PAD_SC, TRACE_COLS, DevPlan, balanced_cuts,
+    K2_SLICE_LANES, K2_SLICES, PAD_SC, SLICE_COLS, TRACE_COLS, TRACE_FLAGS,
+    DevPlan, balanced_cuts,
     chunk_bounds, plan_pairs, plan_to_device,
 )
 from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
@@ -92,14 +93,16 @@ def descriptors_now(dplan, bps) -> np.ndarray:
                       *(t.data_ptr() for t in trace._walk_tables(seg))]
                      for seg, b in zip(dplan.segments, bps)], np.int64)
     c = dict(zip(TRACE_COLS, dplan.desc.numpy().astype(np.int64).T))
+    flag = {k: (c["flags"] & v) != 0 for k, v in TRACE_FLAGS.items()}
     b = base[c["seg"]]
-    rowbytes = c["lanes"] * c["esize"]
-    bp = np.where(c["bp1"] != 0, b[:, 1], b[:, 0]) \
-        + c["bprow"] * (dplan.R + 1) * rowbytes
+    esize = np.where(flag["bp16"], 2, 4)
+    bp = np.where(flag["bp1"], b[:, 1], b[:, 0]) \
+        + c["bprow"] * (dplan.R + 1) * c["lanes"] * esize
     cb = c["chunkbase"]
-    return np.stack([bp, c["lanes"], c["esize"], b[:, 2] + cb * 2048,
-                     b[:, 3] + cb * 256, b[:, 4] + cb * 512, c["dense"],
-                     c["bin"], c["bout"], c["rowstep"], c["rows"]], 1)
+    return np.stack([bp, c["lanes"], esize, b[:, 2] + cb * 2048,
+                     b[:, 3] + cb * 256, b[:, 4] + cb * 512, flag["dense"],
+                     c["bins"] & 0xFFFF, c["bins"] >> 16, flag["rowstep"],
+                     c["rows"]], 1)
 
 
 @pytest.mark.parametrize("routing", ["main", "window_split", "tp"])
@@ -173,9 +176,11 @@ def test_wide_slices_cover_each_destination_once(plan):
     longest = 0
     for seg in wides:
         h = seg.host
-        desc, cuts = seg.dense_desc.numpy(), seg.dense_cuts.numpy()
-        T = h.t1 - h.t0
-        assert desc.shape == (T, 4) and cuts.shape == (T, 2, K2_SLICES + 1)
+        tab = seg.dense_slices.numpy()
+        T, S = h.t1 - h.t0, K2_SLICES
+        assert tab.shape == (T, SLICE_COLS) and SLICE_COLS % 4 == 0
+        desc = tab[:, :4]
+        cuts = np.stack([tab[:, 4:5 + S], tab[:, 5 + S:6 + 2 * S]], 1)
         bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
         ext = h.tb_bout.astype(np.int64) ** 2
         for ti in range(T):
