@@ -81,8 +81,8 @@ using dg::REACH_T;
 
 constexpr int THREADS = 1024;
 constexpr int STAGE = 2560;  // pairs of a slice staged in shared memory
-constexpr int CAND = 45056;  // candidate values a block holds at once
-constexpr int MAX_W = 256;   // lanes of a slice (ops/plan.py K2_SLICE_LANES)
+constexpr int CAND = 44032;  // candidate values a block holds at once
+constexpr int MAX_W = 1024;  // lanes of a slice (ops/plan.py K2_SLICE_LANES)
 constexpr int LONG = 32;     // a longer range is reduced by a warp
 constexpr int NONE = INT_MIN;  // no valid candidate
 constexpr int SMEM_BYTES = 2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4;
@@ -231,13 +231,26 @@ __device__ __forceinline__ void candidates(const int2* s, const int32_t* dtbl,
                                            int c0, int plo, int np, int g0,
                                            int rg, const int32_t* src,
                                            int lds, int* cand) {
-  for (int i = threadIdx.x; i < np * rg; i += THREADS) {
-    const int rl = i / np, p = i - rl * np;
-    const int2 w = pair<kStaged>(s, dtbl, c0, plo, plo + p);
-    const int rs = g0 + rl - (w.x & 3);
-    const int g = min((w.x >> 17) & 32767, lds - 1);
-    const int c = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
-    cand[i] = c >= REACH_T ? c + w.y : NONE;
+  constexpr int U = 4;  // candidates a thread takes at a time
+  const int n = np * rg;
+#pragma unroll 1
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
+    int2 w[U];
+    int c[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int i = min(i0 + j * THREADS, n - 1);
+      const int rl = i / np;
+      w[j] = pair<kStaged>(s, dtbl, c0, plo, plo + i - rl * np);
+      const int rs = g0 + rl - (w[j].x & 3);
+      const int g = min((w[j].x >> 17) & 32767, lds - 1);
+      c[j] = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n) cand[i] = c[j] >= REACH_T ? c[j] + w[j].y : NONE;
+    }
   }
 }
 

@@ -139,7 +139,7 @@ _LOW32 = 0xFFFFFFFF
 # transition's row of slices: {first chunk, pairs, W, 0}, the slices' first
 # lanes and their first pairs (K2_SLICES + 1 each), padded to 16 bytes
 K2_SLICES = 128
-K2_SLICE_LANES = 256
+K2_SLICE_LANES = 1024
 SLICE_COLS = -(-(4 + 2 * (K2_SLICES + 1)) // 4) * 4
 # the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu):
 # "bins" is bin | bout << 16, "flags" ORs TRACE_FLAGS

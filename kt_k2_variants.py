@@ -289,6 +289,48 @@ def memory(so, dplan, out):
     out["memory"] = rows
 
 
+def time_big(so, repeats, out):
+    """Phase E's 300 big runs (NB 31) from the same input states: the
+    replaced K2, the new K2 and K3, in turns (CUDA events over one host
+    call per run)."""
+    from chip_smoke import BIG_WIDTHS
+    from dipgenie_tpu_torch.ops import wide_split
+    from dipgenie_tpu_torch.ops.plan import initial_v
+
+    t0 = time.time()
+    plan = plan_pairs(*mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
+                                      wmin=BIG_WIDTHS[0],
+                                      wmax=BIG_WIDTHS[1]), R)
+    d3 = plan_to_device(plan, DEV)
+    d2 = plan_to_device(plan, DEV, dense_nb_max=31)
+    log(f"E plan and ship {time.time() - t0:.1f} s")
+    big = [i for i, s in enumerate(d3.segments) if s.kind == "wide_split"]
+    v_ins, V = {}, initial_v(R, DEV)
+    for i, seg in enumerate(d3.segments):
+        v_ins[i] = V
+        V = diploid_pair.RUNS[seg.kind](seg, V)[0]
+    runs = {"K3": lambda: [wide_split.wide_split_run(d3.segments[i],
+                                                     v_ins[i])[0]
+                           for i in big],
+            "K2 old": lambda: [old_k2(so, d2.segments[i], v_ins[i])[0]
+                               for i in big],
+            "K2 new": lambda: [wide.wide_dense_run(d2.segments[i],
+                                                   v_ins[i])[0]
+                               for i in big]}
+    res = {k: [] for k in runs}
+    outs = {}
+    order = list(runs)
+    for _ in range(repeats):
+        for name in order + order[::-1]:
+            ms, outs[name] = timed(runs[name])
+            res[name].append(ms)
+    for name in runs:
+        assert all(torch.equal(a, b) for a, b in zip(outs[name], outs["K3"]))
+    log("E big runs (NB 31, " + str(len(big)) + " runs): " + ", ".join(
+        f"{k} {min(v):.4f} ms" for k, v in res.items()) + f" (all: {res})")
+    out["big"] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="trace,wide")
@@ -320,6 +362,8 @@ def main() -> int:
         time_wide(so, dplan, args.repeats, out)
     if "memory" in only:
         memory(so, dplan, out)
+    if "big" in only:
+        time_big(so, args.repeats, out)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "kt_k2_variants.json"),
               "w") as fh:
