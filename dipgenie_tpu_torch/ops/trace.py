@@ -36,12 +36,11 @@ from .. import kernels
 from .plan import CHUNK, DevPlan
 
 # The staging of the walk (csrc/trace.cu): each transition's share of the
-# shared-memory ring (SLOT bytes); the backpointer rows fetched below the
-# walk's current r (BAND), staged in the ring (STAGE_BP) or, if not, read
-# from global memory after an L2 prefetch
+# shared-memory ring (SLOT bytes), and the backpointer rows fetched below
+# the walk's current r (BAND): the walk's r falls by at most 2 a transition
+# and, on the MHC-scale plans, at most R times in all
 SLOT = 6144
 BAND = 2
-STAGE_BP = True
 
 
 def _tables(seg, ti: int):
@@ -139,11 +138,12 @@ def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64).to(dplan.device)
 
 
-def trace(dplan: DevPlan, bps: list, band: int = BAND,
-          stage_bp: bool = STAGE_BP, slot: int = SLOT) -> torch.Tensor:
+def trace(dplan: DevPlan, bps: list, stage_bp: bool = True) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
-    the whole plan); backpointers on the CPU take ``trace_ref``. ``band``,
-    ``stage_bp`` and ``slot`` set the staging (the module's constants)."""
+    the whole plan); backpointers on the CPU take ``trace_ref``. With
+    ``stage_bp`` false the kernel stages only the tables and reads every
+    bp word from global memory after an L2 prefetch (the other design
+    ``chip_smoke.py`` times beside the default)."""
     if all(b.device.type == "cpu" for blocks in bps for b in blocks):
         return trace_ref(dplan, bps)
     if len(bps) != len(dplan.segments):
@@ -159,8 +159,8 @@ def trace(dplan: DevPlan, bps: list, band: int = BAND,
                        device=dplan.device)
     if T:
         rc = kernels.lib().dg_trace(
-            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, band,
-            int(stage_bp), slot, recs.data_ptr(), kernels.stream_of(recs))
+            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, BAND,
+            int(stage_bp), SLOT, recs.data_ptr(), kernels.stream_of(recs))
         kernels.raise_on_error(rc, "trace")
         trace.launches += 1
     return recs[:T]

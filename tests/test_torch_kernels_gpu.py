@@ -384,14 +384,15 @@ def test_wide_dense_refused_launch_raises(cuda):
         kernels.raise_on_error(rc, "wide_dense_run")
 
 
-# the traceback's staging settings (ops/trace.py): the default; every bp
-# row below r in slots of 12 KB; bp words from global memory after an L2
+# the traceback's staging (ops/trace.py BAND, SLOT, stage_bp): the
+# default; every bp row below r in slots of 12 KB (R = 60's 1024-class
+# blocks no longer fit a slot); bp words from global memory after an L2
 # prefetch, a band of rows or all; and slots too small for anything
-STAGINGS = {"default": {},
-            "all_rows": dict(band=1000, slot=12288),
-            "l2_band": dict(stage_bp=False),
-            "l2_all_rows": dict(band=1000, stage_bp=False),
-            "no_room": dict(slot=16)}
+STAGINGS = {"default": (2, 6144, True),
+            "all_rows": (1000, 12288, True),
+            "l2_band": (2, 6144, False),
+            "l2_all_rows": (1000, 6144, False),
+            "no_room": (2, 16, True)}
 
 
 def _trace_case(name):
@@ -410,7 +411,8 @@ def _trace_case(name):
 @pytest.mark.parametrize("bps_kind", ["forward", "zero", "random"])
 @pytest.mark.parametrize("name", ["bands", "bands_split", "big_window",
                                   "global_state", "mhc_slice_wide_csr"])
-def test_trace_kernel_matches_plain_version(name, bps_kind, cuda):
+def test_trace_kernel_matches_plain_version(name, bps_kind, cuda,
+                                            monkeypatch):
     """K-T (one launch) against ``trace_ref`` under every staging setting,
     on the forward pass's backpointers, on zeroed ones (every state
     unreachable: the walk takes pair 0 each time) and on drawn ordinals
@@ -428,9 +430,11 @@ def test_trace_kernel_matches_plain_version(name, bps_kind, cuda):
     want = trace.trace_ref(dplan, bps)
     if bps_kind == "random" and name.startswith("bands"):
         assert (want[:, 4] + want[:, 5]).sum() > dplan.R  # r went below 0
-    for staging, kw in STAGINGS.items():
+    for staging, (band, slot, stage_bp) in STAGINGS.items():
+        monkeypatch.setattr(trace, "BAND", band)
+        monkeypatch.setattr(trace, "SLOT", slot)
         before = trace.trace.launches
-        got = trace.trace(dplan, bps, **kw)
+        got = trace.trace(dplan, bps, stage_bp=stage_bp)
         assert trace.trace.launches == before + 1
         assert got.shape == want.shape and torch.equal(got, want), staging
 
