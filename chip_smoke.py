@@ -1069,7 +1069,7 @@ class Smoke:
                 recs = run[0]()
                 # per transition: its descriptor row, its bp word (int32
                 # at most), its packed word, w1 and symd in, its record out
-                nbytes = (sub.L - 1) * (12 * 4 + 4 + 4 + 1 + 2 + 7 * 4)
+                nbytes = (sub.L - 1) * (8 * 4 + 4 + 4 + 1 + 2 + 7 * 4)
                 nbound = bound(nbytes, 12 * (sub.L - 1))
             else:
                 idx = [i for i, s in enumerate(prefix)

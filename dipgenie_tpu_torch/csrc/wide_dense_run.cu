@@ -37,7 +37,10 @@
 //   and first pair: the planner sorts a transition's pairs by destination,
 //   so a slice's pairs are one range and so are each destination's. Slices
 //   of equal width left a band end's pairs on 15 blocks, which then took
-//   130-200 us. Block k owns slice k on every row. W covers this
+//   130-200 us; a width cap of 256 lanes made phase E's band ends (40k+
+//   pairs on fewer than 1,024 of ~24k written lanes) merge 14 heavy
+//   destinations into one slice, hence MAX_W = 1024. Block k owns slice k
+//   on every row. W covers this
 //   transition's destination extent and that of the one two before it, the
 //   last to write the same buffer (the whole state for the first two), so
 //   lanes past it hold NEG from an earlier write, as the plain version's
@@ -108,21 +111,19 @@ __device__ __forceinline__ int2 pair(const int2* s, const int32_t* dtbl,
   }
 }
 
-// The first maximum over pairs [e0, e1) on row r: value (NONE if no
-// candidate is valid) and ordinal. Two pairs a step, their loads of V
-// issued together.
-template <bool kStaged>
-__device__ __forceinline__ void walk(const int2* s, const int32_t* dtbl,
-                                     int c0, int plo, int e0, int e1,
-                                     const int32_t* src, int lds, int r,
-                                     int& best, int& ord) {
+// The first maximum over pairs [e0, e1) on row r, read from the table:
+// value (NONE if no candidate is valid) and ordinal. Two pairs a step,
+// their loads of V issued together.
+__device__ __forceinline__ void walk(const int32_t* dtbl, int c0, int e0,
+                                     int e1, const int32_t* src, int lds,
+                                     int r, int& best, int& ord) {
 #pragma unroll 1
   for (int e = e0; e < e1; e += 2) {
     int2 ps[2];
     int c[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      ps[j] = pair<kStaged>(s, dtbl, c0, plo, min(e + j, e1 - 1));
+      ps[j] = pair<false>(nullptr, dtbl, c0, 0, min(e + j, e1 - 1));
       const int rs = r - (ps[j].x & 3);
       // the source lane, clamped so that a table outside its contract
       // cannot read outside the state
@@ -169,13 +170,13 @@ __device__ __forceinline__ void mark(const int2* s, const int32_t* dtbl,
   }
 }
 
-// The slice's cells: thread (r, d) for ranges of at most LONG pairs, then
-// a warp per (long range, row).
-template <bool kStaged>
+// The cells of a slice of more than CAND pairs, walked from the table:
+// thread (r, d) for ranges of at most LONG pairs, then a warp per (long
+// range, row).
 __device__ __forceinline__ void walk_slice(
-    const int2* s, const int32_t* dtbl, int c0, int plo, int d_lo, int nd,
-    int R1, int stamp, const int* first, const int* end, const int* stamps,
-    const int32_t* src, int lds, int32_t* dstV, int32_t* bpt, int lanes) {
+    const int32_t* dtbl, int c0, int d_lo, int nd, int R1, int stamp,
+    const int* first, const int* end, const int* stamps, const int32_t* src,
+    int lds, int32_t* dstV, int32_t* bpt, int lanes) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   for (int c = tid; c < nd * R1; c += THREADS) {
     const int r = c / nd, dl = c - r * nd;
@@ -183,7 +184,7 @@ __device__ __forceinline__ void walk_slice(
     const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
     if (e1 - e0 > LONG) continue;
     int best = NONE, ord = 0;
-    walk<kStaged>(s, dtbl, c0, plo, e0, e1, src, lds, r, best, ord);
+    walk(dtbl, c0, e0, e1, src, lds, r, best, ord);
     commit(dstV, bpt, (size_t)r * lanes + d_lo + dl, best, ord);
   }
   // every warp lists the long ranges and takes tasks (range, row) q with
@@ -203,7 +204,7 @@ __device__ __forceinline__ void walk_slice(
       for (int r = 0; r < R1; ++r, ++q) {
         if ((q & 31) != warp) continue;
         int best = NONE, ord = 0;
-        walk<kStaged>(s, dtbl, c0, plo, a0, a1, src, lds, r, best, ord);
+        walk(dtbl, c0, a0, a1, src, lds, r, best, ord);
         dg::Key k = best == NONE ? 0 : dg::make_key(best, ord);
 #pragma unroll
         for (int o = 16; o; o >>= 1) {
@@ -428,8 +429,8 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
     } else {  // a slice of more than CAND pairs: walks from the table
       mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
       __syncthreads();  // ranges marked
-      walk_slice<false>(s, dtbl, D.x, plo, d_lo, nd, R1, stamp, first, end,
-                        stamps, src, lds, dstV, bpt, lanes);
+      walk_slice(dtbl, D.x, d_lo, nd, R1, stamp, first, end, stamps, src,
+                 lds, dstV, bpt, lanes);
     }
     grid.sync();  // buffer (t + 1) & 1 complete before t + 1 reads it
 
