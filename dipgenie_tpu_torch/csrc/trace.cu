@@ -11,7 +11,7 @@
 // bp word. Read from global memory each is a miss: MHC-scale plans hold ~8
 // GB of backpointers, far past the 50 MB L2 (the kernel this one replaced,
 // one thread reading a host-built descriptor row, its bp word and its table
-// word from global memory, took 147 ms for C's 119,999 transitions, 1.2 us
+// word from global memory, took 145 ms for C's 119,999 transitions, 1.2 us
 // each). The bytes the walk needs (~90 B a transition) take microseconds.
 // The design takes the misses out of the chain; what is left is the
 // walker's own instructions, one dependent chain in one thread.
@@ -52,10 +52,10 @@
 //   by 256. Only a walk from an unreachable sink needs them.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's whole
-// plan in 25.6 ms (the launch alone) against the replaced kernel's 146.8 ms
-// in the same run; the narrow transitions take ~420 SM cycles each, all
+// plan in 25.47 ms (the launch alone) against the replaced kernel's 145.38
+// ms in the same run; the narrow transitions take ~420 SM cycles each, all
 // reads from shared memory (the walker's instructions), the dense ones
-// ~0.75 us (two L2 reads). Only tables staged, bp words from L2: 41.9 ms.
+// ~0.75 us (two L2 reads). Only tables staged, bp words from L2: 41.38 ms.
 #include "dg_common.cuh"
 
 namespace {

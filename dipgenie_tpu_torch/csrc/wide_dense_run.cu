@@ -21,7 +21,7 @@
 // so the cost is one transition's latency across the grid: a grid-wide
 // barrier, one round of L2 loads, shared-memory reductions, and the
 // slowest block. The kernel it replaced took two launches a transition and
-// max-reduced 64-bit keys with L2 atomics (12.5 us a transition on C).
+// max-reduced 64-bit keys with L2 atomics (12.0 us a transition on C).
 //
 // Design: ONE cooperative launch a run, K2_SLICES (128) blocks of 1,024
 // threads, co-resident (where they cannot be, the launch is refused and
@@ -65,8 +65,8 @@
 // * Backpointers start zeroed; only ordinals that are not 0 are written.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's wide runs
-// 0.0250 s of the forward in `dp-stages` (6.4 us a transition) against the
-// replaced kernel's 0.0488 s in the same run; a transition is ~1.3 us of
+// 0.0254 s of the forward in `dp-stages` (6.5 us a transition) against the
+// replaced kernel's 0.0468 s in the same run; a transition is ~1.3 us of
 // grid barrier after the last block, ~1.5 us of candidates and ~1.5 us of
 // reductions in the mean block, the slowest block up to 2-3 us later.
 #include <climits>
