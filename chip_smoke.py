@@ -34,9 +34,8 @@ result line):
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
      graph, wide levels 33-96): launch counts of the main path, forward
      and traceback times, states/s and peak memory, equality with the
-     native C++ tier, K-T on the whole plan under both staging options
-     (trace() and the launch alone by CUDA events, the host part by the
-     host clock), and K1's, K2's and K-T's times beside their plain
+     native C++ tier, K-T on the whole plan (trace() and the launch alone
+     by CUDA events, the host part by the host clock), and K1's, K2's and K-T's times beside their plain
      versions' and their bounds on a plan prefix; the DP stage probe on
      the same plan, and K1's time per transition beside phase G's floors;
   E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
@@ -198,13 +197,11 @@ TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
 # K1's us per narrow transition on phase C's prefix before its redesign (the
 # kernel it replaced, timed beside it on the same card: PERF.md section 6)
 K1_BEFORE_US = 4.7145
-# K-T's two staging options timed on the whole plans of phases C and E
-# (ops/trace.py): the narrow backpointer rows staged in shared memory with
-# the tables (the default), or only the tables, every bp word read from
-# global memory after an L2 prefetch
-TRACE_OPTIONS = {"staged": dict(stage_bp=True), "l2": dict(stage_bp=False)}
 REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
               "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
+# the pairs of a slice K2 stages in shared memory (csrc/wide_dense_run.cu
+# STAGE); a larger slice reads its words from the table
+K2_STAGE = 2560
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
 
@@ -229,8 +226,7 @@ def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
 def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     """(bytes, operations) of one run: each table byte it needs read once
     (K1: the real pairs' words and one descriptor a transition; K2 / K3:
-    its real chunks, with wwin and wbase for K3, and K2's slices), V in and
-    out once, each
+    its real chunks, with wwin and wbase for K3), V in and out once, each
     backpointer byte written once; an add and a max per (real pair, row it
     reaches)."""
     import numpy as np
@@ -245,9 +241,31 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     else:
         tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
                                              else 0))
-    if seg.kind == "wide":  # K2's slices (ops/plan.py wide_slices)
-        tables += 4 * seg.dense_slices.numel()
     return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
+
+
+def k2_slices(dplan) -> str:
+    """K2's grid, slices a block and its largest slice in pairs on a
+    plan's dense wide runs, and how many slices read their words from the
+    table (more than STAGE, csrc/wide_dense_run.cu): "" without such runs."""
+    import numpy as np
+
+    segs = [s for s in dplan.segments if s.kind == "wide"]
+    if not segs:
+        return ""
+    most, unstaged = 0, 0
+    for seg in segs:
+        desc = seg.t["k2_desc"].cpu().numpy()
+        cuts = seg.t["k2_cuts"].cpu().numpy().astype(np.int64)
+        for ti, (c0, n) in enumerate(desc):
+            words = seg.host.dtbl[c0:c0 + -(-n // 256), 0].ravel()[:n]
+            pairs = np.diff(np.searchsorted((words >> 2) & 32767, cuts[ti]))
+            most = max(most, int(pairs.max()))
+            unstaged += int((pairs > K2_STAGE).sum())
+    return (f"; K2 grid {segs[0].k2_grid} blocks, "
+            f"{max(s.k2_per_block for s in segs)} slice(s) a block, the "
+            f"largest slice {most} pairs, {unstaged} slices over "
+            f"{K2_STAGE} pairs (read from the table)")
 
 
 class Smoke:
@@ -886,7 +904,7 @@ class Smoke:
         log(f"{tag} plan {plan_s:.3f}s ({kinds.count('narrow')} narrow, "
             f"{kinds.count('wide')} wide runs of <= 18 windows, "
             f"{kinds.count('wide_split')} of more, NB <= {max(nbs)}); "
-            f"ship {ship_s:.3f}s")
+            f"ship {ship_s:.3f}s" + k2_slices(dplan))
         dp = PairDiploidDP(dplan, DEVICE)
         # two warm passes: the card idled through the host planner, and the
         # first pass runs while its clocks come back up
@@ -928,24 +946,21 @@ class Smoke:
         return plan, dplan, got
 
     def time_trace_full(self, tag, dplan, bps, want):
-        """K-T on the whole plan's backpointers, each staging option of
-        TRACE_OPTIONS in turns (A B B A), by CUDA events around trace() and
-        around its one launch; the host part (the per-segment address rows)
-        by the host clock on a line of its own. Every result equals the
-        counted pass's records."""
+        """K-T on the whole plan's backpointers, three times, by CUDA
+        events around trace() and around its one launch; the host part (the
+        per-segment address rows) by the host clock on a line of its own.
+        Every result equals the counted pass's records."""
         from dipgenie_tpu_torch.ops import trace
 
-        times = {k: {"window": [], "launch": []} for k in TRACE_OPTIONS}
-        for name in (*TRACE_OPTIONS, *reversed(TRACE_OPTIONS)):
+        times = {"window": [], "launch": []}
+        for _ in range(3):
             with self.launch_events("dg_trace") as pairs:
-                ms, recs = self.timed(
-                    lambda: trace.trace(dplan, bps, **TRACE_OPTIONS[name]))
+                ms, recs = self.timed(lambda: trace.trace(dplan, bps))
             check(len(pairs) == 1, f"{tag} trace: {len(pairs)} launches")
             check(bool(self.torch.equal(recs, want)),
-                  f"{tag} trace ({name}) differs from the counted pass")
-            times[name]["window"].append(ms)
-            times[name]["launch"].append(
-                pairs[0][0].elapsed_time(pairs[0][1]))
+                  f"{tag} trace differs from the counted pass")
+            times["window"].append(ms)
+            times["launch"].append(pairs[0][0].elapsed_time(pairs[0][1]))
         host = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -955,12 +970,11 @@ class Smoke:
         log(f"{tag} K-T host part (one address row per segment, "
             f"{len(dplan.segments)} rows): {min(host):.4f} ms (host clock; "
             f"all {[round(x, 4) for x in host]})")
-        for name, t in times.items():
-            log(f"{tag} K-T on the whole plan ({dplan.L - 1} transitions), "
-                f"{name}: trace() {min(t['window']):.4f} ms, the launch alone "
-                f"{min(t['launch']):.4f} ms (CUDA events; all "
-                f"{[round(x, 4) for x in t['window']]} / "
-                f"{[round(x, 4) for x in t['launch']]})")
+        log(f"{tag} K-T on the whole plan ({dplan.L - 1} transitions): "
+            f"trace() {min(times['window']):.4f} ms, the launch alone "
+            f"{min(times['launch']):.4f} ms (CUDA events; all "
+            f"{[round(x, 4) for x in times['window']]} / "
+            f"{[round(x, 4) for x in times['launch']]})")
         self.trace_full[tag] = times
 
     def profile_forward(self, tag, dp):
@@ -1204,7 +1218,8 @@ class Smoke:
             f"transitions, NB 31): K3 {times['K3']} ms, K2 {times['K2']} ms "
             "(CUDA events, one host call per run), device K3 "
             f"{dev_ms['K3']:.3f} ms, K2 {dev_ms['K2']:.3f} ms (profiler); V "
-            "of every run and the whole DP's V and traceback records equal")
+            "of every run and the whole DP's V and traceback records equal"
+            + k2_slices(dplan2))
         log(f"E phase {time.time() - t_phase:.1f}s")
 
     # ---------------- phase F ----------------

@@ -20,7 +20,7 @@
 // * The descriptors were made with the plan (ops/plan.py trace_columns: 8
 //   int32 a transition); the launch gets one row of addresses per segment
 //   (its bp arrays, chunk table, w1, symd).
-// * Ring. Shared memory holds RING bytes cut into slots of `slot` bytes,
+// * Ring. Shared memory holds RING bytes cut into slots of SLOT bytes,
 //   one transition each in walk order (t descending), with a Meta record
 //   each and an mbarrier for each BATCH slots. Warp 1 is the producer: its
 //   BATCH lanes take BATCH transitions at a time (one each, descriptors
@@ -29,15 +29,14 @@
 //   records and arrive on the batch's barrier, and issue 1-D bulk copies
 //   (cp.async.bulk) that complete on it: rows [lo, hi] of the
 //   transition's bp block, hi the walker's current r (published in shared
-//   memory; r only falls) and lo = hi - band (a walk whose r falls further
+//   memory; r only falls) and lo = hi - BAND (a walk whose r falls further
 //   before it gets there reads global memory), and row 0 of each of its
-//   real table chunks. What does not fit the slot (or, with stage_bp 0,
-//   every bp block) takes the L2 path: the producer issues
-//   cp.async.bulk.prefetch.L2 for the same rows (of every bp row the
-//   transition's lanes can fall in) or chunks, and the walker reads its
-//   word from global memory. The choice is by size: on C the narrow blocks
-//   are staged and the dense wide blocks ([R+1, NB * 1024] int32) take the
-//   L2 path.
+//   real table chunks. What does not fit the slot takes the L2 path: the
+//   producer issues cp.async.bulk.prefetch.L2 for the same rows (of every
+//   bp row the transition's lanes can fall in) or chunks, and the walker
+//   reads its word from global memory. The choice is by size: on C the
+//   narrow blocks are staged and the dense wide blocks ([R+1, NB * 1024]
+//   int32) take the L2 path.
 // * The walker (thread 0) reads its bp word and its packed table word from
 //   the slot, the next slot's Meta record (and once a batch its barrier)
 //   while the bp word is in flight, and hands {lane, packed, ordinal} to
@@ -55,7 +54,8 @@
 // plan in 25.47 ms (the launch alone) against the replaced kernel's 145.38
 // ms in the same run; the narrow transitions take ~420 SM cycles each, all
 // reads from shared memory (the walker's instructions), the dense ones
-// ~0.75 us (two L2 reads). Only tables staged, bp words from L2: 41.38 ms.
+// ~0.75 us (two L2 reads). The design that staged only the tables and read
+// every bp word after an L2 prefetch took 41.38 ms in the same run.
 #include "dg_common.cuh"
 
 namespace {
@@ -69,8 +69,12 @@ enum { B_BP0, B_BP1, B_TBL, B_W1, B_SY, NBASE = 6 };
 
 constexpr int THREADS = 96;   // walker, producer, recorder
 constexpr int RING = 196608;  // staging bytes
-constexpr int MAX_SLOTS = 64;
+constexpr int SLOT = 6144;    // ring bytes a transition
+// bp rows staged below the walk's current r: r falls by at most 2 a
+// transition and, on the MHC-scale plans, at most R times in all
+constexpr int BAND = 2;
 constexpr int BATCH = 8;      // transitions the producer takes at a time
+constexpr int NSLOT = RING / SLOT / BATCH * BATCH;  // 32
 constexpr int UNIT = 64;      // records a bulk store carries
 constexpr int UNIT_BYTES = UNIT * 7 * 4;
 constexpr int RAW_UNITS = 4;  // units of raw records the walker runs ahead
@@ -94,8 +98,8 @@ struct __align__(16) Meta {
 };
 
 struct Smem {
-  Meta meta[MAX_SLOTS];
-  unsigned long long bar[MAX_SLOTS / BATCH];  // one a batch of slots
+  Meta meta[NSLOT];
+  unsigned long long bar[NSLOT / BATCH];  // one a batch of slots
   int4 raw[RAW_UNITS * UNIT];  // {lane, packed, slot, -} a transition
   int32_t recs[2][UNIT * 7];
   volatile int done;      // transitions the walker has finished
@@ -165,13 +169,12 @@ __device__ __forceinline__ void arrive(unsigned long long* bar, uint32_t tx) {
                : "memory");
 }
 
-__device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
-                                      int nslot, int i, const int4 (&d)[2],
+__device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int i,
+                                      const int4 (&d)[2],
                                       const long long (&b)[NBASE], int R1,
-                                      int rnow, int band, bool stage_bp,
-                                      unsigned long long* bar) {
-  const int si = i % nslot;
-  unsigned char* sp = ring + (size_t)si * slot;
+                                      int rnow, unsigned long long* bar) {
+  const int si = i % NSLOT;
+  unsigned char* sp = ring + (size_t)si * SLOT;
   const int lanes = col_of(d, C_LANES), flags = col_of(d, C_FLAGS);
   const int rows = col_of(d, C_ROWS), bout = col_of(d, C_BINS) >> 16;
   const int nch = col_of(d, C_NCH);
@@ -183,14 +186,14 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
       (const int32_t*)b[B_TBL] + (size_t)col_of(d, C_CB) * 2 * CHUNK;
 
   const int hi = min(max(rnow, 0), R1 - 1);
-  const int lo = max(hi - band, 0);
+  const int lo = max(hi - BAND, 0);
   // the bp rows of the array the transition's lanes [0, bout^2) fall in
   const int nwin = rowstep ? min((bout * bout + lanes - 1) / lanes, rows) : 1;
   const uint32_t bpbytes = (uint32_t)((hi - lo + 1) * rowbytes);
-  const bool sbp = stage_bp && nwin == 1 && bpbytes <= (uint32_t)slot &&
-                   aligned16(bpa);
+  const bool sbp = nwin == 1 && bpbytes <= (uint32_t)SLOT && aligned16(bpa);
   const uint32_t bpst = sbp ? bpbytes : 0;
-  const bool stbl = nch > 0 && bpst + (uint32_t)nch * CHUNK * 4 <= (uint32_t)slot &&
+  const bool stbl = nch > 0 &&
+                    bpst + (uint32_t)nch * CHUNK * 4 <= (uint32_t)SLOT &&
                     aligned16(tbl);
   const int nst = stbl ? nch : 0;
 
@@ -223,8 +226,7 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring, int slot,
 
 // The producer (lanes 0 .. BATCH - 1 of warp 1).
 __device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
-                        const long long* base, int T, int R1, int band,
-                        bool stage_bp, int slot, int nslot, int lane) {
+                        const long long* base, int T, int R1, int lane) {
   int4 d[2], dn[2];
   long long b[NBASE] = {};
   int seg = -1;
@@ -242,14 +244,14 @@ __device__ void produce(Smem& s, unsigned char* ring, const int4* desc,
         b[k] = __ldg(base + (size_t)seg * NBASE + k);
     }
     // the batch's slots are free once the walker has finished the
-    // transitions nslot before them
-    const int need = min(i0 + BATCH, T) - nslot;
+    // transitions NSLOT before them
+    const int need = min(i0 + BATCH, T) - NSLOT;
     while (s.done < need) __nanosleep(SPIN_NS);
     const int rnow = s.r;
     // the batch's barrier takes one arrival from each of the BATCH lanes
-    unsigned long long* bar = &s.bar[(i0 / BATCH) % (nslot / BATCH)];
+    unsigned long long* bar = &s.bar[(i0 / BATCH) % (NSLOT / BATCH)];
     if (on)
-      stage(s, ring, slot, nslot, i, d, b, R1, rnow, band, stage_bp, bar);
+      stage(s, ring, i, d, b, R1, rnow, bar);
     else
       arrive(bar, 0);
   }
@@ -310,18 +312,16 @@ __device__ void record(Smem& s, const int4* desc, const long long* base,
 
 __global__ void __launch_bounds__(THREADS, 1)
 trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
-             int T, int R, int band, int stage_bp, int slot,
-             int32_t* recs) {
+             int T, int R, int32_t* recs) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ring = smem;
   Smem& s = *reinterpret_cast<Smem*>(smem + RING);
-  const int nslot = min(RING / slot, MAX_SLOTS) / BATCH * BATCH;
   const int R1 = R + 1;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int top = (T - 1) / UNIT;
 
   if (tid == 0) {
-    for (int k = 0; k < nslot / BATCH; ++k)
+    for (int k = 0; k < NSLOT / BATCH; ++k)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
                        smem_addr(&s.bar[k])),
                    "r"(BATCH)
@@ -335,8 +335,7 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
 
   if (warp == 1) {
     if (lane < BATCH)
-      produce(s, ring, desc, base, T, R1, band, stage_bp != 0, slot, nslot,
-              lane);
+      produce(s, ring, desc, base, T, R1, lane);
     return;
   }
   if (warp == 2) {
@@ -360,7 +359,7 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
       while (s.rec_low > t / UNIT + RAW_UNITS) {
       }
     }
-    const unsigned char* sp = ring + (size_t)si * slot;
+    const unsigned char* sp = ring + (size_t)si * SLOT;
     int rowoff = 0, col;
     if (m.flags & F_ROWSTEP) {
       rowoff = dl / m.lanes;
@@ -382,7 +381,7 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
     }
     int sn = si + 1;
     uint32_t pn = parity;
-    if (sn == nslot) {
+    if (sn == NSLOT) {
       sn = 0;
       pn ^= 1;
     }
@@ -417,20 +416,14 @@ trace_kernel(const int4* __restrict__ desc, const long long* __restrict__ base,
 }  // namespace
 
 // desc [T, 8] int32 (DevPlan.desc), base [segments, 6] int64 (trace.py
-// bases); recs [ceil(T / 64) * 64, 7] int32. band: bp rows staged below r;
-// stage_bp 0: every bp word read from global memory after an L2 prefetch;
-// slot: ring bytes a transition, a multiple of 16, at most 12 KB (the ring
-// keeps at least 16 transitions).
+// bases); recs [ceil(T / 64) * 64, 7] int32.
 extern "C" int dg_trace(const int4* desc, const long long* base, int T, int R,
-                        int band, int stage_bp, int slot, int32_t* recs,
-                        cudaStream_t stream) {
+                        int32_t* recs, cudaStream_t stream) {
   if (T <= 0) return 0;
-  if (slot < 16 || slot % 16 || slot > RING / (2 * BATCH) || band < 0 || R < 0)
-    return (int)cudaErrorInvalidValue;
+  if (R < 0) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  trace_kernel<<<1, THREADS, SMEM_BYTES, stream>>>(desc, base, T, R, band,
-                                                   stage_bp, slot, recs);
+  trace_kernel<<<1, THREADS, SMEM_BYTES, stream>>>(desc, base, T, R, recs);
   return (int)cudaGetLastError();
 }

@@ -23,34 +23,39 @@
 // slowest block. The kernel it replaced took two launches a transition and
 // max-reduced 64-bit keys with L2 atomics (12.0 us a transition on C).
 //
-// Design: ONE cooperative launch a run, K2_SLICES (128) blocks of 1,024
-// threads, co-resident (where they cannot be, the launch is refused and
-// the wrapper raises), a grid-wide barrier between transitions.
+// Design: ONE cooperative launch a run, of as many blocks of 1,024 threads
+// as the card holds at once (the occupancy API: one an SM, 132 on an H100
+// SXM; dg_wide_dense_grid, which plan_to_device asks), co-resident (where
+// they cannot be, the launch is refused and the wrapper raises), a
+// grid-wide barrier between transitions.
 // * State. V is double-buffered in global memory, [2, R+1, NB * 1024]
 //   (1.4 MB a buffer at NB 18, 2.4 MB at NB 31: both stay in L2);
 //   transition t reads buffer t & 1 (V_in itself at t = 0) and writes
 //   buffer (t + 1) & 1, so no block reads what another is writing. Reads of
 //   V bypass L1 (ld.global.cg): other SMs wrote them.
 // * Slices, no atomics. plan_to_device cuts each transition's written lanes
-//   [0, W) into K2_SLICES contiguous slices of about equal work (a lane and
-//   its pairs; ops/plan.py wide_slices) and records each slice's first lane
-//   and first pair: the planner sorts a transition's pairs by destination,
-//   so a slice's pairs are one range and so are each destination's. Slices
-//   of equal width left a band end's pairs on 15 blocks, which then took
-//   130-200 us; a width cap of 256 lanes made phase E's band ends (40k+
-//   pairs on fewer than 1,024 of ~24k written lanes) merge 14 heavy
-//   destinations into one slice, hence MAX_W = 1024. Block k owns slice k
-//   on every row. W covers this
-//   transition's destination extent and that of the one two before it, the
-//   last to write the same buffer (the whole state for the first two), so
-//   lanes past it hold NEG from an earlier write, as the plain version's
-//   full rewrite leaves them.
+//   [0, W) into G * m contiguous slices of about equal work (a lane and its
+//   pairs; ops/plan.py wide_slices), m the fewest a block that keep a slice
+//   within MAX_W lanes and CAND pairs (1 on the H100 for every plan
+//   measured); block b takes slices b, G + b, ... of every transition, on
+//   every row. The planner sorts a transition's pairs by destination, so a
+//   slice's pairs are one range and so are each destination's. Only the
+//   slices' first lanes are shipped (int16); a block finds its ranges' ends
+//   by searching the sorted words, 16 probes a round by a half-warp, for
+//   KCACHE slices at a time. Slices of equal width left a band end's pairs
+//   on 15 blocks, which then took 130-200 us; a width cap of 256 lanes made
+//   phase E's band ends (40k+ pairs on fewer than 1,024 of ~24k written
+//   lanes) merge 14 heavy destinations into one slice, hence MAX_W = 1024.
+//   W covers this transition's destination extent and that of the one two
+//   before it, the last to write the same buffer (the whole state for the
+//   first two), so lanes past it hold NEG from an earlier write, as the
+//   plain version's full rewrite leaves them.
 // * Candidates, then reductions. A boundary pass over the slice's pairs
-//   marks each destination's range (first, end, a stamp of the transition)
-//   in shared memory while every thread computes candidates V[r - wsum,
-//   gidx] + score of (pair, row) into shared memory (CAND values: all rows
-//   at once but for the heaviest slices, which take a few passes), so all
-//   of the block's loads of V are in flight together: a walk per cell had
+//   marks each destination's range (first, end, a stamp of the slice) in
+//   shared memory while every thread computes candidates V[r - wsum, gidx]
+//   + score of (pair, row) into shared memory (CAND values: all rows at
+//   once but for the heaviest slices, which take a few passes), so all of
+//   the block's loads of V are in flight together: a walk per cell had
 //   each step wait for an L2 round trip. Thread (r, d) then takes the first
 //   maximum of d's candidates (strict >) with its ordinal, the winner of
 //   the 64-bit key; a range of more than LONG pairs is reduced by a warp,
@@ -58,10 +63,9 @@
 //   dg_common.cuh (value, then the smaller ordinal), so the tie rule holds.
 //   Unreached lanes commit NEG with ordinal 0; a winner at a value <=
 //   REACH_T commits NEG and keeps its ordinal.
-// * Staging. The slice's {packed, score} words of transition t + 1 reach
-//   the other of two shared-memory buffers by cp.async while t runs; a
-//   slice of more than STAGE pairs reads them from the table, and one of
-//   more than CAND pairs walks each cell's range from the table.
+// * Staging. The {packed, score} words of the block's next slice reach the
+//   other of two shared-memory buffers by cp.async while this one runs; a
+//   slice of more than STAGE pairs reads them from the table.
 // * Backpointers start zeroed; only ordinals that are not 0 are written.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's wide runs
@@ -84,11 +88,19 @@ using dg::REACH_T;
 
 constexpr int THREADS = 1024;
 constexpr int STAGE = 2560;  // pairs of a slice staged in shared memory
-constexpr int CAND = 44032;  // candidate values a block holds at once
+// candidate values a block holds at once, the most pairs of a slice
+// (ops/plan.py K2_SLICE_PAIRS)
+constexpr int CAND = 44032;
 constexpr int MAX_W = 1024;  // lanes of a slice (ops/plan.py K2_SLICE_LANES)
 constexpr int LONG = 32;     // a longer range is reduced by a warp
 constexpr int NONE = INT_MIN;  // no valid candidate
-constexpr int SMEM_BYTES = 2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4;
+// slices whose ranges a block holds: those of CH + 1 transitions, CH =
+// KCACHE / m - 1 (m <= ops/plan.py K2_PER_BLOCK_MAX), one half-warp search
+// for each end
+constexpr int KCACHE = THREADS / 32;
+constexpr int MAX_PER_BLOCK = KCACHE / 2;
+constexpr int SMEM_BYTES =
+    2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4 + KCACHE * (16 + 4);
 
 __device__ __forceinline__ const int32_t* word(const int32_t* dtbl, int c0,
                                                 int p) {
@@ -108,36 +120,6 @@ __device__ __forceinline__ int2 pair(const int2* s, const int32_t* dtbl,
   } else {
     const int32_t* w = word(dtbl, c0, p);
     return make_int2(w[0], w[CHUNK]);
-  }
-}
-
-// The first maximum over pairs [e0, e1) on row r, read from the table:
-// value (NONE if no candidate is valid) and ordinal. Two pairs a step,
-// their loads of V issued together.
-__device__ __forceinline__ void walk(const int32_t* dtbl, int c0, int e0,
-                                     int e1, const int32_t* src, int lds,
-                                     int r, int& best, int& ord) {
-#pragma unroll 1
-  for (int e = e0; e < e1; e += 2) {
-    int2 ps[2];
-    int c[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      ps[j] = pair<false>(nullptr, dtbl, c0, 0, min(e + j, e1 - 1));
-      const int rs = r - (ps[j].x & 3);
-      // the source lane, clamped so that a table outside its contract
-      // cannot read outside the state
-      const int g = min((ps[j].x >> 17) & 32767, lds - 1);
-      c[j] = rs >= 0 ? __ldcg(src + (size_t)rs * lds + g) : NEG;
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int v = c[j] + ps[j].y;
-      if (e + j < e1 && c[j] >= REACH_T && v > best) {
-        best = v;
-        ord = e + j;
-      }
-    }
   }
 }
 
@@ -167,58 +149,6 @@ __device__ __forceinline__ void mark(const int2* s, const int32_t* dtbl,
       stamps[dc] = stamp;
     }
     if (dc != dn) end[dc] = p + 1;
-  }
-}
-
-// The cells of a slice of more than CAND pairs, walked from the table:
-// thread (r, d) for ranges of at most LONG pairs, then a warp per (long
-// range, row).
-__device__ __forceinline__ void walk_slice(
-    const int32_t* dtbl, int c0, int d_lo, int nd, int R1, int stamp,
-    const int* first, const int* end, const int* stamps, const int32_t* src,
-    int lds, int32_t* dstV, int32_t* bpt, int lanes) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int c = tid; c < nd * R1; c += THREADS) {
-    const int r = c / nd, dl = c - r * nd;
-    const bool has = stamps[dl] == stamp;
-    const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
-    if (e1 - e0 > LONG) continue;
-    int best = NONE, ord = 0;
-    walk(dtbl, c0, e0, e1, src, lds, r, best, ord);
-    commit(dstV, bpt, (size_t)r * lanes + d_lo + dl, best, ord);
-  }
-  // every warp lists the long ranges and takes tasks (range, row) q with
-  // q % 32 == warp
-  int q = 0;
-  for (int b = 0; b < nd; b += 32) {
-    const int dl = b + lane;
-    const bool is_long = dl < nd && stamps[dl] == stamp &&
-                         end[dl] - first[dl] > LONG;
-    unsigned m = __ballot_sync(0xffffffffu, is_long);
-    while (m) {
-      const int dj = b + __ffs(m) - 1;
-      m &= m - 1;
-      const int e0 = first[dj], e1 = end[dj], n = e1 - e0;
-      const int per = (n + 31) >> 5;
-      const int a0 = min(e0 + lane * per, e1), a1 = min(a0 + per, e1);
-      for (int r = 0; r < R1; ++r, ++q) {
-        if ((q & 31) != warp) continue;
-        int best = NONE, ord = 0;
-        walk(dtbl, c0, a0, a1, src, lds, r, best, ord);
-        dg::Key k = best == NONE ? 0 : dg::make_key(best, ord);
-#pragma unroll
-        for (int o = 16; o; o >>= 1) {
-          const dg::Key x = __shfl_xor_sync(0xffffffffu, k, o);
-          k = x > k ? x : k;
-        }
-        if (lane == 0) {
-          const size_t at = (size_t)r * lanes + d_lo + dj;
-          dstV[at] = dg::key_value(k);
-          const int o = dg::key_ordinal(k);
-          if (o != 0) bpt[at] = o;
-        }
-      }
-    }
   }
 }
 
@@ -330,17 +260,54 @@ __device__ __forceinline__ void reduce_cells(
   }
 }
 
-// Transition t's row of the slices table: {first chunk, pairs, W, 0}.
-__device__ __forceinline__ int4 desc_of(const int32_t* tab, int cols, int t) {
-  return __ldg(reinterpret_cast<const int4*>(tab + (size_t)t * cols));
+// The first of pairs [0, n) (their destinations sorted) whose destination
+// is at least `cut`, or n: a search by the half-warp `mask` (hl its lane
+// 0..15), 16 probes a round.
+__device__ __forceinline__ int lower_bound16(const int32_t* dtbl, int c0,
+                                             int n, int cut, int hl,
+                                             unsigned mask, int shift) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 15) >> 4;
+    const int q = lo + hl * step;
+    const bool ge = q < hi && dst_of(__ldg(word(dtbl, c0, q))) >= cut;
+    const unsigned b = (__ballot_sync(mask, ge) & mask) >> shift;
+    if (b) {  // the answer is in (the probe before the first true, it]
+      const int j = __ffs(b) - 1;
+      hi = lo + j * step;
+      lo = j ? lo + (j - 1) * step + 1 : lo;
+    } else {  // past the last probe that lies below hi
+      lo += min(15, (hi - 1 - lo) / step) * step + 1;
+    }
+  }
+  return lo;
 }
 
-// Slice k of transition t: {first lane, end lane, first pair, end pair}.
-__device__ __forceinline__ int4 slice_of(const int32_t* tab, int cols, int S,
-                                         int t, int k) {
-  const int32_t* c = tab + (size_t)t * cols + 4 + k;
-  return make_int4(__ldg(c), __ldg(c + 1), __ldg(c + S + 1),
-                   __ldg(c + S + 2));
+// The ranges of the block's slices of transitions [t, t + nt): entry
+// (tt * m + j) = {first lane, end lane, first pair, end pair} of slice j *
+// G + blockIdx.x of transition t + tt, and c0s[tt] its first chunk. Each
+// half-warp searches one end of one slice.
+__device__ __forceinline__ void find_ranges(const int32_t* dtbl,
+                                            const int2* desc,
+                                            const int16_t* cuts, int S,
+                                            int G, int m, int t, int nt,
+                                            int4* rng, int* c0s) {
+  const int h = threadIdx.x >> 4, hl = threadIdx.x & 15;
+  const int shift = (threadIdx.x & 16);
+  const unsigned mask = 0xFFFFu << shift;
+  if (h >= 2 * nt * m) return;
+  const int e = h >> 1, side = h & 1;
+  const int tt = e / m, j = e - tt * m;
+  const int2 d = __ldg(desc + t + tt);  // {first chunk, real pairs}
+  const int cut = __ldg(cuts + (size_t)(t + tt) * (S + 1) + j * G +
+                        blockIdx.x + side);
+  const int p = lower_bound16(dtbl, d.x, d.y, cut, hl, mask, shift);
+  if (hl == 0) {
+    int* r = reinterpret_cast<int*>(rng + e);
+    r[side] = cut;
+    r[2 + side] = p;
+    if (e == tt * m && side == 0) c0s[tt] = d.x;
+  }
 }
 
 // Issue cp.async copies of the slice's words [plo, phi) into s (no wait).
@@ -361,8 +328,9 @@ __device__ __forceinline__ void stage(const int32_t* dtbl, int c0, int plo,
 
 __global__ void __launch_bounds__(THREADS, 1)
 wide_dense_kernel(const int32_t* __restrict__ dtbl,
-                  const int32_t* __restrict__ tab, int T, int R1, int lanes,
-                  int S, int cols, const int32_t* __restrict__ v_in, int32_t* V,
+                  const int2* __restrict__ desc,
+                  const int16_t* __restrict__ cuts, int T, int R1, int lanes,
+                  int m, const int32_t* __restrict__ v_in, int32_t* V,
                   int32_t* __restrict__ bp) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_pair = reinterpret_cast<int2*>(smem);
@@ -370,39 +338,48 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
   int* first = cand + CAND;
   int* end = first + MAX_W;
   int* stamps = end + MAX_W;
+  int4* rng = reinterpret_cast<int4*>(stamps + MAX_W);
+  int* c0s = reinterpret_cast<int*>(rng + KCACHE);
   cg::grid_group grid = cg::this_grid();
-  const int k = blockIdx.x;
+  const int G = gridDim.x, S = G * m, N = T * m;
+  const int CH = KCACHE / m - 1;  // transitions between two searches
   for (int i = threadIdx.x; i < MAX_W; i += THREADS) stamps[i] = 0;
 
-  // transition t's descriptor {first chunk, pairs, W, 0} and the slice
-  // {first lane, end lane, first pair, end pair}, and the same of t + 1
-  int4 D = desc_of(tab, cols, 0), C = slice_of(tab, cols, S, 0, k);
-  int4 D1 = make_int4(0, 0, 0, 0), C1 = make_int4(0, 0, 0, 0);
-  if (T > 1) {
-    D1 = desc_of(tab, cols, 1);
-    C1 = slice_of(tab, cols, S, 1, k);
-  }
-  stage(dtbl, D.x, C.z, C.w, s_pair);
+  // the ranges of transitions [0, CH], and the words of the first slice
+  find_ranges(dtbl, desc, cuts, S, G, m, 0, min(CH + 1, T), rng, c0s);
+  __syncthreads();
+  stage(dtbl, c0s[0], rng[0].z, rng[0].w, s_pair);
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   const size_t plane = (size_t)R1 * lanes;
-  for (int t = 0; t < T; ++t) {
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncthreads();  // t's words staged, the range slots free
-    if (t + 1 < T) stage(dtbl, D1.x, C1.z, C1.w, s_pair + ((t + 1) & 1) * STAGE);
-    asm volatile("cp.async.commit_group;" ::: "memory");
-    int4 D2 = make_int4(0, 0, 0, 0), C2 = make_int4(0, 0, 0, 0);
-    if (t + 2 < T) {
-      D2 = desc_of(tab, cols, t + 2);
-      C2 = slice_of(tab, cols, S, t + 2, k);
+  int tc = 0;  // the first transition whose ranges are held
+  // item n: the block's slice j of transition t
+  for (int n = 0; n < N; ++n) {
+    const int t = n / m, j = n - t * m;
+    if (j == 0 && t > 0 && t % CH == 0) {  // after the grid barrier
+      tc = t;
+      find_ranges(dtbl, desc, cuts, S, G, m, t, min(CH + 1, T - t), rng,
+                  c0s);
     }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // n's words staged, ranges found, range slots free
+    const int e = (t - tc) * m + j;
+    if (n + 1 < N) {
+      const int4 C1 = rng[e + 1];
+      stage(dtbl, c0s[(n + 1) / m - tc], C1.z, C1.w,
+            s_pair + ((n + 1) & 1) * STAGE);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
 
+    const int4 C = rng[e];
+    const int c0 = c0s[t - tc];
     const int d_lo = C.x, nd = C.y - C.x;
     const int plo = C.z, phi = C.w;
     const int np = phi - plo;
+    if (np > CAND) __trap();  // wide_slices keeps a slice within CAND
     const bool staged = np <= STAGE;
-    const int2* s = s_pair + (t & 1) * STAGE;
-    const int stamp = t + 1;
+    const int2* s = s_pair + (n & 1) * STAGE;
+    const int stamp = n + 1;
     const int32_t* src = t == 0 ? v_in : V + (t & 1) * plane;
     const int lds = t == 0 ? 1024 : lanes;
     int32_t* dstV = V + ((t + 1) & 1) * plane;
@@ -410,52 +387,30 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
     // rows a pass of candidates holds (all R + 1 for all but the longest
     // slices)
     const int rg = np ? min(R1, CAND / np) : R1;
-    if (rg > 0) {
+    if (staged)
+      mark<true>(s, dtbl, c0, plo, phi, d_lo, stamp, first, end, stamps);
+    else
+      mark<false>(s, dtbl, c0, plo, phi, d_lo, stamp, first, end, stamps);
+    for (int g0 = 0; g0 < R1; g0 += rg) {
+      const int nr = min(rg, R1 - g0);
+      if (g0) __syncthreads();  // the last pass's candidates are read
       if (staged)
-        mark<true>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
+        candidates<true>(s, dtbl, c0, plo, np, g0, nr, src, lds, cand);
       else
-        mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
-      for (int g0 = 0; g0 < R1; g0 += rg) {
-        const int n = min(rg, R1 - g0);
-        if (g0) __syncthreads();  // the last pass's candidates are read
-        if (staged)
-          candidates<true>(s, dtbl, D.x, plo, np, g0, n, src, lds, cand);
-        else
-          candidates<false>(s, dtbl, D.x, plo, np, g0, n, src, lds, cand);
-        __syncthreads();  // ranges marked, candidates in place
-        reduce_cells(cand, np, plo, g0, n, d_lo, nd, stamp, first, end,
-                     stamps, dstV, bpt, lanes);
-      }
-    } else {  // a slice of more than CAND pairs: walks from the table
-      mark<false>(s, dtbl, D.x, plo, phi, d_lo, stamp, first, end, stamps);
-      __syncthreads();  // ranges marked
-      walk_slice(dtbl, D.x, d_lo, nd, R1, stamp, first, end, stamps, src,
-                 lds, dstV, bpt, lanes);
+        candidates<false>(s, dtbl, c0, plo, np, g0, nr, src, lds, cand);
+      __syncthreads();  // ranges marked, candidates in place
+      reduce_cells(cand, np, plo, g0, nr, d_lo, nd, stamp, first, end,
+                   stamps, dstV, bpt, lanes);
     }
-    grid.sync();  // buffer (t + 1) & 1 complete before t + 1 reads it
-
-    D = D1, C = C1;
-    D1 = D2, C1 = C2;
+    // buffer (t + 1) & 1 complete before t + 1 reads it
+    if (j == m - 1) grid.sync();
   }
 }
 
 }  // namespace
 
-// dtbl [nchunks, 2, 256]; tab [T, cols] (ops/plan.py wide_slices: per
-// transition {first chunk, pairs, W, 0}, the S + 1 slice starts in lanes,
-// then in pairs; cols a multiple of 4); v_in [R1, 1024]; V [2, R1, NB *
-// 1024] (the output state is buffer T & 1); bp [T, R1, NB * 1024] zeroed.
-// One cooperative launch of S blocks; cudaErrorCooperativeLaunchTooLarge
-// where the card cannot hold them at once.
-extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* tab,
-                                 int T, int R1, int NB, int S, int cols,
-                                 const int32_t* v_in, int32_t* V,
-                                 int32_t* bp, cudaStream_t stream) {
-  const int lanes = NB * 1024;
-  if (T < 0 || R1 < 1 || S < 1 || lanes > S * MAX_W || cols % 4 ||
-      cols < 2 * S + 6)
-    return (int)cudaErrorInvalidValue;
-  if (T == 0) return 0;
+// The blocks of K2's grid the current device holds at once.
+extern "C" int dg_wide_dense_grid(int* blocks) {
   cudaError_t e = cudaFuncSetAttribute(
       wide_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
@@ -468,11 +423,35 @@ extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* tab,
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per, wide_dense_kernel, THREADS, SMEM_BYTES)) != cudaSuccess)
     return (int)e;
-  if (per * sms < S) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&dtbl, (void*)&tab, (void*)&T,    (void*)&R1,
-                  (void*)&lanes, (void*)&S,  (void*)&cols, (void*)&v_in,
+  *blocks = sms * per;
+  return 0;
+}
+
+// dtbl [nchunks, 2, 256]; desc [T, 2] int32 {first chunk, real pairs};
+// cuts [T, G * m + 1] int16, the slices' first lanes (ops/plan.py
+// wide_slices); v_in [R1, 1024]; V [2, R1, NB * 1024] (the output state is
+// buffer T & 1); bp [T, R1, NB * 1024] zeroed. One cooperative launch of G
+// blocks, m slices each a transition; cudaErrorCooperativeLaunchTooLarge
+// where the card cannot hold them at once.
+extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* desc,
+                                 const int16_t* cuts, int T, int R1, int NB,
+                                 int G, int m, const int32_t* v_in,
+                                 int32_t* V, int32_t* bp,
+                                 cudaStream_t stream) {
+  const int lanes = NB * 1024;
+  if (T < 0 || R1 < 1 || G < 1 || m < 1 || m > MAX_PER_BLOCK ||
+      lanes > G * m * MAX_W)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0) return 0;
+  int held = 0;
+  cudaError_t e = (cudaError_t)dg_wide_dense_grid(&held);
+  if (e != cudaSuccess) return (int)e;
+  if (held < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int2* d2 = reinterpret_cast<const int2*>(desc);
+  void* args[] = {(void*)&dtbl, (void*)&d2,   (void*)&cuts, (void*)&T,
+                  (void*)&R1,   (void*)&lanes, (void*)&m,   (void*)&v_in,
                   (void*)&V,    (void*)&bp};
-  e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(S),
+  e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(G),
                                   dim3(THREADS), args, SMEM_BYTES, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -41,18 +41,20 @@ _SIGNATURES = {
     "dg_narrow_run": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # R1, lanes, shared_v: K1's dynamic shared memory
     "dg_narrow_smem_bytes": (_I, _I, _I),
-    # dtbl, slices [T, cols], T, R1, NB, S, cols, v_in, V [2, R1, NB * 1024],
-    # bp, stream
-    "dg_wide_dense_run": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # dtbl, k2_desc [T, 2], k2_cuts [T, grid * per_block + 1] int16, T, R1,
+    # NB, grid, per_block, v_in, V [2, R1, NB * 1024], bp, stream
+    "dg_wide_dense_run": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # int *blocks: K2's co-resident grid on the current device
+    "dg_wide_dense_grid": (_P,),
     # tbl, wwin, wbase, host chunk bounds [T + 1], host bp rows [T],
     # host extents [T], T, R1, NB, V, keys, bp, stream
     "dg_wide_split_run": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                           _P),
     # stbl, swin, sbase, c0, nch, R1, NB, V, keys, part, stream
     "dg_wide_step": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # desc [T, 8], bases [segments, 6], T, R, band, stage_bp, slot,
-    # recs [ceil(T / 64) * 64, 7], stream
-    "dg_trace": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # desc [T, 8], bases [segments, 6], T, R, recs [ceil(T / 64) * 64, 7],
+    # stream
+    "dg_trace": (_P, _P, _I, _I, _P, _P),
     # tbl [T, 8, 128], T, bp, acc, stream
     "dg_chain_floor": (_P, _I, _P, _P, _P),
     # pit, pwt [T, 8, 128], C [T, 64, 64], T, bp, v, stream

@@ -43,19 +43,22 @@ Layouts the port's kernels (and their plain versions) decode:
   of more than ``DENSE_NB_LIMIT`` (31) windows has no dense table (its
   ``dtbl`` has 0 chunks), so only K3 or K4 run it.
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
-* Dense wide slices (made by ``plan_to_device``; ``wide_slices``): K2
-  cuts each transition's written lanes ``[0, W)`` into ``K2_SLICES``
-  contiguous slices of about equal work (a lane and its pairs), at most
-  ``K2_SLICE_LANES`` lanes each, one per block of its cooperative grid.
-  ``dense_slices [T, SLICE_COLS] int32`` holds per transition its first
-  dense chunk, its real pairs ``n`` (lanes ``[0, n)`` of its chunks, sorted
-  by destination), ``W`` and a 0, then the slices' first lanes (``K2_SLICES
-  + 1``, the last ``W``) and their first pairs (the last ``n``). ``W`` is
+* Dense wide slices (made by ``plan_to_device``; ``wide_slices``): K2's
+  cooperative grid has ``k2_grid`` blocks, as many as the card holds at
+  once (``ops/wide.py:k2_grid``; ``K2_GRID_CPU`` for a plan on the CPU),
+  and each block takes ``k2_per_block`` slices of every transition: slice
+  ``j * k2_grid + block`` is its j-th. The slices cut the transition's
+  written lanes ``[0, W)`` into contiguous runs of about equal work (a
+  lane and its pairs), at most ``K2_SLICE_LANES`` lanes and
+  ``K2_SLICE_PAIRS`` pairs each. ``k2_desc [T, 2] int32`` holds per
+  transition its first dense chunk and its real pairs ``n`` (lanes ``[0,
+  n)`` of its chunks, sorted by destination); ``k2_cuts [T, S + 1]
+  int16`` the slices' first lanes (the last ``W``). A block finds its
+  slices' pair ranges by searching the destination-sorted words. ``W`` is
   the whole state for the first two transitions (the two state buffers
   start uninitialised), then the larger of this transition's destination
   extent ``tb_bout ** 2`` and that of the transition two before it (the
-  last to write the same buffer). A CUDA plan keeps it in pinned host
-  memory; K2 copies a run's rows to the card when it launches.
+  last to write the same buffer).
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
   ``DevPlan.desc [L - 1, 8] int32``, one row per transition, the columns
   of ``TRACE_COLS``: the segment, the bp block's lanes, the rows of its bp
@@ -134,13 +137,15 @@ DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
 
-# blocks of K2's cooperative grid, one lane slice each (wide_slices), the
-# widest slice (csrc/wide_dense_run.cu MAX_W), and the columns of a
-# transition's row of slices: {first chunk, pairs, W, 0}, the slices' first
-# lanes and their first pairs (K2_SLICES + 1 each), padded to 16 bytes
-K2_SLICES = 128
+# K2's slices (wide_slices, csrc/wide_dense_run.cu): the widest (MAX_W),
+# the most pairs (CAND: its candidates fill the block's shared memory), the
+# most a block takes a transition (its cache of pair ranges, KCACHE, holds
+# two transitions' worth), and the grid of a plan shipped to the CPU, where
+# only the tests read them (an H100 SXM's 132 SMs, one block each)
 K2_SLICE_LANES = 1024
-SLICE_COLS = -(-(4 + 2 * (K2_SLICES + 1)) // 4) * 4
+K2_SLICE_PAIRS = 44032
+K2_PER_BLOCK_MAX = 16
+K2_GRID_CPU = 132
 # the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu):
 # "bins" is bin | bout << 16, "flags" ORs TRACE_FLAGS
 TRACE_COLS = ("seg", "lanes", "rows", "bprow", "chunkbase", "nch", "bins",
@@ -175,9 +180,10 @@ class DevSegment:
     lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
     # [T, 8] int32 traceback columns (trace_columns; segment column 0)
     trace_cols: np.ndarray | None = None
-    # wide (K2): its slices [T, SLICE_COLS] int32 (wide_slices), in pinned
-    # host memory for a CUDA plan: copied to the card at each launch
-    dense_slices: torch.Tensor | None = None
+    # wide (K2): its grid and the slices each block takes a transition
+    # (wide_slices; the tables are t["k2_desc"] and t["k2_cuts"])
+    k2_grid: int = 0
+    k2_per_block: int = 0
 
     @property
     def t0(self) -> int:
@@ -242,7 +248,7 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
     (``parallel.mesh.Mesh``) every wide run is this rank's ``wide_tp``
     segment instead."""
     device = torch.device(device)
-    segs = []
+    segs, grid = [], None
     for seg in plan.segments:
         if segment_kind(seg, mesh=mesh) == "wide_tp":
             segs.append(shard_to_device(seg, mesh.n_tp, mesh.tp_rank, device))
@@ -266,9 +272,14 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             desc, dseg.lanes = narrow_desc(seg, nreal)
             t["tb_desc"] = _tensor(desc, device)
         elif kind == "wide":
-            dseg.dense_slices = torch.from_numpy(wide_slices(seg, nreal))
-            if device.type == "cuda":
-                dseg.dense_slices = dseg.dense_slices.pin_memory()
+            if grid is None:
+                from .wide import k2_grid
+
+                grid = k2_grid(device)
+            desc, cuts, dseg.k2_per_block = wide_slices(seg, nreal, grid)
+            t["k2_desc"], t["k2_cuts"] = _tensor(desc, device), _tensor(
+                cuts, device)
+            dseg.k2_grid = grid
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 
@@ -291,20 +302,24 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
     return desc.astype(np.int32), lanes
 
 
-def wide_slices(seg: _WideRun, nreal: int) -> np.ndarray:
-    """[T, SLICE_COLS] int32 of a dense wide run (see the module
-    docstring): per transition {first chunk, real pairs, W, 0}, K2's
-    slices' first lanes, then their first pairs. Raises unless every
-    transition's real pairs come first and are sorted by destination,
-    which K2's walks rely on."""
-    T, S = seg.t1 - seg.t0, K2_SLICES
+def wide_slices(seg: _WideRun, nreal: int, grid: int
+                ) -> tuple[np.ndarray, np.ndarray, int]:
+    """``(k2_desc [T, 2] int32, k2_cuts [T, S + 1] int16, per_block)`` of
+    a dense wide run for K2's grid of ``grid`` blocks (see the module
+    docstring): the fewest slices a block that keep every slice within
+    ``K2_SLICE_LANES`` lanes and ``K2_SLICE_PAIRS`` pairs. Raises unless
+    every transition's real pairs come first and are sorted by
+    destination, which K2's searches and walks rely on; ``PlanLimit`` where
+    no slicing fits (a destination of more than ``K2_SLICE_PAIRS`` pairs,
+    which a run of at most 31 windows reaches only through repeated
+    edges, or a grid too small for the run's lanes)."""
+    T = seg.t1 - seg.t0
     full = seg.NB * 1024
     bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
     ext = np.minimum(np.asarray(seg.tb_bout, np.int64) ** 2, full)
     W = np.full(T, full, np.int64)
     W[2:] = np.maximum(ext[2:], ext[:-2])
-    out = np.zeros((T, SLICE_COLS), np.int32)
-    out[:, 0], out[:, 2] = bounds[:-1], W
+    dsts = []
     for ti in range(T):
         words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
         real = words[:, 1].ravel() != PAD_SC
@@ -314,12 +329,25 @@ def wide_slices(seg: _WideRun, nreal: int) -> np.ndarray:
             raise ValueError(
                 f"wide_slices: transition {seg.t0 + ti}'s dense pairs are "
                 "not sorted by destination ahead of the pads")
-        lanes = balanced_cuts(np.bincount(dst, minlength=W[ti]) + 1, S,
-                              K2_SLICE_LANES)
-        out[ti, 1] = n
-        out[ti, 4:5 + S] = lanes
-        out[ti, 5 + S:6 + 2 * S] = np.searchsorted(dst, lanes)
-    return out
+        dsts.append(dst)
+    work = [np.bincount(d, minlength=w) + 1 for d, w in zip(dsts, W)]
+    heavy = max((int(w.max()) - 1 for w in work), default=0)
+    if heavy > K2_SLICE_PAIRS:
+        raise PlanLimit(
+            f"wide_slices: a destination of {heavy} pairs in the run at "
+            f"level {seg.t0}; K2 holds at most {K2_SLICE_PAIRS} a slice")
+    desc = np.stack([bounds[:-1], [len(d) for d in dsts]], 1)
+    for m in range(-(-full // (grid * K2_SLICE_LANES)),
+                   K2_PER_BLOCK_MAX + 1):
+        cuts = np.stack([balanced_cuts(w, grid * m, K2_SLICE_LANES)
+                         for w in work]) if T else np.zeros((0, grid * m + 1))
+        pairs = max((int(np.diff(np.searchsorted(d, c)).max())
+                     for d, c in zip(dsts, cuts)), default=0)
+        if pairs <= K2_SLICE_PAIRS:
+            return desc.astype(np.int32), cuts.astype(np.int16), m
+    raise PlanLimit(
+        f"wide_slices: the run at level {seg.t0} ({seg.NB} windows) does "
+        f"not fit {K2_PER_BLOCK_MAX} slices a block of a grid of {grid}")
 
 
 def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:

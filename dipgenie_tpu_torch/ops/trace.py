@@ -35,14 +35,6 @@ import torch
 from .. import kernels
 from .plan import CHUNK, DevPlan
 
-# The staging of the walk (csrc/trace.cu): each transition's share of the
-# shared-memory ring (SLOT bytes), and the backpointer rows fetched below
-# the walk's current r (BAND): the walk's r falls by at most 2 a transition
-# and, on the MHC-scale plans, at most R times in all
-SLOT = 6144
-BAND = 2
-
-
 def _tables(seg, ti: int):
     """(which bp array, its row, chunkbase, table, w1, symd, dense) of
     transition ``ti`` of a segment."""
@@ -138,12 +130,9 @@ def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64).to(dplan.device)
 
 
-def trace(dplan: DevPlan, bps: list, stage_bp: bool = True) -> torch.Tensor:
+def trace(dplan: DevPlan, bps: list) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
-    the whole plan); backpointers on the CPU take ``trace_ref``. With
-    ``stage_bp`` false the kernel stages only the tables and reads every
-    bp word from global memory after an L2 prefetch (the other design
-    ``chip_smoke.py`` times beside the default)."""
+    the whole plan); backpointers on the CPU take ``trace_ref``."""
     if all(b.device.type == "cpu" for blocks in bps for b in blocks):
         return trace_ref(dplan, bps)
     if len(bps) != len(dplan.segments):
@@ -159,8 +148,8 @@ def trace(dplan: DevPlan, bps: list, stage_bp: bool = True) -> torch.Tensor:
                        device=dplan.device)
     if T:
         rc = kernels.lib().dg_trace(
-            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R, BAND,
-            int(stage_bp), SLOT, recs.data_ptr(), kernels.stream_of(recs))
+            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R,
+            recs.data_ptr(), kernels.stream_of(recs))
         kernels.raise_on_error(rc, "trace")
         trace.launches += 1
     return recs[:T]

@@ -15,6 +15,7 @@ same result (``ops/plan.py:wide_slices``).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -22,8 +23,8 @@ import torch
 from .. import kernels
 from .narrow import transition_keys
 from .plan import (
-    DENSE_NB_LIMIT, K2_SLICES, NEG, PAD_SC, SLICE_COLS, DevSegment,
-    chunk_bounds, decode_keys,
+    DENSE_NB_LIMIT, K2_GRID_CPU, NEG, PAD_SC, DevSegment, chunk_bounds,
+    decode_keys,
 )
 
 
@@ -61,27 +62,23 @@ def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
 
 
 @functools.cache
-def _copy_stream(device: torch.device) -> torch.cuda.Stream:
-    return torch.cuda.Stream(device)
-
-
-def _slices_on(seg: DevSegment, device) -> torch.Tensor:
-    """The run's slices, copied from pinned host memory on a stream of
-    their own (which allocates from its own pool), so that the copy runs
-    beside the kernel before it; the current stream waits for it, and the
-    buffer is not reused before the current stream is done with it."""
-    main = torch.cuda.current_stream(device)
-    side = _copy_stream(torch.device(device))
-    with torch.cuda.stream(side):
-        slices = seg.dense_slices.to(device, non_blocking=True)
-    main.wait_stream(side)
-    slices.record_stream(main)
-    return slices
+def k2_grid(device) -> int:
+    """Blocks of K2's cooperative grid on ``device``: its SMs times the
+    blocks of the kernel one SM holds at once (the occupancy API);
+    ``K2_GRID_CPU`` for the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return K2_GRID_CPU
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = kernels.lib().dg_wide_dense_grid(ctypes.byref(blocks))
+    kernels.raise_on_error(rc, "wide_dense_run")
+    return blocks.value
 
 
 def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
     """K2. A CUDA ``v_in`` launches ``csrc/wide_dense_run.cu`` (one
-    cooperative launch per run, ``K2_SLICES`` blocks over the slices
+    cooperative launch per run of ``seg.k2_grid`` blocks over the slices
     ``plan_to_device`` made); a CPU ``v_in`` takes ``wide_dense_run_ref``."""
     if v_in.device.type == "cpu":
         return wide_dense_run_ref(seg, v_in)
@@ -94,22 +91,23 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
         raise ValueError(
             f"wide_dense_run: NB = {h.NB}, want 1..{DENSE_NB_LIMIT} (a run "
             "of more windows has no dense tables; K3 runs it)")
-    if seg.dense_slices is None or tuple(seg.dense_slices.shape) != (
-            T, SLICE_COLS):
+    if "k2_cuts" not in seg.t:
         raise ValueError("wide_dense_run: no slices of this run "
                          "(plan_to_device makes them for the runs it sends "
                          "to K2)")
-    slices = _slices_on(seg, v_in.device)
-    kernels.check_tensor(slices, "dense_slices", torch.int32,
-                         (T, SLICE_COLS), v_in.device)
+    G, m = seg.k2_grid, seg.k2_per_block
+    desc, cuts = seg.t["k2_desc"], seg.t["k2_cuts"]
+    kernels.check_tensor(desc, "k2_desc", torch.int32, (T, 2), v_in.device)
+    kernels.check_tensor(cuts, "k2_cuts", torch.int16, (T, G * m + 1),
+                         v_in.device)
     lanes = h.NB * 1024
     # two state buffers, written before they are read; zeroed backpointers
     # (the kernel writes only the ordinals that are not 0)
     V = torch.empty((2, R1, lanes), dtype=torch.int32, device=v_in.device)
     bp = torch.zeros((T, R1, lanes), dtype=torch.int32, device=v_in.device)
     rc = kernels.lib().dg_wide_dense_run(
-        dtbl.data_ptr(), slices.data_ptr(), T, R1, h.NB, K2_SLICES,
-        SLICE_COLS, v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
+        dtbl.data_ptr(), desc.data_ptr(), cuts.data_ptr(), T, R1, h.NB, G, m,
+        v_in.data_ptr(), V.data_ptr(), bp.data_ptr(),
         kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "wide_dense_run")

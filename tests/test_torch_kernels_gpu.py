@@ -20,8 +20,8 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    DENSE_NB_MAX, K2_SLICES, NEG, REACH_T, SLICE_COLS, initial_v,
-    plan_pairs, plan_to_device, shard_to_device,
+    DENSE_NB_MAX, NEG, REACH_T, initial_v, plan_pairs, plan_to_device,
+    shard_to_device, wide_slices,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
@@ -39,6 +39,9 @@ CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
             "hom_colors", "het_ptr", "het_colors")
 
 
+# the pairs of a slice K2 stages in shared memory (csrc/wide_dense_run.cu
+# STAGE)
+K2_STAGE = 2560
 # each segment kind's kernel wrapper and plain version
 RUNS = {"narrow": (narrow.narrow_run, narrow.narrow_run_ref),
         "wide": (wide.wide_dense_run, wide.wide_dense_run_ref),
@@ -262,8 +265,9 @@ def _k2_case(name):
     """(CSR arrays, R) of K2's edge cases: a destination-window hole and a
     shrinking extent (tests/test_pallas_dp.py:187, :158), the lane-0 pad
     tail of ROADMAP.md Queue 3 item 2 (``[1, 40, 1]``), 2,304 pairs into
-    one destination (``[1, 48, 1]``), a colourless level of ties, and runs
-    of 2, 5, 18 and 31 windows."""
+    one destination (``[1, 48, 1]``: a slice K2 stages) and 2,704
+    (``[1, 52, 1]``: more than K2_STAGE, read from the table), a colourless
+    level of ties, and runs of 2, 5, 18 and 31 windows."""
     if name == "hole_window":
         W = 56
         keep = list(range(18)) + list(range(37, W))
@@ -280,8 +284,8 @@ def _k2_case(name):
             [(i, i, 0) for i in range(W)], [(i, 0, 0) for i in range(W)]],
             {int(starts[2] + 30): [0], int(starts[3] + 30): [0]})
         return csr_arrays(g, [True]), 0
-    if name in ("pad_tail", "range2304"):
-        W = 40 if name == "pad_tail" else 48
+    if name in ("pad_tail", "range2304", "range2704"):
+        W = {"pad_tail": 40, "range2304": 48, "range2704": 52}[name]
         g = hand_graph([1, W, 1], [[(0, i, 0) for i in range(W)],
                                    [(i, 0, 0) for i in range(W)]],
                        {v: [0] for v in [0, 1 + W] + list(range(1, W))})
@@ -318,8 +322,8 @@ def _reach_t_commits(seg, v):
 
 
 @pytest.mark.parametrize("name", ["hole_window", "stale_window", "pad_tail",
-                                  "range2304", "ties", "nb2", "nb5", "nb18",
-                                  "nb31"])
+                                  "range2304", "range2704", "ties", "nb2",
+                                  "nb5", "nb18", "nb31"])
 def test_wide_dense_kernel_edge_cases(name, cuda):
     """K2 (one cooperative launch a run) against its plain version, bit
     for bit, on every wide run from the DP's own input state and from two
@@ -354,10 +358,50 @@ def test_wide_dense_kernel_edge_cases(name, cuda):
         V = kern(seg, V)[0]
     if name == "ties":
         assert at_reach_t > 0
-    if name == "range2304":
-        pair_cuts = wides[0].dense_slices.numpy()[:, 5 + K2_SLICES:]
-        assert np.diff(pair_cuts[:, :K2_SLICES + 1], axis=1).max() >= 2000
+    if name.startswith("range"):
+        most = _largest_slice(wides[0])
+        assert most >= 2000 and (most > K2_STAGE) == (name == "range2704")
     assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, R)
+
+
+def _largest_slice(seg):
+    """The most pairs of one of K2's slices in a dense wide run."""
+    desc = seg.t["k2_desc"].cpu().numpy()
+    cuts = seg.t["k2_cuts"].cpu().numpy().astype(np.int64)
+    most = 0
+    for ti, (c0, n) in enumerate(desc):
+        words = seg.host.dtbl[c0:c0 + -(-n // 256), 0].ravel()[:n]
+        most = max(most, int(np.diff(np.searchsorted((words >> 2) & 32767,
+                                                     cuts[ti])).max()))
+    return most
+
+
+@pytest.mark.parametrize("grid", [8, 2])
+def test_wide_dense_kernel_on_a_smaller_grid(grid, cuda):
+    """K2 on grids smaller than the card's, as a card with fewer SMs gets
+    them: 3 (grid 8) or 9 (grid 2) slices a block at NB 18 and 4 or 16 at
+    NB 31, on runs of 13 transitions, so that a block searches its ranges
+    again every 9 or 7 (grid 8), 2 or 1 (grid 2) transitions. Bit-equal to
+    the plain version from the DP's own input states."""
+    for plan in (plan_pairs(*mhc_shaped_csr(L=800, seed=10, n_bands=2), 18),
+                 plan_pairs(*case_csr("big_window")[0], 18)):
+        dplan = plan_to_device(plan, cuda, dense_nb_max=31)
+        V = initial_v(18, cuda)
+        ran = 0
+        for seg in dplan.segments:
+            if seg.kind == "wide":
+                desc, cuts, m = wide_slices(seg.host, seg.nreal, grid)
+                assert m > 1
+                seg.t["k2_desc"] = torch.from_numpy(desc).to(cuda)
+                seg.t["k2_cuts"] = torch.from_numpy(cuts).to(cuda)
+                seg.k2_grid, seg.k2_per_block = grid, m
+                got, want = wide.wide_dense_run(seg, V), \
+                    wide.wide_dense_run_ref(seg, V)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (grid, seg.t0)
+                ran += 1
+            V = RUNS[seg.kind][0](seg, V)[0]
+        assert ran >= 2
 
 
 def test_wide_dense_refused_launch_raises(cuda):
@@ -367,39 +411,28 @@ def test_wide_dense_refused_launch_raises(cuda):
     dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
     seg = next(s for s in dplan.segments if s.kind == "wide")
     h, T = seg.host, seg.t1 - seg.t0
-    assert seg.dense_slices.shape == (T, SLICE_COLS)
-    assert seg.dense_slices.is_pinned()
+    assert seg.k2_grid == wide.k2_grid(cuda) > 0
+    assert seg.t["k2_cuts"].is_cuda and seg.t["k2_desc"].is_cuda
     V = torch.empty((2, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     v = initial_v(R, cuda)
-    slices = 1 << 16  # far more blocks than fit on any card at once
-    cols = 2 * slices + 8
-    tab = torch.zeros((T, cols), dtype=torch.int32, device=cuda)
+    grid = 1 << 16  # far more blocks than fit on any card at once
+    cuts = torch.zeros((T, grid + 1), dtype=torch.int16, device=cuda)
     rc = kernels.lib().dg_wide_dense_run(
-        seg.t["dtbl"].data_ptr(), tab.data_ptr(), T, R + 1, h.NB, slices,
-        cols, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        kernels.stream_of(v))
+        seg.t["dtbl"].data_ptr(), seg.t["k2_desc"].data_ptr(),
+        cuts.data_ptr(), T, R + 1, h.NB, grid, 1, v.data_ptr(),
+        V.data_ptr(), bp.data_ptr(), kernels.stream_of(v))
     assert rc != 0
     with pytest.raises(RuntimeError, match="wide_dense_run"):
         kernels.raise_on_error(rc, "wide_dense_run")
-
-
-# the traceback's staging (ops/trace.py BAND, SLOT, stage_bp): the
-# default; every bp row below r in slots of 12 KB (R = 60's 1024-class
-# blocks no longer fit a slot); bp words from global memory after an L2
-# prefetch, a band of rows or all; and slots too small for anything
-STAGINGS = {"default": (2, 6144, True),
-            "all_rows": (1000, 12288, True),
-            "l2_band": (2, 6144, False),
-            "l2_all_rows": (1000, 6144, False),
-            "no_room": (2, 16, True)}
 
 
 def _trace_case(name):
     """(plan on the card, backpointers' plan) of K-T's cases: the walks
     cross narrow 256- and 1024-class blocks, dense wide blocks (kept in L2),
     window-split blocks (K3's routing and the big-window graph), and R = 60
-    (GLOBAL_STATE_CASE: with every row below r, no block fits a slot)."""
+    (GLOBAL_STATE_CASE: its 1024-class blocks' rows fill a slot, so their
+    tables take the L2 path)."""
     if name == "bands":
         return plan_pairs(*mhc_shaped_csr(L=800, seed=10, n_bands=2), 18), 18
     if name == "bands_split":
@@ -411,10 +444,9 @@ def _trace_case(name):
 @pytest.mark.parametrize("bps_kind", ["forward", "zero", "random"])
 @pytest.mark.parametrize("name", ["bands", "bands_split", "big_window",
                                   "global_state", "mhc_slice_wide_csr"])
-def test_trace_kernel_matches_plain_version(name, bps_kind, cuda,
-                                            monkeypatch):
-    """K-T (one launch) against ``trace_ref`` under every staging setting,
-    on the forward pass's backpointers, on zeroed ones (every state
+def test_trace_kernel_matches_plain_version(name, bps_kind, cuda):
+    """K-T (one launch) against ``trace_ref``, on the forward pass's
+    backpointers, on zeroed ones (every state
     unreachable: the walk takes pair 0 each time) and on drawn ordinals
     below 256 (the walk's r falls below 0 and is read as row 0)."""
     plan, nb_max = _trace_case(name)
@@ -430,13 +462,10 @@ def test_trace_kernel_matches_plain_version(name, bps_kind, cuda,
     want = trace.trace_ref(dplan, bps)
     if bps_kind == "random" and name.startswith("bands"):
         assert (want[:, 4] + want[:, 5]).sum() > dplan.R  # r went below 0
-    for staging, (band, slot, stage_bp) in STAGINGS.items():
-        monkeypatch.setattr(trace, "BAND", band)
-        monkeypatch.setattr(trace, "SLOT", slot)
-        before = trace.trace.launches
-        got = trace.trace(dplan, bps, stage_bp=stage_bp)
-        assert trace.trace.launches == before + 1
-        assert got.shape == want.shape and torch.equal(got, want), staging
+    before = trace.trace.launches
+    got = trace.trace(dplan, bps)
+    assert trace.trace.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
 
 
 # the level-chain kernels: (wrapper, plain version, tables of a chain)

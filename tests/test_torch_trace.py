@@ -6,8 +6,9 @@ address rows ``ops/trace.py`` sends at trace time must give, row for row,
 the descriptor table the traceback was first written against (kept here
 as ``descriptors_before``: an int64 row of addresses and shapes per
 transition, built on the host at every call). K2's slices must cover each
-transition's written lanes once and cut its destination-sorted pairs into
-the slices' ranges. The plain ``trace_ref`` stays held to the JAX package
+transition's written lanes once, hold no more pairs than the kernel's
+shared memory, and cut its destination-sorted pairs into the ranges the
+kernel's search finds. The plain ``trace_ref`` stays held to the JAX package
 by ``tests/test_torch_dp.py``. Everything is integers: exact equality.
 """
 
@@ -18,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from dipgenie_tpu_torch.ops import plan as plan_mod
 from dipgenie_tpu_torch.ops import trace
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    K2_SLICE_LANES, K2_SLICES, PAD_SC, SLICE_COLS, TRACE_COLS, TRACE_FLAGS,
-    DevPlan, balanced_cuts,
-    chunk_bounds, plan_pairs, plan_to_device,
+    K2_GRID_CPU, K2_PER_BLOCK_MAX, K2_SLICE_LANES, K2_SLICE_PAIRS, PAD_SC,
+    TRACE_COLS, TRACE_FLAGS, DevPlan, PlanLimit, balanced_cuts, chunk_bounds,
+    plan_pairs, plan_to_device, wide_slices,
 )
 from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
@@ -163,56 +165,101 @@ def test_shipped_chunk_counts_hold_each_transitions_pairs(plan):
             assert n > 0 and (c["nch"][t] - 1) * 256 < n <= c["nch"][t] * 256
 
 
-def test_wide_slices_cover_each_destination_once(plan):
-    """Per dense wide transition: the K2_SLICES lane slices partition
-    [0, W) into runs of at most K2_SLICE_LANES lanes, balanced by work (a
-    lane and its pairs); W covers the lanes the plain version leaves
-    non-NEG in this transition's buffer; each slice's pair range is the
-    destination-sorted range of its lanes in ``dtbl``; the band end's
-    1,089-pair destination lies in one slice."""
+def _slice_pairs(h, desc, cuts, ti):
+    """The destinations of transition ti's real pairs and each slice's
+    pair range [start, end) in them."""
+    c0, n = (int(x) for x in desc[ti])
+    dst = (h.dtbl[c0:c0 + -(-n // 256), 0].ravel()[:n] >> 2) & 32767
+    return dst, np.searchsorted(dst, cuts[ti].astype(np.int64))
+
+
+@pytest.mark.parametrize("grid", [None, 8])
+def test_wide_slices_cover_each_destination_once(plan, grid):
+    """Per dense wide transition, for the grid a CPU plan gets and for a
+    grid of 8 blocks (3 slices a block at NB 18): the lane slices partition
+    [0, W) into runs of at most K2_SLICE_LANES lanes and K2_SLICE_PAIRS
+    pairs, balanced by work (a lane and its pairs); W covers the lanes the
+    plain version leaves non-NEG in this transition's buffer; each slice's
+    pair range, as the kernel's search finds it, is the destination-sorted
+    range of its lanes in ``dtbl``; the band end's 1,089-pair destination
+    lies in one slice."""
     dplan = plan_to_device(plan, "cpu")
     wides = [s for s in dplan.segments if s.kind == "wide"]
     assert len(wides) == 2
     longest = 0
     for seg in wides:
         h = seg.host
-        tab = seg.dense_slices.numpy()
-        T, S = h.t1 - h.t0, K2_SLICES
-        assert tab.shape == (T, SLICE_COLS) and SLICE_COLS % 4 == 0
-        desc = tab[:, :4]
-        cuts = np.stack([tab[:, 4:5 + S], tab[:, 5 + S:6 + 2 * S]], 1)
+        T = h.t1 - h.t0
+        if grid is None:
+            G, m = seg.k2_grid, seg.k2_per_block
+            desc, cuts = seg.t["k2_desc"].numpy(), seg.t["k2_cuts"].numpy()
+            assert (G, m) == (K2_GRID_CPU, 1)
+        else:
+            G = grid
+            desc, cuts, m = wide_slices(h, seg.nreal, G)
+            assert m == -(-h.NB * 1024 // (G * K2_SLICE_LANES)) == 3
+        S = G * m
+        assert desc.shape == (T, 2) and desc.dtype == np.int32
+        assert cuts.shape == (T, S + 1) and cuts.dtype == np.int16
         bounds = chunk_bounds(h.tb2_chunkbase, seg.nreal)
         ext = h.tb_bout.astype(np.int64) ** 2
         for ti in range(T):
-            c0, n, W, _ = (int(x) for x in desc[ti])
-            assert c0 == bounds[ti]
+            assert desc[ti, 0] == bounds[ti]
             words = h.dtbl[bounds[ti]:bounds[ti + 1]]
             real = words[:, 1].ravel() != PAD_SC
-            dst = (words[:, 0].ravel()[real] >> 2) & 32767
-            assert n == len(dst) and real[:n].all()
+            n = int(desc[ti, 1])
+            assert n == real.sum() and real[:n].all()
+            dst, pair_cuts = _slice_pairs(h, desc, cuts, ti)
+            W = int(cuts[ti, -1])
             assert W == (h.NB * 1024 if ti < 2
                          else max(ext[ti], ext[ti - 2]))
             assert dst.max(initial=0) < W <= h.NB * 1024
-            lane_cuts, pair_cuts = cuts[ti]
-            assert lane_cuts[0] == 0 and lane_cuts[-1] == W
+            lane_cuts = cuts[ti].astype(np.int64)
+            assert lane_cuts[0] == 0
             widths = np.diff(lane_cuts)
             assert widths.min() >= 0 and widths.max() <= K2_SLICE_LANES
+            assert np.diff(pair_cuts).max() <= K2_SLICE_PAIRS
             lanes = np.concatenate([np.arange(a, b) for a, b in
                                     zip(lane_cuts[:-1], lane_cuts[1:])])
             np.testing.assert_array_equal(lanes, np.arange(W))
             assert pair_cuts[0] == 0 and pair_cuts[-1] == n
             work = np.bincount(dst, minlength=W) + 1
-            for k in range(K2_SLICES):
+            for k in range(S):
                 lo, hi = lane_cuts[k], lane_cuts[k + 1]
                 mine = np.flatnonzero((dst >= lo) & (dst < hi))
                 np.testing.assert_array_equal(
                     mine, np.arange(pair_cuts[k], pair_cuts[k + 1]))
-                assert work[lo:hi].sum() <= (work.sum() / K2_SLICES
-                                             + work.max())
+                assert work[lo:hi].sum() <= work.sum() / S + work.max()
             if n:
                 longest = max(longest, np.unique(dst, return_counts=True)[1]
                               .max())
     assert longest > 1000
+
+
+def test_wide_slices_keep_each_slice_within_the_pair_cap(plan, monkeypatch):
+    """Where the slices a block needs for the lanes leave a slice of more
+    pairs than the kernel holds, the run gets more slices a block; a
+    destination of more pairs than a slice holds, or a grid too small for
+    the run even at K2_PER_BLOCK_MAX slices a block, is refused."""
+    seg = next(s for s in plan.segments if type(s).__name__ == "_WideRun")
+    nreal = int(np.count_nonzero(seg.dbits & 4))
+    lanes_only = -(-seg.NB * 1024 // (2 * K2_SLICE_LANES))  # 9
+    desc, cuts, m = wide_slices(seg, nreal, 2)
+    assert m == lanes_only
+    most = max(np.diff(_slice_pairs(seg, desc, cuts, ti)[1]).max()
+               for ti in range(len(desc)))
+    assert most > 1200
+    monkeypatch.setattr(plan_mod, "K2_SLICE_PAIRS", 1200)
+    desc, cuts, m = wide_slices(seg, nreal, 2)
+    assert lanes_only < m <= K2_PER_BLOCK_MAX and cuts.shape[1] == 2 * m + 1
+    for ti in range(len(desc)):
+        assert np.diff(_slice_pairs(seg, desc, cuts, ti)[1]).max() <= 1200
+    monkeypatch.setattr(plan_mod, "K2_SLICE_PAIRS", 1000)
+    with pytest.raises(PlanLimit, match="a destination of 1089 pairs"):
+        wide_slices(seg, nreal, 2)
+    monkeypatch.setattr(plan_mod, "K2_SLICE_PAIRS", K2_SLICE_PAIRS)
+    with pytest.raises(PlanLimit, match="grid of 1"):
+        wide_slices(seg, nreal, 1)
 
 
 @pytest.mark.parametrize("W", [1, 300, 18432, 31744])
@@ -221,7 +268,7 @@ def test_balanced_cuts_respect_the_width_cap(W):
     and the cuts cover every lane once."""
     work = np.ones(W, np.int64)
     work[:min(W, 40)] += 5000
-    cuts = balanced_cuts(work, K2_SLICES, K2_SLICE_LANES)
+    cuts = balanced_cuts(work, K2_GRID_CPU, K2_SLICE_LANES)
     assert cuts[0] == 0 and cuts[-1] == W
     assert np.diff(cuts).min() >= 0
     assert np.diff(cuts).max() <= K2_SLICE_LANES
