@@ -35,7 +35,8 @@ result line):
      graph, wide levels 33-96): launch counts of the main path, forward
      and traceback times, states/s and peak memory, equality with the
      native C++ tier, K-T on the whole plan (trace() and the launch alone
-     by CUDA events, the host part by the host clock), and K1's, K2's and K-T's times beside their plain
+     by CUDA events, the host part by the host clock), K2's grid and
+     largest slice, and K1's, K2's and K-T's times beside their plain
      versions' and their bounds on a plan prefix; the DP stage probe on
      the same plan, and K1's time per transition beside phase G's floors;
   E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
@@ -255,8 +256,8 @@ def k2_slices(dplan) -> str:
         return ""
     most, unstaged = 0, 0
     for seg in segs:
-        desc = seg.t["k2_desc"].cpu().numpy()
-        cuts = seg.t["k2_cuts"].cpu().numpy().astype(np.int64)
+        desc = seg.k2_desc.cpu().numpy()
+        cuts = seg.k2_cuts.cpu().numpy().astype(np.int64)
         for ti, (c0, n) in enumerate(desc):
             words = seg.host.dtbl[c0:c0 + -(-n // 256), 0].ravel()[:n]
             pairs = np.diff(np.searchsorted((words >> 2) & 32767, cuts[ti]))

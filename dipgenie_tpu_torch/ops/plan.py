@@ -50,10 +50,10 @@ Layouts the port's kernels (and their plain versions) decode:
   ``j * k2_grid + block`` is its j-th. The slices cut the transition's
   written lanes ``[0, W)`` into contiguous runs of about equal work (a
   lane and its pairs), at most ``K2_SLICE_LANES`` lanes and
-  ``K2_SLICE_PAIRS`` pairs each. ``k2_desc [T, 2] int32`` holds per
-  transition its first dense chunk and its real pairs ``n`` (lanes ``[0,
-  n)`` of its chunks, sorted by destination); ``k2_cuts [T, S + 1]
-  int16`` the slices' first lanes (the last ``W``). A block finds its
+  ``K2_SLICE_PAIRS`` pairs each. ``DevSegment.k2_desc [T, 2] int32``
+  holds per transition its first dense chunk and its real pairs ``n``
+  (lanes ``[0, n)`` of its chunks, sorted by destination); ``k2_cuts [T,
+  S + 1] int16`` the slices' first lanes (the last ``W``). A block finds its
   slices' pair ranges by searching the destination-sorted words. ``W`` is
   the whole state for the first two transitions (the two state buffers
   start uninitialised), then the larger of this transition's destination
@@ -180,10 +180,12 @@ class DevSegment:
     lanes: int = 1024  # narrow: the run's widest extent (narrow_desc)
     # [T, 8] int32 traceback columns (trace_columns; segment column 0)
     trace_cols: np.ndarray | None = None
-    # wide (K2): its grid and the slices each block takes a transition
-    # (wide_slices; the tables are t["k2_desc"] and t["k2_cuts"])
+    # wide (K2): its grid, the slices each block takes a transition, and
+    # the slices' tables on the device (wide_slices)
     k2_grid: int = 0
     k2_per_block: int = 0
+    k2_desc: torch.Tensor | None = None
+    k2_cuts: torch.Tensor | None = None
 
     @property
     def t0(self) -> int:
@@ -277,8 +279,8 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
 
                 grid = k2_grid(device)
             desc, cuts, dseg.k2_per_block = wide_slices(seg, nreal, grid)
-            t["k2_desc"], t["k2_cuts"] = _tensor(desc, device), _tensor(
-                cuts, device)
+            dseg.k2_desc = _tensor(desc, device)
+            dseg.k2_cuts = _tensor(cuts, device)
             dseg.k2_grid = grid
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)

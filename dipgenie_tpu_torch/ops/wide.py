@@ -91,12 +91,12 @@ def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):
         raise ValueError(
             f"wide_dense_run: NB = {h.NB}, want 1..{DENSE_NB_LIMIT} (a run "
             "of more windows has no dense tables; K3 runs it)")
-    if "k2_cuts" not in seg.t:
+    if seg.k2_cuts is None:
         raise ValueError("wide_dense_run: no slices of this run "
                          "(plan_to_device makes them for the runs it sends "
                          "to K2)")
     G, m = seg.k2_grid, seg.k2_per_block
-    desc, cuts = seg.t["k2_desc"], seg.t["k2_cuts"]
+    desc, cuts = seg.k2_desc, seg.k2_cuts
     kernels.check_tensor(desc, "k2_desc", torch.int32, (T, 2), v_in.device)
     kernels.check_tensor(cuts, "k2_cuts", torch.int16, (T, G * m + 1),
                          v_in.device)

@@ -366,8 +366,8 @@ def test_wide_dense_kernel_edge_cases(name, cuda):
 
 def _largest_slice(seg):
     """The most pairs of one of K2's slices in a dense wide run."""
-    desc = seg.t["k2_desc"].cpu().numpy()
-    cuts = seg.t["k2_cuts"].cpu().numpy().astype(np.int64)
+    desc = seg.k2_desc.cpu().numpy()
+    cuts = seg.k2_cuts.cpu().numpy().astype(np.int64)
     most = 0
     for ti, (c0, n) in enumerate(desc):
         words = seg.host.dtbl[c0:c0 + -(-n // 256), 0].ravel()[:n]
@@ -392,8 +392,8 @@ def test_wide_dense_kernel_on_a_smaller_grid(grid, cuda):
             if seg.kind == "wide":
                 desc, cuts, m = wide_slices(seg.host, seg.nreal, grid)
                 assert m > 1
-                seg.t["k2_desc"] = torch.from_numpy(desc).to(cuda)
-                seg.t["k2_cuts"] = torch.from_numpy(cuts).to(cuda)
+                seg.k2_desc = torch.from_numpy(desc).to(cuda)
+                seg.k2_cuts = torch.from_numpy(cuts).to(cuda)
                 seg.k2_grid, seg.k2_per_block = grid, m
                 got, want = wide.wide_dense_run(seg, V), \
                     wide.wide_dense_run_ref(seg, V)
@@ -412,14 +412,14 @@ def test_wide_dense_refused_launch_raises(cuda):
     seg = next(s for s in dplan.segments if s.kind == "wide")
     h, T = seg.host, seg.t1 - seg.t0
     assert seg.k2_grid == wide.k2_grid(cuda) > 0
-    assert seg.t["k2_cuts"].is_cuda and seg.t["k2_desc"].is_cuda
+    assert seg.k2_cuts.is_cuda and seg.k2_desc.is_cuda
     V = torch.empty((2, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     v = initial_v(R, cuda)
     grid = 1 << 16  # far more blocks than fit on any card at once
     cuts = torch.zeros((T, grid + 1), dtype=torch.int16, device=cuda)
     rc = kernels.lib().dg_wide_dense_run(
-        seg.t["dtbl"].data_ptr(), seg.t["k2_desc"].data_ptr(),
+        seg.t["dtbl"].data_ptr(), seg.k2_desc.data_ptr(),
         cuts.data_ptr(), T, R + 1, h.NB, grid, 1, v.data_ptr(),
         V.data_ptr(), bp.data_ptr(), kernels.stream_of(v))
     assert rc != 0

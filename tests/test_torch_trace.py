@@ -192,7 +192,7 @@ def test_wide_slices_cover_each_destination_once(plan, grid):
         T = h.t1 - h.t0
         if grid is None:
             G, m = seg.k2_grid, seg.k2_per_block
-            desc, cuts = seg.t["k2_desc"].numpy(), seg.t["k2_cuts"].numpy()
+            desc, cuts = seg.k2_desc.numpy(), seg.k2_cuts.numpy()
             assert (G, m) == (K2_GRID_CPU, 1)
         else:
             G = grid
