@@ -262,28 +262,11 @@ __device__ __forceinline__ void reduce_cells(
 
 // The first of pairs [0, n) (their destinations sorted) whose destination
 // is at least `cut`, or n: a search by the half-warp `mask` (hl its lane
-// 0..15), 16 probes a round. The first round probes hint - 1 .. hint + 14,
-// which holds the answer where the slices were cut by work (see
-// find_ranges); elsewhere it narrows the range like any other round.
+// 0..15), 16 probes a round.
 __device__ __forceinline__ int lower_bound16(const int32_t* dtbl, int c0,
-                                             int n, int cut, int hint,
-                                             int hl, unsigned mask,
-                                             int shift) {
+                                             int n, int cut, int hl,
+                                             unsigned mask, int shift) {
   int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  {
-    hint = min(max(hint, 0), n);
-    const int q = hint - 1 + hl;  // positions past the pairs count as >=
-    const bool ge =
-        q >= n || (q >= 0 && dst_of(__ldg(word(dtbl, c0, q))) >= cut);
-    const unsigned b = (__ballot_sync(mask, ge) & mask) >> shift;
-    if (b & 1) {
-      hi = hint - 1;
-    } else if (b) {
-      return hint - 2 + __ffs(b);  // the first position at or past cut
-    } else {
-      lo = hint + 15;
-    }
-  }
   while (lo < hi) {
     const int step = (hi - lo + 15) >> 4;
     const int q = lo + hl * step;
@@ -316,15 +299,9 @@ __device__ __forceinline__ void find_ranges(const int32_t* dtbl,
   const int e = h >> 1, side = h & 1;
   const int tt = e / m, j = e - tt * m;
   const int2 d = __ldg(desc + t + tt);  // {first chunk, real pairs}
-  const int16_t* row = cuts + (size_t)(t + tt) * (S + 1);
-  const int k = j * G + blockIdx.x + side;
-  const int cut = __ldg(row + k), W = __ldg(row + S);
-  // plan_to_device cut at the first lane whose work (a lane and its pairs)
-  // up to it reaches k / S of the whole, W + n: so at least ceil((W + n) k
-  // / S) - cut pairs lie below the cut, and the lane before it holds the
-  // rest (a few pairs, mostly)
-  const int hint = (int)(((long long)(W + d.y) * k + S - 1) / S) - cut;
-  const int p = lower_bound16(dtbl, d.x, d.y, cut, hint, hl, mask, shift);
+  const int cut = __ldg(cuts + (size_t)(t + tt) * (S + 1) + j * G +
+                        blockIdx.x + side);
+  const int p = lower_bound16(dtbl, d.x, d.y, cut, hl, mask, shift);
   if (hl == 0) {
     int* r = reinterpret_cast<int*>(rng + e);
     r[side] = cut;
