@@ -69,10 +69,12 @@
 // * Backpointers start zeroed; only ordinals that are not 0 are written.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): C's wide runs
-// 0.0254 s of the forward in `dp-stages` (6.5 us a transition) against the
-// replaced kernel's 0.0468 s in the same run; a transition is ~1.3 us of
-// grid barrier after the last block, ~1.5 us of candidates and ~1.5 us of
-// reductions in the mean block, the slowest block up to 2-3 us later.
+// 0.0278 s of the forward in `dp-stages` (7.1 us a transition) against the
+// replaced kernel's 0.0490 s in the same run; 0.0256 s where the slices'
+// first pairs were shipped as well, so the searches cost ~2.2 ms. A
+// transition is ~1.3 us of grid barrier after the last block, ~1.5 us of
+// candidates and ~1.5 us of reductions in the mean block, the slowest block
+// up to 2-3 us later.
 #include <climits>
 #include <cooperative_groups.h>
 

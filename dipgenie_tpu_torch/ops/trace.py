@@ -35,6 +35,7 @@ import torch
 from .. import kernels
 from .plan import CHUNK, DevPlan
 
+
 def _tables(seg, ti: int):
     """(which bp array, its row, chunkbase, table, w1, symd, dense) of
     transition ``ti`` of a segment."""
