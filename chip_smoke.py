@@ -42,8 +42,10 @@ result line):
   E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
      states, every wide run 31 windows): the same readings for its main
      path through K3 (K-T on the whole plan too), K3 beside its plain
-     version and its bound on a prefix, and K2 against K3 on the same big runs
-     (equal V and traceback records, both times);
+     version and its bound on a prefix, K2 against K3 on the same big runs
+     (equal V and traceback records, both times), and K3's device time a
+     transition on ordinary and on band-end transitions beside E's
+     whole-plan bound;
   F. the tp-sharded wide path (every wide run through K4 on this rank's
      destination windows, merged by all_reduce(MAX) after each
      transition) on phase E's plan, reused: F1 in a one-rank gloo mesh in
@@ -93,6 +95,11 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+try:  # the timing script of the K3 / K4 redesign, while it exists
+    import split_variants as variants
+except ImportError:
+    variants = None
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 SEED = 0
@@ -227,9 +234,9 @@ def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
 def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     """(bytes, operations) of one run: each table byte it needs read once
     (K1: the real pairs' words and one descriptor a transition; K2 / K3:
-    its real chunks, with wwin and wbase for K3), V in and out once, each
-    backpointer byte written once; an add and a max per (real pair, row it
-    reaches)."""
+    its real chunks, with wwin and wbase and the slice tables for K3), V in
+    and out once, each backpointer byte written once; an add and a max per
+    (real pair, row it reaches)."""
     import numpy as np
 
     h = seg.host
@@ -242,6 +249,8 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     else:
         tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
                                              else 0))
+        if seg.kind == "wide_split":
+            tables += 4 * (seg.k3_desc.numel() + seg.k3_cuts.numel())
     return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
 
 
@@ -1221,7 +1230,61 @@ class Smoke:
             f"{dev_ms['K3']:.3f} ms, K2 {dev_ms['K2']:.3f} ms (profiler); V "
             "of every run and the whole DP's V and traceback records equal"
             + k2_slices(dplan2))
+        self.k3_transitions(dplan, big, v_ins)
+        if variants is not None:
+            variants.phase_e(self, dplan, dplan2, big, v_ins)
         log(f"E phase {time.time() - t_phase:.1f}s")
+
+    def k3_transitions(self, dplan, big, v_ins):
+        """K3's device time a transition on E's ordinary transitions and on
+        its band ends (a run's last, wide into narrow: every cut heavy
+        destination is there): the big runs cut before their last
+        transition against the whole runs, from the same input states
+        (profiler, in turns); E's whole-plan bound for K3."""
+        import dataclasses
+
+        k3 = self.fns["wide_split_run"][0]
+
+        def cut(seg):  # the run without its last transition
+            h, n = seg.host, seg.t1 - seg.t0 - 1
+            host = dataclasses.replace(
+                h, t1=h.t1 - 1, nrows=int(h.tb_bprow[n]),
+                **{f: getattr(h, f)[:n] for f in (
+                    "tb_chunkbase", "tb_bits", "tb_bprow", "tb_bin",
+                    "tb_bout")})
+            return dataclasses.replace(seg, host=host,
+                                       k3_desc=seg.k3_desc[:n].contiguous(),
+                                       k3_cuts=seg.k3_cuts[:n].contiguous())
+
+        segs = {"whole": [dplan.segments[i] for i in big]}
+        segs["cut"] = [cut(s) for s in segs["whole"]]
+        dev = {"whole": [], "cut": []}
+        for which in ("whole", "cut", "cut", "whole"):
+            with self.profiler() as prof:
+                for seg, i in zip(segs[which], big):
+                    k3(seg, v_ins[i])
+                self.sync()
+            dev[which].append(sum(t for k, t, _ in self.device_rows(
+                prof, f"profile_E_k3_{which}.txt") if "split_kernel" in k))
+        n_cut = sum(s.t1 - s.t0 for s in segs["cut"])
+        whole, part = min(dev["whole"]), min(dev["cut"])
+        nb = no = 0
+        for seg in dplan.segments:
+            if seg.kind == "wide_split":
+                b, o = work(seg, seg.host.nrows * (R + 1) * 1024 * 4, R + 1)
+                nb, no = nb + b, no + o
+        n_all = sum(s.t1 - s.t0 for s in dplan.segments
+                    if s.kind == "wide_split")
+        plan_bound = bound(nb, no)
+        log(f"E K3 device time (profiler, min of 2): the {len(big)} runs "
+            f"{whole / 1e3:.3f} ms, without their band ends {part / 1e3:.3f} "
+            f"ms: {part / n_cut:.3f} us an ordinary transition ({n_cut}), "
+            f"{(whole - part) / len(big):.3f} us a band end ({len(big)}; all "
+            f"{[round(x / 1e3, 3) for x in dev['whole']]} / "
+            f"{[round(x / 1e3, 3) for x in dev['cut']]} ms); bound on E's "
+            f"whole plan ({n_all} wide transitions) {plan_bound[0]:.6g} ms "
+            f"({plan_bound[1]}), {plan_bound[0] / n_all * 1e3:.4f} us a "
+            "transition")
 
     # ---------------- phase F ----------------
     def phase_f1(self):
@@ -1327,9 +1390,7 @@ class Smoke:
                 self.sync()
             rows = self.device_rows(prof, f"profile_F1_big_runs_{name}.txt")
             total = sum(t for _, t, _ in rows) / 1e3
-            kern = sum(t for k, t, _ in rows if any(
-                x in k for x in ("window_candidates", "step_partial",
-                                 "split_commit"))) / 1e3
+            kern = sum(t for k, t, _ in rows if "split_kernel" in k) / 1e3
             msg.append(f"device {name} kernels {kern:.3f} ms of {total:.3f} "
                        "ms")
         n_tr = sum(dplan.segments[i].t1 - dplan.segments[i].t0 for i in v_ins)
@@ -1349,7 +1410,7 @@ class Smoke:
 
         from dipgenie_tpu_torch.ops.plan import initial_v
         from dipgenie_tpu_torch.ops.wide_split import _state
-        from dipgenie_tpu_torch.ops.wide_step import commit
+        from dipgenie_tpu_torch.ops.wide_step import commit, new_partial
 
         torch = self.torch
         kern, plain = self.fns["wide_step"]
@@ -1368,10 +1429,12 @@ class Smoke:
                 dist.all_reduce(part, op=dist.ReduceOp.MAX, group=mesh.tp)
                 W = commit(part, seg.t["present"][ti], bp)
             V = W[:, :1024].contiguous()
-        keys = {W.shape: torch.zeros(W.shape, dtype=torch.int64,
-                                     device=DEVICE) for _, _, W in steps}
-        run = {0: lambda: [kern(s, ti, W, keys[W.shape])
-                           for s, ti, W in steps],
+        # each step writes into its own partial of NEG / -1, filled
+        # beforehand (the main path's merge leaves its one buffer so; a
+        # call again writes the same lanes with the same values)
+        parts = [new_partial(s, R + 1, DEVICE) for s, _, _ in steps]
+        run = {0: lambda: [kern(s, ti, W, p)
+                           for (s, ti, W), p in zip(steps, parts)],
                1: lambda: [plain(s, ti, W) for s, ti, W in steps]}
         nbytes = ops = 0
         R1 = R + 1
@@ -1380,7 +1443,8 @@ class Smoke:
             tbl = s.t["stbl"][c0:c1].cpu().numpy()
             real = ((tbl[:, 0] >> 2) & 2047) > 0
             ops += 2 * int(np.where(real, R1 - (tbl[:, 0] & 3), 0).sum())
-            nbytes += (c1 - c0) * (4 * 2 * 256 + 8) + 3 * W.numel() * 4
+            nbytes += ((c1 - c0) * (4 * 2 * 256 + 8) + 3 * W.numel() * 4
+                       + 4 * (4 + s.k3_cuts[ti].numel()))
         nbound = bound(nbytes, ops)
         times, outs = {0: [], 1: []}, {}
         for which in (1, 0, 0, 1):
@@ -1397,6 +1461,8 @@ class Smoke:
         self.ms["wide_step"] = min(times[0])
         self.plain_ms["wide_step"] = min(times[1])
         self.bound["wide_step"] = nbound
+        if variants is not None:
+            variants.phase_f1(self, dplan, mesh, steps, parts)
         log(f"F1 wide_step on the {len(steps)} wide transitions of the first "
             f"{PREFIX_TRANSITIONS} transitions of the plan: kernel "
             f"{times[0]} ms (device {dev_ms:.3f} ms by the profiler), plain "

@@ -10,71 +10,69 @@
 // windows in its gather mask, extracted the per-destination winner with a
 // segmented scan, and read-modify-wrote its one destination window with a
 // strict `>` so that earlier chunks won ties; a presence mask then reset
-// absent windows to NEG. Here a chunk's lanes gather by indexed load from
-// anywhere in the [R+1, NB * 1024] state and max-reduce straight into the
-// global destination lane `wwin * 1024 + rel` with a 64-bit atomicMax on
-// the order-independent key of dg_common.cuh (value, then the smallest
-// pair ordinal `wbase + lane`): the same winner as the strict `>` RMW. The
-// commit rewrites every lane of every window, so lanes no kept pair
-// reaches (holes, windows past the extent) become NEG with no presence
-// mask, and writes the int32 backpointers of the windows below the
-// transition's extent to rows `tb_bprow[t] + win` of bp [nrows, R+1, 1024]
-// (hole windows get ordinal 0; the JAX kernel leaves them unwritten).
+// absent windows to NEG. Here every candidate is an indexed load from
+// anywhere in the state, and each destination's winner a reduction over
+// its pairs, which are one run of slots in plan order (csrc/wide_split.cuh,
+// the transition body K4 shares).
 //
-// What bounds it on the H100: at NB = 31 a transition has ~40k pairs x
-// (R+1) rows of candidates, gathered from and reduced into a state of
-// 19 x 31 x 4 KB = 2.4 MB at R = 18 (keys twice that), all L2-resident;
-// the bytes that must reach device memory are the backpointers, ~2 MB per
-// transition (R + 1 rows x 4 KB per window). So a transition costs the latency of L2 gathers and atomics
-// plus one pass writing its backpointers, and two launches. Design (K2's):
-// a host loop over the run's transitions launches (1) one block per chunk,
-// one thread per pair lane, looping over rows (dg::window_candidates,
-// shared with K4), and (2) a commit grid over the whole state that swaps
-// the keys back to 0. A persistent launch per run is later work.
-#include "dg_common.cuh"
+// The traffic it was designed for: phase E of chip_smoke.py (R = 18,
+// NB 31) has 3,900 wide transitions in 300 runs of 13, ~40k real pairs a
+// transition in ~176 chunks (93% full) onto ~13k destinations of an
+// extent of ~25k lanes, 25 pairs into one destination at the median; a
+// band's last transition (wide into narrow) puts up to ~3,800 pairs on
+// one destination.
+//
+// What bounds it on the H100: the bytes that must reach device memory are
+// the backpointers, ~1.9 MB a transition (R + 1 rows x 4 KB per window
+// below the extent); the state (2.4 MB a buffer at NB 31) stays in the
+// 50 MB L2. The level chain is serial, so a transition costs a grid-wide
+// barrier, one round of L2 gathers, shared-memory reductions and the
+// slowest block. The kernel it replaced took two launches a transition, a
+// 64-bit atomicMax per candidate into a key array and a pass over the
+// whole state to commit it (11.6 us a transition on E).
+//
+// Design: ONE cooperative launch a run of as many blocks of 1,024 threads
+// as the card holds at once (dg_wide_split_grid; one an SM, 132 on an
+// H100 SXM; where they cannot be co-resident the launch is refused and
+// the wrapper raises), a grid-wide barrier between transitions (two on a
+// transition with a cut heavy destination). V is double-buffered in
+// global memory, [2, R+1, NB * 1024]: transition t reads buffer t & 1
+// (V_in itself at t = 0) and writes buffer (t + 1) & 1, lanes [0, W) only:
+// W covers this transition's extent and that of the one two before it, the
+// last to write the same buffer (the whole state for the first two), so
+// lanes past it hold NEG from an earlier write, as the plain version's
+// full rewrite leaves them. Reads of V bypass L1 (ld.global.cg): other SMs
+// wrote them. The slices' first lanes and slots are shipped
+// (ops/plan.py:split_slices, ~4 MB on E), so a block searches nothing.
+//
+// Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): E's 300
+// runs 48.4-48.5 ms of device time (12.1 us an ordinary transition, 15-16
+// a band end) against the replaced kernel's 44.5-44.6 and K2's 47.6-47.7
+// on the same runs; E's forward 334 ms against 340 through the replaced
+// kernel (its host loop of 7,800 launches). A slice costs ~5.6 us plus
+// ~4.7 ns a lane and ~6.7 ns a slot (phase stamps): a lane-major state,
+// staged chunk tables and rows split over threads were no faster.
+#include "wide_split.cuh"
 
-namespace {
-
-// bp points at row tb_bprow[t]; lanes below ext_lanes have a bp row
-__global__ void split_commit(int n, int lanes, int ext_lanes, int32_t* V,
-                             dg::Key* keys, int32_t* bp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const dg::Key k = keys[i];
-  keys[i] = 0;
-  V[i] = dg::key_value(k);
-  const int r = i / lanes;
-  const int l = i - r * lanes;
-  if (l < ext_lanes) {
-    const int R1 = n / lanes;
-    bp[((size_t)(l >> 10) * R1 + r) * 1024 + (l & 1023)] = dg::key_ordinal(k);
-  }
+// The blocks of K3's grid the current device holds at once.
+extern "C" int dg_wide_split_grid(int* blocks) {
+  return held_blocks<false>(blocks);
 }
 
-}  // namespace
-
-// bounds: HOST array [T + 1] of the transitions' chunk ranges; bprow and
-// ext: HOST arrays [T], each transition's first bp row and its extent in
-// windows.
+// tbl [chunks, 2, 256], wwin, wbase [chunks]; desc [T, 4], cuts [T, G * m
+// + 1, 2] (ops/plan.py:split_slices); v_in [R1, 1024]; V [2, R1, NB *
+// 1024] (the output state is buffer T & 1); bp [nrows, R1, 1024], every
+// row written; rec [G * m, 2, R1] int2 scratch.
 extern "C" int dg_wide_split_run(const int32_t* tbl, const int32_t* wwin,
-                                 const int32_t* wbase, const int32_t* bounds,
-                                 const int32_t* bprow, const int32_t* ext,
-                                 int T, int R1, int NB, int32_t* V,
-                                 dg::Key* keys, int32_t* bp,
+                                 const int32_t* wbase, const int32_t* desc,
+                                 const int32_t* cuts, int T, int R1, int NB,
+                                 int G, int m, const int32_t* v_in,
+                                 int32_t* V, int32_t* bp, int32_t* rec,
                                  cudaStream_t stream) {
   const int lanes = NB * 1024;
-  const int n = R1 * lanes;
-  const int commit_blocks = (n + 255) / 256;
-  for (int t = 0; t < T; ++t) {
-    const int nch = bounds[t + 1] - bounds[t];
-    if (nch > 0) {
-      dg::window_candidates<<<nch, dg::CHUNK, 0, stream>>>(
-          tbl, wwin, wbase, bounds[t], R1, lanes, V, keys);
-    }
-    split_commit<<<commit_blocks, 256, 0, stream>>>(
-        n, lanes, ext[t] * 1024, V, keys, bp + (size_t)bprow[t] * R1 * 1024);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+  Run x{tbl, wwin, wbase, reinterpret_cast<const int4*>(desc),
+        reinterpret_cast<const int2*>(cuts), T, R1, lanes, G * m, m,
+        v_in, 1024, V, V + (size_t)R1 * lanes, bp,
+        reinterpret_cast<int2*>(rec)};
+  return launch<false>(x, G, stream);
 }

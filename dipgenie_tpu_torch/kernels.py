@@ -46,12 +46,16 @@ _SIGNATURES = {
     "dg_wide_dense_run": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # int *blocks: K2's co-resident grid on the current device
     "dg_wide_dense_grid": (_P,),
-    # tbl, wwin, wbase, host chunk bounds [T + 1], host bp rows [T],
-    # host extents [T], T, R1, NB, V, keys, bp, stream
-    "dg_wide_split_run": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                          _P),
-    # stbl, swin, sbase, c0, nch, R1, NB, V, keys, part, stream
-    "dg_wide_step": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # tbl, wwin, wbase, k3_desc [T, 4], k3_cuts [T, grid * per_block + 1,
+    # 2], T, R1, NB, grid, per_block, v_in, V [2, R1, NB * 1024], bp, rec,
+    # stream
+    "dg_wide_split_run": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P, _P),
+    # int *blocks: K3's (and K4's) co-resident grid on the current device
+    "dg_wide_split_grid": (_P,),
+    # stbl, swin, sbase, the transition's k3_desc row and k3_cuts rows, R1,
+    # NB, grid, per_block, v, part [2, R1, NB * 1024], rec, stream
+    "dg_wide_step": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # desc [T, 8], bases [segments, 6], T, R, recs [ceil(T / 64) * 64, 7],
     # stream
     "dg_trace": (_P, _P, _I, _I, _P, _P),

@@ -59,6 +59,29 @@ Layouts the port's kernels (and their plain versions) decode:
   start uninitialised), then the larger of this transition's destination
   extent ``tb_bout ** 2`` and that of the transition two before it (the
   last to write the same buffer).
+* Window-split wide slices (made by ``plan_to_device`` for K3 and by
+  ``shard_to_device`` for K4's share of a rank; ``split_slices``): a
+  cooperative grid of ``k3_grid`` blocks (``ops/wide_split.py:k3_grid``),
+  ``k3_per_block`` slices a block a transition, slice ``j * k3_grid +
+  block`` its j-th. A transition's slot ``s`` is lane ``s % 256`` of its
+  chunk ``s // 256``; the real slots' destinations ascend, and the pads
+  (``rel = -1``) sit at the end of each window's last chunk. The slices
+  cut the written lanes ``[0, W)`` into runs of about equal work (a lane
+  and its pairs), each at most ``K3_SLICE_LANES`` lanes and
+  ``K3_SLICE_SLOTS`` slots. A destination with more pairs than a slice's
+  share of the work is heavy: its pairs may be cut between slices, whose
+  partial winners the kernel combines after a grid barrier.
+  ``DevSegment.k3_cuts [T, S + 1, 2] int32`` holds each slice's first
+  lane (``| SPLIT`` where the cut lies inside that lane's pairs) and first
+  slot (the last entry ``W`` and one past the last real slot): slice k
+  has the lanes ``[lane_k, lane_k+1 + split_k+1)`` and the slots
+  ``[slot_k, slot_k+1)``. ``k3_desc [T, 4] int32`` holds per transition
+  its first chunk row, its first bp row, its bp lanes (extent windows x
+  1024) and 1 where a cut splits a lane (K4: the rank's first chunk of
+  ``stbl``, 0, 0, the flag). ``W`` is the whole state for the first
+  ``buffers`` transitions, then the larger of this transition's extent
+  and that of the transition ``buffers`` before it (K3 double-buffers V,
+  K4 reuses one partial buffer).
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
   ``DevPlan.desc [L - 1, 8] int32``, one row per transition, the columns
   of ``TRACE_COLS``: the segment, the bp block's lanes, the rows of its bp
@@ -89,17 +112,19 @@ the run's whole ``tbl``, ``w1`` and ``symd`` for the traceback. Its merged
 backpointers are one int32 ``[R+1, NB * 1024]`` block per transition,
 ``bp [T, R+1, NB * 1024]``, in the window-split numbering.
 
-Reduction key. For every destination lane and row the wide kernels and
-the plain versions keep the best candidate as one 64-bit key, ``(value -
-REACH_T + 1) << 32 | (0xFFFFFFFF - ordinal)``, merged with a max. A larger
-key is a larger value, then a smaller ordinal: the reference tie rule (the
-earliest pair in plan order wins). The max is order-independent, so
-parallel atomics give deterministic results, and 0 means "no valid
+Reduction key. For every destination lane and row the plain versions
+keep the best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
+(0xFFFFFFFF - ordinal)``, merged with a max. A larger key is a larger
+value, then a smaller ordinal: the reference tie rule (the earliest pair
+in plan order wins). The max is order-independent, and 0 means "no valid
 candidate". The high word stays below 2^31 (the card computes it in int32
 and reads it back signed): the planner refuses a graph whose values could
-pass ``VALUE_MAX`` (2,147,221,502). K1 keeps no keys: each destination's
-pairs are one range in plan order, so it walks them and keeps the first
-maximum, which is the same winner. Padded pair lanes never make a
+pass ``VALUE_MAX`` (2,147,221,502). The kernels keep no keys: each
+destination's pairs are one range in plan order, so K1 walks them and
+keeps the first maximum, which is the same winner, and K2, K3 and K4
+take each range's first maximum in shared memory (K2 combines a warp's
+winners on the key; K3 and K4 combine a cut heavy destination's parts in
+slot order). Padded pair lanes never make a
 candidate: K1 walks only a transition's real pairs, K3 (and K4) drop pads
 by their ``dst + 1 == 0`` sentinel, K2 by ``score == PAD_SC``, before
 ``value + score`` is formed, and a real score is a popcount (>= 0), so no
@@ -146,6 +171,14 @@ K2_SLICE_LANES = 1024
 K2_SLICE_PAIRS = 44032
 K2_PER_BLOCK_MAX = 16
 K2_GRID_CPU = 132
+# K3's and K4's slices (split_slices, csrc/wide_split.cuh): the widest
+# (MAX_W), the most slots (CAND: their candidates fill the block's shared
+# memory), the most a block takes a transition, and the flag of a cut
+# inside a lane's pairs
+K3_SLICE_LANES = 1024
+K3_SLICE_SLOTS = 44032
+K3_PER_BLOCK_MAX = 64
+SPLIT = 1 << 30
 # the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu):
 # "bins" is bin | bout << 16, "flags" ORs TRACE_FLAGS
 TRACE_COLS = ("seg", "lanes", "rows", "bprow", "chunkbase", "nch", "bins",
@@ -186,6 +219,12 @@ class DevSegment:
     k2_per_block: int = 0
     k2_desc: torch.Tensor | None = None
     k2_cuts: torch.Tensor | None = None
+    # wide_split (K3) and wide_tp (K4): the same for the window-split
+    # slices (split_slices)
+    k3_grid: int = 0
+    k3_per_block: int = 0
+    k3_desc: torch.Tensor | None = None
+    k3_cuts: torch.Tensor | None = None
 
     @property
     def t0(self) -> int:
@@ -236,8 +275,34 @@ def shard_to_device(seg: _WideRun, n_tp: int, rank: int, device) -> DevSegment:
     t["swin"] = _tensor(seg.wwin[rows], device)
     t["sbase"] = _tensor(seg.wbase[rows], device)
     t["present"] = _tensor(present.astype(bool), device)
-    return DevSegment(kind="wide_tp", host=seg, t=t, nreal=len(rows),
+    dseg = DevSegment(kind="wide_tp", host=seg, t=t, nreal=len(rows),
                       bounds=bounds, trace_cols=trace_columns("wide_tp", seg))
+    _ship_split_slices(dseg, seg.tbl[rows], seg.wwin[rows], bounds, 1,
+                       device)
+    return dseg
+
+
+def _ship_split_slices(dseg: DevSegment, tbl: np.ndarray, win: np.ndarray,
+                       bounds: np.ndarray, buffers: int, device) -> None:
+    """Set ``dseg``'s K3 / K4 slice tables (see the module docstring)
+    for the chunks ``tbl`` / ``win`` whose transitions are ``bounds``."""
+    from .wide_split import ext_windows, k3_grid
+
+    h = dseg.host
+    ext = ext_windows(h)
+    grid = k3_grid(device)
+    cuts, split, m = split_slices(tbl, win, bounds, ext, h.NB * 1024, grid,
+                                  buffers)
+    T = h.t1 - h.t0
+    desc = np.zeros((T, 4), np.int32)
+    desc[:, 0] = bounds[:-1]
+    if dseg.kind == "wide_split":
+        desc[:, 1] = h.tb_bprow
+        desc[:, 2] = ext * 1024
+    desc[:, 3] = split
+    dseg.k3_desc = _tensor(desc, device)
+    dseg.k3_cuts = _tensor(cuts, device)
+    dseg.k3_grid, dseg.k3_per_block = grid, m
 
 
 def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
@@ -282,6 +347,10 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             dseg.k2_desc = _tensor(desc, device)
             dseg.k2_cuts = _tensor(cuts, device)
             dseg.k2_grid = grid
+        elif kind == "wide_split":
+            _ship_split_slices(dseg, seg.tbl, seg.wwin,
+                               chunk_bounds(seg.tb_chunkbase, nreal), 2,
+                               device)
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 
@@ -350,6 +419,84 @@ def wide_slices(seg: _WideRun, nreal: int, grid: int
     raise PlanLimit(
         f"wide_slices: the run at level {seg.t0} ({seg.NB} windows) does "
         f"not fit {K2_PER_BLOCK_MAX} slices a block of a grid of {grid}")
+
+
+def split_slices(tbl: np.ndarray, win: np.ndarray, bounds: np.ndarray,
+                 ext: np.ndarray, full: int, grid: int, buffers: int
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """``(k3_cuts [T, S + 1, 2] int32, split [T] bool, per_block)`` of
+    window-split chunks (``tbl [n, 2, 256]``, destination windows ``win
+    [n]``, transition ``ti``'s chunks ``bounds[ti]:bounds[ti + 1]``, its
+    extent ``ext[ti]`` windows) for a grid of ``grid`` blocks over a state
+    of ``full`` lanes (see the module docstring): the fewest slices a
+    block that keep every slice within ``K3_SLICE_LANES`` lanes and
+    ``K3_SLICE_SLOTS`` slots; ``split[ti]`` where a cut falls inside a
+    heavy destination's pairs. Raises unless each transition's real
+    pairs ascend by destination; ``PlanLimit`` where no slicing fits."""
+    T = len(bounds) - 1
+    E = np.asarray(ext, np.int64) * 1024
+    W = np.full(T, full, np.int64)
+    if T > buffers:
+        W[buffers:] = np.maximum(E[buffers:], E[:-buffers])
+    b = np.asarray(bounds, np.int64) - bounds[0]
+    rel = ((tbl[bounds[0]:bounds[-1], 0].reshape(-1) >> 2) & 2047) - 1
+    real = np.flatnonzero(rel >= 0)
+    real_dst = win[bounds[0] + (real >> 8)] * 1024 + rel[real]
+    at = np.searchsorted(real, b * CHUNK)
+    pairs = []
+    for ti in range(T):
+        slots = real[at[ti]:at[ti + 1]] - b[ti] * CHUNK
+        dst = real_dst[at[ti]:at[ti + 1]]
+        if np.any(np.diff(dst) < 0) or dst.max(initial=0) >= W[ti]:
+            raise ValueError(
+                f"split_slices: transition {ti}'s pairs do not ascend by "
+                "destination within its extent")
+        pairs.append((slots, dst))
+    for m in range(-(-full // (grid * K3_SLICE_LANES)),
+                   K3_PER_BLOCK_MAX + 1):
+        S = grid * m
+        cuts = np.zeros((T, S + 1, 2), np.int32)
+        split = np.zeros(T, bool)
+        for ti, (slots, dst) in enumerate(pairs):
+            cuts[ti], split[ti] = _cut_transition(slots, dst, int(W[ti]), S)
+            if np.diff(cuts[ti, :, 1]).max(initial=0) > K3_SLICE_SLOTS:
+                break
+        else:
+            return cuts, split, m
+    raise PlanLimit(
+        f"split_slices: a run of {full // 1024} windows does not fit "
+        f"{K3_PER_BLOCK_MAX} slices a block of a grid of {grid}")
+
+
+def _cut_transition(slots: np.ndarray, dst: np.ndarray, W: int, S: int
+                    ) -> tuple[np.ndarray, bool]:
+    """``([S + 1, 2] cuts, split)`` of one transition's real pairs (their
+    slots and ascending destinations) over the lanes ``[0, W)``: a lane
+    whose pairs outweigh a slice's share of the work is cut into pieces
+    of half that share, and the lanes and pieces are cut into ``S`` runs
+    of about equal work (``balanced_cuts``)."""
+    n = len(dst)
+    counts = np.bincount(dst, minlength=W)
+    before = np.cumsum(counts) - counts  # pairs of the lanes before
+    slot_of = np.append(slots, slots[-1] + 1 if n else 0)
+    target = (W + n) / S
+    heavy = counts > target
+    if not heavy.any():
+        at = balanced_cuts(counts + 1, S, K3_SLICE_LANES)
+        slot = slot_of[np.append(before, n)[at]]
+        return np.stack([at, slot], 1), False
+    piece = max(1, int(np.ceil(target / 2)))
+    q = np.where(heavy, -(-counts // piece), 1)
+    lane_of = np.repeat(np.arange(W), q)
+    j = np.arange(len(lane_of)) - np.repeat(np.cumsum(q) - q, q)
+    c, qq = counts[lane_of], q[lane_of]
+    first = c * j // qq  # the piece's first pair within its lane
+    work = c * (j + 1) // qq - first + (j == 0)
+    at = balanced_cuts(work, S, K3_SLICE_LANES)
+    lane = np.append(lane_of, W)[at]
+    cut = np.append(j > 0, False)[at]
+    slot = slot_of[np.append(before[lane_of] + first, n)[at]]
+    return np.stack([lane | np.where(cut, SPLIT, 0), slot], 1), bool(cut.any())
 
 
 def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:

@@ -12,10 +12,15 @@ rewritten at each transition, so lanes no kept pair reaches (holes,
 windows past the extent) become ``NEG``. Backpointers go to rows
 ``tb_bprow[t] + win`` of ``bp [nrows, R+1, 1024]`` int32, one row per
 window below the transition's extent; hole windows get ordinal 0. The
-run's output state is the first 1024 lanes.
+run's output state is the first 1024 lanes. The kernel writes only the
+lanes it must for the same result, over the slices ``plan_to_device``
+made (``ops/plan.py:split_slices``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -23,7 +28,9 @@ import torch
 from .. import kernels
 from .narrow import transition_keys
 from .pair_plan import SPLIT_NB_MAX
-from .plan import CHUNK, NEG, DevSegment, chunk_bounds, decode_keys
+from .plan import (
+    CHUNK, K2_GRID_CPU, NEG, DevSegment, chunk_bounds, decode_keys,
+)
 
 
 def ext_windows(h) -> np.ndarray:
@@ -69,10 +76,37 @@ def wide_split_run_ref(seg: DevSegment, v_in: torch.Tensor):
     return V[:, :1024].contiguous(), bp
 
 
+@functools.cache
+def k3_grid(device) -> int:
+    """Blocks of K3's (and K4's) cooperative grid on ``device``: its SMs
+    times the blocks of the kernel one SM holds at once (the occupancy
+    API); ``K2_GRID_CPU`` for the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return K2_GRID_CPU
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = kernels.lib().dg_wide_split_grid(ctypes.byref(blocks))
+    kernels.raise_on_error(rc, "wide_split_run")
+    return blocks.value
+
+
+def check_slices(seg: DevSegment, T: int, device) -> tuple[int, int]:
+    """``(grid, per_block)`` of a segment's slice tables, checked."""
+    if seg.k3_cuts is None:
+        raise ValueError(f"{seg.kind}: no slices of this run (plan_to_device "
+                         "and shard_to_device make them)")
+    G, m = seg.k3_grid, seg.k3_per_block
+    kernels.check_tensor(seg.k3_desc, "k3_desc", torch.int32, (T, 4), device)
+    kernels.check_tensor(seg.k3_cuts, "k3_cuts", torch.int32,
+                         (T, G * m + 1, 2), device)
+    return G, m
+
+
 def wide_split_run(seg: DevSegment, v_in: torch.Tensor):
-    """K3. A CUDA ``v_in`` launches ``csrc/wide_split_run.cu`` (one host
-    call per run, two kernels per transition); a CPU ``v_in`` takes
-    ``wide_split_run_ref``."""
+    """K3. A CUDA ``v_in`` launches ``csrc/wide_split_run.cu`` (one
+    cooperative launch per run of ``seg.k3_grid`` blocks over the slices
+    ``plan_to_device`` made); a CPU ``v_in`` takes ``wide_split_run_ref``."""
     if v_in.device.type == "cpu":
         return wide_split_run_ref(seg, v_in)
     kernels.check_tensor(v_in, "v_in", torch.int32, (v_in.shape[0], 1024))
@@ -83,25 +117,27 @@ def wide_split_run(seg: DevSegment, v_in: torch.Tensor):
     if not 1 <= h.NB <= SPLIT_NB_MAX:
         raise ValueError(
             f"wide_split_run: NB = {h.NB}, want 1..{SPLIT_NB_MAX}")
-    R1 = v_in.shape[0]
-    V = _state(seg, v_in)
-    # every bp row is written: the rows of a transition are its windows
-    # below the extent, and the transitions' rows tile [0, nrows)
+    T, R1 = h.t1 - h.t0, v_in.shape[0]
+    G, m = check_slices(seg, T, v_in.device)
+    # two state buffers, each lane written before it is read; every bp row
+    # is written: the rows of a transition are its windows below the
+    # extent, and the transitions' rows tile [0, nrows)
+    V = torch.empty((2, R1, h.NB * 1024), dtype=torch.int32,
+                    device=v_in.device)
     bp = torch.empty((h.nrows, R1, 1024), dtype=torch.int32,
                      device=v_in.device)
-    keys = torch.zeros(V.shape, dtype=torch.int64, device=v_in.device)
-    bounds = chunk_bounds(h.tb_chunkbase, seg.nreal)
-    bprow = np.ascontiguousarray(h.tb_bprow, np.int32)
-    ext = ext_windows(h)
+    rec = torch.empty((G * m, 2, R1, 2), dtype=torch.int32,
+                      device=v_in.device)
     rc = kernels.lib().dg_wide_split_run(
         tensors["tbl"].data_ptr(), tensors["wwin"].data_ptr(),
-        tensors["wbase"].data_ptr(), bounds.ctypes.data, bprow.ctypes.data,
-        ext.ctypes.data, h.t1 - h.t0, R1, h.NB, V.data_ptr(),
-        keys.data_ptr(), bp.data_ptr(), kernels.stream_of(v_in),
+        tensors["wbase"].data_ptr(), seg.k3_desc.data_ptr(),
+        seg.k3_cuts.data_ptr(), T, R1, h.NB, G, m, v_in.data_ptr(),
+        V.data_ptr(), bp.data_ptr(), rec.data_ptr(),
+        kernels.stream_of(v_in),
     )
     kernels.raise_on_error(rc, "wide_split_run")
     wide_split_run.launches += 1
-    return V[:, :1024].contiguous(), bp
+    return V[T & 1, :, :1024].contiguous(), bp
 
 
 wide_split_run.launches = 0

@@ -30,7 +30,7 @@ from .. import kernels
 from .narrow import transition_keys
 from .pair_plan import SPLIT_NB_MAX
 from .plan import CHUNK, NEG, REACH_T, DevSegment, _LOW32
-from .wide_split import _state
+from .wide_split import _state, check_slices
 
 
 def _partial(keys: torch.Tensor) -> torch.Tensor:
@@ -62,12 +62,24 @@ def wide_step_ref(seg: DevSegment, ti: int, v: torch.Tensor) -> torch.Tensor:
     return _partial(keys)
 
 
+def new_partial(seg: DevSegment, R1: int, device) -> torch.Tensor:
+    """A partial ``[2, R+1, NB * 1024]`` int32 of NEG / -1."""
+    part = torch.empty((2, R1, seg.host.NB * 1024), dtype=torch.int32,
+                       device=device)
+    part[0].fill_(NEG)
+    part[1].fill_(-1)
+    return part
+
+
 def wide_step(seg: DevSegment, ti: int, v: torch.Tensor,
-              keys: torch.Tensor | None = None) -> torch.Tensor:
-    """K4. A CUDA ``v`` launches ``csrc/wide_step.cu`` (one host call per
-    transition); a CPU ``v`` takes ``wide_step_ref``. ``keys`` is an
-    all-0 int64 scratch of ``v``'s shape, left all 0 (allocated when not
-    given)."""
+              part: torch.Tensor | None = None) -> torch.Tensor:
+    """K4. A CUDA ``v`` launches ``csrc/wide_step.cu`` (one cooperative
+    launch per transition over this rank's slices, ``shard_to_device``'s);
+    a CPU ``v`` takes ``wide_step_ref``. The kernel writes the lanes of
+    the transition's slices into ``part`` and returns it; the lanes past
+    them must hold NEG / -1 already, as the merged partial of the run's
+    transition before holds them. Without ``part`` it writes into a new
+    partial of NEG / -1."""
     if v.device.type == "cpu":
         return wide_step_ref(seg, ti, v)
     h = seg.host
@@ -76,18 +88,19 @@ def wide_step(seg: DevSegment, ti: int, v: torch.Tensor,
     R1 = v.shape[0]
     shape = (R1, h.NB * 1024)
     kernels.check_tensor(v, "v", torch.int32, shape)
-    if keys is None:
-        keys = torch.zeros(shape, dtype=torch.int64, device=v.device)
-    kernels.check_tensor(keys, "keys", torch.int64, shape, v.device)
+    if part is None:
+        part = new_partial(seg, R1, v.device)
+    kernels.check_tensor(part, "part", torch.int32, (2, *shape), v.device)
     tensors = {k: seg.t[k] for k in ("stbl", "swin", "sbase")}
     for name, t in tensors.items():
         kernels.check_tensor(t, name, torch.int32, None, v.device)
-    c0, c1 = _share(seg, ti)
-    part = torch.empty((2, *shape), dtype=torch.int32, device=v.device)
+    G, m = check_slices(seg, h.t1 - h.t0, v.device)
+    rec = torch.empty((G * m, 2, R1, 2), dtype=torch.int32, device=v.device)
     rc = kernels.lib().dg_wide_step(
         tensors["stbl"].data_ptr(), tensors["swin"].data_ptr(),
-        tensors["sbase"].data_ptr(), c0, c1 - c0, R1, h.NB, v.data_ptr(),
-        keys.data_ptr(), part.data_ptr(), kernels.stream_of(v),
+        tensors["sbase"].data_ptr(), seg.k3_desc[ti].data_ptr(),
+        seg.k3_cuts[ti].data_ptr(), R1, h.NB, G, m, v.data_ptr(),
+        part.data_ptr(), rec.data_ptr(), kernels.stream_of(v),
     )
     kernels.raise_on_error(rc, "wide_step")
     wide_step.launches += 1
@@ -118,10 +131,13 @@ def wide_tp_run(seg: DevSegment, v_in: torch.Tensor, group):
     T = h.t1 - h.t0
     V = _state(seg, v_in)
     bp = torch.empty((T, *V.shape), dtype=torch.int32, device=V.device)
-    keys = (None if V.device.type == "cpu"
-            else torch.zeros(V.shape, dtype=torch.int64, device=V.device))
+    # one partial for the run: K4 writes the whole of it at the first
+    # transition, and each merge leaves NEG / -1 past the lanes of the next
+    part = (None if V.device.type == "cpu"
+            else torch.empty((2, *V.shape), dtype=torch.int32,
+                             device=V.device))
     for ti in range(T):
-        part = wide_step(seg, ti, V, keys)
+        part = wide_step(seg, ti, V, part)
         t0 = time.perf_counter()
         dist.all_reduce(part, op=dist.ReduceOp.MAX, group=group)
         wide_tp_run.merge_seconds += time.perf_counter() - t0

@@ -20,15 +20,15 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    DENSE_NB_MAX, NEG, REACH_T, initial_v, plan_pairs, plan_to_device,
-    shard_to_device, wide_slices,
+    DENSE_NB_MAX, NEG, REACH_T, chunk_bounds, initial_v, plan_pairs,
+    plan_to_device, shard_to_device, split_slices, wide_slices,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
 from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
     CASES, GLOBAL_STATE_CASE, LIMIT_CASES, dense_graph, hand_graph,
-    limit_case, mhc_shaped_csr, random_leveled_csr,
+    limit_case, mhc_shaped_csr, random_leveled_csr, wide_window_graph,
 )
 
 pytestmark = pytest.mark.cuda
@@ -40,8 +40,9 @@ CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
 
 
 # the pairs of a slice K2 stages in shared memory (csrc/wide_dense_run.cu
-# STAGE)
+# STAGE), and the slots of one K3 / K4 stage (csrc/wide_split.cuh STAGE)
 K2_STAGE = 2560
+K3_STAGE = 2560
 # each segment kind's kernel wrapper and plain version
 RUNS = {"narrow": (narrow.narrow_run, narrow.narrow_run_ref),
         "wide": (wide.wide_dense_run, wide.wide_dense_run_ref),
@@ -178,6 +179,109 @@ def test_wrappers_reject_bad_inputs(cuda):
         wide_split.wide_split_run(seg_s, v[:, :512].contiguous())
     with pytest.raises(ValueError, match="dtype"):
         wide_split.wide_split_run(seg_s, v.to(torch.int16))
+
+
+def _with_grid(dseg, grid, buffers=2):
+    """Re-slice a K3 segment (or, ``buffers`` 1, a tp share) for a grid of
+    ``grid`` blocks, as a card with fewer SMs gets it; returns the most
+    slots of one slice."""
+    h = dseg.host
+    if dseg.kind == "wide_tp":
+        tbl, win = dseg.t["stbl"].cpu().numpy(), dseg.t["swin"].cpu().numpy()
+        bounds = dseg.bounds
+    else:
+        tbl, win = h.tbl, h.wwin
+        bounds = chunk_bounds(h.tb_chunkbase, dseg.nreal)
+    cuts, split, m = split_slices(tbl, win, bounds,
+                                  wide_split.ext_windows(h), h.NB * 1024,
+                                  grid, buffers)
+    desc = dseg.k3_desc.cpu().numpy().copy()
+    desc[:, 3] = split
+    dev = dseg.k3_desc.device
+    dseg.k3_desc = torch.from_numpy(desc).to(dev)
+    dseg.k3_cuts = torch.from_numpy(cuts).to(dev)
+    dseg.k3_grid, dseg.k3_per_block = grid, m
+    return int(np.diff(cuts[:, :, 1], axis=1).max())
+
+
+@pytest.mark.parametrize("grid", [8, 2])
+def test_wide_split_kernel_on_a_smaller_grid(grid, cuda):
+    """K3 on grids smaller than the card's: 4 (grid 8) or 16 (grid 2)
+    slices a block at NB 31, on E-shaped bands, the second of whose band
+    ends cuts a 3,800-pair destination into parts; the lane cap leaves
+    slices of up to ~22k slots (read from the table, candidates a row or
+    two a pass). Bit-equal to the plain version from the DP's own input
+    states; K4 on one rank's share the same way."""
+    plan = plan_pairs(*case_csr("big_window")[0], 18)
+    dplan = plan_to_device(plan, cuda, dense_nb_max=0)
+    V, ran, most, cut = initial_v(18, cuda), 0, 0, False
+    for h, seg in zip(plan.segments, dplan.segments):
+        if seg.kind == "wide_split":
+            most = max(most, _with_grid(seg, grid))
+            assert seg.k3_per_block > 1
+            cut |= bool(seg.k3_desc[:, 3].any())
+            got = wide_split.wide_split_run(seg, V)
+            for g, w in zip(got, wide_split.wide_split_run_ref(seg, V)):
+                assert torch.equal(g, w), (grid, seg.t0)
+            share = shard_to_device(h, 1, 0, cuda)
+            _with_grid(share, grid, 1)
+            W = wide_split._state(share, V)
+            for ti in range(h.t1 - h.t0):
+                part = wide_step.wide_step(share, ti, W)
+                assert torch.equal(part, wide_step.wide_step_ref(share, ti, W))
+                bp = torch.empty_like(W)
+                W = wide_step.commit(part, share.t["present"][ti], bp)
+            assert torch.equal(W[:, :1024], got[0])
+            ran += 1
+        V = RUNS[seg.kind][0](seg, V)[0]
+    assert ran >= 2 and cut and most > 20000 > K3_STAGE
+
+
+@pytest.mark.parametrize("width", [194, 214])
+def test_wide_split_kernel_past_31_windows(width, cuda):
+    """K3 on runs of 37 and 45 windows (widths 194 and 214), as phase D's
+    24-walk pangenome has them, and K4 on their tp shares for n_tp 1-3:
+    each call against its plain version, the DP against the native
+    tier."""
+    g, chb = wide_window_graph(width)
+    arrs = csr_arrays(g, chb)
+    plan = plan_pairs(*arrs, 2)
+    dplan = plan_to_device(plan, cuda)
+    nbs = [s.host.NB for s in dplan.segments if s.kind == "wide_split"]
+    assert nbs == [{194: 37, 214: 45}[width]]
+    _run_checked(dplan, cuda)
+    V = initial_v(2, cuda)
+    for seg, dseg in zip(plan.segments, dplan.segments):
+        out = RUNS[dseg.kind][0](dseg, V)[0]
+        if dseg.kind == "wide_split":
+            for n_tp in (1, 2, 3):
+                assert torch.equal(_tp_run_checked(seg, n_tp, V, cuda), out)
+        V = out
+    assert PairDiploidDP(dplan, cuda).run() == native_forward_csr(arrs, 2)
+
+
+def test_wide_split_refused_launch_raises(cuda):
+    """A grid the card cannot hold at once is refused, and the wrapper's
+    check raises: K3 has no fallback."""
+    plan = plan_pairs(*case_csr("big_window")[0], 18)
+    dplan = plan_to_device(plan, cuda)
+    seg = next(s for s in dplan.segments if s.kind == "wide_split")
+    h, T, R1 = seg.host, seg.t1 - seg.t0, 19
+    assert seg.k3_grid == wide_split.k3_grid(cuda) > 0
+    v = initial_v(18, cuda)
+    V = torch.empty((2, R1, h.NB * 1024), dtype=torch.int32, device=cuda)
+    bp = torch.empty((h.nrows, R1, 1024), dtype=torch.int32, device=cuda)
+    grid = 1 << 16  # far more blocks than fit on any card at once
+    cuts = torch.zeros((T, grid + 1, 2), dtype=torch.int32, device=cuda)
+    rec = torch.empty((grid, 2, R1, 2), dtype=torch.int32, device=cuda)
+    rc = kernels.lib().dg_wide_split_run(
+        seg.t["tbl"].data_ptr(), seg.t["wwin"].data_ptr(),
+        seg.t["wbase"].data_ptr(), seg.k3_desc.data_ptr(), cuts.data_ptr(),
+        T, R1, h.NB, grid, 1, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
+        rec.data_ptr(), kernels.stream_of(v))
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="wide_split_run"):
+        kernels.raise_on_error(rc, "wide_split_run")
 
 
 def _tp_run_checked(seg, n_tp, v_in, device):
