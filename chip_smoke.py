@@ -95,11 +95,6 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, REPO)
-try:  # the timing script of the K3 / K4 redesign, while it exists
-    import split_variants as variants
-except ImportError:
-    variants = None
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 DEVICE = "cuda"
 SEED = 0
@@ -1231,8 +1226,6 @@ class Smoke:
             "of every run and the whole DP's V and traceback records equal"
             + k2_slices(dplan2))
         self.k3_transitions(dplan, big, v_ins)
-        if variants is not None:
-            variants.phase_e(self, dplan, dplan2, big, v_ins)
         log(f"E phase {time.time() - t_phase:.1f}s")
 
     def k3_transitions(self, dplan, big, v_ins):
@@ -1461,8 +1454,6 @@ class Smoke:
         self.ms["wide_step"] = min(times[0])
         self.plain_ms["wide_step"] = min(times[1])
         self.bound["wide_step"] = nbound
-        if variants is not None:
-            variants.phase_f1(self, dplan, mesh, steps, parts)
         log(f"F1 wide_step on the {len(steps)} wide transitions of the first "
             f"{PREFIX_TRANSITIONS} transitions of the plan: kernel "
             f"{times[0]} ms (device {dev_ms:.3f} ms by the profiler), plain "
