@@ -227,11 +227,12 @@ def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
 
 
 def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
-    """(bytes, operations) of one run: each table byte it needs read once
-    (K1: the real pairs' words and one descriptor a transition; K2 / K3:
-    its real chunks, with wwin and wbase and the slice tables for K3), V in
-    and out once, each backpointer byte written once; an add and a max per
-    (real pair, row it reaches)."""
+    """(bytes, operations) of one run: each table byte the function needs
+    read once (K1: the real pairs' words and one descriptor a transition;
+    K2 / K3: its real chunks, with wwin and wbase for K3; not the slice
+    tables, which only the kernels' design reads), V in and out once, each
+    backpointer byte written once; an add and a max per (real pair, row it
+    reaches)."""
     import numpy as np
 
     h = seg.host
@@ -244,8 +245,6 @@ def work(seg, bp_bytes: int, R1: int) -> tuple[int, int]:
     else:
         tables = seg.nreal * (4 * 2 * 256 + (8 if seg.kind == "wide_split"
                                              else 0))
-        if seg.kind == "wide_split":
-            tables += 4 * (seg.k3_desc.numel() + seg.k3_cuts.numel())
     return tables + 2 * R1 * 1024 * 4 + bp_bytes, ops
 
 
@@ -1230,8 +1229,8 @@ class Smoke:
 
     def k3_transitions(self, dplan, big, v_ins):
         """K3's device time a transition on E's ordinary transitions and on
-        its band ends (a run's last, wide into narrow: every cut heavy
-        destination is there): the big runs cut before their last
+        its band ends (a run's last, wide into narrow: the heavy
+        destinations are there): the big runs cut before their last
         transition against the whole runs, from the same input states
         (profiler, in turns); E's whole-plan bound for K3."""
         import dataclasses
@@ -1436,8 +1435,7 @@ class Smoke:
             tbl = s.t["stbl"][c0:c1].cpu().numpy()
             real = ((tbl[:, 0] >> 2) & 2047) > 0
             ops += 2 * int(np.where(real, R1 - (tbl[:, 0] & 3), 0).sum())
-            nbytes += ((c1 - c0) * (4 * 2 * 256 + 8) + 3 * W.numel() * 4
-                       + 4 * (4 + s.k3_cuts[ti].numel()))
+            nbytes += (c1 - c0) * (4 * 2 * 256 + 8) + 3 * W.numel() * 4
         nbound = bound(nbytes, ops)
         times, outs = {0: [], 1: []}, {}
         for which in (1, 0, 0, 1):

@@ -1,7 +1,5 @@
-// Constants and the 64-bit reduction key shared by the pair-DP kernels
-// (K2 combines its warps' winners on the key).
-// The values mirror dipgenie_tpu/ops/diploid_pallas.py (NEG, REACH_T,
-// PAD_SC, CHUNK) and dipgenie_tpu_torch/ops/plan.py (the key layout).
+// Constants shared by the pair-DP kernels. The values mirror
+// dipgenie_tpu/ops/diploid_pallas.py (NEG, REACH_T, PAD_SC, CHUNK).
 #pragma once
 
 #include <cstdint>
@@ -13,30 +11,6 @@ constexpr int CHUNK = 256;            // pairs per plan chunk
 constexpr int NEG = -(1 << 19);       // unreachable state
 constexpr int REACH_T = -(1 << 18);   // values above this are reachable
 constexpr int PAD_SC = -(1 << 22);    // score of padded pair lanes
-
-using Key = unsigned long long;
-
-// (value - REACH_T + 1) << 32 | (0xFFFFFFFF - ordinal): a larger key is a
-// larger value, then a smaller ordinal (the earliest pair in plan order).
-// 0 means no valid candidate. Order-independent, so a max over keys in
-// any order gives the same winner.
-static __device__ __forceinline__ Key make_key(int value, int ordinal) {
-  return ((Key)(unsigned)(value - REACH_T + 1) << 32) |
-         (Key)(0xFFFFFFFFu - (unsigned)ordinal);
-}
-
-// Committed state of a key: NEG unless a candidate with a value above
-// REACH_T reached the lane.
-static __device__ __forceinline__ int key_value(Key k) {
-  if (k == 0) return NEG;
-  const int v = (int)(k >> 32) - 1 + REACH_T;
-  return v > REACH_T ? v : NEG;
-}
-
-// Winner's pair ordinal (0 where no candidate reached the lane).
-static __device__ __forceinline__ int key_ordinal(Key k) {
-  return k == 0 ? 0 : (int)(0xFFFFFFFFu - (unsigned)(k & 0xFFFFFFFFull));
-}
 
 }  // namespace dg
 

@@ -58,9 +58,11 @@
 //   the block's loads of V are in flight together: a walk per cell had
 //   each step wait for an L2 round trip. Thread (r, d) then takes the first
 //   maximum of d's candidates (strict >) with its ordinal, the winner of
-//   the 64-bit key; a range of more than LONG pairs is reduced by a warp,
-//   its lanes' winners combined by __shfl_xor_sync on the key of
-//   dg_common.cuh (value, then the smaller ordinal), so the tie rule holds.
+//   the plain version's 64-bit key; a range of more than LONG pairs is
+//   reduced by a warp, its lanes' winners combined by __shfl_xor_sync on
+//   (value, then the smaller ordinal), so the tie rule holds. The grid,
+//   the launch, the staging and the reductions are csrc/coop.cuh's, which
+//   K3 / K4 share.
 //   Unreached lanes commit NEG with ordinal 0; a winner at a value <=
 //   REACH_T commits NEG and keeps its ordinal.
 // * Staging. The {packed, score} words of the block's next slice reach the
@@ -75,27 +77,25 @@
 // transition is ~1.3 us of grid barrier after the last block, ~1.5 us of
 // candidates and ~1.5 us of reductions in the mean block, the slowest block
 // up to 2-3 us later.
-#include <climits>
 #include <cooperative_groups.h>
 
-#include "dg_common.cuh"
+#include "coop.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using coop::CAND;
+using coop::LONG;
+using coop::MAX_W;
+using coop::NONE;
+using coop::STAGE;
+using coop::THREADS;
+using coop::word;
 using dg::CHUNK;
 using dg::NEG;
 using dg::REACH_T;
 
-constexpr int THREADS = 1024;
-constexpr int STAGE = 2560;  // pairs of a slice staged in shared memory
-// candidate values a block holds at once, the most pairs of a slice
-// (ops/plan.py K2_SLICE_PAIRS)
-constexpr int CAND = 44032;
-constexpr int MAX_W = 1024;  // lanes of a slice (ops/plan.py K2_SLICE_LANES)
-constexpr int LONG = 32;     // a longer range is reduced by a warp
-constexpr int NONE = INT_MIN;  // no valid candidate
 // slices whose ranges a block holds: those of CH + 1 transitions, CH =
 // KCACHE / m - 1 (m <= ops/plan.py K2_PER_BLOCK_MAX), one half-warp search
 // for each end
@@ -103,11 +103,6 @@ constexpr int KCACHE = THREADS / 32;
 constexpr int MAX_PER_BLOCK = KCACHE / 2;
 constexpr int SMEM_BYTES =
     2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4 + KCACHE * (16 + 4);
-
-__device__ __forceinline__ const int32_t* word(const int32_t* dtbl, int c0,
-                                                int p) {
-  return dtbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
-}
 
 __device__ __forceinline__ int dst_of(int packed) {
   return (packed >> 2) & 32767;
@@ -188,9 +183,8 @@ __device__ __forceinline__ void candidates(const int2* s, const int32_t* dtbl,
 }
 
 // The cells of rows [g0, g0 + rg) from the candidates: thread (r, d) takes
-// the first maximum of d's range (strict >, four values a step), a warp
-// per (range, row) where the range is longer than LONG, its lanes' winners
-// reduced on the 64-bit key (value, then the smaller ordinal).
+// the first maximum of d's range, a warp per (range, row) where the range
+// is longer than LONG (coop.cuh).
 __device__ __forceinline__ void reduce_cells(
     const int* cand, int np, int plo, int g0, int rg, int d_lo, int nd,
     int stamp, const int* first, const int* end, const int* stamps,
@@ -201,22 +195,8 @@ __device__ __forceinline__ void reduce_cells(
     const bool has = stamps[dl] == stamp;
     const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
     if (e1 - e0 > LONG) continue;
-    const int* cv = cand + rl * np - plo;
-    int best = NONE, ord = 0;
-#pragma unroll 1
-    for (int e = e0; e < e1; e += 4) {
-      int v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = cv[min(e + j, e1 - 1)];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (e + j < e1 && v[j] > best) {
-          best = v[j];
-          ord = e + j;
-        }
-      }
-    }
-    commit(dstV, bpt, (size_t)(g0 + rl) * lanes + d_lo + dl, best, ord);
+    const int2 w = coop::first_max(cand + rl * np - plo, e0, e1);
+    commit(dstV, bpt, (size_t)(g0 + rl) * lanes + d_lo + dl, w.x, w.y);
   }
   int q = 0;
   for (int b = 0; b < nd; b += 32) {
@@ -227,36 +207,13 @@ __device__ __forceinline__ void reduce_cells(
     while (m) {
       const int dj = b + __ffs(m) - 1;
       m &= m - 1;
-      const int e0 = first[dj], e1 = end[dj];
       for (int rl = 0; rl < rg; ++rl, ++q) {
         if ((q & 31) != warp) continue;
-        const int* cv = cand + rl * np - plo;
-        int best = NONE, ord = 0;
-#pragma unroll 1
-        for (int e = e0 + lane; e < e1; e += 128) {
-          int v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = cv[min(e + 32 * j, e1 - 1)];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (e + 32 * j < e1 && v[j] > best) {
-              best = v[j];
-              ord = e + 32 * j;
-            }
-          }
-        }
-        dg::Key k = best == NONE ? 0 : dg::make_key(best, ord);
-#pragma unroll
-        for (int o = 16; o; o >>= 1) {
-          const dg::Key x = __shfl_xor_sync(0xffffffffu, k, o);
-          k = x > k ? x : k;
-        }
-        if (lane == 0) {
-          const size_t at = (size_t)(g0 + rl) * lanes + d_lo + dj;
-          dstV[at] = dg::key_value(k);
-          const int o = dg::key_ordinal(k);
-          if (o != 0) bpt[at] = o;
-        }
+        const int2 w = coop::warp_first_max(cand + rl * np - plo, first[dj],
+                                            end[dj], lane);
+        if (lane == 0)
+          commit(dstV, bpt, (size_t)(g0 + rl) * lanes + d_lo + dj, w.x,
+                 w.x == NONE ? 0 : w.y);
       }
     }
   }
@@ -312,22 +269,6 @@ __device__ __forceinline__ void find_ranges(const int32_t* dtbl,
   }
 }
 
-// Issue cp.async copies of the slice's words [plo, phi) into s (no wait).
-__device__ __forceinline__ void stage(const int32_t* dtbl, int c0, int plo,
-                                      int phi, int2* s) {
-  if (phi - plo > STAGE) return;
-  for (int p = plo + (int)threadIdx.x; p < phi; p += THREADS) {
-    const int32_t* w = word(dtbl, c0, p);
-    const unsigned d =
-        (unsigned)__cvta_generic_to_shared(s + (p - plo));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(w)
-                 : "memory");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d + 4),
-                 "l"(w + CHUNK)
-                 : "memory");
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 wide_dense_kernel(const int32_t* __restrict__ dtbl,
                   const int2* __restrict__ desc,
@@ -350,7 +291,7 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
   // the ranges of transitions [0, CH], and the words of the first slice
   find_ranges(dtbl, desc, cuts, S, G, m, 0, min(CH + 1, T), rng, c0s);
   __syncthreads();
-  stage(dtbl, c0s[0], rng[0].z, rng[0].w, s_pair);
+  coop::stage(dtbl, c0s[0], rng[0].z, rng[0].w, s_pair);
   asm volatile("cp.async.commit_group;" ::: "memory");
 
   const size_t plane = (size_t)R1 * lanes;
@@ -368,7 +309,7 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
     const int e = (t - tc) * m + j;
     if (n + 1 < N) {
       const int4 C1 = rng[e + 1];
-      stage(dtbl, c0s[(n + 1) / m - tc], C1.z, C1.w,
+      coop::stage(dtbl, c0s[(n + 1) / m - tc], C1.z, C1.w,
             s_pair + ((n + 1) & 1) * STAGE);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -413,20 +354,8 @@ wide_dense_kernel(const int32_t* __restrict__ dtbl,
 
 // The blocks of K2's grid the current device holds at once.
 extern "C" int dg_wide_dense_grid(int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute(
-      wide_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per, wide_dense_kernel, THREADS, SMEM_BYTES)) != cudaSuccess)
-    return (int)e;
-  *blocks = sms * per;
-  return 0;
+  return coop::held_blocks((const void*)wide_dense_kernel, SMEM_BYTES,
+                           blocks);
 }
 
 // dtbl [nchunks, 2, 256]; desc [T, 2] int32 {first chunk, real pairs};
@@ -445,16 +374,10 @@ extern "C" int dg_wide_dense_run(const int32_t* dtbl, const int32_t* desc,
       lanes > G * m * MAX_W)
     return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  int held = 0;
-  cudaError_t e = (cudaError_t)dg_wide_dense_grid(&held);
-  if (e != cudaSuccess) return (int)e;
-  if (held < G) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int2* d2 = reinterpret_cast<const int2*>(desc);
   void* args[] = {(void*)&dtbl, (void*)&d2,   (void*)&cuts, (void*)&T,
                   (void*)&R1,   (void*)&lanes, (void*)&m,   (void*)&v_in,
                   (void*)&V,    (void*)&bp};
-  e = cudaLaunchCooperativeKernel((const void*)wide_dense_kernel, dim3(G),
-                                  dim3(THREADS), args, SMEM_BYTES, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return coop::launch((const void*)wide_dense_kernel, G, SMEM_BYTES, args,
+                      stream);
 }

@@ -1,7 +1,7 @@
 // The window-split wide transition shared by K3 (csrc/wide_split_run.cu:
 // a run of transitions in one cooperative launch) and K4
 // (csrc/wide_step.cu: one tp rank's partial of one transition, one
-// cooperative launch).
+// cooperative launch), on K2's cooperative skeleton (csrc/coop.cuh).
 //
 // A transition reads the window-split chunk table: slot s of a transition
 // (or of a rank's share of it) is lane s % 256 of its chunk s / 256,
@@ -11,29 +11,31 @@
 // run of slots with no pad inside; the pads (rel = -1) sit at the end of
 // each window's last chunk.
 //
-// Slices, no keys. ops/plan.py:split_slices cuts each transition's written
-// lanes [0, W) into S = G * m slices of about equal work (a lane and its
-// pairs), each at most MAX_W lanes and CAND slots, and ships the first lane
-// and the first slot of each: block b takes slices b, G + b, ... A slice's
-// words reach shared memory by cp.async while the block works on the
-// slice before it; the block marks each destination's run of slots
-// (first, end, a stamp of the slice), computes every candidate
-// V[r - wsum, gidx] + score of (slot, row) into shared memory, so all of
-// its loads of V are in flight together, then takes each (lane, row)'s
-// first maximum in slot order (strict >: ties go to the smallest ordinal,
-// as the TPU kernel's strict `>` across chunks gave), a warp per range of
-// more than LONG slots, its lanes' winners combined on (value, then the
-// smaller slot) by shuffles.
+// Slices, no keys, no atomics. ops/plan.py:split_slices cuts each
+// transition's written lanes [0, W) into S = G * m slices of about equal
+// work (a lane and its pairs), each at most MAX_W lanes and CAND slots,
+// and ships the first lane and the first slot of each: block b takes
+// slices b, G + b, ... A slice's words reach shared
+// memory by cp.async while the block works on the slice before it; the
+// block marks each destination's run of slots (first, end, a stamp of the
+// slice), computes every candidate V[r - wsum, gidx] + score of (slot, row)
+// into shared memory, so all of its loads of V are in flight together,
+// then takes each (lane, row)'s first maximum in slot order (strict >:
+// ties go to the smallest ordinal, as the TPU kernel's strict `>` across
+// chunks gave), a warp per range of more than LONG slots.
 //
-// Heavy destinations. A destination with more pairs than a slice's share
-// of the work (band ends: up to ~3,800 pairs into one lane) is cut into
-// pieces, and a cut may fall inside its run of slots (the cut's lane
-// carries SPLIT). A slice whose first or last lane is cut that way writes
-// that lane's partial winner {value, slot} to rec [S, 2, R + 1] (side 0
-// the first lane, 1 the last), not to the state; on a transition with such
-// a cut every block passes one extra grid barrier, and the block owning
-// the lane's first cut combines its parts in slot order (strict >) and
-// commits the lane. No atomics anywhere.
+// Heavy destinations. A destination of more pairs than half of what a
+// slice holds (CAND / 2) cannot share a slice with its neighbours, and
+// past CAND no slice holds it: at level widths past ~210 a band end puts
+// a whole level's pairs on one lane (45,796 at width 214). split_slices
+// cuts such a destination into pieces, so a cut falls inside its run of
+// slots (the cut's lane carries SPLIT); E's band ends (up to ~3,800) stay
+// whole. A slice whose first or last lane is cut that way writes that
+// lane's partial winner {value, slot} to rec [S, 2, R + 1] (side 0 the
+// first lane, 1 the last), not to the state; on a transition with such a
+// cut every block passes one extra grid barrier, and the block owning the
+// lane's first cut combines its parts in slot order (strict >) and
+// commits the lane.
 //
 // Commit. K3: V = the winner's value where it is above REACH_T, else NEG;
 // bp = its ordinal (0 where no candidate reached the lane) on the lanes
@@ -42,26 +44,25 @@
 // = its ordinal (-1 where none), [R + 1, NB * 1024] each.
 #pragma once
 
-#include <climits>
 #include <cooperative_groups.h>
 
-#include "dg_common.cuh"
+#include "coop.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using coop::CAND;
+using coop::LONG;
+using coop::MAX_W;
+using coop::NONE;
+using coop::STAGE;
+using coop::THREADS;
 using dg::CHUNK;
 using dg::NEG;
 using dg::REACH_T;
 
-constexpr int THREADS = 1024;
-constexpr int STAGE = 2560;   // slots of a slice staged in shared memory
-constexpr int CAND = 44032;   // the most slots of a slice (K3_SLICE_SLOTS)
-constexpr int MAX_W = 1024;   // the most lanes of a slice (K3_SLICE_LANES)
-constexpr int LONG = 32;      // a longer range is reduced by a warp
-constexpr int NONE = INT_MIN;  // no valid candidate
-constexpr int SPLIT = 1 << 30;  // a cut inside its lane's pairs (SPLIT)
 constexpr int SMEM_BYTES = 2 * STAGE * 8 + CAND * 4 + 3 * MAX_W * 4;
+constexpr int SPLIT = 1 << 30;  // a cut inside its lane's pairs (SPLIT)
 
 // One launch's arguments.
 struct Run {
@@ -117,11 +118,6 @@ __device__ __forceinline__ Slice slice_of(const Run& x, int t, int k) {
   return s;
 }
 
-__device__ __forceinline__ const int32_t* word(const int32_t* tbl, int c0,
-                                                int p) {
-  return tbl + ((size_t)(c0 + (p >> 8)) * 2) * CHUNK + (p & (CHUNK - 1));
-}
-
 // {packed, score} of slot p: staged (index p - slo) or from the table
 template <bool kStaged>
 __device__ __forceinline__ int2 pair(const int2* s, const int32_t* tbl,
@@ -129,7 +125,7 @@ __device__ __forceinline__ int2 pair(const int2* s, const int32_t* tbl,
   if constexpr (kStaged) {
     return s[p - slo];
   } else {
-    const int32_t* w = word(tbl, c0, p);
+    const int32_t* w = coop::word(tbl, c0, p);
     return make_int2(w[0], w[CHUNK]);
   }
 }
@@ -166,14 +162,13 @@ __device__ __forceinline__ void commit(const Run& x, const Tr& tr, int d,
 template <bool kPartial>
 __device__ __forceinline__ void put(const Run& x, const Tr& tr,
                                     const Slice& sl, int k, int dl, int r,
-                                    int best, int slot) {
+                                    int2 w) {
   const bool first = dl == 0 && sl.fp;
   if (first || (dl == sl.nd - 1 && sl.lp)) {
-    x.rec[((size_t)k * 2 + (first ? 0 : 1)) * x.R1 + r] =
-        make_int2(best, slot);
+    x.rec[((size_t)k * 2 + (first ? 0 : 1)) * x.R1 + r] = w;
     return;
   }
-  commit<kPartial>(x, tr, sl.d_lo + dl, r, best, slot);
+  commit<kPartial>(x, tr, sl.d_lo + dl, r, w.x, w.y);
 }
 
 // Mark each destination's run among the slice's slots [slo, shi): first,
@@ -235,8 +230,8 @@ __device__ __forceinline__ void candidates(const int2* s, const int32_t* tbl,
 }
 
 // The cells of rows [g0, g0 + rg) of slice k from the candidates: thread
-// (r, d) takes the first maximum of d's range (strict >, four values a
-// step); a warp per (range, row) where the range is longer than LONG.
+// (r, d) takes the first maximum of d's range, a warp per (range, row)
+// where the range is longer than LONG (coop.cuh).
 template <bool kPartial>
 __device__ __forceinline__ void reduce_cells(
     const Run& x, const Tr& tr, const Slice& sl, int k, const int* cand,
@@ -249,22 +244,8 @@ __device__ __forceinline__ void reduce_cells(
     const bool has = stamps[dl] == stamp;
     const int e0 = has ? first[dl] : 0, e1 = has ? end[dl] : 0;
     if (e1 - e0 > LONG) continue;
-    const int* cv = cand + rl * np - sl.slo;
-    int best = NONE, ord = 0;
-#pragma unroll 1
-    for (int e = e0; e < e1; e += 4) {
-      int v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = cv[min(e + j, e1 - 1)];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (e + j < e1 && v[j] > best) {
-          best = v[j];
-          ord = e + j;
-        }
-      }
-    }
-    put<kPartial>(x, tr, sl, k, dl, g0 + rl, best, ord);
+    put<kPartial>(x, tr, sl, k, dl, g0 + rl,
+                  coop::first_max(cand + rl * np - sl.slo, e0, e1));
   }
   int q = 0;
   for (int b = 0; b < nd; b += 32) {
@@ -275,34 +256,11 @@ __device__ __forceinline__ void reduce_cells(
     while (m) {
       const int dj = b + __ffs(m) - 1;
       m &= m - 1;
-      const int e0 = first[dj], e1 = end[dj];
       for (int rl = 0; rl < rg; ++rl, ++q) {
         if ((q & 31) != warp) continue;
-        const int* cv = cand + rl * np - sl.slo;
-        int best = NONE, ord = INT_MAX;
-#pragma unroll 1
-        for (int e = e0 + lane; e < e1; e += 128) {
-          int v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = cv[min(e + 32 * j, e1 - 1)];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (e + 32 * j < e1 && v[j] > best) {
-              best = v[j];
-              ord = e + 32 * j;
-            }
-          }
-        }
-#pragma unroll
-        for (int o = 16; o; o >>= 1) {
-          const int vb = __shfl_xor_sync(0xffffffffu, best, o);
-          const int vo = __shfl_xor_sync(0xffffffffu, ord, o);
-          if (vb > best || (vb == best && vo < ord)) {
-            best = vb;
-            ord = vo;
-          }
-        }
-        if (lane == 0) put<kPartial>(x, tr, sl, k, dj, g0 + rl, best, ord);
+        const int2 w = coop::warp_first_max(cand + rl * np - sl.slo,
+                                            first[dj], end[dj], lane);
+        if (lane == 0) put<kPartial>(x, tr, sl, k, dj, g0 + rl, w);
       }
     }
   }
@@ -330,21 +288,6 @@ __device__ __forceinline__ void combine(const Run& x, int t, const Tr& tr) {
   }
 }
 
-// Issue cp.async copies of the slots [slo, shi) into s (no wait).
-__device__ __forceinline__ void stage(const int32_t* tbl, int c0, int slo,
-                                      int shi, int2* s) {
-  if (shi - slo > STAGE) return;
-  for (int p = slo + (int)threadIdx.x; p < shi; p += THREADS) {
-    const int32_t* w = word(tbl, c0, p);
-    const unsigned d = (unsigned)__cvta_generic_to_shared(s + (p - slo));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(w)
-                 : "memory");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d + 4),
-                 "l"(w + CHUNK)
-                 : "memory");
-  }
-}
-
 template <bool kPartial>
 __global__ void __launch_bounds__(THREADS, 1) split_kernel(const Run x) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -358,7 +301,7 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(const Run x) {
   for (int i = threadIdx.x; i < MAX_W; i += THREADS) stamps[i] = 0;
   {
     const Slice s0 = slice_of(x, 0, blockIdx.x);
-    stage(x.tbl, __ldg(x.desc).x, s0.slo, s0.shi, s_pair);
+    coop::stage(x.tbl, __ldg(x.desc).x, s0.slo, s0.shi, s_pair);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
 
@@ -371,8 +314,8 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(const Run x) {
     if (n + 1 < N) {
       const int t1 = (n + 1) / x.m;
       const Slice s1 = slice_of(x, t1, ((n + 1) - t1 * x.m) * G + blockIdx.x);
-      stage(x.tbl, __ldg(x.desc + t1).x, s1.slo, s1.shi,
-            s_pair + ((n + 1) & 1) * STAGE);
+      coop::stage(x.tbl, __ldg(x.desc + t1).x, s1.slo, s1.shi,
+                  s_pair + ((n + 1) & 1) * STAGE);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
 
@@ -416,42 +359,15 @@ __global__ void __launch_bounds__(THREADS, 1) split_kernel(const Run x) {
   }
 }
 
-// The blocks of the kernel one device holds at once.
-template <bool kPartial>
-int held_blocks(int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute(
-      split_kernel<kPartial>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per, split_kernel<kPartial>, THREADS, SMEM_BYTES)) != cudaSuccess)
-    return (int)e;
-  *blocks = sms * per;
-  return 0;
-}
-
-// One cooperative launch of G blocks; cudaErrorCooperativeLaunchTooLarge
-// where the card cannot hold them at once.
+// One cooperative launch of G blocks (coop::launch).
 template <bool kPartial>
 int launch(Run x, int G, cudaStream_t stream) {
   if (x.T < 0 || x.R1 < 1 || G < 1 || x.m < 1 || x.S != G * x.m)
     return (int)cudaErrorInvalidValue;
   if (x.T == 0) return 0;
-  int held = 0;
-  cudaError_t e = (cudaError_t)held_blocks<kPartial>(&held);
-  if (e != cudaSuccess) return (int)e;
-  if (held < G) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {(void*)&x};
-  e = cudaLaunchCooperativeKernel((const void*)split_kernel<kPartial>,
-                                  dim3(G), dim3(THREADS), args, SMEM_BYTES,
-                                  stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return coop::launch((const void*)split_kernel<kPartial>, G, SMEM_BYTES,
+                      args, stream);
 }
 
 }  // namespace

@@ -43,20 +43,23 @@
 // lanes past it hold NEG from an earlier write, as the plain version's
 // full rewrite leaves them. Reads of V bypass L1 (ld.global.cg): other SMs
 // wrote them. The slices' first lanes and slots are shipped
-// (ops/plan.py:split_slices, ~4 MB on E), so a block searches nothing.
+// (ops/plan.py:split_slices, cut on the card at ship time, ~4 MB on E), so
+// a block searches nothing.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W): E's 300
-// runs 48.4-48.5 ms of device time (12.1 us an ordinary transition, 15-16
-// a band end) against the replaced kernel's 44.5-44.6 and K2's 47.6-47.7
-// on the same runs; E's forward 334 ms against 340 through the replaced
-// kernel (its host loop of 7,800 launches). A slice costs ~5.6 us plus
-// ~4.7 ns a lane and ~6.7 ns a slot (phase stamps): a lane-major state,
-// staged chunk tables and rows split over threads were no faster.
+// runs 48.3-48.6 ms of device time (12.0-12.2 us an ordinary transition;
+// a band end 15.1 with its heavy destinations cut over slices, 18.1
+// without, as now) against the replaced kernel's 44.5-44.6 and K2's
+// 47.6-50.8 on the same runs; E's forward 334 ms against 340 through the
+// replaced kernel (its host loop of 7,800 launches). A slice costs ~5.6 us
+// plus ~4.7 ns a lane and ~6.7 ns a slot (phase stamps): a lane-major
+// state, staged chunk tables and rows split over threads were no faster.
 #include "wide_split.cuh"
 
 // The blocks of K3's grid the current device holds at once.
 extern "C" int dg_wide_split_grid(int* blocks) {
-  return held_blocks<false>(blocks);
+  return coop::held_blocks((const void*)split_kernel<false>, SMEM_BYTES,
+                           blocks);
 }
 
 // tbl [chunks, 2, 256], wwin, wbase [chunks]; desc [T, 4], cuts [T, G * m

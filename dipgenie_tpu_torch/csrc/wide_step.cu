@@ -48,7 +48,8 @@
 // slice tables (ops/plan.py:split_slices). v [R1, NB * 1024] the state
 // before the transition; part [2, R1, NB * 1024] (plane 0 V, plane 1 bp),
 // lanes past the transition's W left as they are; rec [G * m, 2, R1] int2
-// scratch.
+// scratch. K4's grid is K3's (dg_wide_split_grid): the same kernel body
+// and shared memory.
 extern "C" int dg_wide_step(const int32_t* stbl, const int32_t* swin,
                             const int32_t* sbase, const int32_t* desc,
                             const int32_t* cuts, int R1, int NB, int G, int m,

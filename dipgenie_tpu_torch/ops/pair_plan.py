@@ -40,10 +40,10 @@ NARROW_W = 32  # widest level of a narrow run
 # bitmasks and its packed int32 scan key, none of which the port has;
 # plans within them are the TPU planner's, field for field.
 #
-# VALUE_MAX: the largest DP value the kernels' reduction key holds. The
-# key's high word is value - REACH_T + 1 (ops/plan.py:make_keys,
-# csrc/dg_common.cuh:make_key), computed in int32 on the card and read
-# back as a signed int32, so value - REACH_T + 1 <= 2^31 - 1. Scores are
+# VALUE_MAX: the largest DP value the plain versions' reduction key holds.
+# The key's high word is value - REACH_T + 1 (ops/plan.py:make_keys), read
+# back as a signed int32, so value - REACH_T + 1 <= 2^31 - 1; the kernels
+# form value + score in int32. Scores are
 # popcounts (>= 0), so no value exceeds the plan's bound less |NEG|.
 VALUE_MAX = 2**31 - 2 + REACH_T  # 2,147,221,502
 # SPLIT_NB_MAX: the most 1024-lane windows a wide run may have, so that

@@ -45,9 +45,9 @@ Layouts the port's kernels (and their plain versions) decode:
 * Dense ``dbits``: 2 last chunk of its transition (commit), 4 real.
 * Dense wide slices (made by ``plan_to_device``; ``wide_slices``): K2's
   cooperative grid has ``k2_grid`` blocks, as many as the card holds at
-  once (``ops/wide.py:k2_grid``; ``K2_GRID_CPU`` for a plan on the CPU),
-  and each block takes ``k2_per_block`` slices of every transition: slice
-  ``j * k2_grid + block`` is its j-th. The slices cut the transition's
+  once (``coop_grid``; ``K2_GRID_CPU`` for a plan on the CPU), and each
+  block takes ``k2_per_block`` slices of every transition: slice ``j *
+  k2_grid + block`` is its j-th. The slices cut the transition's
   written lanes ``[0, W)`` into contiguous runs of about equal work (a
   lane and its pairs), at most ``K2_SLICE_LANES`` lanes and
   ``K2_SLICE_PAIRS`` pairs each. ``DevSegment.k2_desc [T, 2] int32``
@@ -60,28 +60,30 @@ Layouts the port's kernels (and their plain versions) decode:
   extent ``tb_bout ** 2`` and that of the transition two before it (the
   last to write the same buffer).
 * Window-split wide slices (made by ``plan_to_device`` for K3 and by
-  ``shard_to_device`` for K4's share of a rank; ``split_slices``): a
-  cooperative grid of ``k3_grid`` blocks (``ops/wide_split.py:k3_grid``),
+  ``shard_to_device`` for K4's share of a rank; ``split_slices``): K2's
+  skeleton, a cooperative grid of ``k3_grid`` blocks (``coop_grid``),
   ``k3_per_block`` slices a block a transition, slice ``j * k3_grid +
-  block`` its j-th. A transition's slot ``s`` is lane ``s % 256`` of its
-  chunk ``s // 256``; the real slots' destinations ascend, and the pads
-  (``rel = -1``) sit at the end of each window's last chunk. The slices
-  cut the written lanes ``[0, W)`` into runs of about equal work (a lane
-  and its pairs), each at most ``K3_SLICE_LANES`` lanes and
-  ``K3_SLICE_SLOTS`` slots. A destination with more pairs than a slice's
-  share of the work is heavy: its pairs may be cut between slices, whose
-  partial winners the kernel combines after a grid barrier.
-  ``DevSegment.k3_cuts [T, S + 1, 2] int32`` holds each slice's first
-  lane (``| SPLIT`` where the cut lies inside that lane's pairs) and first
-  slot (the last entry ``W`` and one past the last real slot): slice k
-  has the lanes ``[lane_k, lane_k+1 + split_k+1)`` and the slots
-  ``[slot_k, slot_k+1)``. ``k3_desc [T, 4] int32`` holds per transition
-  its first chunk row, its first bp row, its bp lanes (extent windows x
-  1024) and 1 where a cut splits a lane (K4: the rank's first chunk of
-  ``stbl``, 0, 0, the flag). ``W`` is the whole state for the first
-  ``buffers`` transitions, then the larger of this transition's extent
-  and that of the transition ``buffers`` before it (K3 double-buffers V,
-  K4 reuses one partial buffer).
+  block`` its j-th, each at most ``K2_SLICE_LANES`` lanes and
+  ``K2_SLICE_PAIRS`` slots. A transition's slot ``s`` is lane ``s % 256``
+  of its chunk ``s // 256``; the real slots' destinations ascend, and the
+  pads (``rel = -1``) sit at the end of each window's last chunk. The
+  slices cut the written lanes ``[0, W)`` into runs of about equal work
+  (a lane and its pairs). A destination of more than ``K2_SLICE_PAIRS //
+  2`` pairs (past level widths of ~210 a band end's one destination holds
+  a whole level's pairs) is cut into pieces of half a slice's share, and
+  the kernel combines the cut lanes' partial winners after a grid
+  barrier; lighter destinations, E's band ends (up to ~3,800) among them,
+  are never cut. ``DevSegment.k3_cuts [T, S + 1, 2] int32`` holds each
+  slice's first lane (``| SPLIT`` where the cut lies inside that lane's
+  pairs) and first slot (the last entry ``W`` and one past the last real
+  slot): slice k has the lanes ``[lane_k, lane_k+1 + split_k+1)`` and the
+  slots ``[slot_k, slot_k+1)``, so a block searches nothing. ``k3_desc
+  [T, 4] int32`` holds per transition its first chunk row, its first bp
+  row, its bp lanes (extent windows x 1024) and 1 where a cut splits a
+  lane (K4: the rank's first chunk of ``stbl``, 0, 0, the flag). ``W`` is the whole
+  state for the first ``buffers`` transitions, then the larger of this
+  transition's extent and that of the transition ``buffers`` before it
+  (K3 double-buffers V, K4 reuses one partial buffer).
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
   ``DevPlan.desc [L - 1, 8] int32``, one row per transition, the columns
   of ``TRACE_COLS``: the segment, the bp block's lanes, the rows of its bp
@@ -117,14 +119,14 @@ keep the best candidate as one 64-bit key, ``(value - REACH_T + 1) << 32 |
 (0xFFFFFFFF - ordinal)``, merged with a max. A larger key is a larger
 value, then a smaller ordinal: the reference tie rule (the earliest pair
 in plan order wins). The max is order-independent, and 0 means "no valid
-candidate". The high word stays below 2^31 (the card computes it in int32
-and reads it back signed): the planner refuses a graph whose values could
-pass ``VALUE_MAX`` (2,147,221,502). The kernels keep no keys: each
-destination's pairs are one range in plan order, so K1 walks them and
-keeps the first maximum, which is the same winner, and K2, K3 and K4
-take each range's first maximum in shared memory (K2 combines a warp's
-winners on the key; K3 and K4 combine a cut heavy destination's parts in
-slot order). Padded pair lanes never make a
+candidate". The high word stays below 2^31 (it is read back signed): the
+planner refuses a graph whose values could pass ``VALUE_MAX``
+(2,147,221,502). The kernels keep no keys: each destination's pairs are
+one range in plan order, so K1 walks them and keeps the first maximum,
+which is the same winner, and K2, K3 and K4 take each range's first
+maximum in shared memory (a warp's lanes' winners combined on the value,
+then the smaller ordinal; ``csrc/coop.cuh``; K3 and K4 combine a cut
+heavy destination's parts in slot order). Padded pair lanes never make a
 candidate: K1 walks only a transition's real pairs, K3 (and K4) drop pads
 by their ``dst + 1 == 0`` sentinel, K2 by ``score == PAD_SC``, before
 ``value + score`` is formed, and a real score is a popcount (>= 0), so no
@@ -133,7 +135,9 @@ real lane looks like a pad, whatever the values.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -162,22 +166,21 @@ DENSE_NB_MAX = 18
 
 _LOW32 = 0xFFFFFFFF
 
-# K2's slices (wide_slices, csrc/wide_dense_run.cu): the widest (MAX_W),
-# the most pairs (CAND: its candidates fill the block's shared memory), the
-# most a block takes a transition (its cache of pair ranges, KCACHE, holds
-# two transitions' worth), and the grid of a plan shipped to the CPU, where
-# only the tests read them (an H100 SXM's 132 SMs, one block each)
+# The sliced kernels' slices (csrc/coop.cuh; K2: wide_slices, K3 / K4:
+# split_slices): the widest (MAX_W), the most pairs or slots (CAND: their
+# candidates fill the block's shared memory), the most a block takes a
+# transition (K2: its cache of pair ranges, KCACHE, holds two transitions'
+# worth; K3 / K4: a bound on the search), and the grid of a plan shipped
+# to the CPU, where only the tests read them (an H100 SXM's 132 SMs, one
+# block each)
 K2_SLICE_LANES = 1024
 K2_SLICE_PAIRS = 44032
 K2_PER_BLOCK_MAX = 16
-K2_GRID_CPU = 132
-# K3's and K4's slices (split_slices, csrc/wide_split.cuh): the widest
-# (MAX_W), the most slots (CAND: their candidates fill the block's shared
-# memory), the most a block takes a transition, and the flag of a cut
-# inside a lane's pairs
-K3_SLICE_LANES = 1024
-K3_SLICE_SLOTS = 44032
 K3_PER_BLOCK_MAX = 64
+K2_GRID_CPU = 132
+# the flag of a K3 / K4 slice's first lane whose cut lies inside that
+# lane's pairs (split_slices: only a lane of more than K2_SLICE_PAIRS // 2
+# pairs is cut)
 SPLIT = 1 << 30
 # the traceback's per-transition columns (DevPlan.desc, csrc/trace.cu):
 # "bins" is bin | bout << 16, "flags" ORs TRACE_FLAGS
@@ -277,32 +280,52 @@ def shard_to_device(seg: _WideRun, n_tp: int, rank: int, device) -> DevSegment:
     t["present"] = _tensor(present.astype(bool), device)
     dseg = DevSegment(kind="wide_tp", host=seg, t=t, nreal=len(rows),
                       bounds=bounds, trace_cols=trace_columns("wide_tp", seg))
-    _ship_split_slices(dseg, seg.tbl[rows], seg.wwin[rows], bounds, 1,
-                       device)
+    _ship_split_slices(dseg, t["stbl"], t["swin"], bounds, 1)
     return dseg
 
 
-def _ship_split_slices(dseg: DevSegment, tbl: np.ndarray, win: np.ndarray,
-                       bounds: np.ndarray, buffers: int, device) -> None:
-    """Set ``dseg``'s K3 / K4 slice tables (see the module docstring)
-    for the chunks ``tbl`` / ``win`` whose transitions are ``bounds``."""
-    from .wide_split import ext_windows, k3_grid
+def _ship_split_slices(dseg: DevSegment, tbl: torch.Tensor,
+                       win: torch.Tensor, bounds: np.ndarray,
+                       buffers: int) -> None:
+    """Set ``dseg``'s K3 / K4 slice tables (see the module docstring) for
+    the shipped chunks ``tbl`` / ``win`` whose transitions are ``bounds``,
+    cut where they lie."""
+    from .wide_split import ext_windows
 
     h = dseg.host
     ext = ext_windows(h)
-    grid = k3_grid(device)
+    device = tbl.device
+    grid = coop_grid("wide_split", device)
     cuts, split, m = split_slices(tbl, win, bounds, ext, h.NB * 1024, grid,
                                   buffers)
-    T = h.t1 - h.t0
-    desc = np.zeros((T, 4), np.int32)
+    desc = np.zeros((h.t1 - h.t0, 4), np.int32)
     desc[:, 0] = bounds[:-1]
     if dseg.kind == "wide_split":
         desc[:, 1] = h.tb_bprow
         desc[:, 2] = ext * 1024
     desc[:, 3] = split
     dseg.k3_desc = _tensor(desc, device)
-    dseg.k3_cuts = _tensor(cuts, device)
+    dseg.k3_cuts = cuts
     dseg.k3_grid, dseg.k3_per_block = grid, m
+
+
+@functools.cache
+def coop_grid(kernel: str, device) -> int:
+    """Blocks of the cooperative grid of ``kernel`` (``"wide_dense"``: K2;
+    ``"wide_split"``: K3 and K4) on ``device``: its SMs times the blocks of
+    the kernel one SM holds at once (``csrc/coop.cuh:held_blocks``);
+    ``K2_GRID_CPU`` for the CPU. A card that cannot hold a plan's grid
+    refuses the launch, and the wrapper raises."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return K2_GRID_CPU
+    from .. import kernels
+
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(kernels.lib(), f"dg_{kernel}_grid")(ctypes.byref(blocks))
+    kernels.raise_on_error(rc, f"{kernel} grid")
+    return blocks.value
 
 
 def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
@@ -315,7 +338,7 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
     (``parallel.mesh.Mesh``) every wide run is this rank's ``wide_tp``
     segment instead."""
     device = torch.device(device)
-    segs, grid = [], None
+    segs = []
     for seg in plan.segments:
         if segment_kind(seg, mesh=mesh) == "wide_tp":
             segs.append(shard_to_device(seg, mesh.n_tp, mesh.tp_rank, device))
@@ -339,18 +362,14 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             desc, dseg.lanes = narrow_desc(seg, nreal)
             t["tb_desc"] = _tensor(desc, device)
         elif kind == "wide":
-            if grid is None:
-                from .wide import k2_grid
-
-                grid = k2_grid(device)
+            grid = coop_grid("wide_dense", device)
             desc, cuts, dseg.k2_per_block = wide_slices(seg, nreal, grid)
             dseg.k2_desc = _tensor(desc, device)
             dseg.k2_cuts = _tensor(cuts, device)
             dseg.k2_grid = grid
         elif kind == "wide_split":
-            _ship_split_slices(dseg, seg.tbl, seg.wwin,
-                               chunk_bounds(seg.tb_chunkbase, nreal), 2,
-                               device)
+            _ship_split_slices(dseg, t["tbl"], t["wwin"],
+                               chunk_bounds(seg.tb_chunkbase, nreal), 2)
         segs.append(dseg)
     return DevPlan(R=plan.R, L=plan.L, device=device, segments=segs)
 
@@ -421,47 +440,91 @@ def wide_slices(seg: _WideRun, nreal: int, grid: int
         f"not fit {K2_PER_BLOCK_MAX} slices a block of a grid of {grid}")
 
 
-def split_slices(tbl: np.ndarray, win: np.ndarray, bounds: np.ndarray,
-                 ext: np.ndarray, full: int, grid: int, buffers: int
-                 ) -> tuple[np.ndarray, np.ndarray, int]:
+def split_slices(tbl, win, bounds: np.ndarray, ext: np.ndarray, full: int,
+                 grid: int, buffers: int
+                 ) -> tuple[torch.Tensor, np.ndarray, int]:
     """``(k3_cuts [T, S + 1, 2] int32, split [T] bool, per_block)`` of
-    window-split chunks (``tbl [n, 2, 256]``, destination windows ``win
-    [n]``, transition ``ti``'s chunks ``bounds[ti]:bounds[ti + 1]``, its
-    extent ``ext[ti]`` windows) for a grid of ``grid`` blocks over a state
-    of ``full`` lanes (see the module docstring): the fewest slices a
-    block that keep every slice within ``K3_SLICE_LANES`` lanes and
-    ``K3_SLICE_SLOTS`` slots; ``split[ti]`` where a cut falls inside a
-    heavy destination's pairs. Raises unless each transition's real
-    pairs ascend by destination; ``PlanLimit`` where no slicing fits."""
+    window-split chunks (``tbl [n, 2, 256]`` and destination windows ``win
+    [n]``, tensors or arrays; transition ``ti``'s chunks
+    ``bounds[ti]:bounds[ti + 1]``, its extent ``ext[ti]`` windows) for a
+    grid of ``grid`` blocks over a state of ``full`` lanes (see the module
+    docstring): the fewest slices a block that keep every slice within
+    ``K2_SLICE_LANES`` lanes and
+    ``K2_SLICE_PAIRS`` slots; ``split[ti]`` where a cut falls inside a
+    heavy destination's pairs. The cuts are made where the tables lie (on
+    the card at ship time), every transition of the run at once but those
+    with a heavy destination (cut on the host, ``_cut_transition``).
+    Raises unless each transition's real pairs ascend by destination
+    within its ``W``; ``PlanLimit`` where no slicing fits."""
+    tbl = torch.as_tensor(tbl)
+    dev = tbl.device
+    win = torch.as_tensor(win, device=dev)
     T = len(bounds) - 1
     E = np.asarray(ext, np.int64) * 1024
     W = np.full(T, full, np.int64)
     if T > buffers:
         W[buffers:] = np.maximum(E[buffers:], E[:-buffers])
     b = np.asarray(bounds, np.int64) - bounds[0]
-    rel = ((tbl[bounds[0]:bounds[-1], 0].reshape(-1) >> 2) & 2047) - 1
-    real = np.flatnonzero(rel >= 0)
-    real_dst = win[bounds[0] + (real >> 8)] * 1024 + rel[real]
-    at = np.searchsorted(real, b * CHUNK)
-    pairs = []
-    for ti in range(T):
-        slots = real[at[ti]:at[ti + 1]] - b[ti] * CHUNK
-        dst = real_dst[at[ti]:at[ti + 1]]
-        if np.any(np.diff(dst) < 0) or dst.max(initial=0) >= W[ti]:
-            raise ValueError(
-                f"split_slices: transition {ti}'s pairs do not ascend by "
-                "destination within its extent")
-        pairs.append((slots, dst))
-    for m in range(-(-full // (grid * K3_SLICE_LANES)),
+    c0, c1 = int(bounds[0]), int(bounds[-1])
+    rel = ((tbl[c0:c1, 0] >> 2) & 2047) - 1
+    tr = torch.repeat_interleave(torch.arange(T, device=dev),
+                                 torch.as_tensor(np.diff(b), device=dev))
+    # each real pair's key: its transition * full + its destination lane,
+    # ascending within a transition; its slot in the run
+    key = (tr * full + win[c0:c1].long() * 1024)[:, None] + rel
+    real = (rel >= 0).reshape(-1)
+    keys = key.reshape(-1)[real]
+    slots = torch.cat([torch.nonzero(real).reshape(-1),
+                       torch.zeros(1, dtype=torch.int64, device=dev)])
+    if keys.numel() > 1 and bool((keys[1:] < keys[:-1]).any()):
+        raise ValueError("split_slices: a transition's pairs do not ascend "
+                         "by destination")
+    base = torch.as_tensor(b[:-1] * CHUNK, device=dev)[:, None]
+    Wt = torch.as_tensor(W, device=dev)[:, None]
+    lane = torch.arange(full, device=dev)
+    # the run's transitions in blocks of at most 2^22 (transition, lane)
+    # cells
+    step = max(1, (1 << 22) // full)
+    for m in range(-(-full // (grid * K2_SLICE_LANES)),
                    K3_PER_BLOCK_MAX + 1):
         S = grid * m
-        cuts = np.zeros((T, S + 1, 2), np.int32)
+        cuts = torch.zeros((T, S + 1, 2), dtype=torch.int32, device=dev)
         split = np.zeros(T, bool)
-        for ti, (slots, dst) in enumerate(pairs):
-            cuts[ti], split[ti] = _cut_transition(slots, dst, int(W[ti]), S)
-            if np.diff(cuts[ti, :, 1]).max(initial=0) > K3_SLICE_SLOTS:
-                break
-        else:
+        for t0 in range(0, T, step):
+            t1 = min(T, t0 + step)
+            lo, hi = (torch.searchsorted(keys, torch.tensor(
+                [t0 * full, t1 * full], device=dev)).tolist())
+            counts = torch.bincount(keys[lo:hi] - t0 * full,
+                                    minlength=(t1 - t0) * full
+                                    ).view(t1 - t0, full)
+            inside = lane < Wt[t0:t1]
+            if bool((counts * ~inside).any()):
+                raise ValueError("split_slices: a pair lands past its "
+                                 "transition's W")
+            at = _balanced_rows(torch.where(inside, counts + 1, 0), S,
+                                K2_SLICE_LANES, W[t0:t1])
+            # the first real pair at or past each cut lane, its slot (one
+            # past the transition's last where there is none)
+            row = torch.arange(t0, t1, device=dev)[:, None] * full
+            idx = torch.searchsorted(keys, row + at)
+            start = torch.searchsorted(keys, row)
+            past = torch.searchsorted(keys, row + full)
+            end = torch.where(past > start,
+                              slots[(past - 1).clamp(min=0)] + 1
+                              - base[t0:t1], 0)
+            cuts[t0:t1, :, 0] = at
+            cuts[t0:t1, :, 1] = torch.where(idx < past,
+                                            slots[idx] - base[t0:t1], end)
+            heavy = counts.amax(1) > K2_SLICE_PAIRS // 2
+            for i in torch.nonzero(heavy).reshape(-1).tolist():
+                p0, p1 = start[i, 0].item(), past[i, 0].item()
+                c, split[t0 + i] = _cut_transition(
+                    (slots[p0:p1] - base[t0 + i]).cpu().numpy(),
+                    (keys[p0:p1] - (t0 + i) * full).cpu().numpy(),
+                    int(W[t0 + i]), S)
+                cuts[t0 + i] = torch.from_numpy(c).to(dev)
+        if not T or int(torch.diff(cuts[:, :, 1], dim=1).max()
+                        ) <= K2_SLICE_PAIRS:
             return cuts, split, m
     raise PlanLimit(
         f"split_slices: a run of {full // 1024} windows does not fit "
@@ -471,32 +534,64 @@ def split_slices(tbl: np.ndarray, win: np.ndarray, bounds: np.ndarray,
 def _cut_transition(slots: np.ndarray, dst: np.ndarray, W: int, S: int
                     ) -> tuple[np.ndarray, bool]:
     """``([S + 1, 2] cuts, split)`` of one transition's real pairs (their
-    slots and ascending destinations) over the lanes ``[0, W)``: a lane
-    whose pairs outweigh a slice's share of the work is cut into pieces
-    of half that share, and the lanes and pieces are cut into ``S`` runs
-    of about equal work (``balanced_cuts``)."""
+    slots and ascending destinations) over the lanes ``[0, W)`` where a
+    lane holds more than ``K2_SLICE_PAIRS // 2`` pairs: such a lane is cut
+    into pieces of half a slice's share of the work, and the lanes and
+    pieces are cut into ``S`` runs of about equal work
+    (``balanced_cuts``)."""
     n = len(dst)
     counts = np.bincount(dst, minlength=W)
     before = np.cumsum(counts) - counts  # pairs of the lanes before
     slot_of = np.append(slots, slots[-1] + 1 if n else 0)
-    target = (W + n) / S
-    heavy = counts > target
-    if not heavy.any():
-        at = balanced_cuts(counts + 1, S, K3_SLICE_LANES)
-        slot = slot_of[np.append(before, n)[at]]
-        return np.stack([at, slot], 1), False
-    piece = max(1, int(np.ceil(target / 2)))
-    q = np.where(heavy, -(-counts // piece), 1)
+    piece = max(1, int(np.ceil((W + n) / S / 2)))
+    q = np.where(counts > K2_SLICE_PAIRS // 2, -(-counts // piece), 1)
     lane_of = np.repeat(np.arange(W), q)
     j = np.arange(len(lane_of)) - np.repeat(np.cumsum(q) - q, q)
     c, qq = counts[lane_of], q[lane_of]
     first = c * j // qq  # the piece's first pair within its lane
     work = c * (j + 1) // qq - first + (j == 0)
-    at = balanced_cuts(work, S, K3_SLICE_LANES)
+    at = balanced_cuts(work, S, K2_SLICE_LANES)
     lane = np.append(lane_of, W)[at]
     cut = np.append(j > 0, False)[at]
     slot = slot_of[np.append(before[lane_of] + first, n)[at]]
-    return np.stack([lane | np.where(cut, SPLIT, 0), slot], 1), bool(cut.any())
+    return (np.stack([lane | np.where(cut, SPLIT, 0), slot], 1),
+            bool(cut.any()))
+
+
+def _balanced_rows(work: torch.Tensor, slices: int, cap: int,
+                   widths: np.ndarray) -> torch.Tensor:
+    """``balanced_cuts`` of each row of ``work [T, n]`` over its first
+    ``widths[i]`` lanes (its entries past them 0), all rows at once where
+    ``work`` lies: [T, slices + 1]."""
+    if np.any(widths > slices * cap):
+        raise ValueError(f"balanced_cuts: {int(widths.max())} lanes do not "
+                         f"fit {slices} slices of {cap}")
+    cum = torch.nn.functional.pad(torch.cumsum(work, 1), (1, 0))
+    # the first lane whose work before it reaches k / slices of the row's
+    # total, in integers (cum * slices >= total * k), as balanced_cuts
+    k = torch.arange(slices + 1, device=work.device)
+    cuts = torch.searchsorted(cum * slices, cum[:, -1:] * k)
+    W = torch.as_tensor(widths, device=work.device)[:, None]
+    cuts = torch.minimum(cuts, W)
+    cuts[:, :1], cuts[:, -1:] = 0, W
+    wide = (torch.diff(cuts, dim=1) > cap).any(1)
+    if bool(wide.any()):
+        cuts[wide] = torch.from_numpy(_cap_widths(
+            cuts[wide].cpu().numpy(), widths[wide.cpu().numpy()], slices,
+            cap)).to(work.device)
+    return cuts
+
+
+def _cap_widths(cuts: np.ndarray, W: np.ndarray, slices: int, cap: int
+                ) -> np.ndarray:
+    """Rows of cuts [rows, slices + 1] over ``W`` lanes each with no slice
+    wider than ``cap``: each cut moved as little as keeps the slices before
+    it within ``cap`` and leaves room for the rest."""
+    for k in range(1, slices):
+        cuts[:, k] = np.minimum(
+            np.maximum(np.maximum(cuts[:, k], cuts[:, k - 1]),
+                       W - (slices - k) * cap), cuts[:, k - 1] + cap)
+    return cuts
 
 
 def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:
@@ -512,10 +607,7 @@ def balanced_cuts(work: np.ndarray, slices: int, cap: int) -> np.ndarray:
     cuts[0], cuts[-1] = 0, W
     if np.all(np.diff(cuts) <= cap):
         return cuts
-    for k in range(1, slices):  # cap the widths, leaving room for the rest
-        cuts[k] = min(max(cuts[k], cuts[k - 1], W - (slices - k) * cap),
-                      cuts[k - 1] + cap)
-    return cuts
+    return _cap_widths(cuts[None], np.array([W]), slices, cap)[0]
 
 
 def trace_columns(kind: str, seg) -> np.ndarray:

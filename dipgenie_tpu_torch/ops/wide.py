@@ -15,16 +15,12 @@ same result (``ops/plan.py:wide_slices``).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from .. import kernels
 from .narrow import transition_keys
 from .plan import (
-    DENSE_NB_LIMIT, K2_GRID_CPU, NEG, PAD_SC, DevSegment, chunk_bounds,
-    decode_keys,
+    DENSE_NB_LIMIT, NEG, PAD_SC, DevSegment, chunk_bounds, decode_keys,
 )
 
 
@@ -59,21 +55,6 @@ def wide_dense_run_ref(seg: DevSegment, v_in: torch.Tensor):
         )
         V, bp[ti] = decode_keys(keys)
     return V[:, :1024].contiguous(), bp
-
-
-@functools.cache
-def k2_grid(device) -> int:
-    """Blocks of K2's cooperative grid on ``device``: its SMs times the
-    blocks of the kernel one SM holds at once (the occupancy API);
-    ``K2_GRID_CPU`` for the CPU."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return K2_GRID_CPU
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = kernels.lib().dg_wide_dense_grid(ctypes.byref(blocks))
-    kernels.raise_on_error(rc, "wide_dense_run")
-    return blocks.value
 
 
 def wide_dense_run(seg: DevSegment, v_in: torch.Tensor):

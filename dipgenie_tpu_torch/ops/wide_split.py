@@ -19,18 +19,13 @@ made (``ops/plan.py:split_slices``).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from .. import kernels
 from .narrow import transition_keys
 from .pair_plan import SPLIT_NB_MAX
-from .plan import (
-    CHUNK, K2_GRID_CPU, NEG, DevSegment, chunk_bounds, decode_keys,
-)
+from .plan import CHUNK, NEG, DevSegment, chunk_bounds, decode_keys
 
 
 def ext_windows(h) -> np.ndarray:
@@ -74,21 +69,6 @@ def wide_split_run_ref(seg: DevSegment, v_in: torch.Tensor):
         bp[row : row + nw] = ordv[:, : nw * 1024].reshape(
             R1, nw, 1024).transpose(0, 1).to(torch.int32)
     return V[:, :1024].contiguous(), bp
-
-
-@functools.cache
-def k3_grid(device) -> int:
-    """Blocks of K3's (and K4's) cooperative grid on ``device``: its SMs
-    times the blocks of the kernel one SM holds at once (the occupancy
-    API); ``K2_GRID_CPU`` for the CPU."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        return K2_GRID_CPU
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = kernels.lib().dg_wide_split_grid(ctypes.byref(blocks))
-    kernels.raise_on_error(rc, "wide_split_run")
-    return blocks.value
 
 
 def check_slices(seg: DevSegment, T: int, device) -> tuple[int, int]:

@@ -20,8 +20,8 @@ from dipgenie_tpu_torch.ops import (
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
-    DENSE_NB_MAX, NEG, REACH_T, chunk_bounds, initial_v, plan_pairs,
-    plan_to_device, shard_to_device, split_slices, wide_slices,
+    DENSE_NB_MAX, NEG, REACH_T, chunk_bounds, coop_grid, initial_v,
+    plan_pairs, plan_to_device, shard_to_device, split_slices, wide_slices,
 )
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
@@ -39,8 +39,8 @@ CSR_KEYS = ("level_ptr", "adj_ptr", "adj_v", "adj_w", "hom_ptr",
             "hom_colors", "het_ptr", "het_colors")
 
 
-# the pairs of a slice K2 stages in shared memory (csrc/wide_dense_run.cu
-# STAGE), and the slots of one K3 / K4 stage (csrc/wide_split.cuh STAGE)
+# the pairs of a slice K2 stages in shared memory, and the slots of one
+# K3 / K4 stage (csrc/coop.cuh STAGE)
 K2_STAGE = 2560
 K3_STAGE = 2560
 # each segment kind's kernel wrapper and plain version
@@ -187,39 +187,34 @@ def _with_grid(dseg, grid, buffers=2):
     slots of one slice."""
     h = dseg.host
     if dseg.kind == "wide_tp":
-        tbl, win = dseg.t["stbl"].cpu().numpy(), dseg.t["swin"].cpu().numpy()
+        tbl, win = dseg.t["stbl"], dseg.t["swin"]
         bounds = dseg.bounds
     else:
-        tbl, win = h.tbl, h.wwin
+        tbl, win = dseg.t["tbl"], dseg.t["wwin"]
         bounds = chunk_bounds(h.tb_chunkbase, dseg.nreal)
-    cuts, split, m = split_slices(tbl, win, bounds,
-                                  wide_split.ext_windows(h), h.NB * 1024,
-                                  grid, buffers)
-    desc = dseg.k3_desc.cpu().numpy().copy()
-    desc[:, 3] = split
-    dev = dseg.k3_desc.device
-    dseg.k3_desc = torch.from_numpy(desc).to(dev)
-    dseg.k3_cuts = torch.from_numpy(cuts).to(dev)
+    dseg.k3_cuts, split, m = split_slices(tbl, win, bounds,
+                                          wide_split.ext_windows(h),
+                                          h.NB * 1024, grid, buffers)
+    dseg.k3_desc[:, 3] = torch.from_numpy(split)
     dseg.k3_grid, dseg.k3_per_block = grid, m
-    return int(np.diff(cuts[:, :, 1], axis=1).max())
+    return int(torch.diff(dseg.k3_cuts[:, :, 1], dim=1).max())
 
 
 @pytest.mark.parametrize("grid", [8, 2])
 def test_wide_split_kernel_on_a_smaller_grid(grid, cuda):
     """K3 on grids smaller than the card's: 4 (grid 8) or 16 (grid 2)
     slices a block at NB 31, on E-shaped bands, the second of whose band
-    ends cuts a 3,800-pair destination into parts; the lane cap leaves
+    ends holds a 3,800-pair destination in one slice; the lane cap leaves
     slices of up to ~22k slots (read from the table, candidates a row or
     two a pass). Bit-equal to the plain version from the DP's own input
     states; K4 on one rank's share the same way."""
     plan = plan_pairs(*case_csr("big_window")[0], 18)
     dplan = plan_to_device(plan, cuda, dense_nb_max=0)
-    V, ran, most, cut = initial_v(18, cuda), 0, 0, False
+    V, ran, most = initial_v(18, cuda), 0, 0
     for h, seg in zip(plan.segments, dplan.segments):
         if seg.kind == "wide_split":
             most = max(most, _with_grid(seg, grid))
             assert seg.k3_per_block > 1
-            cut |= bool(seg.k3_desc[:, 3].any())
             got = wide_split.wide_split_run(seg, V)
             for g, w in zip(got, wide_split.wide_split_run_ref(seg, V)):
                 assert torch.equal(g, w), (grid, seg.t0)
@@ -234,7 +229,7 @@ def test_wide_split_kernel_on_a_smaller_grid(grid, cuda):
             assert torch.equal(W[:, :1024], got[0])
             ran += 1
         V = RUNS[seg.kind][0](seg, V)[0]
-    assert ran >= 2 and cut and most > 20000 > K3_STAGE
+    assert ran >= 2 and most > 20000 > K3_STAGE
 
 
 @pytest.mark.parametrize("width", [194, 214])
@@ -242,13 +237,17 @@ def test_wide_split_kernel_past_31_windows(width, cuda):
     """K3 on runs of 37 and 45 windows (widths 194 and 214), as phase D's
     24-walk pangenome has them, and K4 on their tp shares for n_tp 1-3:
     each call against its plain version, the DP against the native
-    tier."""
+    tier. Their band ends put 37,636 and 45,796 pairs on one destination,
+    more than half of what a slice holds (214: more than all of it), so
+    that destination is cut over slices and combined."""
     g, chb = wide_window_graph(width)
     arrs = csr_arrays(g, chb)
     plan = plan_pairs(*arrs, 2)
     dplan = plan_to_device(plan, cuda)
     nbs = [s.host.NB for s in dplan.segments if s.kind == "wide_split"]
     assert nbs == [{194: 37, 214: 45}[width]]
+    assert all(bool(s.k3_desc[-1, 3]) for s in dplan.segments
+               if s.kind == "wide_split")
     _run_checked(dplan, cuda)
     V = initial_v(2, cuda)
     for seg, dseg in zip(plan.segments, dplan.segments):
@@ -261,27 +260,26 @@ def test_wide_split_kernel_past_31_windows(width, cuda):
 
 
 def test_wide_split_refused_launch_raises(cuda):
-    """A grid the card cannot hold at once is refused, and the wrapper's
-    check raises: K3 has no fallback."""
+    """A grid the card cannot hold at once is refused, and the wrappers
+    raise: K3 and K4 have no fallback. The run and a tp share are sliced
+    for one block more than the card holds."""
     plan = plan_pairs(*case_csr("big_window")[0], 18)
     dplan = plan_to_device(plan, cuda)
-    seg = next(s for s in dplan.segments if s.kind == "wide_split")
-    h, T, R1 = seg.host, seg.t1 - seg.t0, 19
-    assert seg.k3_grid == wide_split.k3_grid(cuda) > 0
+    i, seg = next((i, s) for i, s in enumerate(dplan.segments)
+                  if s.kind == "wide_split")
+    held = coop_grid("wide_split", cuda)
+    assert seg.k3_grid == held > 0
+    share = shard_to_device(plan.segments[i], 1, 0, cuda)
+    _with_grid(seg, held + 1)
+    _with_grid(share, held + 1, 1)
     v = initial_v(18, cuda)
-    V = torch.empty((2, R1, h.NB * 1024), dtype=torch.int32, device=cuda)
-    bp = torch.empty((h.nrows, R1, 1024), dtype=torch.int32, device=cuda)
-    grid = 1 << 16  # far more blocks than fit on any card at once
-    cuts = torch.zeros((T, grid + 1, 2), dtype=torch.int32, device=cuda)
-    rec = torch.empty((grid, 2, R1, 2), dtype=torch.int32, device=cuda)
-    rc = kernels.lib().dg_wide_split_run(
-        seg.t["tbl"].data_ptr(), seg.t["wwin"].data_ptr(),
-        seg.t["wbase"].data_ptr(), seg.k3_desc.data_ptr(), cuts.data_ptr(),
-        T, R1, h.NB, grid, 1, v.data_ptr(), V.data_ptr(), bp.data_ptr(),
-        rec.data_ptr(), kernels.stream_of(v))
-    assert rc != 0
+    before = wide_split.wide_split_run.launches, wide_step.wide_step.launches
     with pytest.raises(RuntimeError, match="wide_split_run"):
-        kernels.raise_on_error(rc, "wide_split_run")
+        wide_split.wide_split_run(seg, v)
+    with pytest.raises(RuntimeError, match="wide_step"):
+        wide_step.wide_step(share, 0, wide_split._state(share, v))
+    assert (wide_split.wide_split_run.launches,
+            wide_step.wide_step.launches) == before
 
 
 def _tp_run_checked(seg, n_tp, v_in, device):
@@ -515,7 +513,7 @@ def test_wide_dense_refused_launch_raises(cuda):
     dplan = plan_to_device(plan_pairs(*arrs, R), cuda)
     seg = next(s for s in dplan.segments if s.kind == "wide")
     h, T = seg.host, seg.t1 - seg.t0
-    assert seg.k2_grid == wide.k2_grid(cuda) > 0
+    assert seg.k2_grid == coop_grid("wide_dense", cuda) > 0
     assert seg.k2_cuts.is_cuda and seg.k2_desc.is_cuda
     V = torch.empty((2, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)
     bp = torch.zeros((T, R + 1, h.NB * 1024), dtype=torch.int32, device=cuda)

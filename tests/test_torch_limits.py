@@ -102,7 +102,7 @@ def test_runs_past_31_windows_through_k3_and_k4(width, tmp_path):
 
 def test_value_max_round_trips_through_the_key():
     """VALUE_MAX is the largest value whose key's high word, value -
-    REACH_T + 1, the card computes in int32 (dg_common.cuh:make_key):
+    REACH_T + 1, fits an int32 (ops/plan.py:make_keys, read back signed):
     there it equals the plain version's int64 word, and one above it
     wraps. Keys at and below it decode to their value and ordinal."""
     v = torch.tensor([VALUE_MAX, VALUE_MAX - 1, 4_502_515, 0, REACH_T + 1],

@@ -8,8 +8,10 @@ past the TPU planner's limits (R 40, a 36-window run) and on an
 MHC-shaped graph whose wide levels are E's (widths 141-177, NB 31): the
 slices cover ``[0, W)`` within their caps, the first two transitions
 (the first one, for K4's one buffer) write the whole state, the cuts skip
-the pads at window ends, and a band end's heavy destination is cut into
-parts. The walk (candidates from the slice's slots, each lane's first
+the pads at window ends, a destination of more than half a slice's pairs
+(a band end past level width ~150: 36,100 pairs at width 190, 45,796 at
+214) is cut into parts, and E's band ends (up to 3,844) stay whole. The
+walk (candidates from the slice's slots, each lane's first
 maximum in slot order, the cut lanes' partial winners combined after the
 barrier, the W rule over buffers that start as garbage) equals
 ``wide_split_run_ref`` (V and every bp row) and, on every tp rank's
@@ -25,7 +27,7 @@ import torch
 from dipgenie_tpu.solver.diploid import csr_arrays
 from dipgenie_tpu_torch.ops import plan as plan_mod
 from dipgenie_tpu_torch.ops.plan import (
-    CHUNK, K2_GRID_CPU, K3_SLICE_LANES, K3_SLICE_SLOTS, NEG, REACH_T,
+    CHUNK, K2_GRID_CPU, K2_SLICE_LANES, K2_SLICE_PAIRS, NEG, REACH_T,
     SPLIT, PlanLimit, chunk_bounds, plan_pairs, plan_to_device,
     shard_to_device, split_slices,
 )
@@ -34,7 +36,9 @@ from dipgenie_tpu_torch.ops.wide_split import (
     _state, ext_windows, wide_split_run_ref,
 )
 from dipgenie_tpu_torch.ops.wide_step import commit, wide_step_ref
-from dipgenie_tpu_torch.utils.synth import limit_case, mhc_shaped_csr
+from dipgenie_tpu_torch.utils.synth import (
+    limit_case, mhc_shaped_csr, wide_window_graph,
+)
 from tests.test_torch_wide import HAND, WIDE_CASES, _csr_of
 from tests.test_torch_wide_split import _dense
 
@@ -42,7 +46,9 @@ NONE = np.iinfo(np.int32).min
 GARBAGE = 12345  # what the state buffers hold before the first write
 PLAIN = {"narrow": narrow_run_ref, "wide_split": wide_split_run_ref}
 CASES = WIDE_CASES + list(HAND) + ["mhc_slice_wide_csr", "width140",
-                                   "R40", "width190", "e_band"]
+                                   "R40", "width190", "width214", "e_band"]
+# a destination of more pairs than this is cut over slices
+HEAVY = K2_SLICE_PAIRS // 2
 
 
 @functools.cache
@@ -53,6 +59,8 @@ def _plan(case):
     elif case in ("R40", "width190"):
         g, chb, R = limit_case(case)
         arrs = csr_arrays(g, chb)
+    elif case == "width214":  # a band end past what one slice holds
+        arrs, R = csr_arrays(*wide_window_graph(214)), 2
     elif case == "e_band":  # two bands of E's widths
         arrs, R = mhc_shaped_csr(L=300, seed=0, n_bands=2, wmin=141,
                                  wmax=177), 18
@@ -189,8 +197,8 @@ def _check_tables(h, cuts, desc, split, bounds, buffers, grid, m,
                   balanced=True):
     """The slice tables of one run's chunks (K3's, or a tp rank's share)
     against their contract; ``balanced``: no slice holds more than twice
-    its share of the work (a lane and its pairs), as where the lane cap
-    does not bind."""
+    its share of the work (a lane and its pairs) and its heaviest lane or
+    piece, as where the lane cap does not bind."""
     T = h.t1 - h.t0
     S = grid * m
     full = h.NB * 1024
@@ -208,8 +216,8 @@ def _check_tables(h, cuts, desc, split, bounds, buffers, grid, m,
         assert lane[0] == 0 and not cut[0] and not cut[-1]
         assert np.all(np.diff(lane) >= 0) and np.all(np.diff(slot) >= 0)
         width = np.diff(lane) + cut[1:]
-        assert width.max() <= K3_SLICE_LANES
-        assert np.diff(slot).max() <= K3_SLICE_SLOTS
+        assert width.max() <= K2_SLICE_LANES
+        assert np.diff(slot).max() <= K2_SLICE_PAIRS
         slots, dst = _real_pairs(h.tbl if desc is not None else h.stbl,
                                  h.wwin if desc is not None else h.swin,
                                  bounds[ti], bounds[ti + 1])
@@ -227,12 +235,15 @@ def _check_tables(h, cuts, desc, split, bounds, buffers, grid, m,
             covered[d_lo:d_lo + nd] += 1
             mine = (slots >= slo) & (slots < shi)
             assert ((dst[mine] >= d_lo) & (dst[mine] < d_lo + nd)).all()
-            assert not balanced or mine.sum() + nd - fp <= 2 * target + 2
+            per_lane = np.bincount(dst[mine] - d_lo, minlength=nd) + 1
+            assert not balanced or not nd or (per_lane.sum() - fp
+                                              <= 2 * target + per_lane.max())
         counts = np.bincount(dst, minlength=W)
         parts = np.bincount(lane[1:-1][cut[1:-1]], minlength=W)
         np.testing.assert_array_equal(covered, 1 + parts)
         heavy_cuts += int(cut.sum())
-        assert (counts[parts > 0] > target).all()  # only heavy lanes cut
+        assert (counts[parts > 0] > HEAVY).all()  # only heavy lanes cut
+        assert not ((counts > HEAVY) & (parts == 0)).any()
         if desc is not None:
             assert tuple(desc[ti]) == (bounds[ti], h.tb_bprow[ti], E[ti],
                                        split[ti])
@@ -256,7 +267,8 @@ def test_split_slices_cover_each_lane_within_the_caps(case, grid):
             G = grid
             cuts, split, m = split_slices(h.tbl, h.wwin, bounds,
                                           ext_windows(h), h.NB * 1024, G, 2)
-            assert m == -(-h.NB * 1024 // (G * K3_SLICE_LANES))
+            cuts = cuts.numpy()
+            assert m == -(-h.NB * 1024 // (G * K2_SLICE_LANES))
             desc = np.stack([bounds[:-1], h.tb_bprow,
                              ext_windows(h) * 1024, split], 1)
         _check_tables(h, cuts, desc, split, bounds, 2, G, m,
@@ -265,7 +277,7 @@ def test_split_slices_cover_each_lane_within_the_caps(case, grid):
 
 @pytest.mark.parametrize("n_tp", [1, 2, 3])
 @pytest.mark.parametrize("case", ["mhc_slice_wide_csr", "width140",
-                                  "width190", "e_band"])
+                                  "width190", "width214", "e_band"])
 def test_split_slices_of_tp_shares(case, n_tp):
     """K4's tables on each rank's share: the same contract over the
     rank's chunks, with one partial buffer (W from the transition
@@ -286,32 +298,59 @@ def test_split_slices_of_tp_shares(case, n_tp):
 
 
 def test_band_end_heavy_destination_is_cut_into_parts():
-    """On E's band ends (wide into narrow: ~40k pairs on fewer than 1,024
-    destinations) every destination with more than twice a slice's share
-    of the work spans several slices, whose slot ranges are consecutive
-    parts of its pairs, none more than a share and a piece (half a
-    share); the second band's
-    3,844-pair destination (E's largest) takes 9. Ordinary transitions
-    cut nothing."""
+    """Past level width ~150 a band end (a wide level into one vertex)
+    puts a whole level's pairs on one destination: 45,796 at width 214,
+    more than a slice holds. That destination spans several slices whose
+    slot ranges are consecutive parts of its pairs, none more than a
+    share and a piece (half a share); the run's other transitions cut
+    nothing."""
+    _, segs = _split_segments("width214")
+    h, dseg = segs[0]
+    b = chunk_bounds(h.tb_chunkbase, dseg.nreal)
+    T = h.t1 - h.t0
+    cuts, split = dseg.k3_cuts.numpy(), dseg.k3_desc.numpy()[:, 3]
+    assert split[-1] and not split[:-1].any()
+    slots, dst = _real_pairs(h.tbl, h.wwin, b[T - 1], b[T])
+    counts = np.bincount(dst)
+    heavy = int(np.argmax(counts))
+    assert counts[heavy] == 45796 > K2_SLICE_PAIRS
+    target = (int(cuts[-1, -1, 0]) + len(dst)) / (len(cuts[-1]) - 1)
+    parts = [((slots >= a) & (slots < z)).sum()
+             for k, d_lo, nd, a, z, fp, lp in _slices(cuts[-1])
+             if d_lo <= heavy < d_lo + nd]
+    assert sum(parts) == counts[heavy] and len(parts) >= 2
+    assert max(parts) <= 1.5 * target + 2  # a share and a piece
+
+
+def test_band_end_heavy_destination_sits_in_one_slice():
+    """A destination of at most half a slice's pairs is never cut: on
+    every transition of E's bands the heaviest destination lies whole in
+    one slice, and on the band ends (wide into narrow: ~40k pairs on
+    fewer than 1,024 destinations) the second band's 3,844-pair
+    destination (E's largest) takes a slice past the kernels' staging of
+    2,560 slots (csrc/coop.cuh STAGE: that slice's words are read from
+    the table); no transition of E's bands has a cut."""
     _, segs = _split_segments("e_band")
-    most = 0
+    biggest = most = 0
     for h, dseg in segs:
-        cuts, desc = dseg.k3_cuts.numpy(), dseg.k3_desc.numpy()
+        cuts = dseg.k3_cuts.numpy()
+        assert not dseg.k3_desc.numpy()[:, 3].any()
+        assert not (cuts[:, :, 0] & SPLIT).any()
         T = h.t1 - h.t0
-        assert desc[-1, 3] == 1 and not desc[:-1, 3].any()
-        slots, dst = _real_pairs(h.tbl, h.wwin,
-                                 *chunk_bounds(h.tb_chunkbase,
-                                               dseg.nreal)[T - 1:T + 1])
-        counts = np.bincount(dst)
-        target = (int(cuts[-1, -1, 0]) + len(dst)) / (len(cuts[-1]) - 1)
-        for heavy in np.flatnonzero(counts > 2 * target):
+        b = chunk_bounds(h.tb_chunkbase, dseg.nreal)
+        for ti in range(T):
+            slots, dst = _real_pairs(h.tbl, h.wwin, b[ti], b[ti + 1])
+            counts = np.bincount(dst)
+            heavy = int(np.argmax(counts))
+            (slo, shi), = [(a, z) for k, d_lo, nd, a, z, fp, lp
+                           in _slices(cuts[ti]) if d_lo <= heavy < d_lo + nd]
             mine = slots[dst == heavy]
-            parts = [((mine >= a) & (mine < b)).sum() for k, d_lo, nd, a, b,
-                     fp, lp in _slices(cuts[-1]) if d_lo <= heavy < d_lo + nd]
-            assert len(parts) >= 2 and sum(parts) == len(mine)
-            assert max(parts) <= 1.5 * target + 2  # a share and a piece
-            most = max(most, len(parts))
-    assert counts.max() == 3844 and most == 9
+            assert slo <= mine.min() and mine.max() < shi
+            assert shi - slo >= counts.max()
+            if ti == T - 1:
+                biggest = max(biggest, int(counts.max()))
+                most = max(most, shi - slo)
+    assert biggest == 3844 and most >= 3844 > 2560
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -339,12 +378,12 @@ def test_sliced_walk_matches_plain_version(case):
                 np.testing.assert_array_equal(got_bp, want_bp.numpy())
                 combined += n
         V = PLAIN[dseg.kind](dseg, V)[0]
-    if case == "e_band":
-        assert combined > 0
+    assert (combined > 0) == (case in ("width190", "width214"))
 
 
 @pytest.mark.parametrize("case", ["mhc_slice_wide_csr", "hole_window",
-                                  "width140", "R40", "width190", "e_band"])
+                                  "width140", "R40", "width190", "width214",
+                                  "e_band"])
 def test_sliced_tp_walk_matches_plain_version(case):
     """K4's walk on every rank's share for n_tp 1-3: each standalone
     partial (written into NEG / -1) equals ``wide_step_ref``, and the run
@@ -406,9 +445,9 @@ def test_split_slices_refuse_unsorted_pairs_and_tight_caps(monkeypatch):
     row[j], row[j + 1] = row[j + 1], row[j]
     with pytest.raises(ValueError, match="ascend"):
         split_slices(bad, *args, 8, 2)
-    monkeypatch.setattr(plan_mod, "K3_SLICE_LANES", 64)
+    monkeypatch.setattr(plan_mod, "K2_SLICE_LANES", 64)
     cuts, _, m = split_slices(h.tbl, *args, 8, 2)
-    assert m == 31 * 1024 // (8 * 64)
-    monkeypatch.setattr(plan_mod, "K3_SLICE_SLOTS", 2)
+    assert m == 31 * 1024 // (8 * 64) and cuts.shape[1] == 8 * m + 1
+    monkeypatch.setattr(plan_mod, "K2_SLICE_PAIRS", 2)
     with pytest.raises(PlanLimit, match="slices a block"):
         split_slices(h.tbl, *args, 8, 2)
