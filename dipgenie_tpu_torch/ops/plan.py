@@ -466,63 +466,88 @@ def split_slices(tbl, win, bounds: np.ndarray, ext: np.ndarray, full: int,
         W[buffers:] = np.maximum(E[buffers:], E[:-buffers])
     b = np.asarray(bounds, np.int64) - bounds[0]
     c0, c1 = int(bounds[0]), int(bounds[-1])
+    # per transition its chunks, its first slot in the run and its W, in
+    # one copy
+    nch, base, Wt = torch.from_numpy(
+        np.stack([np.diff(b), b[:-1] * CHUNK, W])).to(dev)
+    base, Wt = base[:, None], Wt[:, None]
     rel = ((tbl[c0:c1, 0] >> 2) & 2047) - 1
-    tr = torch.repeat_interleave(torch.arange(T, device=dev),
-                                 torch.as_tensor(np.diff(b), device=dev))
-    # each real pair's key: its transition * full + its destination lane,
-    # ascending within a transition; its slot in the run
+    tr = torch.repeat_interleave(torch.arange(T, device=dev), nch,
+                                 output_size=c1 - c0)
+    # each real pair's key, its transition * full + its destination lane
+    # (ascending within a transition), and its slot in the run
     key = (tr * full + win[c0:c1].long() * 1024)[:, None] + rel
-    real = (rel >= 0).reshape(-1)
-    keys = key.reshape(-1)[real]
-    slots = torch.cat([torch.nonzero(real).reshape(-1),
-                       torch.zeros(1, dtype=torch.int64, device=dev)])
-    if keys.numel() > 1 and bool((keys[1:] < keys[:-1]).any()):
-        raise ValueError("split_slices: a transition's pairs do not ascend "
-                         "by destination")
-    base = torch.as_tensor(b[:-1] * CHUNK, device=dev)[:, None]
-    Wt = torch.as_tensor(W, device=dev)[:, None]
+    slots = torch.nonzero(rel.reshape(-1) >= 0).reshape(-1)
+    keys = key.reshape(-1)[slots]
+    slots = torch.cat([slots, slots.new_zeros(1)])
+    unsorted = (keys[1:] < keys[:-1]).any().reshape(1)
+    row = torch.arange(T, device=dev)[:, None] * full
+    start = torch.searchsorted(keys, row)
+    past = torch.searchsorted(keys, row + full)
+    # one past each transition's last real slot (0 where it has none)
+    end = torch.where(past > start,
+                      slots[(past - 1).clamp(min=0)] + 1 - base, 0)
     lane = torch.arange(full, device=dev)
     # the run's transitions in blocks of at most 2^22 (transition, lane)
-    # cells
+    # cells, each cut at once (balanced_cuts, a row a transition); one
+    # read of the flags a slicing, one of its largest slice
     step = max(1, (1 << 22) // full)
     for m in range(-(-full // (grid * K2_SLICE_LANES)),
                    K3_PER_BLOCK_MAX + 1):
         S = grid * m
-        cuts = torch.zeros((T, S + 1, 2), dtype=torch.int32, device=dev)
-        split = np.zeros(T, bool)
+        k = torch.arange(S + 1, device=dev)
+        at = torch.empty((T, S + 1), dtype=torch.int64, device=dev)
+        flags = [unsorted]
         for t0 in range(0, T, step):
             t1 = min(T, t0 + step)
-            lo, hi = (torch.searchsorted(keys, torch.tensor(
-                [t0 * full, t1 * full], device=dev)).tolist())
-            counts = torch.bincount(keys[lo:hi] - t0 * full,
-                                    minlength=(t1 - t0) * full
-                                    ).view(t1 - t0, full)
+            cells = (t1 - t0) * full
+            idx = keys - t0 * full
+            mine = (idx >= 0) & (idx < cells)
+            counts = torch.zeros(cells, dtype=torch.int64, device=dev)
+            counts.index_add_(0, idx.clamp(0, cells - 1), mine.long())
+            counts = counts.view(t1 - t0, full)
             inside = lane < Wt[t0:t1]
-            if bool((counts * ~inside).any()):
+            cum = torch.nn.functional.pad(
+                torch.cumsum(torch.where(inside, counts + 1, 0), 1), (1, 0))
+            # the first lane whose work before it reaches k / S of the
+            # row's total, in integers (cum * S >= total * k)
+            a = torch.minimum(torch.searchsorted(cum * S, cum[:, -1:] * k),
+                              Wt[t0:t1])
+            a[:, :1], a[:, -1:] = 0, Wt[t0:t1]
+            at[t0:t1] = a
+            flags += [(counts * ~inside).any().reshape(1),
+                      counts.amax(1) > K2_SLICE_PAIRS // 2,
+                      (torch.diff(a, dim=1) > K2_SLICE_LANES).any(1)]
+        f = torch.cat(flags).tolist()
+        if f[0]:
+            raise ValueError("split_slices: a transition's pairs do not "
+                             "ascend by destination")
+        heavy, wide, i = [], [], 1
+        for t0 in range(0, T, step):
+            n = min(T, t0 + step) - t0
+            if f[i]:
                 raise ValueError("split_slices: a pair lands past its "
                                  "transition's W")
-            at = _balanced_rows(torch.where(inside, counts + 1, 0), S,
-                                K2_SLICE_LANES, W[t0:t1])
-            # the first real pair at or past each cut lane, its slot (one
-            # past the transition's last where there is none)
-            row = torch.arange(t0, t1, device=dev)[:, None] * full
-            idx = torch.searchsorted(keys, row + at)
-            start = torch.searchsorted(keys, row)
-            past = torch.searchsorted(keys, row + full)
-            end = torch.where(past > start,
-                              slots[(past - 1).clamp(min=0)] + 1
-                              - base[t0:t1], 0)
-            cuts[t0:t1, :, 0] = at
-            cuts[t0:t1, :, 1] = torch.where(idx < past,
-                                            slots[idx] - base[t0:t1], end)
-            heavy = counts.amax(1) > K2_SLICE_PAIRS // 2
-            for i in torch.nonzero(heavy).reshape(-1).tolist():
-                p0, p1 = start[i, 0].item(), past[i, 0].item()
-                c, split[t0 + i] = _cut_transition(
-                    (slots[p0:p1] - base[t0 + i]).cpu().numpy(),
-                    (keys[p0:p1] - (t0 + i) * full).cpu().numpy(),
-                    int(W[t0 + i]), S)
-                cuts[t0 + i] = torch.from_numpy(c).to(dev)
+            heavy += f[i + 1:i + 1 + n]
+            wide += f[i + 1 + n:i + 1 + 2 * n]
+            i += 1 + 2 * n
+        capped = [t for t in range(T) if wide[t] and not heavy[t]]
+        if capped:  # cap the widths, leaving room for the rest
+            at[capped] = torch.from_numpy(_cap_widths(
+                at[capped].cpu().numpy(), W[capped], S, K2_SLICE_LANES)
+                ).to(dev)
+        # each cut's slot: the first real pair at or past its lane (one
+        # past the transition's last where there is none)
+        idx = torch.searchsorted(keys, row + at)
+        cuts = torch.stack([at, torch.where(idx < past, slots[idx] - base,
+                                            end)], 2).to(torch.int32)
+        split = np.zeros(T, bool)
+        for t in (t for t in range(T) if heavy[t]):
+            p0, p1 = int(start[t]), int(past[t])
+            c, split[t] = _cut_transition(
+                (slots[p0:p1] - base[t]).cpu().numpy(),
+                (keys[p0:p1] - t * full).cpu().numpy(), int(W[t]), S)
+            cuts[t] = torch.from_numpy(c).to(dev)
         if not T or int(torch.diff(cuts[:, :, 1], dim=1).max()
                         ) <= K2_SLICE_PAIRS:
             return cuts, split, m
@@ -556,30 +581,6 @@ def _cut_transition(slots: np.ndarray, dst: np.ndarray, W: int, S: int
     slot = slot_of[np.append(before[lane_of] + first, n)[at]]
     return (np.stack([lane | np.where(cut, SPLIT, 0), slot], 1),
             bool(cut.any()))
-
-
-def _balanced_rows(work: torch.Tensor, slices: int, cap: int,
-                   widths: np.ndarray) -> torch.Tensor:
-    """``balanced_cuts`` of each row of ``work [T, n]`` over its first
-    ``widths[i]`` lanes (its entries past them 0), all rows at once where
-    ``work`` lies: [T, slices + 1]."""
-    if np.any(widths > slices * cap):
-        raise ValueError(f"balanced_cuts: {int(widths.max())} lanes do not "
-                         f"fit {slices} slices of {cap}")
-    cum = torch.nn.functional.pad(torch.cumsum(work, 1), (1, 0))
-    # the first lane whose work before it reaches k / slices of the row's
-    # total, in integers (cum * slices >= total * k), as balanced_cuts
-    k = torch.arange(slices + 1, device=work.device)
-    cuts = torch.searchsorted(cum * slices, cum[:, -1:] * k)
-    W = torch.as_tensor(widths, device=work.device)[:, None]
-    cuts = torch.minimum(cuts, W)
-    cuts[:, :1], cuts[:, -1:] = 0, W
-    wide = (torch.diff(cuts, dim=1) > cap).any(1)
-    if bool(wide.any()):
-        cuts[wide] = torch.from_numpy(_cap_widths(
-            cuts[wide].cpu().numpy(), widths[wide.cpu().numpy()], slices,
-            cap)).to(work.device)
-    return cuts
 
 
 def _cap_widths(cuts: np.ndarray, W: np.ndarray, slices: int, cap: int
