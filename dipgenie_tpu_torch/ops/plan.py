@@ -80,10 +80,11 @@ Layouts the port's kernels (and their plain versions) decode:
   slots ``[slot_k, slot_k+1)``, so a block searches nothing. ``k3_desc
   [T, 4] int32`` holds per transition its first chunk row, its first bp
   row, its bp lanes (extent windows x 1024) and 1 where a cut splits a
-  lane (K4: the rank's first chunk of ``stbl``, 0, 0, the flag). ``W`` is the whole
-  state for the first ``buffers`` transitions, then the larger of this
-  transition's extent and that of the transition ``buffers`` before it
-  (K3 double-buffers V, K4 reuses one partial buffer).
+  lane (K4: the rank's first chunk of ``stbl``, 0, 0, the flag). ``W``
+  is the whole state for the first ``buffers`` transitions, then the
+  larger of this transition's extent and that of the transition
+  ``buffers`` before it (K3 double-buffers V, K4 reuses one partial
+  buffer).
 * Traceback columns (made by ``plan_to_device``; ``trace_columns``):
   ``DevPlan.desc [L - 1, 8] int32``, one row per transition, the columns
   of ``TRACE_COLS``: the segment, the bp block's lanes, the rows of its bp
