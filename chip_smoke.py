@@ -885,7 +885,9 @@ class Smoke:
         import numpy as np
 
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
-        from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
+        from dipgenie_tpu_torch.ops.plan import (
+            plan_pairs, plan_to_device, split_slices,
+        )
         from dipgenie_tpu_torch.ops.trace import trace
         from dipgenie_tpu_torch.solver.diploid import native_forward_csr
         from dipgenie_tpu_torch.utils.synth import dp_states
@@ -899,6 +901,7 @@ class Smoke:
         t0 = time.time()
         plan = plan_pairs(*arrs, R)
         plan_s = time.time() - t0
+        split_slices.seconds = 0.0
         t0 = time.time()
         dplan = plan_to_device(plan, DEVICE)
         self.sync()
@@ -908,7 +911,8 @@ class Smoke:
         log(f"{tag} plan {plan_s:.3f}s ({kinds.count('narrow')} narrow, "
             f"{kinds.count('wide')} wide runs of <= 18 windows, "
             f"{kinds.count('wide_split')} of more, NB <= {max(nbs)}); "
-            f"ship {ship_s:.3f}s" + k2_slices(dplan))
+            f"ship {ship_s:.3f}s (of it K3's slices "
+            f"{split_slices.seconds:.3f}s, host clock)" + k2_slices(dplan))
         dp = PairDiploidDP(dplan, DEVICE)
         # two warm passes: the card idled through the host planner, and the
         # first pass runs while its clocks come back up
@@ -1285,7 +1289,7 @@ class Smoke:
         import torch.distributed as dist
 
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
-        from dipgenie_tpu_torch.ops.plan import plan_to_device
+        from dipgenie_tpu_torch.ops.plan import plan_to_device, split_slices
         from dipgenie_tpu_torch.ops.trace import trace
         from dipgenie_tpu_torch.ops.wide_step import wide_tp_run
         from dipgenie_tpu_torch.parallel.mesh import make_mesh
@@ -1296,10 +1300,12 @@ class Smoke:
                                 world_size=1, rank=0)
         try:
             mesh = make_mesh(n_tp=1)
+            split_slices.seconds = 0.0
             t0 = time.time()
             dplan = plan_to_device(plan, DEVICE, mesh=mesh)
             self.sync()
             ship_s = time.time() - t0
+            slices_s = split_slices.seconds
             kinds = [s.kind for s in dplan.segments]
             n_wide_tr = sum(s.t1 - s.t0 for s in dplan.segments
                             if s.kind == "wide_tp")
@@ -1321,7 +1327,8 @@ class Smoke:
             fwd_s = ev[0].elapsed_time(ev[1]) / 1e3
             tb_s = ev[1].elapsed_time(ev[2]) / 1e3
             merge_s = wide_tp_run.merge_seconds
-            log(f"F1 one-rank tp mesh (gloo): ship {ship_s:.3f}s, forward "
+            log(f"F1 one-rank tp mesh (gloo): ship {ship_s:.3f}s (of it K4's "
+                f"slices {slices_s:.3f}s, host clock), forward "
                 f"{fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA events), of the "
                 f"forward {merge_s:.4f}s in {n_wide_tr} merges (host timer), "
                 f"peak memory {torch.cuda.max_memory_allocated()} B, launches "

@@ -139,6 +139,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -456,7 +457,9 @@ def split_slices(tbl, win, bounds: np.ndarray, ext: np.ndarray, full: int,
     the card at ship time), every transition of the run at once but those
     with a heavy destination (cut on the host, ``_cut_transition``).
     Raises unless each transition's real pairs ascend by destination
-    within its ``W``; ``PlanLimit`` where no slicing fits."""
+    within its ``W``; ``PlanLimit`` where no slicing fits. Its host time
+    adds up in ``split_slices.seconds``."""
+    t_start = time.perf_counter()
     tbl = torch.as_tensor(tbl)
     dev = tbl.device
     win = torch.as_tensor(win, device=dev)
@@ -551,10 +554,14 @@ def split_slices(tbl, win, bounds: np.ndarray, ext: np.ndarray, full: int,
             cuts[t] = torch.from_numpy(c).to(dev)
         if not T or int(torch.diff(cuts[:, :, 1], dim=1).max()
                         ) <= K2_SLICE_PAIRS:
+            split_slices.seconds += time.perf_counter() - t_start
             return cuts, split, m
     raise PlanLimit(
         f"split_slices: a run of {full // 1024} windows does not fit "
         f"{K3_PER_BLOCK_MAX} slices a block of a grid of {grid}")
+
+
+split_slices.seconds = 0.0
 
 
 def _cut_transition(slots: np.ndarray, dst: np.ndarray, W: int, S: int
