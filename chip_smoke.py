@@ -1281,6 +1281,30 @@ class Smoke:
             f"whole plan ({n_all} wide transitions) {plan_bound[0]:.6g} ms "
             f"({plan_bound[1]}), {plan_bound[0] / n_all * 1e3:.4f} us a "
             "transition")
+        self.k3_slices_warm(dplan)
+
+    def k3_slices_warm(self, dplan):
+        """K3's slices of E's plan cut again from the shipped tables, warm
+        (the ship cut them first, right after the host planner's idle),
+        host clock; equal to the shipped ones."""
+        from dipgenie_tpu_torch.ops.plan import chunk_bounds, split_slices
+        from dipgenie_tpu_torch.ops.wide_split import ext_windows
+
+        runs = [s for s in dplan.segments if s.kind == "wide_split"]
+        self.sync()
+        split_slices.seconds = 0.0
+        for seg in runs:
+            h = seg.host
+            cuts, _, m = split_slices(
+                seg.t["tbl"], seg.t["wwin"],
+                chunk_bounds(h.tb_chunkbase, seg.nreal), ext_windows(h),
+                h.NB * 1024, seg.k3_grid, 2)
+            check(m == seg.k3_per_block and bool(self.torch.equal(
+                cuts, seg.k3_cuts)), "E: K3's slices cut again differ")
+        warm = split_slices.seconds
+        log(f"E K3's slices cut again, warm: {warm:.3f}s for {len(runs)} "
+            f"runs, {warm / len(runs) * 1e3:.3f} ms a run (host clock); "
+            "equal to the shipped ones")
 
     # ---------------- phase F ----------------
     def phase_f1(self):
