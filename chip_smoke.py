@@ -58,13 +58,33 @@ result line):
      single-device path's on the same levels; forward, merge and traceback
      seconds per rank). The merges of ranks that share a card
      are gloo's, staged through host memory: not a multi-card number;
+  S. device sketching, the dp sketch count and the fitter's grid NLL
+     (K10 minimizer_sketch, K11 sketch_count, K12 grid_nll) on a synthetic
+     pangenome of the MHC's size (S_BP bp, S_WALKS walks, reads from two
+     walks at 2x: 131,201 reads of 150 bp): S1 each kernel against its
+     plain version on the main path's inputs (all the reads, a haplotype,
+     the reads' windows against the haplotypes' table, the histogram's
+     default grid) and on seeded ragged reads, exact for K10 and K11, K12
+     within a relative 1e-5, each beside its plain version's time and its
+     bound; S2 the port's anchor stage with device sketching equal, field
+     for field, to the host sketcher's, K10's launches and device time for
+     the haplotypes and the reads (CUDA events), the drivers' host share
+     and the native sketcher's time; S3 fit_histogram with the torch
+     backend (K12 on the card) equal to the numpy backend at the
+     pipeline's options; S4 F_RANKS gloo ranks spawned on the card with a
+     (n_dp = 2, n_tp = 1) mesh: the dp sketch-count step on S2's reads
+     (one empty read pads them to an even count) equal to one rank's in
+     this process, the dp read sketch equal to S2's sets, then
+     dryrun_multichip(2) (entry.py);
   D. the port's CLI with its default flags on three synthetic pangenomes
      (8 walks over 500 kbp; 18 and 24 walks over 200 kbp, whose plans hold
      runs of more than 18 windows, and for 24 walks of more than 31),
      byte-identical FASTA and stdout (apart from the timing line) against
      the JAX package's CLI on its native tier, run as a subprocess; the
      widest run, K3's launches and the peak device memory from the port's
-     log;
+     log; on the 8-walk pangenome the port's CLI also runs with
+     --sketch-backend device, its FASTA byte-identical to the native
+     tier's;
   F3. the port's pipeline with a mesh of F_RANKS gloo ranks on the card on
      phase D's 18-walk pangenome: each rank's FASTA byte-identical to
      phase D's native-tier FASTA, every wide run through K4;
@@ -109,6 +129,19 @@ BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
 # three runs of 31 windows, 24 runs of 19-31 windows and two of more than
 # 31 (levels up to width 214), past the TPU planner's limits
 PANGENOMES = ((500_000, 8), (200_000, 18), (200_000, 24))
+# phase S's pangenome: the size of the reference's MHC test set (a 4.92
+# Mbp reference; SURVEY.md:328) with 8 walks, reads from two of them at 2x
+S_BP, S_WALKS, S_K, S_W = 4_920_000, 8, 31, 25
+S_CALLS = 20  # kernel launches per CUDA-event timing in phase S1
+S_PLAIN_CALLS = 2  # plain-version calls per timing in phase S1
+GRID_NLL_RTOL = 1e-5  # K12 against its plain version: |a - b| / max(|b|, 1)
+# the C entry point of each of phase S's kernels
+S_ENTRY = {"minimizer_sketch": "dg_sketch", "sketch_count": "dg_sketch_count",
+           "grid_nll": "dg_grid_nll"}
+# special function unit results a second (one a log): 16 a clock on each
+# of the 132 SMs (CUDA C programming guide, compute capability 9.0) at the
+# H100 SXM's 1,980 MHz boost clock
+SFU_PER_S = 132 * 16 * 1.98e9
 # phase B's graphs past the TPU planner's limits (utils/synth.py)
 LIMIT_B = ("R40", "width190", "values")
 PORT_CLI = ["-m", "dipgenie_tpu_torch"]  # the port's CLI, default flags
@@ -131,6 +164,12 @@ KERNELS = {
               "dipgenie_tpu/ops/diploid_pallas.py:1914"),
     "wide_step": ("dipgenie_tpu_torch/csrc/wide_step.cu",
                   "dipgenie_tpu/ops/diploid_pallas.py:1673"),
+    "minimizer_sketch": ("dipgenie_tpu_torch/csrc/sketch.cu",
+                         "dipgenie_tpu/ops/sketch_jax.py:229"),
+    "sketch_count": ("dipgenie_tpu_torch/csrc/sketch_count.cu",
+                     "dipgenie_tpu/parallel/mesh.py:63"),
+    "grid_nll": ("dipgenie_tpu_torch/csrc/grid_nll.cu",
+                 "dipgenie_tpu/models/fitter.py:191"),
     "chain_floor": ("dipgenie_tpu_torch/csrc/chain_floor.cu",
                     "scripts/tpu_floor_probe.py:76"),
     "chain_step16": ("dipgenie_tpu_torch/csrc/chain_step16.cu",
@@ -148,7 +187,9 @@ KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
 # the path whose launch counts the result line reports for each kernel
 MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
              "wide_dense_run": "C", "wide_split_run": "E", "trace": "C",
-             "wide_step": "F1", **{name: "G" for name in CHAINS}}
+             "wide_step": "F1", "minimizer_sketch": "S2",
+             "grid_nll": "S3", "sketch_count": "S4",
+             **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2 and F3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
@@ -276,10 +317,12 @@ class Smoke:
     def __init__(self, torch, ref_cxx: str):
         self.torch = torch
         self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
+        from dipgenie_tpu_torch.models import fitter
         from dipgenie_tpu_torch.ops import (
-            caps, chain_edge, chain_floor, chain_pair, narrow, trace, wide,
-            wide_split, wide_step,
+            caps, chain_edge, chain_floor, chain_pair, narrow, sketch, trace,
+            wide, wide_split, wide_step,
         )
+        from dipgenie_tpu_torch.parallel import mesh
 
         self.fns = {
             "chain_floor": (chain_floor.chain_floor,
@@ -296,6 +339,10 @@ class Smoke:
                                wide_split.wide_split_run_ref),
             "trace": (trace.trace, trace.trace_ref),
             "wide_step": (wide_step.wide_step, wide_step.wide_step_ref),
+            "minimizer_sketch": (sketch.batch_minimizer,
+                                 sketch.batch_minimizer_ref),
+            "sketch_count": (mesh.sketch_count, mesh.sketch_count_ref),
+            "grid_nll": (fitter.grid_nll, fitter.grid_nll_ref),
             **caps.CHECKS,
         }
         self.err = {k: 0 for k in KERNELS}
@@ -303,11 +350,13 @@ class Smoke:
         self.launches = {}  # path -> {kernel: launches}
         self.ms, self.plain_ms, self.bound = {}, {}, {}
         self.library_ms = {}  # one PyTorch call computing the same output
+        self.device_ms = {}  # phase S1: CUDA-event ms around a launch
         self.prefix_tr = {}  # transitions of each kernel's timed prefix
         self.slopes = {}  # phase G2: probe variant -> Slope
         self.trace_full = {}  # phases C and E: K-T on the whole plan
         self.big = {}  # phase E's plan and result, for phase F
         self.d18 = None  # phase D's 18-walk pangenome and native FASTA
+        self.s = {}  # phase S's pangenome, reads and anchor stages
 
     def counts(self):
         return {k: f[0].launches for k, f in self.fns.items()}
@@ -1540,6 +1589,345 @@ class Smoke:
                 f"FASTA byte-identical to the native tier ({len(native_fa)} "
                 f"B), launches {counts}")
 
+    # ---------------- phase S ----------------
+    def phase_s(self):
+        self.s_data()
+        self.phase_s1()
+        self.phase_s2()
+        self.phase_s3()
+        self.phase_s4()
+
+    def s_data(self):
+        """Phase S's pangenome, its index and reads, the host anchor stage
+        (timed, the reference of S2) and the haplotypes' sorted table."""
+        import numpy as np
+
+        from dipgenie_tpu_torch import native
+        from dipgenie_tpu_torch.graph.pangenome import PangenomeIndex
+        from dipgenie_tpu_torch.io.fastx import read_fastx
+        from dipgenie_tpu_torch.io.gfa import read_gfa
+        from dipgenie_tpu_torch.ops.sketch import encode_reads
+        from dipgenie_tpu_torch.solver.anchors import (
+            compute_and_classify_anchors,
+        )
+        from dipgenie_tpu_torch.utils.synth import pangenome
+
+        work = os.path.join(REPO, "build", "chip_smoke_sketch")
+        t0 = time.time()
+        gfa, reads_fa = pangenome(work, n_bp=S_BP, n_walks=S_WALKS, seed=SEED)
+        gen_s = time.time() - t0
+        index = PangenomeIndex.from_gfa(read_gfa(gfa))
+        reads = read_fastx(reads_fa)
+        seqs = [q for _, q in reads]
+        haps = [index.haplotype_seq(h) for h in range(index.num_walks)]
+        t0 = time.time()
+        host = compute_and_classify_anchors(index, reads, S_K, S_W, 1.0,
+                                            verbose=False)
+        host_s = time.time() - t0
+        # the native sketcher alone, haplotypes then reads (as the anchor
+        # stage calls it)
+        t0 = time.time()
+        hap_min = [native.sketch(np.frombuffer(h.encode("latin-1"), np.uint8),
+                                 S_K, S_W)[0] for h in haps]
+        nat_hap_s = time.time() - t0
+        t0 = time.time()
+        [np.unique(h) for h in native.sketch_batch(
+            [q.encode("latin-1") for q in seqs], S_K, S_W)]
+        nat_reads_s = time.time() - t0
+        tbl = np.unique(np.concatenate(hap_min))
+        thi = (tbl >> np.uint64(32)).astype(np.uint32)
+        tlo = (tbl & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        codes, lens, pure = encode_reads(seqs)
+        check(bool(pure.all()), "S: the synthetic reads are not pure ACGT")
+        lmax = max(len(q) for q in seqs)
+        log(f"S pangenome of {S_BP} bp, {index.num_walks} walks "
+            f"(haplotypes {min(map(len, haps))}-{max(map(len, haps))} bp), "
+            f"{len(seqs)} reads of {min(map(len, seqs))}-{lmax} bp "
+            f"({gen_s:.1f}s); host anchor stage {host_s:.3f}s (native "
+            f"sketch, join, classify, numpy fit); native sketcher "
+            f"{nat_hap_s:.3f}s for the haplotypes, {nat_reads_s:.3f}s for "
+            f"the reads (with np.unique); spectrum {host.count_sp_r} hashes, "
+            f"table {len(tbl)} haplotype hashes (host clock)")
+        self.s = {"gfa": gfa, "reads_fa": reads_fa, "index": index,
+                  "reads": reads, "seqs": seqs, "haps": haps, "host": host,
+                  "host_s": host_s, "codes": codes, "lens": lens,
+                  "thi": thi, "tlo": tlo, "nat_hap_s": nat_hap_s,
+                  "nat_reads_s": nat_reads_s, "hap_min": hap_min}
+
+    def time_ms(self, fn, n):
+        """CUDA-event ms per call over ``n`` calls of ``fn``, after one
+        warm-up call."""
+        fn()
+        a, b = self.events(2)
+        self.sync()
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        self.sync()
+        return a.elapsed_time(b) / n
+
+    def kernel_beside_plain(self, name, args, bound_work, ops_per_s=OPS_PER_S):
+        """``name``'s ms and its plain version's on ``args`` (S_CALLS and
+        S_PLAIN_CALLS calls, min of 2 in turns: kernel, plain, plain,
+        kernel), its device ms (CUDA events around each launch of its C
+        entry point, mean of S_CALLS) and its bound from ``bound_work``
+        (bytes, operations)."""
+        kern, plain = self.fns[name]
+        times = ([], [])
+        for which in (0, 1, 1, 0):
+            f = (kern, plain)[which]
+            n = (S_CALLS, S_PLAIN_CALLS)[which]
+            times[which].append(self.time_ms(lambda: f(*args), n))
+        self.ms[name], self.plain_ms[name] = min(times[0]), min(times[1])
+        self.bound[name] = bound(*bound_work, ops_per_s)
+        self.sync()
+        with self.launch_events(S_ENTRY[name]) as pairs:
+            for _ in range(S_CALLS):
+                kern(*args)
+            self.sync()
+        check(len(pairs) == S_CALLS, f"{name}: {len(pairs)} launches of "
+              f"{S_ENTRY[name]} in {S_CALLS} calls")
+        self.device_ms[name] = sum(a.elapsed_time(b)
+                                   for a, b in pairs) / S_CALLS
+        return times
+
+    def phase_s1(self):
+        """K10, K11 and K12 against their plain versions on the main
+        path's inputs and on seeded ragged reads, timed beside them."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.models.fitter import grid_inputs
+        from dipgenie_tpu_torch.ops.sketch import encode_reads
+        from dipgenie_tpu_torch.parallel.mesh import u32_tensor
+        from dipgenie_tpu_torch.utils.synth import ragged_reads
+
+        torch, d = self.torch, self.s
+        k10, k10_ref = self.fns["minimizer_sketch"]
+        k11, k11_ref = self.fns["sketch_count"]
+
+        def on_card(*arrays):
+            return tuple(torch.from_numpy(a).to(DEVICE) for a in arrays)
+
+        reads = on_card(d["codes"], d["lens"])
+        hap = on_card(*encode_reads([d["haps"][0]])[:2])
+        inputs = [("ragged", on_card(*ragged_reads(SEED, 512, 400, S_K,
+                                                    S_W))),
+                  ("reads", reads), ("haplotype 0", hap)]
+        for tag, (c, n) in inputs:
+            got = k10(c, n, S_K, S_W)
+            self.compare("minimizer_sketch", got, k10_ref(c, n, S_K, S_W))
+            log(f"S1 minimizer_sketch on {tag} {tuple(c.shape)}: == plain "
+                f"version on every element, {int(got[2].sum())} windows "
+                "emitted")
+        B, L = reads[0].shape
+        nw = L - S_K - S_W + 2
+        windows = B * nw
+        # bytes: codes and lens in, 13 bytes a window out; operations: per
+        # window two k-mer packs (2 a base each), w - 1 compare-selects of
+        # the minimum and ~64 for the hash
+        times = self.kernel_beside_plain(
+            "minimizer_sketch", (*reads, S_K, S_W),
+            (B * L + 4 * B + 13 * windows,
+             windows * (4 * S_K + 2 * (S_W - 1) + 64)))
+        log(f"S1 minimizer_sketch on the reads ({B} x {L}, {windows} "
+            f"windows): kernel {times[0]} ms (device "
+            f"{self.device_ms['minimizer_sketch']:.6g} ms around the launch), "
+            f"plain {times[1]} ms, bound "
+            f"{self.bound['minimizer_sketch'][0]:.6g} ms "
+            f"({self.bound['minimizer_sketch'][1]})")
+
+        hh, hl, emit, _ = k10(*reads, S_K, S_W)
+        tables = (u32_tensor(d["thi"], DEVICE), u32_tensor(d["tlo"], DEVICE))
+        args = (hh, hl, emit, *tables)
+        got = k11(*args)
+        self.compare("sketch_count", got, k11_ref(*args))
+        M = len(d["thi"])
+        emitted = int(emit.sum())
+        times = self.kernel_beside_plain(
+            "sketch_count", args,
+            (9 * windows + 8 * M + 4 * M + 4 * B,
+             emitted * (int(np.log2(M)) + 1 + 4)))
+        log(f"S1 sketch_count on the reads' {emitted} emitted windows "
+            f"against {M} haplotype hashes: == plain version, "
+            f"{int(got[0].sum())} hits; kernel {times[0]} ms (device "
+            f"{self.device_ms['sketch_count']:.6g} ms), plain "
+            f"{times[1]} ms, bound {self.bound['sketch_count'][0]:.6g} ms "
+            f"({self.bound['sketch_count'][1]})")
+
+        grid, xs, ys = s_grid(d["host"])
+        ins = grid_inputs(*grid, 10, xs, ys, DEVICE)
+        kern, plain = self.fns["grid_nll"]
+        got, want = kern(*ins), plain(*ins)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              "grid_nll: shape or non-finite values")
+        diff = (got.double() - want.double()).abs()
+        rel = float((diff / want.double().abs().clamp(min=1.0)).max())
+        self.err["grid_nll"] = max(self.err["grid_nll"], float(diff.max()))
+        self.compared["grid_nll"] += 1
+        check(rel <= GRID_NLL_RTOL, f"grid_nll differs from its plain "
+              f"version: relative {rel:.3g} > {GRID_NLL_RTOL}")
+        points, nx = got.numel(), len(xs)
+        times = self.kernel_beside_plain(
+            "grid_nll", ins,
+            (4 * points + sum(4 * t.numel() for t in ins), points * nx),
+            SFU_PER_S)
+        log(f"S1 grid_nll on {points} grid points x {nx} bins: relative "
+            f"difference {rel:.3g} (<= {GRID_NLL_RTOL}), max abs "
+            f"{self.err['grid_nll']:.6g}; kernel {times[0]} ms (device "
+            f"{self.device_ms['grid_nll']:.6g} ms), plain "
+            f"{times[1]} ms, bound {self.bound['grid_nll'][0]:.6g} ms "
+            f"({self.bound['grid_nll'][1]}: one log a point and bin at "
+            f"{SFU_PER_S:.4g}/s)")
+
+    def phase_s2(self):
+        """The anchor stage with device sketching, counted, timed and
+        held field for field to S's host anchor stage."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops.sketch import (
+            sketch_long_sequence_device, sketch_reads_device,
+        )
+        from dipgenie_tpu_torch.solver.anchors import (
+            compute_and_classify_anchors,
+        )
+
+        d = self.s
+        for _ in range(2):  # warm: the card idled through the host stage
+            sketch_reads_device(d["seqs"][:4096], S_K, S_W, device=DEVICE)
+        self.sync()
+        self.reset_counts()
+        with self.launch_events("dg_sketch") as pairs:
+            t0 = time.time()
+            dev = compute_and_classify_anchors(
+                d["index"], d["reads"], S_K, S_W, 1.0, verbose=False,
+                sketch_backend="device", device=DEVICE)
+            self.sync()
+            dev_s = time.time() - t0
+        launches = self.launches["S2"] = self.counts()
+        host = d["host"]
+        for f in ("count_sp_r", "hap_minimizer_counts", "fit"):
+            check(getattr(host, f) == getattr(dev, f), f"S2 {f} differs")
+        for f in ("sp_hashes", "homo_bv", "multiplicity", "occ_sp",
+                  "occ_hap", "occ_ptr", "occ_v"):
+            check(np.array_equal(getattr(host, f), getattr(dev, f)),
+                  f"S2 AnchorData.{f} differs")
+        H = len(d["haps"])
+        want = {**dict.fromkeys(KERNELS, 0), "minimizer_sketch": H + 1}
+        check(launches == want, f"S2 launches {launches}, want {want}")
+        ms = [a.elapsed_time(b) for a, b in pairs]
+        log(f"S2 anchor stage with device sketching {dev_s:.3f}s against "
+            f"the host sketcher's {d['host_s']:.3f}s (host clock): every "
+            f"AnchorData field equal ({host.count_sp_r} spectrum hashes); "
+            f"K10 launches {launches['minimizer_sketch']}: {H} haplotypes "
+            f"{sum(ms[:H]):.3f} ms, the reads {sum(ms[H:]):.3f} ms (CUDA "
+            "events)")
+
+        # the drivers alone, beside the kernels' device time
+        with self.launch_events("dg_sketch") as pairs:
+            t0 = time.time()
+            for h in d["haps"]:
+                sketch_long_sequence_device(h, S_K, S_W, device=DEVICE)
+            self.sync()
+            t1 = time.time()
+            sets = sketch_reads_device(d["seqs"], S_K, S_W, device=DEVICE)
+            t2 = time.time()
+        ms = [a.elapsed_time(b) for a, b in pairs]
+        hap_s, reads_s = t1 - t0, t2 - t1
+        dev_hap, dev_reads = sum(ms[:H]) / 1e3, sum(ms[H:]) / 1e3
+        nwin = sum(len(h) - S_K - S_W + 2 for h in d["haps"])
+        B, L = d["codes"].shape
+        hb = bound(sum(map(len, d["haps"])) + 13 * nwin,
+                   nwin * (4 * S_K + 2 * (S_W - 1) + 64))
+        log(f"S2 drivers: haplotypes {hap_s:.3f}s of which K10 "
+            f"{dev_hap * 1e3:.3f} ms (host share "
+            f"{1 - dev_hap / hap_s:.4f}), reads {reads_s:.3f}s of which "
+            f"K10 {dev_reads * 1e3:.3f} ms (host share "
+            f"{1 - dev_reads / reads_s:.4f}); native sketcher "
+            f"{d['nat_hap_s']:.3f}s / {d['nat_reads_s']:.3f}s; K10 bound "
+            f"{hb[0]:.6g} ms for the haplotypes ({nwin} windows, {hb[1]}), "
+            f"{self.bound['minimizer_sketch'][0]:.6g} ms for the reads "
+            f"({sketch_reads_device.host_rows} rows by the host scanner)")
+        check(len(sets) == len(d["seqs"]), "S2 read sets")
+        d["sets"] = sets
+
+    def phase_s3(self):
+        """fit_histogram's torch backend (K12 on the card) against the
+        numpy backend on S2's histogram at the pipeline's options."""
+        from dipgenie_tpu_torch.models.fitter import fit_histogram
+
+        pairs, opt = s_histogram(self.s["host"])
+        t0 = time.time()
+        want = fit_histogram(pairs, opt)
+        np_s = time.time() - t0
+        fit_histogram(pairs, opt, backend="torch", device=DEVICE)  # warm
+        self.sync()
+        self.reset_counts()
+        t0 = time.time()
+        got = fit_histogram(pairs, opt, backend="torch", device=DEVICE)
+        self.sync()
+        torch_s = time.time() - t0
+        launches = self.launches["S3"] = self.counts()
+        want_l = {**dict.fromkeys(KERNELS, 0), "grid_nll": 1}
+        check(launches == want_l, f"S3 launches {launches}, want {want_l}")
+        check(got == want and got == self.s["host"].fit,
+              f"S3 torch fit {got} differs from numpy {want}")
+        log(f"S3 fit_histogram ({len(pairs)} bins, max_copy {opt.max_copy}):"
+            f" torch backend {torch_s:.3f}s, numpy {np_s:.3f}s (host clock);"
+            f" parameters and nll ({got.nll!r}) equal; K12 "
+            f"{self.ms['grid_nll']:.4f} ms a launch (S1), 1 launch")
+
+    def phase_s4(self):
+        """F_RANKS gloo ranks on the card, mesh (n_dp = F_RANKS, n_tp = 1):
+        the dp sketch-count step and the dp read sketch, then
+        dryrun_multichip(F_RANKS); the one-rank step in this process is the
+        counted run of K11."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.parallel.mesh import sharded_sketch_count_step
+
+        d = self.s
+        pad = (-len(d["codes"])) % F_RANKS
+        codes = np.concatenate(
+            [d["codes"], np.zeros((pad, d["codes"].shape[1]), np.uint8)])
+        lens = np.concatenate([d["lens"], np.zeros(pad, np.int32)])
+        args = (codes, lens, d["thi"], d["tlo"], S_K, S_W)
+        sharded_sketch_count_step(None, *args, device=DEVICE)  # warm
+        self.sync()
+        self.reset_counts()
+        t0 = time.time()
+        one = sharded_sketch_count_step(None, *args, device=DEVICE)
+        self.sync()
+        one_s = time.time() - t0
+        launches = self.launches["S4"] = self.counts()
+        want = {**dict.fromkeys(KERNELS, 0), "minimizer_sketch": 1,
+                "sketch_count": 1}
+        check(launches == want, f"S4 launches {launches}, want {want}")
+        path = os.path.join(OUT_DIR, "phase_s_inputs.npz")
+        np.savez(path, codes=codes, lens=lens, thi=d["thi"], tlo=d["tlo"])
+        try:
+            results = spawn_ranks("s4", {"kind": "sketch", "inputs": path,
+                                         "reads": d["reads_fa"],
+                                         "mesh": (F_RANKS, 1)})
+        finally:
+            os.remove(path)
+        counts, per_read = (t.cpu().numpy() for t in one)
+        flat = np.concatenate(d["sets"])
+        sizes = np.asarray([len(x) for x in d["sets"]])
+        for r, res in enumerate(results):
+            check(np.array_equal(res["counts"], counts)
+                  and np.array_equal(res["per_read"], per_read),
+                  f"S4 rank {r}: the dp sketch count differs from one rank's")
+            check(np.array_equal(res["flat"], flat)
+                  and np.array_equal(res["sizes"], sizes),
+                  f"S4 rank {r}: the dp read sketch differs from S2's sets")
+            log(f"S4 rank {r} of {F_RANKS} (gloo, one card, mesh "
+                f"({F_RANKS}, 1)): sketch count {res['count_s']:.3f}s (one "
+                f"rank in this process {one_s:.3f}s), read sketch "
+                f"{res['reads_s']:.3f}s, dryrun_multichip({F_RANKS}) "
+                f"{res['dryrun_s']:.3f}s, launches {res['launches']}; "
+                f"{int(counts.sum())} hits == one rank's, read sets == S2's")
+
     # ---------------- phase D ----------------
     def phase_d(self):
         from dipgenie_tpu_torch.utils.synth import pangenome
@@ -1557,10 +1945,13 @@ class Smoke:
             log(f"{tag} synthetic pangenome of {n_bp} bp, reads from 2 "
                 f"walks at 2x ({time.time() - t0:.1f}s)")
             runs = {}
-            for name, cmd in (
-                ("port", PORT_CLI),
-                ("native", ["-m", "dipgenie_tpu", "--dp-backend", "native"]),
-            ):
+            cmds = [("port", PORT_CLI),
+                    ("native", ["-m", "dipgenie_tpu", "--dp-backend",
+                                "native"])]
+            if n_walks == 8:
+                cmds.append(("port_sketch",
+                             PORT_CLI + ["--sketch-backend", "device"]))
+            for name, cmd in cmds:
                 cwd = os.path.join(work, name)
                 os.makedirs(cwd, exist_ok=True)
                 t0 = time.time()
@@ -1585,6 +1976,15 @@ class Smoke:
                 return [x for x in s.splitlines() if " took " not in x]
 
             check(lines(po) == lines(no), f"{tag} stdout differs")
+            if "port_sketch" in runs:
+                so, se, sf = runs["port_sketch"]
+                check(sf == nf and lines(so) == lines(no), f"{tag} the "
+                      "port's CLI with --sketch-backend device differs from "
+                      "the native tier")
+                line = [x for x in se.splitlines() if "device sketch on" in x]
+                check(bool(line), f"{tag} device sketching not run")
+                log(f"{tag} --sketch-backend device: FASTA byte-identical to "
+                    "the native tier's; " + line[0].split("] ", 1)[1])
             plan_line = [x for x in pe.splitlines() if "pair plan ready" in x]
             launch_line = [x for x in pe.splitlines()
                            if "kernel launches" in x]
@@ -1617,6 +2017,40 @@ class Smoke:
                 f"device memory {peak.group(1)} B")
             log(f"{tag} FASTA byte-identical ({len(pf)} B) and stdout "
                 "identical apart from the timing line")
+
+
+def s_histogram(anchors):
+    """The multiplicity histogram of an anchor stage and the fitter's
+    options, as solver/anchors.py:_classify forms them."""
+    import numpy as np
+
+    from dipgenie_tpu_torch.models.fitter import KGFitOptions
+
+    uniq, freq = np.unique(anchors.multiplicity, return_counts=True)
+    pairs = [(int(m), float(f)) for m, f in zip(uniq, freq) if m > 0]
+    top = int(uniq.max())
+    return pairs, KGFitOptions(max_copy=10, max_x_use=top, u_hi=float(top),
+                               fit_error=True, fit_varw=True)
+
+
+def s_grid(anchors):
+    """``(grid, xs, ys)`` of fit_histogram on ``s_histogram(anchors)``: the
+    eight axes (none frozen at these options) and the histogram's bins."""
+    import numpy as np
+
+    from dipgenie_tpu_torch.models.fitter import _linspace
+
+    pairs, o = s_histogram(anchors)
+    grid = (_linspace(o.u_lo, o.u_hi, o.grid_u),
+            _linspace(o.sd_lo, o.sd_hi, o.grid_sd),
+            _linspace(o.varw_lo, o.varw_hi, o.grid_varw),
+            _linspace(o.zp_lo, o.zp_hi, o.grid_zp),
+            _linspace(o.zp_lo, o.zp_hi, o.grid_zp),
+            _linspace(o.pd_lo, o.pd_hi, o.grid_pd),
+            _linspace(o.pe_lo, o.pe_hi, o.grid_pe),
+            _linspace(o.s_lo, o.s_hi, o.grid_s))
+    return (grid, np.asarray([m for m, _ in pairs], np.int64),
+            np.asarray([f for _, f in pairs], np.float64))
 
 
 def caps_read_bytes(name: str, ins) -> int:
@@ -1673,7 +2107,7 @@ def spawn_ranks(tag: str, job: dict) -> list:
 
 
 def rank_main(rank: int, world: int, job: dict, init: str, out: str) -> None:
-    """One spawned rank of phase F2 or F3 on the card (cuda:0)."""
+    """One spawned rank of phase F2, F3 or S4 on the card (cuda:0)."""
     import pickle
 
     import torch
@@ -1686,8 +2120,9 @@ def rank_main(rank: int, world: int, job: dict, init: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank)
     try:
-        mesh = make_mesh(n_dp=1, n_tp=world)
-        fn = rank_dp if job["kind"] == "dp" else rank_pipeline
+        mesh = make_mesh(*job.get("mesh", (1, world)))
+        fn = {"dp": rank_dp, "pipeline": rank_pipeline,
+              "sketch": rank_sketch}[job["kind"]]
         res = fn(torch, mesh, job, f"{out}{rank}")
         with open(f"{out}{rank}.pkl", "wb") as fh:
             pickle.dump(res, fh)
@@ -1749,6 +2184,41 @@ def rank_pipeline(torch, mesh, job, out):
     with open(f"{out}.log") as fh, open(f"{out}.fa", "rb") as fa:
         return {"log": fh.read(), "fasta": fa.read(),
                 "seconds": time.time() - t0}
+
+
+def rank_sketch(torch, mesh, job, out):
+    """S4: the dp sketch-count step and the dp read sketch with the mesh,
+    then dryrun_multichip over every rank."""
+    import numpy as np
+
+    from dipgenie_tpu_torch.entry import dryrun_multichip
+    from dipgenie_tpu_torch.io.fastx import read_fastx
+    from dipgenie_tpu_torch.ops import sketch
+    from dipgenie_tpu_torch.parallel import mesh as pmesh
+
+    d = np.load(job["inputs"])
+    seqs = [q for _, q in read_fastx(job["reads"])]
+    wrappers = {"minimizer_sketch": sketch.batch_minimizer,
+                "sketch_count": pmesh.sketch_count}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    counts, per_read = pmesh.sharded_sketch_count_step(
+        mesh, d["codes"], d["lens"], d["thi"], d["tlo"], S_K, S_W,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    sets = sketch.sketch_reads_device(seqs, S_K, S_W, mesh=mesh,
+                                      device=DEVICE)
+    t2 = time.time()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    dryrun_multichip(torch.distributed.get_world_size(), device=DEVICE)
+    torch.cuda.synchronize()
+    return {"counts": counts.cpu().numpy(), "per_read": per_read.cpu().numpy(),
+            "flat": np.concatenate(sets),
+            "sizes": np.asarray([len(x) for x in sets]),
+            "count_s": t1 - t0, "reads_s": t2 - t1,
+            "dryrun_s": time.time() - t2, "launches": launches}
 
 
 def build_all():
@@ -1833,7 +2303,7 @@ def main() -> int:
     smoke = Smoke(torch, ref_cxx)
     for phase in (smoke.phase_b, smoke.phase_g, smoke.phase_h, smoke.phase_c,
                   smoke.phase_e, smoke.phase_f1, smoke.phase_f2,
-                  smoke.phase_d, smoke.phase_f3):
+                  smoke.phase_s, smoke.phase_d, smoke.phase_f3):
         t0 = time.time()
         phase()
         torch.cuda.empty_cache()

@@ -8,7 +8,10 @@
 * ``--device cuda|cpu`` (default ``cuda``): ``cpu`` runs the kernels'
   plain PyTorch versions. With ``cuda`` and no card the run stops with
   exit code 1 before any host work;
-* ``--sketch-backend host`` only: device sketching is not ported yet.
+* ``--sketch-backend host|device`` (default ``host``): ``device`` sketches
+  haplotypes and reads with K10 (``ops/sketch.py``) on ``--device``, with
+  the same exit code 1 before any host work where the card is missing,
+  and takes ``-k`` up to 32.
 
 A graph past the pair planner's limits (``ops/pair_plan.py:PlanLimit``)
 ends the run with one ``[E::main]`` line naming ``--dp-backend native``
@@ -24,7 +27,7 @@ import argparse
 import sys
 
 from . import PHI_VERSION
-from .device import NoCudaDevice
+from .device import NoCudaDevice, resolve_device
 from .ops.pair_plan import PlanLimit
 from .solver.pipeline import Pipeline, PipelineConfig
 from .utils import timing
@@ -69,9 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto", "torch", "native", "exact", *_TPU_TIERS])
     ap.add_argument("--device", type=str, default="cuda",
                     choices=["cuda", "cpu"],
-                    help="device of the torch DP tier [cuda]")
+                    help="device of the torch DP tier and of device "
+                         "sketching [cuda]")
     ap.add_argument("--sketch-backend", type=str, default="host",
-                    choices=["host", "device"])
+                    choices=["host", "device"],
+                    help="minimizer sketching on the host or the device "
+                         "[host]")
     ap.add_argument("--progress", action="store_true")
     ap.add_argument("--checkpoint-dir", type=str, default="",
                     help="Resume the anchor stage from DIR on rerun")
@@ -83,9 +89,9 @@ def _reject(args) -> str | None:
         return (f"--dp-backend {args.dp_backend} is a TPU tier of "
                 "dipgenie_tpu; use --dp-backend torch (or auto, native, "
                 "exact)")
-    if args.sketch_backend != "host":
-        return ("--sketch-backend device is not ported to the GPU yet; "
-                "use --sketch-backend host")
+    if args.sketch_backend == "device" and not 1 <= args.k <= 32:
+        return (f"--sketch-backend device takes -k up to 32 (a k-mer is two "
+                f"16-base lanes), not {args.k}; use --sketch-backend host")
     return None
 
 
@@ -125,13 +131,17 @@ def main(argv: list[str] | None = None) -> int:
             cfg = PipelineConfig(
                 k=args.k, w=args.w, recombination_penalty=args.P,
                 ploidy=args.p, threshold=args.T, num_threads=args.t,
-                debug=bool(args.d),
+                debug=bool(args.d), device=args.device,
+                sketch_backend=args.sketch_backend,
             )
+            if cfg.sketch_backend == "device":
+                resolve_device(cfg.device)  # fail before any host work
             pipe = Pipeline(args.g, args.r, args.o, cfg)
             pipe.load()
             reads = read_fastx(args.r)
             anchors = compute_and_classify_anchors(
                 pipe.index, reads, cfg.k, cfg.w, cfg.threshold,
+                sketch_backend=cfg.sketch_backend, device=cfg.device,
             )
             ilp_solve(
                 pipe.index, anchors, args.o, get_hap_name(args.g, args.r),
@@ -148,7 +158,7 @@ def main(argv: list[str] | None = None) -> int:
                 recombination_penalty=args.P, ploidy=args.p,
                 threshold=args.T, num_threads=args.t, debug=bool(args.d),
                 progress=args.progress, dp_backend=args.dp_backend,
-                device=args.device,
+                device=args.device, sketch_backend=args.sketch_backend,
                 checkpoint_dir=args.checkpoint_dir or None,
             )
             Pipeline(args.g, args.r, args.o, cfg).run()

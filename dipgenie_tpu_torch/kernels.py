@@ -69,6 +69,15 @@ _SIGNATURES = {
     "dg_chain_edge": (_P, _P, _P, _I, _P, _P, _P),
     # check id (csrc/caps.cuh), in0, in1 (or null), out, offset, stream
     "dg_caps": (_I, _P, _P, _P, _I, _P),
+    # codes [B, L] u8, lens [B], B, L, k, w, hash_hi, hash_lo, emit, minpos
+    # [B, L - k - w + 2], stream
+    "dg_sketch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # hash_hi, hash_lo, emit [B, NW], B, NW, table_hi, table_lo [M], M,
+    # max_dup, counts [M], per_read [B], stream
+    "dg_sketch_count": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    # fhom, fhet, ferr, pd, pe, y, the grid's sizes (u, sd, vw, zp, zph,
+    # pd, pe, s) and the bins, out, stream
+    "dg_grid_nll": (_P, _P, _P, _P, _P, _P, *(_I,) * 9, _P, _P),
 }
 
 

@@ -8,8 +8,9 @@ from KGFitOptions (Fitter.hpp:25-46) and the strict ``<`` first-minimum
 tie rule of the nested loops (Fitter.hpp:391-405).
 
 Strategy here (vectorized instead of 8 nested scalar loops):
-  1. factorized vectorized NLL over the whole grid (numpy float64):
-     FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are
+  1. factorized vectorized NLL over the whole grid (numpy float64, or
+     torch float32 with ``backend="torch"``: K12, ``csrc/grid_nll.cu``, on
+     the card): FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are
      precomputed, then combined per (p_d,p_e,s) slice;
   2. the top-K candidates by vectorized NLL are re-evaluated with a
      scalar float64 routine replicating the C++ operation order exactly,
@@ -23,7 +24,10 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from .. import kernels
+from ..device import resolve_device
 from .classifier import KGParams, zeta_weights, derr_old_val, val_hom, val_het
 
 
@@ -188,21 +192,150 @@ def _grid_nll_numpy(
     return out
 
 
+def _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
+    """``(fhom [u,sd,zp,x], fhet [u,vw,zph,x], ferr [s,x])`` float32 on
+    ``device``: the small tables ``_grid_nll_jax`` builds outside its map,
+    in plain torch with its 1e-35 clamps."""
+    f32 = torch.float32
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=f32,
+                               device=device)
+
+    X = t(xs)
+    copies = torch.arange(1, max_copy + 1, dtype=f32, device=device)
+    inv_s2pi = 0.3989422804014327
+
+    def zeta(zps):
+        w = 1.0 / torch.pow(copies[None, :], t(zps)[:, None])
+        return w / w.sum(dim=1, keepdim=True)
+
+    def pdf(mu, sdc):
+        z = (X[None, None, None, :] - mu[:, None, :, None]) \
+            / sdc[None, :, :, None]
+        return inv_s2pi / sdc[None, :, :, None] * torch.exp(-0.5 * z * z)
+
+    Uj = t(U)
+    mu = Uj[:, None] * copies[None, :]
+    sdc = t(SD)[:, None] * torch.sqrt(copies)[None, :]
+    fhom = torch.clamp(torch.einsum("zc,uscx->uszx", zeta(ZP), pdf(mu, sdc)),
+                       min=1e-35)
+    mu_h = (0.5 * Uj)[:, None] * copies[None, :]
+    sd_base = 0.5 * torch.sqrt(torch.clamp(t(VW), min=1e-12))
+    sdc_h = sd_base[:, None] * torch.sqrt(copies)[None, :]
+    fhet = torch.clamp(
+        torch.einsum("zc,uvcx->uvzx", zeta(ZPH), pdf(mu_h, sdc_h)),
+        min=1e-35)
+    SSj = t(SS)
+    ferr = torch.pow(X[None, :], -SSj[:, None]) \
+        - torch.pow(X[None, :] + 1.0, -SSj[:, None])
+    ferr = torch.where(ferr > 0.0, ferr, 1e-35)
+    return fhom.contiguous(), fhet.contiguous(), ferr.contiguous()
+
+
+def _check_grid(fhom, fhet, ferr, pd, pe, y) -> None:
+    for name, a, dim in (("fhom", fhom, 4), ("fhet", fhet, 4),
+                         ("ferr", ferr, 2), ("pd", pd, 1), ("pe", pe, 1),
+                         ("y", y, 1)):
+        if not isinstance(a, torch.Tensor) or a.dtype != torch.float32 \
+                or a.dim() != dim:
+            raise ValueError(f"{name}: want a {dim}-D float32 tensor")
+    nx = y.shape[0]
+    if fhom.shape[3] != nx or fhet.shape[3] != nx or ferr.shape[1] != nx \
+            or fhom.shape[0] != fhet.shape[0]:
+        raise ValueError(f"grid tables {tuple(fhom.shape)}, "
+                         f"{tuple(fhet.shape)}, {tuple(ferr.shape)} do not "
+                         f"agree with {nx} bins")
+
+
+def grid_nll_ref(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:
+    """Plain PyTorch version of K12: ``[u, sd, vw, zp, zph, pd, pe, s]``
+    float32 NLL of every grid point, JAX's map body
+    (``dipgenie_tpu/models/fitter.py:245-252``) per (pd, pe) slice."""
+    _check_grid(fhom, fhet, ferr, pd, pe, y)
+    nu, nsd, nzp, _ = fhom.shape
+    _, nvw, nzph, _ = fhet.shape
+    out = torch.empty((nu, nsd, nvw, nzp, nzph, len(pd), len(pe),
+                       ferr.shape[0]), dtype=torch.float32,
+                      device=fhom.device)
+    het = fhet[:, None, :, None, :, None, :]
+    hom = fhom[:, :, None, :, None, None, :]
+    err = ferr[None, None, None, None, None, :, :]
+    for ipd in range(len(pd)):
+        for ipe in range(len(pe)):
+            p, e = pd[ipd], pe[ipe]
+            b = (1.0 - e) * p * het
+            c = (1.0 - e) * (1.0 - p) * hom
+            mix = e * err + b + c
+            out[:, :, :, :, :, ipd, ipe, :] = -(
+                torch.log(mix + 1e-35) * y).sum(-1)
+    return out
+
+
+def grid_nll(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:
+    """K12. CUDA tensors launch ``csrc/grid_nll.cu`` (one launch); CPU
+    tensors take ``grid_nll_ref``."""
+    if fhom.device.type == "cpu":
+        return grid_nll_ref(fhom, fhet, ferr, pd, pe, y)
+    _check_grid(fhom, fhet, ferr, pd, pe, y)
+    for name, a in (("fhom", fhom), ("fhet", fhet), ("ferr", ferr),
+                    ("pd", pd), ("pe", pe), ("y", y)):
+        kernels.check_tensor(a, name, torch.float32, None, fhom.device)
+    nu, nsd, nzp, nx = fhom.shape
+    _, nvw, nzph, _ = fhet.shape
+    dims = (nu, nsd, nvw, nzp, nzph, len(pd), len(pe), ferr.shape[0])
+    out = torch.empty(dims, dtype=torch.float32, device=fhom.device)
+    rc = kernels.lib().dg_grid_nll(
+        fhom.data_ptr(), fhet.data_ptr(), ferr.data_ptr(), pd.data_ptr(),
+        pe.data_ptr(), y.data_ptr(), *dims, nx, out.data_ptr(),
+        kernels.stream_of(fhom))
+    kernels.raise_on_error(rc, "grid_nll")
+    grid_nll.launches += 1
+    return out
+
+
+grid_nll.launches = 0
+
+
+def grid_inputs(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys, device):
+    """The float32 inputs ``(fhom, fhet, ferr, pd, pe, y)`` of K12 for a
+    grid on ``device``."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64),
+                               dtype=torch.float32, device=device)
+
+    return (*_grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs,
+                                device), t(PD), t(PE), t(ys))
+
+
+def _grid_nll_torch(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys,
+                    device) -> np.ndarray:
+    """The float32 grid NLL of ``_grid_nll_jax`` on ``device`` (K12 on the
+    card), as float64 ``[u, sd, vw, zp, zph, pd, pe, s]``."""
+    out = grid_nll(*grid_inputs(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy,
+                                xs, ys, device))
+    return out.cpu().numpy().astype(np.float64)
+
+
 def fit_histogram(
     hist_pairs: list[tuple[int, float]],
     opt: KGFitOptions | None = None,
     exact_topk: int = 256,
     backend: str = "numpy",
+    device="cuda",
 ) -> KGFitResult:
     """Fit the 8-parameter mixture to a {multiplicity: freq} histogram.
 
     Matches KGFitterBO::fit (Fitter.hpp:207-407) with the grid backend.
+    ``backend="torch"`` ranks the grid in float32 on ``device`` (K12 on
+    the card; ``"cpu"`` runs its plain version) before the float64
+    re-evaluation, which makes the result the numpy backend's.
     """
-    if backend != "numpy":
-        raise ValueError(
-            f"fit_histogram backend {backend!r}: only 'numpy' is ported; the "
-            "device grid NLL is ROADMAP queue 1, item 7"
-        )
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"fit_histogram backend {backend!r}: 'numpy' or "
+                         "'torch'")
+    if backend == "torch":
+        device = resolve_device(device)  # before any work
     if opt is None:
         opt = KGFitOptions()
     nmax = max((m for m, _ in hist_pairs), default=0)
@@ -278,7 +411,15 @@ def fit_histogram(
         )
         return KGFitResult(P, 0.0, valley, peak)
 
-    nll = _grid_nll_numpy(U, SD, VW, ZP, ZPH, PD, PE, SS, opt.max_copy, xs, ys)
+    if backend == "torch":
+        nll = _grid_nll_torch(U, SD, VW, ZP, ZPH, PD, PE, SS, opt.max_copy,
+                              xs, ys, device)
+        # f32 ranking noise seed; the adaptive window below guarantees the
+        # true argmin regardless of the seed size
+        exact_topk = max(exact_topk, 256)
+    else:
+        nll = _grid_nll_numpy(U, SD, VW, ZP, ZPH, PD, PE, SS, opt.max_copy,
+                              xs, ys)
     flat = nll.reshape(-1)
     k = min(exact_topk, flat.size)
     cand = np.argpartition(flat, k - 1)[:k] if k < flat.size else np.arange(flat.size)
@@ -295,7 +436,7 @@ def fit_histogram(
         )
 
     # Adaptive exact-re-eval window: the fixed top-K seed is only a
-    # heuristic when the vectorized grid ranks near-ties
+    # heuristic when the vectorized grid (f32 on device) ranks near-ties
     # wrongly. Grow the window until every unevaluated grid point's
     # vectorized NLL exceeds the best exact NLL by more than the
     # empirically observed approx-vs-exact error (x4 safety margin), at

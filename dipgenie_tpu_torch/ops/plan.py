@@ -194,12 +194,38 @@ TRACE_FLAGS = {"dense": 1, "rowstep": 2, "bp1": 4, "bp16": 8}
 def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None) -> str:
     """``narrow`` (K1), ``wide`` (K2, dense chunks), ``wide_split`` (K3,
     window-split chunks) or, under a tp ``mesh``, ``wide_tp`` (K4): the
-    kernel that runs a plan segment."""
+    kernel that runs a plan segment. A dense run with a destination of more
+    pairs than a K2 slice holds (parallel edges into its two nodes) goes to
+    K3, which cuts such a destination over slices."""
     if isinstance(seg, _NarrowRun):
         return "narrow"
     if mesh is not None:
         return "wide_tp"
-    return "wide_split" if seg.NB > dense_nb_max else "wide"
+    if seg.NB > dense_nb_max:
+        return "wide_split"
+    if seg.NB <= DENSE_NB_LIMIT and heaviest_destination(seg) > K2_SLICE_PAIRS:
+        return "wide_split"
+    return "wide"
+
+
+def heaviest_destination(seg: _WideRun) -> int:
+    """The most dense pairs on one destination lane in any transition of a
+    wide run with dense tables (their real pairs come first in a
+    transition, sorted by destination; ``wide_slices`` checks that); 0
+    where no transition holds more than ``K2_SLICE_PAIRS`` pairs in all."""
+    nreal = int(np.count_nonzero(seg.dbits & 4))
+    bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
+    if int(np.diff(bounds).max(initial=0)) * CHUNK <= K2_SLICE_PAIRS:
+        return 0  # no transition holds more pairs than a slice: skip
+    words = seg.dtbl[:bounds[-1]]
+    real = words[:, 1].ravel() != PAD_SC
+    ti = np.repeat(np.arange(len(bounds) - 1, dtype=np.int64),
+                   np.diff(bounds) * CHUNK)
+    key = ((ti << 15) | ((words[:, 0].ravel() >> 2) & 32767))[real]
+    if not len(key):
+        return 0
+    change = np.flatnonzero(key[1:] != key[:-1]) + 1
+    return int(np.diff(np.concatenate([[0], change, [len(key)]])).max())
 
 
 @dataclass

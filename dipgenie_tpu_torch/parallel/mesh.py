@@ -18,9 +18,14 @@ Axes:
   on the card, gloo on the CPU or for ranks sharing one card (gloo
   stages CUDA tensors through host memory itself). Narrow runs and the
   traceback run on every rank, so every rank returns the same result.
-* **dp**: the data-parallel axis of device sketching, which the port does
-  not have yet (host sketching ignores it, as the JAX package does with
-  ``sketch_backend="host"``).
+* **dp**: the reads of device sketching. Each dp rank sketches a
+  contiguous share of the reads with K10 (``ops/sketch.py``):
+  ``sketch_reads_device(mesh=)`` gathers the per-read sets over the dp
+  group, and ``sharded_sketch_count_step`` matches the share's emitted
+  minimizers against a replicated sorted table with K11
+  (``csrc/sketch_count.cu``) and merges the per-slot counts with one
+  ``all_reduce(SUM)`` over dp. Host sketching ignores the axis, as the JAX
+  package does with ``sketch_backend="host"``.
 
 There is no single-process stand-in: without an initialised process
 group ``make_mesh`` raises.
@@ -30,7 +35,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+import torch
 import torch.distributed as dist
+
+from .. import kernels
+from ..device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -72,3 +82,126 @@ def make_mesh(n_dp: int | None = None, n_tp: int = 1) -> Mesh:
             dp = g
     return Mesh(n_dp=n_dp, n_tp=n_tp, tp_rank=tp_rank, dp_rank=dp_rank,
                 tp=tp, dp=dp)
+
+
+def u32_tensor(a, device) -> torch.Tensor:
+    """A u32 table as an int32 tensor of its bit patterns on ``device``
+    (numpy uint32 arrays are viewed, tensors moved)."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+    return a.to(device).contiguous()
+
+
+def _check_count(hash_hi, hash_lo, emit, table_hi, table_lo) -> None:
+    for name, t in (("hash_hi", hash_hi), ("hash_lo", hash_lo)):
+        if t.dtype != torch.int32 or t.shape != emit.shape:
+            raise ValueError(f"{name}: want int32 {tuple(emit.shape)}")
+    if emit.dtype != torch.bool or emit.dim() != 2:
+        raise ValueError("emit: want a [B, NW] bool tensor")
+    if table_hi.dtype != torch.int32 or table_lo.dtype != torch.int32 \
+            or table_hi.dim() != 1 or table_hi.shape != table_lo.shape:
+        raise ValueError("table_hi / table_lo: want int32 [M] tensors")
+
+
+def sketch_count_ref(hash_hi, hash_lo, emit, table_hi, table_lo,
+                     max_dup: int = 4):
+    """Plain PyTorch version of K11: ``(counts [M], per_read [B])`` int32
+    of the emitted windows ``(hash_hi, hash_lo)`` ([B, NW], u32 bit
+    patterns in int32, as ``ops.sketch.batch_minimizer`` gives them)
+    matched against the table sorted by unsigned ``(hi, lo)``: the lower
+    bound of hi, then at most ``max_dup`` slots for an equal pair, the
+    first hit winning (``dipgenie_tpu/parallel/mesh.py:66-72``)."""
+    _check_count(hash_hi, hash_lo, emit, table_hi, table_lo)
+    M = table_hi.shape[0]
+    B = emit.shape[0]
+    dev = emit.device
+    thi = table_hi.to(torch.int64) & 0xFFFFFFFF
+    tlo = table_lo.to(torch.int64) & 0xFFFFFFFF
+    hh = hash_hi.to(torch.int64) & 0xFFFFFFFF
+    hl = hash_lo.to(torch.int64) & 0xFFFFFFFF
+    if M == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+    start = torch.searchsorted(thi, hh.reshape(-1), side="left").reshape(
+        hh.shape)
+    slot = torch.full(hh.shape, -1, dtype=torch.int64, device=dev)
+    for d in range(max_dup):
+        idx = (start + d).clamp(0, M - 1)
+        ok = (start + d < M) & (thi[idx] == hh) & (tlo[idx] == hl)
+        slot = torch.where((slot < 0) & ok, idx, slot)
+    matched = emit & (slot >= 0)
+    counts = torch.bincount(slot[matched], minlength=M).to(torch.int32)
+    return counts, matched.sum(1).to(torch.int32)
+
+
+def sketch_count(hash_hi, hash_lo, emit, table_hi, table_lo,
+                 max_dup: int = 4):
+    """K11. CUDA tensors launch ``csrc/sketch_count.cu`` (one launch); CPU
+    tensors take ``sketch_count_ref``."""
+    if emit.device.type == "cpu":
+        return sketch_count_ref(hash_hi, hash_lo, emit, table_hi, table_lo,
+                                max_dup)
+    _check_count(hash_hi, hash_lo, emit, table_hi, table_lo)
+    for name, t in (("hash_hi", hash_hi), ("hash_lo", hash_lo),
+                    ("table_hi", table_hi), ("table_lo", table_lo)):
+        kernels.check_tensor(t, name, torch.int32, None, emit.device)
+    kernels.check_tensor(emit, "emit", torch.bool)
+    B, NW = emit.shape
+    M = table_hi.shape[0]
+    counts = torch.zeros(M, dtype=torch.int32, device=emit.device)
+    per_read = torch.zeros(B, dtype=torch.int32, device=emit.device)
+    if M == 0 or NW == 0:
+        return counts, per_read
+    rc = kernels.lib().dg_sketch_count(
+        hash_hi.data_ptr(), hash_lo.data_ptr(), emit.data_ptr(), B, NW,
+        table_hi.data_ptr(), table_lo.data_ptr(), M, max_dup,
+        counts.data_ptr(), per_read.data_ptr(), kernels.stream_of(emit))
+    kernels.raise_on_error(rc, "sketch_count")
+    sketch_count.launches += 1
+    return counts, per_read
+
+
+sketch_count.launches = 0
+
+
+def all_gather_cat(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's ranks' ``t`` concatenated in rank order, on ``t``'s
+    device (through host memory where the group is gloo's)."""
+    src = t.cpu() if dist.get_backend(group) == "gloo" else t
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src.contiguous(), group=group)
+    return torch.cat(parts).to(t.device)
+
+
+def sharded_sketch_count_step(mesh, codes, lens, table_hi, table_lo, k: int,
+                              w: int, max_dup: int = 4, device="cuda"):
+    """Data-parallel sketch and anchor count with a sum over dp. ``codes
+    [B, L]`` uint8 and ``lens [B]`` (numpy or tensors; B divisible by the
+    mesh's ``n_dp``) are every rank's global reads, ``table_hi`` /
+    ``table_lo`` the replicated haplotype minimizer hashes sorted by
+    unsigned ``(hi, lo)`` (numpy uint32, or int32 tensors of their bits).
+    Each dp rank runs K10 and K11 on its contiguous share of the rows; the
+    counts merge with ``all_reduce(SUM)`` over ``mesh.dp`` and the per-read
+    counts are gathered over it. Returns ``(counts [M], per_read [B])``
+    int32 on ``device``, the same on every rank. ``mesh=None`` runs every
+    row in this process."""
+    from ..ops.sketch import batch_minimizer
+
+    dev = resolve_device(device)
+    codes = torch.as_tensor(codes).to(dev)
+    lens = torch.as_tensor(lens).to(device=dev, dtype=torch.int32)
+    B = codes.shape[0]
+    n_dp = 1 if mesh is None else mesh.n_dp
+    if B % n_dp:
+        raise ValueError(f"{B} reads do not split over {n_dp} dp ranks")
+    lo = 0 if mesh is None else mesh.dp_rank * (B // n_dp)
+    rows = slice(lo, lo + B // n_dp)
+    hh, hl, emit, _ = batch_minimizer(codes[rows].contiguous(),
+                                      lens[rows].contiguous(), k, w)
+    counts, per_read = sketch_count(hh, hl, emit, u32_tensor(table_hi, dev),
+                                    u32_tensor(table_lo, dev), max_dup)
+    if n_dp > 1:
+        dist.all_reduce(counts, dist.ReduceOp.SUM, group=mesh.dp)
+        per_read = all_gather_cat(per_read, mesh.dp)
+    return counts, per_read

@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..device import resolve_device
 from ..graph.pangenome import PangenomeIndex
 from ..models.classifier import KGParams, classify_labels, HET, HOM
 from ..models.fitter import KGFitOptions, KGFitResult, fit_histogram
@@ -86,18 +87,22 @@ def compute_and_classify_anchors(
     w: int,
     threshold: float,
     verbose: bool = True,
-    sketch_backend: str = "host",  # host | python
+    sketch_backend: str = "host",  # host | device | python
+    mesh=None,  # optional parallel.mesh.Mesh: reads shard over its dp ranks
+    device="cuda",  # where device sketching runs (K10 on the card)
 ) -> AnchorData:
     H = index.num_walks
     data = AnchorData()
 
-    if sketch_backend == "device":
-        raise ValueError(
-            "device sketching is not ported to the GPU yet (ROADMAP queue 1, "
-            "item 6); use sketch_backend='host'"
-        )
+    use_device = sketch_backend == "device"
     use_native = False
-    if sketch_backend in ("host", "auto"):
+    if use_device:
+        from ..ops import sketch as _sketch
+
+        device = resolve_device(device)
+        _sketch.check_k(k)
+        launches = _sketch.batch_minimizer.launches
+    elif sketch_backend in ("host", "auto"):
         from .. import native as _native
 
         use_native = _native.available()
@@ -107,7 +112,11 @@ def compute_and_classify_anchors(
         print("Number of Minimizers", file=sys.stderr)
     hap_minis = []
     for h in range(H):
-        if use_native:
+        if use_device:
+            hs, ps = _sketch.sketch_long_sequence_device(
+                index.haplotype_seq(h), k, w, device)
+            mins = Minimizers(hs, ps, k)
+        elif use_native:
             seq = np.frombuffer(
                 index.haplotype_seq(h).encode("latin-1"), np.uint8
             )
@@ -121,7 +130,18 @@ def compute_and_classify_anchors(
             print(f"{index.hap_id2name[h]} : {len(mins.hashes)}", file=sys.stderr)
 
     # 2) sketch reads -> per-read unique hash sets
-    if use_native:
+    if use_device:
+        read_hashes = _sketch.sketch_reads_device(
+            [seq for _, seq in reads], k, w, mesh=mesh, device=device)
+        if verbose:
+            log_stage(
+                "compute_and_classify_anchors",
+                f"device sketch on {device.type}: {len(reads)} reads, "
+                f"{_sketch.sketch_reads_device.host_rows} of them by the host "
+                "scanner (non-ACGT or shorter than w + k - 1), "
+                f"{_sketch.batch_minimizer.launches - launches} launches",
+            )
+    elif use_native:
         batched = _native.sketch_batch(
             [seq.encode("latin-1") for _, seq in reads], k, w
         )

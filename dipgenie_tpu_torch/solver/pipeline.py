@@ -11,6 +11,11 @@ DP → FASTA output) with the port's DP tiers. ``dp_backend``:
   unless asked to;
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
+
+``sketch_backend="device"`` sketches haplotypes and reads with K10
+(``ops/sketch.py``) on ``device``, the reads sharded over the dp ranks of
+``mesh`` when one is given; it too raises ``NoCudaDevice`` before any host
+work where ``device="cuda"`` finds no card.
 """
 
 from __future__ import annotations
@@ -67,12 +72,14 @@ class PipelineConfig:
     progress: bool = False
     dp_backend: str = "auto"  # auto | torch | native | exact
     device: str = "cuda"  # cuda | cpu: where the torch tier runs
+    sketch_backend: str = "host"  # host | device (K10 on ``device``)
     # optional checkpoint directory: the anchor stage (sketch + join +
     # classify) resumes from disk on rerun (utils/checkpoint.py)
     checkpoint_dir: str | None = None
     # optional parallel.mesh.Mesh: the torch tier's wide runs are sharded
-    # over its tp ranks (every rank runs the pipeline and writes the same
-    # FASTA); host sketching ignores the dp axis
+    # over its tp ranks and device sketching's reads over its dp ranks
+    # (every rank runs the pipeline and writes the same FASTA); host
+    # sketching ignores the dp axis
     mesh: object = None
 
     @property
@@ -103,7 +110,7 @@ class Pipeline:
 
     def run(self, out=sys.stdout) -> None:
         cfg = self.cfg
-        if cfg.backend == "torch":
+        if cfg.backend == "torch" or cfg.sketch_backend == "device":
             resolve_device(cfg.device)  # fail before any host work
         if self.index is None:
             self.load()
@@ -123,7 +130,8 @@ class Pipeline:
             reads = read_fastx(self.reads_file)
             anchors = compute_and_classify_anchors(
                 self.index, reads, cfg.k, cfg.w, cfg.threshold,
-                verbose=cfg.verbose,
+                verbose=cfg.verbose, sketch_backend=cfg.sketch_backend,
+                mesh=cfg.mesh, device=cfg.device,
             )
             if ck_key is not None:
                 checkpoint.save_anchors(cfg.checkpoint_dir, ck_key, anchors)

@@ -11,6 +11,8 @@
   turns CSR arrays back into one, for the exact tier;
 * ``wide_window_graph`` / ``heavy_chain``: graphs past the TPU planner's
   limits (a wide run of more than 31 windows; DP values past 4,100,000);
+  ``parallel_edges_graph``: a dense run with a destination of more pairs
+  than a K2 slice holds;
 * ``mhc_shaped_csr``: a leveled DAG at the scale of the MHC expanded
   graph, the deployment the DP is sized for;
 * ``pangenome``: a GFA v1.1 pangenome (S/L/W lines) plus short reads from
@@ -203,6 +205,28 @@ def heavy_chain(L: int = 1100, n_hom: int = 4096, seed: int = 0):
     return g, [True] * n_hom + [False] * 6
 
 
+def parallel_edges_graph(width: int = 40, in_edges: int = 210,
+                         seed: int = 0):
+    """``(ExpandedGraph, color_homo_bv)`` of widths ``[1, width, width, 1]``
+    whose vertex 0 of level 2 has ``in_edges`` in-edges from level 1,
+    parallel edges among them (vertex ``e % width`` for ``e <
+    in_edges``, weights alternating 0 and 1); every other vertex of level 2
+    has one. The destination pair (0, 0) of that transition gathers
+    ``in_edges ** 2`` pairs: 44,100 at the defaults, more than a K2 slice
+    holds (44,032), in a dense run of ``ceil(width ** 2 / 1024)`` windows."""
+    rng = np.random.default_rng(seed)
+    widths = [1, width, width, 1]
+    edges = [[(0, j, 0) for j in range(width)],
+             [(e % width, 0, e % 2) for e in range(in_edges)]
+             + [(j, j, 0) for j in range(1, width)],
+             [(j, 0, 0) for j in range(width)]]
+    colors = {v: [int(c) for c in rng.choice(6, size=rng.integers(0, 3),
+                                             replace=False)]
+              for v in range(sum(widths))}
+    return (hand_graph(widths, edges, colors),
+            [bool(x) for x in rng.random(6) < 0.5])
+
+
 # graphs past each of the TPU planner's limits: R >= 32 (on a random
 # instance with wide levels, the JAX tests' case (400, 10, 40, 4, 8) at
 # another R), wide runs of 32 and 36 windows, DP values past 4,100,000
@@ -217,6 +241,22 @@ def limit_case(name: str):
         return (*heavy_chain(), 4)
     return (*graph_from_csr(random_leveled_csr(400, 10, 40, 8)),
             int(name[1:]))
+
+
+def ragged_reads(seed: int, B: int, L: int, k: int, w: int):
+    """``(codes [B, L] u8, lens [B] int32)`` for the sketch kernel: random
+    2-bit codes (past a row's length too) with random lengths, and among
+    the first rows an empty one, one a base short of a window, one of
+    fewer than k bases, a full one, one of a single base repeated (every
+    k-mer equal: rightmost ties) and one of period 2. ``B >= 6``."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    lens[:4] = (0, k + w - 2, k - 1, L)
+    codes[4] = 2
+    codes[5] = np.arange(L) % 2
+    lens[4:6] = L
+    return codes, lens
 
 
 def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,

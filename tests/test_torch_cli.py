@@ -51,6 +51,8 @@ def test_port_imports_no_jax(tmp_path):
         "        'dipgenie_tpu_torch.ops.chain_pair',\n"
         "        'dipgenie_tpu_torch.ops.chain_edge',\n"
         "        'dipgenie_tpu_torch.ops.caps',\n"
+        "        'dipgenie_tpu_torch.ops.sketch',\n"
+        "        'dipgenie_tpu_torch.entry',\n"
         "        *('dipgenie_tpu_torch.probes.' + m for m in (\n"
         "            'tables', 'slope', 'floor', 'pair', 'edge',\n"
         "            'dp_stages', 'parity_gate', 'caps',\n"
@@ -84,7 +86,9 @@ def test_port_sources_do_not_import_jax_package():
             "dipgenie_tpu_torch/probes/caps.py",
             "dipgenie_tpu_torch/probes/caps_tables.py",
             "dipgenie_tpu_torch/ops/chain_edge.py",
-            "dipgenie_tpu_torch/ops/caps.py"} <= names
+            "dipgenie_tpu_torch/ops/caps.py",
+            "dipgenie_tpu_torch/ops/sketch.py",
+            "dipgenie_tpu_torch/entry.py"} <= names
     assert pattern.search("import jax\n") and pattern.search(
         "    from scripts.tpu_pair_probe import build\n")
     assert not pattern.search("from dipgenie_tpu_torch.ops import plan\n")
@@ -120,7 +124,7 @@ def test_default_flags_without_card_do_not_fall_back(tmp_path,
 @pytest.mark.parametrize("flags,msg", [
     (["--dp-backend", "pallas"], "TPU tier"),
     (["--dp-backend", "jax"], "TPU tier"),
-    (["--sketch-backend", "device"], "not ported"),
+    (["--sketch-backend", "device", "-k", "33"], "-k up to 32"),
 ])
 def test_tpu_only_flags_are_rejected(flags, msg, capsys):
     from dipgenie_tpu_torch.cli import main

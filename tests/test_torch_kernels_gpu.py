@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from dipgenie_tpu_torch import kernels
+from dipgenie_tpu_torch.models import fitter
 from dipgenie_tpu_torch.ops import (
-    caps, chain_edge, chain_floor, chain_pair, narrow, trace, wide,
+    caps, chain_edge, chain_floor, chain_pair, narrow, sketch, trace, wide,
     wide_split, wide_step,
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
@@ -23,12 +24,15 @@ from dipgenie_tpu_torch.ops.plan import (
     DENSE_NB_MAX, NEG, REACH_T, chunk_bounds, coop_grid, initial_v,
     plan_pairs, plan_to_device, shard_to_device, split_slices, wide_slices,
 )
+from dipgenie_tpu_torch.parallel import mesh as pmesh
 from dipgenie_tpu_torch.probes import caps as probe_caps
 from dipgenie_tpu_torch.probes import caps_tables, tables
+from dipgenie_tpu_torch.sketch.minimizers import sketch_sequence
 from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
     CASES, GLOBAL_STATE_CASE, LIMIT_CASES, dense_graph, hand_graph,
-    limit_case, mhc_shaped_csr, random_leveled_csr, wide_window_graph,
+    limit_case, mhc_shaped_csr, parallel_edges_graph, ragged_reads,
+    random_leveled_csr, wide_window_graph,
 )
 
 pytestmark = pytest.mark.cuda
@@ -736,3 +740,157 @@ def test_caps_wrappers_reject_bad_inputs(name, cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
             kern(args[0], args[1].cpu())
     assert kern.launches == before
+
+
+# ---------------- K10 sketch, K11 sketch_count, K12 grid_nll ----------------
+# (k, w) of the sketch kernel's checks: murmur's block and tail paths (17,
+# 31: one block and a 15-byte tail, 32), tail only (16), the CLI's default
+SKETCH_KW = [(17, 7), (16, 5), (31, 25), (32, 3), (5, 1)]
+
+
+@pytest.mark.parametrize("k,w", SKETCH_KW)
+def test_sketch_kernel_matches_plain_version(k, w, cuda):
+    codes, lens = ragged_reads(k * 100 + w, 96, 400, k, w)
+    args = (torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda))
+    before = sketch.batch_minimizer.launches
+    got = sketch.batch_minimizer(*args, k, w)
+    want = sketch.batch_minimizer_ref(*args, k, w)
+    assert sketch.batch_minimizer.launches == before + 1
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+    assert bool(got[2].any())
+
+
+@pytest.mark.parametrize("k", [17, 31])
+def test_sketch_drivers_on_the_card_match_the_host_scanner(k, cuda):
+    rng = np.random.default_rng(k)
+    seqs = ["".join(rng.choice(list("ACGT"), int(n)))
+            for n in rng.integers(0, 400, 300)]
+    seqs += ["ACGTN" * 20, "acgtTTGACCAgg" * 12, "A" * 300]
+    got = sketch.sketch_reads_device(seqs, k, 25, device=cuda)
+    for i, s in enumerate(seqs):
+        assert np.array_equal(got[i], np.unique(
+            sketch_sequence(s, k, 25).hashes)), i
+    hap = "".join(rng.choice(list("ACGT"), 200_000))
+    hs, ps = sketch.sketch_long_sequence_device(hap, k, 25, device=cuda)
+    m = sketch_sequence(hap, k, 25)
+    assert np.array_equal(hs, m.hashes) and np.array_equal(ps, m.positions)
+
+
+def _count_table(hh, hl, emit, seed):
+    """A table sorted by unsigned (hi, lo): half the emitted hashes, random
+    ones, and runs of up to 7 slots of one hi (some of whose lo values are
+    emitted hashes, past max_dup for the later slots)."""
+    rng = np.random.default_rng(seed)
+    hi = hh[emit].cpu().numpy().view(np.uint32)
+    lo = hl[emit].cpu().numpy().view(np.uint32)
+    pick = rng.random(len(hi)) < 0.5
+    t_hi = [hi[pick], rng.integers(0, 2**32, 500, dtype=np.uint64)]
+    t_lo = [lo[pick], rng.integers(0, 2**32, 500, dtype=np.uint64)]
+    for i in rng.choice(len(hi), 20, replace=False):
+        n = int(rng.integers(2, 8))
+        t_hi.append(np.full(n, hi[i], np.uint64))
+        t_lo.append(np.concatenate([rng.integers(0, 2**32, n - 1,
+                                                 dtype=np.uint64), [lo[i]]]))
+    t_hi = np.concatenate(t_hi).astype(np.uint32)
+    t_lo = np.concatenate(t_lo).astype(np.uint32)
+    order = np.lexsort((t_lo, t_hi))
+    return t_hi[order], t_lo[order]
+
+
+@pytest.mark.parametrize("max_dup", [4, 1])
+def test_sketch_count_kernel_matches_plain_version(max_dup, cuda):
+    codes, lens = ragged_reads(3, 256, 200, 17, 7)
+    hh, hl, emit, _ = sketch.batch_minimizer(
+        torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda),
+        17, 7)
+    t_hi, t_lo = _count_table(hh, hl, emit, 5)
+    tables = (pmesh.u32_tensor(t_hi, cuda), pmesh.u32_tensor(t_lo, cuda))
+    before = pmesh.sketch_count.launches
+    got = pmesh.sketch_count(hh, hl, emit, *tables, max_dup)
+    want = pmesh.sketch_count_ref(hh, hl, emit, *tables, max_dup)
+    assert pmesh.sketch_count.launches == before + 1
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    assert int(got[0].sum()) > 0 and int(got[1].sum()) == int(got[0].sum())
+    one = pmesh.sharded_sketch_count_step(None, codes, lens, t_hi, t_lo, 17,
+                                          7, max_dup, device=cuda)
+    assert all(torch.equal(g, x) for g, x in zip(one, got))
+
+
+def _fit_grid(seed):
+    """A default-grid problem of the pipeline's options on a drawn
+    histogram: the grid and the histogram's (xs, ys)."""
+    rng = np.random.default_rng(seed)
+    mult = np.concatenate([np.ones(5000), rng.poisson(3, 1500) + 1,
+                           rng.poisson(9, 400) + 1]).astype(int)
+    uniq, freq = np.unique(mult, return_counts=True)
+    opt = fitter.KGFitOptions(max_copy=10, max_x_use=int(uniq.max()),
+                              u_hi=float(uniq.max()))
+    lin = fitter._linspace
+    grid = (lin(opt.u_lo, opt.u_hi, opt.grid_u),
+            lin(opt.sd_lo, opt.sd_hi, opt.grid_sd),
+            lin(opt.varw_lo, opt.varw_hi, opt.grid_varw),
+            lin(opt.zp_lo, opt.zp_hi, opt.grid_zp),
+            lin(opt.zp_lo, opt.zp_hi, opt.grid_zp),
+            lin(opt.pd_lo, opt.pd_hi, opt.grid_pd),
+            lin(opt.pe_lo, opt.pe_hi, opt.grid_pe),
+            lin(opt.s_lo, opt.s_hi, opt.grid_s))
+    pairs = [(int(m), float(f)) for m, f in zip(uniq, freq)]
+    return grid, uniq.astype(np.int64), freq.astype(np.float64), opt, pairs
+
+
+def test_grid_nll_kernel_matches_plain_version(cuda):
+    """K12 against its plain version on the card at the default grid
+    (2,100,875 points): relative difference at most 1e-5 (log ulps and
+    the order of the sum), then the torch fitter on the card equals the
+    numpy backend exactly."""
+    grid, xs, ys, opt, pairs = _fit_grid(3)
+    ins = fitter.grid_inputs(*grid, 10, xs, ys, cuda)
+    before = fitter.grid_nll.launches
+    got = fitter.grid_nll(*ins)
+    want = fitter.grid_nll_ref(*ins)
+    assert fitter.grid_nll.launches == before + 1
+    assert got.shape == want.shape == (7, 7, 5, 7, 7, 7, 5, 5)
+    assert bool(torch.isfinite(got).all())
+    rel = ((got.double() - want.double()).abs()
+           / want.double().abs().clamp(min=1.0)).max()
+    assert float(rel) <= 1e-5, float(rel)
+    a = fitter.fit_histogram(pairs, opt, backend="numpy")
+    b = fitter.fit_histogram(pairs, opt, backend="torch", device=cuda)
+    assert a.P == b.P and a.nll == b.nll
+
+
+def test_sketch_wrappers_reject_bad_inputs(cuda):
+    codes, lens = ragged_reads(1, 8, 64, 17, 7)
+    c, n = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = sketch.batch_minimizer.launches
+    with pytest.raises(ValueError, match="k <= 32"):
+        sketch.batch_minimizer(c, n, 33, 7)
+    with pytest.raises(ValueError, match="lens"):
+        sketch.batch_minimizer(c, n.cpu(), 17, 7)
+    with pytest.raises(ValueError, match="codes"):
+        sketch.batch_minimizer(c.to(torch.int32), n, 17, 7)
+    with pytest.raises(ValueError, match="no window"):
+        sketch.batch_minimizer(c[:, :20], n, 17, 7)
+    assert sketch.batch_minimizer.launches == before
+    ins = fitter.grid_inputs(*_fit_grid(0)[0], 10, np.arange(1, 5),
+                             np.ones(4), cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fitter.grid_nll(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fitter.grid_nll(*ins[:5], ins[5].cpu())
+
+
+def test_parallel_edges_dense_run_goes_to_k3(cuda):
+    """A dense run (2 windows) with a destination of 44,100 pairs, more
+    than a K2 slice holds, runs through K3 on the card and equals the
+    native tier."""
+    g, chb = parallel_edges_graph()
+    arrs = csr_arrays(g, chb)
+    dplan = plan_to_device(plan_pairs(*arrs, 4), cuda)
+    assert [s.kind for s in dplan.segments] == ["wide_split"]
+    V, recs = _run_checked(dplan, cuda)
+    from dipgenie_tpu_torch.ops.diploid_pair import assemble
+
+    got = assemble(int(V[4, 0]), recs.cpu().numpy())
+    assert got == native_forward_csr(arrs, 4)

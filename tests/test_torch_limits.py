@@ -136,3 +136,35 @@ def test_planner_raises_only_past_the_ports_limits(limit, monkeypatch):
     with pytest.raises(PlanLimit, match=match) as err:
         plan_pairs(*arrs, R)
     assert "--dp-backend native" in str(err.value)
+
+
+def test_parallel_edges_destination_past_a_k2_slice_goes_to_k3():
+    """A dense run (2 windows) whose destination pair gathers 44,100 pairs
+    through parallel edges, more than a K2 slice holds (44,032): K2's
+    slicing refuses it, so the run goes to K3, which cuts that destination
+    over slices; the torch tier then equals the native and exact tiers
+    (the port refused this plan before)."""
+    from dipgenie_tpu_torch.ops.plan import (
+        K2_SLICE_PAIRS, K2_GRID_CPU, heaviest_destination, segment_kind,
+        wide_slices,
+    )
+
+    g, chb = synth.parallel_edges_graph()
+    arrs = csr_arrays(g, chb)
+    plan = plan_pairs(*arrs, 4)
+    (seg,) = plan.segments
+    assert isinstance(seg, _WideRun) and seg.NB == 2 <= DENSE_NB_MAX
+    assert heaviest_destination(seg) == 210 ** 2 > K2_SLICE_PAIRS
+    with pytest.raises(PlanLimit, match="a destination of 44100 pairs"):
+        wide_slices(seg, int(np.count_nonzero(seg.dbits & 4)), K2_GRID_CPU)
+    assert segment_kind(seg) == "wide_split"
+    assert segment_kind(seg, 0) == "wide_split"
+    dplan = plan_to_device(plan, "cpu")
+    assert [s.kind for s in dplan.segments] == ["wide_split"]
+    got = PairDiploidDP(dplan, "cpu").run()
+    assert got == native_forward_csr(arrs, 4)
+    assert got == _forward_exact(g, 4, *build_color_masks(g, chb))
+    # one parallel edge fewer (209 ** 2 = 43,681 pairs) stays on K2
+    small = synth.parallel_edges_graph(in_edges=209)
+    (seg,) = plan_pairs(*csr_arrays(*small), 4).segments
+    assert segment_kind(seg) == "wide"

@@ -1,9 +1,11 @@
-"""Gloo ranks on the CPU for the tp tests (``tests/test_torch_tp.py``).
+"""Gloo ranks on the CPU for the mesh tests (``tests/test_torch_tp.py``,
+``tests/test_torch_sketch.py``, ``tests/test_torch_entry.py``).
 
 Not a test module: the spawned ranks import this module, torch and the
 port only (no JAX), and each joins a file-initialised gloo group (no TCP
-port, so parallel test files cannot collide), builds a ``(1, world)``
-mesh, runs its job and writes its result to ``<tmp>/rank<r>.pkl``.
+port, so parallel test files cannot collide), builds a ``job["mesh"]``
+mesh (``(n_dp, n_tp)``, default ``(1, world)``), runs its job and writes
+its result to ``<tmp>/rank<r>.pkl``.
 """
 
 from __future__ import annotations
@@ -32,26 +34,46 @@ def run_ranks(world: int, job: dict, tmp: str) -> list:
 def _rank(rank: int, world: int, job: dict, tmp: str) -> None:
     """``job["dps"]``: ``{name: (CSR arrays, R)}``, each run through the
     port's tp DP on the CPU; ``job["pipeline"]``: ``(gfa, reads)`` through
-    the port's pipeline with the mesh, writing ``<tmp>/rank<r>.fa``."""
+    the port's pipeline with the mesh (and ``job["config"]``'s fields),
+    writing ``<tmp>/rank<r>.fa``; ``job["sketch_count"]``: the arguments
+    of ``sharded_sketch_count_step`` after the mesh; ``job["sketch_reads"]``:
+    ``(seqs, k, w)`` of ``sketch_reads_device`` with the mesh;
+    ``job["dryrun"]``: ``n`` of ``entry.dryrun_multichip``."""
+    from dipgenie_tpu_torch.entry import dryrun_multichip
     from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
     from dipgenie_tpu_torch.ops.plan import plan_pairs
-    from dipgenie_tpu_torch.parallel.mesh import make_mesh
+    from dipgenie_tpu_torch.ops.sketch import sketch_reads_device
+    from dipgenie_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_sketch_count_step,
+    )
     from dipgenie_tpu_torch.solver.pipeline import Pipeline, PipelineConfig
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
                             world_size=world, rank=rank)
     try:
-        mesh = make_mesh(n_dp=1, n_tp=world)
-        out = {"tp_rank": mesh.tp_rank}
+        n_dp, n_tp = job.get("mesh", (1, world))
+        mesh = make_mesh(n_dp=n_dp, n_tp=n_tp)
+        out = {"tp_rank": mesh.tp_rank, "dp_rank": mesh.dp_rank}
         for name, (arrs, R) in job.get("dps", {}).items():
             out[name] = PairDiploidDP(plan_pairs(*arrs, R), "cpu",
                                       mesh=mesh).run()
         if "pipeline" in job:
             gfa, reads = job["pipeline"]
-            cfg = PipelineConfig(device="cpu", mesh=mesh, verbose=False)
+            cfg = PipelineConfig(device="cpu", mesh=mesh, verbose=False,
+                                 **job.get("config", {}))
             Pipeline(gfa, reads, os.path.join(tmp, f"rank{rank}.fa"),
                      cfg).run(out=io.StringIO())
+        if "sketch_count" in job:
+            out["sketch_count"] = tuple(
+                t.numpy() for t in sharded_sketch_count_step(
+                    mesh, *job["sketch_count"], device="cpu"))
+        if "sketch_reads" in job:
+            out["sketch_reads"] = sketch_reads_device(
+                *job["sketch_reads"], mesh=mesh, device="cpu")
+        if "dryrun" in job:
+            dryrun_multichip(job["dryrun"], device="cpu")
+            out["dryrun"] = True
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(out, fh)
     finally:
