@@ -1192,6 +1192,7 @@ class Smoke:
         return prefix, v_ins, bps
 
     def phase_c(self):
+        from dipgenie_tpu_torch.ops.plan import _WideRun, dense_destinations
         from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
 
         from dipgenie_tpu_torch.probes import dp_stages
@@ -1200,6 +1201,14 @@ class Smoke:
             L=L_MHC, seed=SEED, n_bands=N_BANDS))
         self.time_prefix("C", dplan, ("narrow_run", "wide_dense_run", "trace"))
         del dplan
+        # the walk of the dense tables that picks K2 or K3 for a run and
+        # that K2's slicing reads (once a run, inside the ship)
+        wide = [s for s in plan.segments if isinstance(s, _WideRun)]
+        t0 = time.time()
+        heavy = max((dense_destinations(s)[1] for s in wide), default=0)
+        log(f"C dense_destinations over its {len(wide)} wide runs "
+            f"{time.time() - t0:.3f}s (host clock, part of the ship); the "
+            f"heaviest destination {heavy} pairs")
         self.torch.cuda.empty_cache()
         dp_stages.stages(plan, DEVICE, log=lambda m: log("C dp-stages " + m))
         k1_us = self.ms["narrow_run"] / self.prefix_tr["narrow_run"] * 1e3
@@ -1746,7 +1755,7 @@ class Smoke:
         emitted = int(emit.sum())
         times = self.kernel_beside_plain(
             "sketch_count", args,
-            (9 * windows + 8 * M + 4 * M + 4 * B,
+            (windows + 8 * emitted + 8 * M + 4 * M + 4 * B,
              emitted * (int(np.log2(M)) + 1 + 4)))
         log(f"S1 sketch_count on the reads' {emitted} emitted windows "
             f"against {M} haplotype hashes: == plain version, "
@@ -1796,15 +1805,24 @@ class Smoke:
         for _ in range(2):  # warm: the card idled through the host stage
             sketch_reads_device(d["seqs"][:4096], S_K, S_W, device=DEVICE)
         self.sync()
+
+        def stage(backend):
+            t0 = time.time()
+            out = compute_and_classify_anchors(
+                d["index"], d["reads"], S_K, S_W, 1.0, verbose=False,
+                sketch_backend=backend, device=DEVICE)
+            self.sync()
+            return out, time.time() - t0
+
+        # in turns, host, device, device, host, after the same warm-up; the
+        # first device run is the counted one
+        secs = {"host": [stage("host")[1]], "device": []}
         self.reset_counts()
         with self.launch_events("dg_sketch") as pairs:
-            t0 = time.time()
-            dev = compute_and_classify_anchors(
-                d["index"], d["reads"], S_K, S_W, 1.0, verbose=False,
-                sketch_backend="device", device=DEVICE)
-            self.sync()
-            dev_s = time.time() - t0
+            dev, dev_s = stage("device")
         launches = self.launches["S2"] = self.counts()
+        secs["device"] += [dev_s, stage("device")[1]]
+        secs["host"].append(stage("host")[1])
         host = d["host"]
         for f in ("count_sp_r", "hap_minimizer_counts", "fit"):
             check(getattr(host, f) == getattr(dev, f), f"S2 {f} differs")
@@ -1816,8 +1834,12 @@ class Smoke:
         want = {**dict.fromkeys(KERNELS, 0), "minimizer_sketch": H + 1}
         check(launches == want, f"S2 launches {launches}, want {want}")
         ms = [a.elapsed_time(b) for a, b in pairs]
-        log(f"S2 anchor stage with device sketching {dev_s:.3f}s against "
-            f"the host sketcher's {d['host_s']:.3f}s (host clock): every "
+        log(f"S2 anchor stage in turns (host, device, device, host; host "
+            f"clock): device sketching {secs['device'][0]:.3f} / "
+            f"{secs['device'][1]:.3f}s (min {min(secs['device']):.3f}), "
+            f"host sketching {secs['host'][0]:.3f} / {secs['host'][1]:.3f}s "
+            f"(min {min(secs['host']):.3f}; cold in S's set-up "
+            f"{d['host_s']:.3f}s): every "
             f"AnchorData field equal ({host.count_sp_r} spectrum hashes); "
             f"K10 launches {launches['minimizer_sketch']}: {H} haplotypes "
             f"{sum(ms[:H]):.3f} ms, the reads {sum(ms[H:]):.3f} ms (CUDA "
@@ -1995,9 +2017,9 @@ class Smoke:
             counts = {k: int(v) for k, v in (
                 kv.split("=") for kv in
                 launch_line[0].split("launches ", 1)[1].split())}
-            m = re.search(r"(\d+) narrow and (\d+) wide runs \((\d+) over "
-                          r"\d+ windows, (\d+) over \d+; widest (\d+)",
-                          plan_line[0])
+            m = re.search(r"(\d+) narrow and (\d+) wide runs \((\d+) "
+                          r"window-split: .*?, (\d+) over \d+ windows; "
+                          r"widest (\d+)", plan_line[0])
             n_narrow, n_wide, n_split, n_big, widest = (
                 int(x) for x in m.groups())
             want = {"narrow_run": n_narrow, "wide_dense_run": n_wide - n_split,

@@ -10,8 +10,9 @@
   process group, factors ``n`` into ``n_dp × n_tp`` as the JAX dry run does
   (``n_tp = 2`` where ``n`` is even) and runs: stage 1, the dp sketch-count
   step (``parallel.mesh.sharded_sketch_count_step``: K10 and K11, a sum
-  over dp) against a one-rank run of the same reads; stage 3, in place of
-  the chunked tier's, the tp pair DP over all ``n`` ranks on
+  over dp) on reads cut from a haplotype whose sketch is the table,
+  against a one-rank run of the same reads, with some matches; stage 3,
+  in place of the chunked tier's, the tp pair DP over all ``n`` ranks on
   ``mhc_slice_csr.npz`` against its baked exact-tier oracle; stage 4, the
   same on ``mhc_slice_wide_csr.npz`` (15 wide levels through K4). The JAX
   dry run's stage 2, one tp-sharded step of the chunked tier, has no
@@ -66,6 +67,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     from .ops.plan import plan_pairs
     from .ops.sketch import encode_reads
     from .parallel.mesh import make_mesh, sharded_sketch_count_step
+    from .sketch.minimizers import sketch_sequence
 
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -76,17 +78,16 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     n_dp = n_devices // n_tp
     mesh = make_mesh(n_dp=n_dp, n_tp=n_tp)
 
-    # ---- stage 1: dp-sharded read sketching + a summed anchor count ----
+    # ---- stage 1: dp-sharded read sketching + a summed anchor count,
+    # reads cut from a haplotype whose sketch is the table ----
     rng = np.random.default_rng(0)
     k, w = 11, 5
-    reads = ["".join(rng.choice(list("ACGT"), 64)) for _ in range(4 * n_dp)]
+    hap = "".join(rng.choice(list("ACGT"), 2000))
+    reads = [hap[s:s + 64] for s in rng.integers(0, 2000 - 64, 4 * n_dp)]
     codes, lens, _ = encode_reads(reads, 64)
-    M = 128
-    table_hi = np.sort(rng.integers(0, 2**32, M, dtype=np.uint64)).astype(
-        np.uint32)
-    table_lo = rng.integers(0, 2**32, M, dtype=np.uint64).astype(np.uint32)
-    order = np.lexsort((table_lo, table_hi))
-    table_hi, table_lo = table_hi[order], table_lo[order]
+    table = np.unique(sketch_sequence(hap, k, w).hashes)  # (hi, lo) order
+    table_hi = (table >> np.uint64(32)).astype(np.uint32)
+    table_lo = (table & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     counts, per_read = sharded_sketch_count_step(
         mesh, codes, lens, table_hi, table_lo, k, w, device=dev)
     one = sharded_sketch_count_step(None, codes, lens, table_hi, table_lo, k,
@@ -95,6 +96,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
             torch.equal(counts, one[0]) and torch.equal(per_read, one[1])):
         raise AssertionError("stage 1: the dp sketch count differs from one "
                              "rank's")
+    if not 0 < int(counts.sum()) == int(per_read.sum()):
+        raise AssertionError("stage 1: no read minimizer matched the table "
+                             "(or the counts and per-read sums disagree)")
 
     # ---- stages 3 and 4: the tp pair DP on all ranks, against the baked
     # exact-tier oracles ----

@@ -191,41 +191,49 @@ TRACE_COLS = ("seg", "lanes", "rows", "bprow", "chunkbase", "nch", "bins",
 TRACE_FLAGS = {"dense": 1, "rowstep": 2, "bp1": 4, "bp16": 8}
 
 
-def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None) -> str:
+def segment_kind(seg, dense_nb_max: int = DENSE_NB_MAX, mesh=None,
+                 dense=None) -> str:
     """``narrow`` (K1), ``wide`` (K2, dense chunks), ``wide_split`` (K3,
     window-split chunks) or, under a tp ``mesh``, ``wide_tp`` (K4): the
     kernel that runs a plan segment. A dense run with a destination of more
     pairs than a K2 slice holds (parallel edges into its two nodes) goes to
-    K3, which cuts such a destination over slices."""
+    K3, which cuts such a destination over slices. ``dense`` is the run's
+    ``dense_destinations``, where the caller has them."""
     if isinstance(seg, _NarrowRun):
         return "narrow"
     if mesh is not None:
         return "wide_tp"
-    if seg.NB > dense_nb_max:
+    if seg.NB > dense_nb_max or seg.NB > DENSE_NB_LIMIT:
         return "wide_split"
-    if seg.NB <= DENSE_NB_LIMIT and heaviest_destination(seg) > K2_SLICE_PAIRS:
-        return "wide_split"
-    return "wide"
+    heavy = (dense if dense is not None else dense_destinations(seg))[1]
+    return "wide_split" if heavy > K2_SLICE_PAIRS else "wide"
 
 
-def heaviest_destination(seg: _WideRun) -> int:
-    """The most dense pairs on one destination lane in any transition of a
-    wide run with dense tables (their real pairs come first in a
-    transition, sorted by destination; ``wide_slices`` checks that); 0
-    where no transition holds more than ``K2_SLICE_PAIRS`` pairs in all."""
+def dense_destinations(seg: _WideRun) -> tuple[list, int]:
+    """``(dsts, heavy)`` of a wide run with dense tables: per transition
+    the destination lanes of its real dense pairs, and the most pairs on
+    one destination lane in any transition. Raises unless every
+    transition's real pairs come first and are sorted by destination,
+    which K2's searches and walks rely on. The one walk of ``dtbl`` that
+    both ``segment_kind`` (K2 or K3) and ``wide_slices`` read."""
     nreal = int(np.count_nonzero(seg.dbits & 4))
     bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
-    if int(np.diff(bounds).max(initial=0)) * CHUNK <= K2_SLICE_PAIRS:
-        return 0  # no transition holds more pairs than a slice: skip
-    words = seg.dtbl[:bounds[-1]]
-    real = words[:, 1].ravel() != PAD_SC
-    ti = np.repeat(np.arange(len(bounds) - 1, dtype=np.int64),
-                   np.diff(bounds) * CHUNK)
-    key = ((ti << 15) | ((words[:, 0].ravel() >> 2) & 32767))[real]
-    if not len(key):
-        return 0
-    change = np.flatnonzero(key[1:] != key[:-1]) + 1
-    return int(np.diff(np.concatenate([[0], change, [len(key)]])).max())
+    dsts, heavy = [], 0
+    for ti in range(seg.t1 - seg.t0):
+        words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
+        real = words[:, 1].ravel() != PAD_SC
+        n = int(real.sum())
+        dst = (words[:, 0].ravel()[:n] >> 2) & 32767
+        if not real[:n].all() or np.any(np.diff(dst) < 0):
+            raise ValueError(
+                f"dense_destinations: transition {seg.t0 + ti}'s dense "
+                "pairs are not sorted by destination ahead of the pads")
+        if n:
+            change = np.flatnonzero(dst[1:] != dst[:-1]) + 1
+            heavy = max(heavy, int(np.diff(change, prepend=0,
+                                           append=n).max()))
+        dsts.append(dst)
+    return dsts, heavy
 
 
 @dataclass
@@ -368,7 +376,7 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
     device = torch.device(device)
     segs = []
     for seg in plan.segments:
-        if segment_kind(seg, mesh=mesh) == "wide_tp":
+        if mesh is not None and segment_kind(seg, mesh=mesh) == "wide_tp":
             segs.append(shard_to_device(seg, mesh.n_tp, mesh.tp_rank, device))
             continue
         t = {}
@@ -376,12 +384,15 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             a = getattr(seg, f.name)
             if isinstance(a, np.ndarray):
                 t[f.name] = _tensor(a, device)
-        kind = segment_kind(seg, dense_nb_max)
-        if kind == "wide" and seg.NB > DENSE_NB_LIMIT:
+        wide = isinstance(seg, _WideRun)
+        if wide and DENSE_NB_LIMIT < seg.NB <= dense_nb_max:
             raise ValueError(
                 f"plan_to_device: a wide run of {seg.NB} windows has no "
                 f"dense tables (past {DENSE_NB_LIMIT}); K2 cannot run it, "
                 f"dense_nb_max={dense_nb_max} sends it there")
+        dense = (dense_destinations(seg) if wide and seg.NB <= dense_nb_max
+                 else None)
+        kind = segment_kind(seg, dense_nb_max, dense=dense)
         bits, real = _REAL_BITS[kind]
         nreal = int(np.count_nonzero(getattr(seg, bits) & real))
         dseg = DevSegment(kind=kind, host=seg, t=t, nreal=nreal,
@@ -391,7 +402,8 @@ def plan_to_device(plan: PairPlan, device, dense_nb_max: int = DENSE_NB_MAX,
             t["tb_desc"] = _tensor(desc, device)
         elif kind == "wide":
             grid = coop_grid("wide_dense", device)
-            desc, cuts, dseg.k2_per_block = wide_slices(seg, nreal, grid)
+            desc, cuts, dseg.k2_per_block = wide_slices(seg, nreal, grid,
+                                                        dense)
             dseg.k2_desc = _tensor(desc, device)
             dseg.k2_cuts = _tensor(cuts, device)
             dseg.k2_grid = grid
@@ -420,40 +432,28 @@ def narrow_desc(seg: _NarrowRun, nreal: int) -> tuple[np.ndarray, int]:
     return desc.astype(np.int32), lanes
 
 
-def wide_slices(seg: _WideRun, nreal: int, grid: int
+def wide_slices(seg: _WideRun, nreal: int, grid: int, dense=None
                 ) -> tuple[np.ndarray, np.ndarray, int]:
     """``(k2_desc [T, 2] int32, k2_cuts [T, S + 1] int16, per_block)`` of
     a dense wide run for K2's grid of ``grid`` blocks (see the module
     docstring): the fewest slices a block that keep every slice within
-    ``K2_SLICE_LANES`` lanes and ``K2_SLICE_PAIRS`` pairs. Raises unless
-    every transition's real pairs come first and are sorted by
-    destination, which K2's searches and walks rely on; ``PlanLimit`` where
-    no slicing fits (a destination of more than ``K2_SLICE_PAIRS`` pairs,
-    which a run of at most 31 windows reaches only through repeated
-    edges, or a grid too small for the run's lanes)."""
+    ``K2_SLICE_LANES`` lanes and ``K2_SLICE_PAIRS`` pairs. ``dense`` is
+    the run's ``dense_destinations`` (walked here where not given);
+    ``PlanLimit`` where no slicing fits (a destination of more than
+    ``K2_SLICE_PAIRS`` pairs, which ``segment_kind`` sends to K3, or a
+    grid too small for the run's lanes)."""
     T = seg.t1 - seg.t0
     full = seg.NB * 1024
     bounds = chunk_bounds(seg.tb2_chunkbase, nreal)
     ext = np.minimum(np.asarray(seg.tb_bout, np.int64) ** 2, full)
     W = np.full(T, full, np.int64)
     W[2:] = np.maximum(ext[2:], ext[:-2])
-    dsts = []
-    for ti in range(T):
-        words = seg.dtbl[bounds[ti]:bounds[ti + 1]]
-        real = words[:, 1].ravel() != PAD_SC
-        n = int(real.sum())
-        dst = (words[:, 0].ravel()[:n] >> 2) & 32767
-        if not real[:n].all() or np.any(np.diff(dst) < 0):
-            raise ValueError(
-                f"wide_slices: transition {seg.t0 + ti}'s dense pairs are "
-                "not sorted by destination ahead of the pads")
-        dsts.append(dst)
-    work = [np.bincount(d, minlength=w) + 1 for d, w in zip(dsts, W)]
-    heavy = max((int(w.max()) - 1 for w in work), default=0)
+    dsts, heavy = dense if dense is not None else dense_destinations(seg)
     if heavy > K2_SLICE_PAIRS:
         raise PlanLimit(
             f"wide_slices: a destination of {heavy} pairs in the run at "
             f"level {seg.t0}; K2 holds at most {K2_SLICE_PAIRS} a slice")
+    work = [np.bincount(d, minlength=w) + 1 for d, w in zip(dsts, W)]
     desc = np.stack([bounds[:-1], [len(d) for d in dsts]], 1)
     for m in range(-(-full // (grid * K2_SLICE_LANES)),
                    K2_PER_BLOCK_MAX + 1):

@@ -33,7 +33,9 @@ from ..graph.expanded import AnchorRec, ExpandedGraph, FlatAnchors
 from ..graph.pangenome import PangenomeIndex
 from ..ops.diploid_pair import RUNS, PairDiploidDP
 from ..ops.narrow import narrow_run_global
-from ..ops.plan import DENSE_NB_LIMIT, DENSE_NB_MAX, plan_pairs, segment_kind
+from ..ops.plan import (
+    DENSE_NB_LIMIT, DENSE_NB_MAX, K2_SLICE_PAIRS, plan_pairs,
+)
 from ..ops.trace import trace
 from ..utils.synth import dp_states
 from ..utils.timing import log_stage
@@ -242,28 +244,29 @@ def torch_forward(arrs, R: int, device, mesh=None):
     (``parallel.mesh``) every wide run is window-sharded over its ranks."""
     t0 = time.time()
     plan = plan_pairs(*arrs, R)
-    kinds = [segment_kind(s) for s in plan.segments]
+    t_plan = time.time() - t0
+    wrappers = (*RUNS.values(), narrow_run_global, trace)
+    before = [w.launches for w in wrappers]
+    t0 = time.time()
+    dp = PairDiploidDP(plan, device, mesh=mesh)
+    kinds = [s.kind for s in dp.dplan.segments]
     n_split = kinds.count("wide_split")
-    n_wide = kinds.count("wide") + n_split
-    wide = [s for s, k in zip(plan.segments, kinds) if k != "narrow"]
+    wide = [s.host for s in dp.dplan.segments if s.kind != "narrow"]
     n_big = sum(s.NB > DENSE_NB_LIMIT for s in wide)
     widest = max(wide, key=lambda s: s.NB, default=None)
     log_stage(
         "diploid_dp",
-        f"pair plan ready in {time.time() - t0:.1f}s: {plan.L} levels, "
+        f"pair plan ready in {t_plan:.1f}s: {plan.L} levels, "
         f"{dp_states(arrs[0], R)} DP states, "
-        f"{kinds.count('narrow')} narrow and {n_wide} wide runs "
-        f"({n_split} over {DENSE_NB_MAX} windows, {n_big} over "
-        f"{DENSE_NB_LIMIT}; widest {widest.NB if wide else 0} windows"
+        f"{kinds.count('narrow')} narrow and {len(wide)} wide runs "
+        f"({n_split} window-split: over {DENSE_NB_MAX} windows or a "
+        f"destination past {K2_SLICE_PAIRS} pairs, {n_big} over "
+        f"{DENSE_NB_LIMIT} windows; widest {widest.NB if wide else 0} windows"
         + (f", its window-split backpointers {widest.nrows * (R + 1) * 4096}"
            " B" if wide else "") + ")"
         + (f"; wide runs over a tp mesh of {mesh.n_tp} ranks"
            if mesh is not None else ""),
     )
-    wrappers = (*RUNS.values(), narrow_run_global, trace)
-    before = [w.launches for w in wrappers]
-    t0 = time.time()
-    dp = PairDiploidDP(plan, device, mesh=mesh)
     on_card = dp.device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dp.device)

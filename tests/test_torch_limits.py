@@ -145,7 +145,7 @@ def test_parallel_edges_destination_past_a_k2_slice_goes_to_k3():
     over slices; the torch tier then equals the native and exact tiers
     (the port refused this plan before)."""
     from dipgenie_tpu_torch.ops.plan import (
-        K2_SLICE_PAIRS, K2_GRID_CPU, heaviest_destination, segment_kind,
+        K2_SLICE_PAIRS, K2_GRID_CPU, dense_destinations, segment_kind,
         wide_slices,
     )
 
@@ -154,7 +154,7 @@ def test_parallel_edges_destination_past_a_k2_slice_goes_to_k3():
     plan = plan_pairs(*arrs, 4)
     (seg,) = plan.segments
     assert isinstance(seg, _WideRun) and seg.NB == 2 <= DENSE_NB_MAX
-    assert heaviest_destination(seg) == 210 ** 2 > K2_SLICE_PAIRS
+    assert dense_destinations(seg)[1] == 210 ** 2 > K2_SLICE_PAIRS
     with pytest.raises(PlanLimit, match="a destination of 44100 pairs"):
         wide_slices(seg, int(np.count_nonzero(seg.dbits & 4)), K2_GRID_CPU)
     assert segment_kind(seg) == "wide_split"
@@ -167,4 +167,5 @@ def test_parallel_edges_destination_past_a_k2_slice_goes_to_k3():
     # one parallel edge fewer (209 ** 2 = 43,681 pairs) stays on K2
     small = synth.parallel_edges_graph(in_edges=209)
     (seg,) = plan_pairs(*csr_arrays(*small), 4).segments
+    assert dense_destinations(seg)[1] == 209 ** 2
     assert segment_kind(seg) == "wide"
