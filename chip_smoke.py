@@ -64,9 +64,12 @@ result line):
      walks at 2x: 131,201 reads of 150 bp): S1 each kernel against its
      plain version on the main path's inputs (all the reads, a haplotype,
      the reads' windows against the haplotypes' table, the histogram's
-     default grid) and on seeded ragged reads, exact for K10 and K11, K12
-     within a relative 1e-5, each beside its plain version's time and its
-     bound; S2 the port's anchor stage with device sketching equal, field
+     default grid) and on seeded ragged reads, K10 also on rows at the
+     edges of its blocks (S1_SHAPES), K11 also on the adversarial tables
+     of utils/synth.count_tables, on hashes at the ends of the range and
+     with no emitted window, exact for K10 and K11, K12 within a relative
+     1e-5, each beside its plain version's time and its bound, K10's and
+     K11's as SM-cycles a window and an emitted window too; S2 the port's anchor stage with device sketching equal, field
      for field, to the host sketcher's, K10's launches and device time for
      the haplotypes and the reads (CUDA events), the drivers' host share
      and the native sketcher's time; S3 fit_histogram with the torch
@@ -132,6 +135,17 @@ PANGENOMES = ((500_000, 8), (200_000, 18), (200_000, 24))
 # phase S's pangenome: the size of the reference's MHC test set (a 4.92
 # Mbp reference; SURVEY.md:328) with 8 walks, reads from two of them at 2x
 S_BP, S_WALKS, S_K, S_W = 4_920_000, 8, 31, 25
+# phase S1's rows at the edges of the sketch kernel's blocks (k, w, B, L;
+# csrc/sketch.cu: a block takes 256 windows of the flat range b * NW + j):
+# one window a row, 150 bp rows, 256 and 257 windows a row, 400 bp, at the
+# CLI's (k, w) and at (32, 3), (5, 1), and rows of 9 bases (a block's
+# 16-aligned start reaches back over rows); no B is a multiple of the rows
+# a block holds
+S1_SHAPES = ((S_K, S_W, 203, S_K + S_W - 1), (S_K, S_W, 1001, 150),
+             (S_K, S_W, 13, 256 + S_K + S_W - 2),
+             (S_K, S_W, 13, 256 + S_K + S_W - 1), (S_K, S_W, 37, 400),
+             (32, 3, 1001, 150), (5, 1, 1001, 150), (5, 1, 301, 9))
+S1_COUNT_READS = 4096  # reads whose hashes make S1's adversarial tables
 S_CALLS = 20  # kernel launches per CUDA-event timing in phase S1
 S_PLAIN_CALLS = 2  # plain-version calls per timing in phase S1
 GRID_NLL_RTOL = 1e-5  # K12 against its plain version: |a - b| / max(|b|, 1)
@@ -1722,10 +1736,16 @@ class Smoke:
         hap = on_card(*encode_reads([d["haps"][0]])[:2])
         inputs = [("ragged", on_card(*ragged_reads(SEED, 512, 400, S_K,
                                                     S_W))),
-                  ("reads", reads), ("haplotype 0", hap)]
-        for tag, (c, n) in inputs:
-            got = k10(c, n, S_K, S_W)
-            self.compare("minimizer_sketch", got, k10_ref(c, n, S_K, S_W))
+                  ("reads", reads), ("haplotype 0", hap),
+                  ("the reads from row 1 (codes not 16-byte aligned)",
+                   (reads[0][1:], reads[1][1:]))]
+        inputs = [(tag, S_K, S_W, c) for tag, c in inputs] + [
+            (f"block edge rows (k {k}, w {w})", k, w,
+             on_card(*ragged_reads(SEED + L, B, L, k, w)))
+            for k, w, B, L in S1_SHAPES]
+        for tag, k, w, (c, n) in inputs:
+            got = k10(c, n, k, w)
+            self.compare("minimizer_sketch", got, k10_ref(c, n, k, w))
             log(f"S1 minimizer_sketch on {tag} {tuple(c.shape)}: == plain "
                 f"version on every element, {int(got[2].sum())} windows "
                 "emitted")
@@ -1744,7 +1764,8 @@ class Smoke:
             f"{self.device_ms['minimizer_sketch']:.6g} ms around the launch), "
             f"plain {times[1]} ms, bound "
             f"{self.bound['minimizer_sketch'][0]:.6g} ms "
-            f"({self.bound['minimizer_sketch'][1]})")
+            f"({self.bound['minimizer_sketch'][1]}); "
+            f"{self.sm_cycles(self.ms['minimizer_sketch'], windows)} a window")
 
         hh, hl, emit, _ = k10(*reads, S_K, S_W)
         tables = (u32_tensor(d["thi"], DEVICE), u32_tensor(d["tlo"], DEVICE))
@@ -1762,7 +1783,11 @@ class Smoke:
             f"{int(got[0].sum())} hits; kernel {times[0]} ms (device "
             f"{self.device_ms['sketch_count']:.6g} ms), plain "
             f"{times[1]} ms, bound {self.bound['sketch_count'][0]:.6g} ms "
-            f"({self.bound['sketch_count'][1]})")
+            f"({self.bound['sketch_count'][1]}); "
+            f"{self.sm_cycles(self.ms['sketch_count'], emitted)} an emitted "
+            "window")
+        self.s1_count_edges(hh[:S1_COUNT_READS], hl[:S1_COUNT_READS],
+                            emit[:S1_COUNT_READS])
 
         grid, xs, ys = s_grid(d["host"])
         ins = grid_inputs(*grid, 10, xs, ys, DEVICE)
@@ -1788,6 +1813,51 @@ class Smoke:
             f"{times[1]} ms, bound {self.bound['grid_nll'][0]:.6g} ms "
             f"({self.bound['grid_nll'][1]}: one log a point and bin at "
             f"{SFU_PER_S:.4g}/s)")
+
+    def s1_count_edges(self, hh, hl, emit):
+        """K11 against its plain version on the adversarial tables of
+        utils/synth.count_tables (built from these windows' emitted
+        hashes), on hashes moved to the ends of the range, and with no
+        emitted window."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.parallel.mesh import u32_tensor
+        from dipgenie_tpu_torch.utils.synth import count_tables, edge_hashes
+
+        torch = self.torch
+        k11, k11_ref = self.fns["sketch_count"]
+        host = [t.cpu().numpy() for t in (hh, hl, emit)]
+        e_hh, e_hl = (torch.from_numpy(a.view(np.int32)).to(DEVICE)
+                      for a in edge_hashes(*host))
+        none = torch.zeros_like(emit)
+        done = []
+        for name, t_hi, t_lo, dups in count_tables(*host, SEED):
+            tables = (u32_tensor(t_hi, DEVICE), u32_tensor(t_lo, DEVICE))
+            hits = []
+            for args in ((hh, hl, emit), (e_hh, e_hl, emit), (hh, hl, none)):
+                for d in dups:
+                    got = k11(*args, *tables, d)
+                    self.compare("sketch_count", got,
+                                 k11_ref(*args, *tables, d))
+                    hits.append(str(int(got[0].sum())))
+            done.append(f"{name} (M {len(t_hi)}, max_dup "
+                        f"{'/'.join(map(str, dups))}: {'/'.join(hits)} hits)")
+        log(f"S1 sketch_count on {int(emit.sum())} emitted windows of "
+            f"{emit.shape[0]} reads against adversarial tables, == plain "
+            f"version with the reads' hashes, with eight moved to hi 0 / "
+            f"0xFFFFFFFF, and with none emitted (hits in that order, each "
+            f"max_dup): {', '.join(done)}")
+
+    def sm_cycles(self, ms, n):
+        """SM-cycles an item of a kernel taking ``ms`` for ``n`` items, on
+        every SM of the card at its maximum SM clock (nvidia-smi)."""
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        sms = self.torch.cuda.get_device_properties(0).multi_processor_count
+        return (f"{ms * 1e-3 * sms * mhz * 1e6 / n:.4g} SM-cycles ({sms} "
+                f"SMs at {mhz:.0f} MHz)")
 
     def phase_s2(self):
         """The anchor stage with device sketching, counted, timed and

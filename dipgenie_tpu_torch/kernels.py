@@ -73,8 +73,10 @@ _SIGNATURES = {
     # [B, L - k - w + 2], stream
     "dg_sketch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # hash_hi, hash_lo, emit [B, NW], B, NW, table_hi, table_lo [M], M,
-    # max_dup, counts [M], per_read [B], stream
-    "dg_sketch_count": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    # max_dup, bits, scratch off [2^bits + 1] and pairs [M, 2], counts [M],
+    # per_read [B], stream
+    "dg_sketch_count": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                        _P, _P),
     # fhom, fhet, ferr, pd, pe, y, the grid's sizes (u, sd, vw, zp, zph,
     # pd, pe, s) and the bins, out, stream
     "dg_grid_nll": (_P, _P, _P, _P, _P, _P, *(_I,) * 9, _P, _P),

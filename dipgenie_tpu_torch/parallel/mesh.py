@@ -134,10 +134,31 @@ def sketch_count_ref(hash_hi, hash_lo, emit, table_hi, table_lo,
     return counts, matched.sum(1).to(torch.int32)
 
 
+def bucket_bits(M: int) -> int:
+    """Bits of K11's bucket index over a table of ``M`` slots: ``2^bits``
+    buckets, the fewest that are at least ``M`` (1 to 26)."""
+    return min(max((M - 1).bit_length(), 1), 26)
+
+
+def bucket_index_ref(table_hi: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of K11's bucket index: ``off [2^bits + 1]`` int32,
+    ``off[b]`` the first slot of the sorted ``table_hi`` (u32 bit patterns
+    in int32) whose ``hi >> (32 - bits)`` is at least ``b``; the lower
+    bound of a hash ``hh`` lies in ``[off[b], off[b + 1]]`` for ``b = hh
+    >> (32 - bits)``."""
+    bucket = (table_hi.to(torch.int64) & 0xFFFFFFFF) >> (32 - bits)
+    per = torch.bincount(bucket, minlength=1 << bits)
+    off = torch.zeros((1 << bits) + 1, dtype=torch.int64,
+                      device=table_hi.device)
+    off[1:] = torch.cumsum(per, 0)
+    return off.to(torch.int32)
+
+
 def sketch_count(hash_hi, hash_lo, emit, table_hi, table_lo,
                  max_dup: int = 4):
-    """K11. CUDA tensors launch ``csrc/sketch_count.cu`` (one launch); CPU
-    tensors take ``sketch_count_ref``."""
+    """K11. CUDA tensors launch ``csrc/sketch_count.cu`` (one call: the
+    bucket index over the table and its (hi, lo) pairs, then the lookups
+    of the emitted windows); CPU tensors take ``sketch_count_ref``."""
     if emit.device.type == "cpu":
         return sketch_count_ref(hash_hi, hash_lo, emit, table_hi, table_lo,
                                 max_dup)
@@ -148,14 +169,23 @@ def sketch_count(hash_hi, hash_lo, emit, table_hi, table_lo,
     kernels.check_tensor(emit, "emit", torch.bool)
     B, NW = emit.shape
     M = table_hi.shape[0]
-    counts = torch.zeros(M, dtype=torch.int32, device=emit.device)
-    per_read = torch.zeros(B, dtype=torch.int32, device=emit.device)
+    dev = emit.device
     if M == 0 or NW == 0:
-        return counts, per_read
+        return (torch.zeros(M, dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+    # both zeroed in the call
+    counts = torch.empty(M, dtype=torch.int32, device=dev)
+    per_read = torch.empty(B, dtype=torch.int32, device=dev)
+    # scratch: the bucket index [2^bits + 1], then (8-aligned) the table's
+    # (hi, lo) pairs [M, 2]
+    bits = bucket_bits(M)
+    at = (1 << bits) + 2
+    scratch = torch.empty(at + 2 * M, dtype=torch.int32, device=dev)
     rc = kernels.lib().dg_sketch_count(
         hash_hi.data_ptr(), hash_lo.data_ptr(), emit.data_ptr(), B, NW,
-        table_hi.data_ptr(), table_lo.data_ptr(), M, max_dup,
-        counts.data_ptr(), per_read.data_ptr(), kernels.stream_of(emit))
+        table_hi.data_ptr(), table_lo.data_ptr(), M, max_dup, bits,
+        scratch.data_ptr(), scratch.data_ptr() + 4 * at, counts.data_ptr(),
+        per_read.data_ptr(), kernels.stream_of(emit))
     kernels.raise_on_error(rc, "sketch_count")
     sketch_count.launches += 1
     return counts, per_read

@@ -16,7 +16,9 @@
 * ``mhc_shaped_csr``: a leveled DAG at the scale of the MHC expanded
   graph, the deployment the DP is sized for;
 * ``pangenome``: a GFA v1.1 pangenome (S/L/W lines) plus short reads from
-  two of its walks, for the end-to-end CLI.
+  two of its walks, for the end-to-end CLI;
+* ``ragged_reads`` / ``count_tables`` / ``edge_hashes``: the sketch
+  kernel's rows and the sketch count's tables and hashes at their edges.
 """
 
 from __future__ import annotations
@@ -257,6 +259,92 @@ def ragged_reads(seed: int, B: int, L: int, k: int, w: int):
     codes[5] = np.arange(L) % 2
     lens[4:6] = L
     return codes, lens
+
+
+def count_tables(hh, hl, emit, seed: int):
+    """Tables for the sketch count (K11), built from the emitted hashes of
+    ``(hh, hl, emit)`` (numpy ``[B, NW]``; the halves as uint32 or their
+    int32 bit patterns): a list of ``(name, table_hi, table_lo,
+    max_dups)``, the tables uint32 and sorted by unsigned ``(hi, lo)``.
+
+    * ``mixed``: half the emitted hashes, 500 random ones, and 20 runs of
+      2-7 slots of one emitted hi whose emitted lo comes last (past
+      ``max_dup`` in the longer runs); ``max_dup`` 4, 1 and 0;
+    * ``full_bucket``: 40 slots of one emitted hi (its lo third: a hit)
+      and 40 of another (its lo eleventh: a miss at ``max_dup`` 4) beside
+      200 random ones, so one bucket of the index holds more slots than
+      the kernel scans;
+    * ``lonely``: one emitted hash whose hi is below 2^31 among 999 random
+      ones above it, a hit in a bucket whose neighbours are empty;
+    * ``edges``: half the emitted hashes and slots of hi 0 and
+      0xFFFFFFFF (the first and the last bucket);
+    * ``m1``: one emitted hash, M = 1;
+    * ``one_read``: the emitted hashes of the row that has the most, so
+      every hit is on one read.
+    """
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(hh)[emit].view(np.uint32).astype(np.uint64)
+    lo = np.asarray(hl)[emit].view(np.uint32).astype(np.uint64)
+
+    def rand(n):
+        return rng.integers(0, 2**32, n, dtype=np.uint64)
+
+    def table(his, los):
+        t_hi = np.concatenate(his).astype(np.uint32)
+        t_lo = np.concatenate(los).astype(np.uint32)
+        order = np.lexsort((t_lo, t_hi))
+        return t_hi[order], t_lo[order]
+
+    def run_of(i, n, at):
+        """n slots of hi[i] whose lo values sort lo[i] to slot ``at``."""
+        los = np.concatenate([
+            rng.integers(0, lo[i], at, dtype=np.uint64), lo[i:i + 1],
+            rng.integers(lo[i] + 1, 2**32, n - 1 - at, dtype=np.uint64)])
+        return np.full(n, hi[i], np.uint64), los
+
+    out = []
+    half = rng.random(len(hi)) < 0.5
+    his, los = [hi[half], rand(500)], [lo[half], rand(500)]
+    # runs of emitted hashes whose lo is neither near 0 nor near 2^32 - 1
+    mid = np.nonzero((lo > 2**20) & (lo < 2**32 - 2**20))[0]
+    for i in rng.choice(mid, 20, replace=False):
+        n = int(rng.integers(2, 8))
+        a, b = run_of(i, n, n - 1)
+        his.append(a)
+        los.append(b)
+    out.append(("mixed", *table(his, los), (4, 1, 0)))
+    i1, i2 = rng.choice(mid, 2, replace=False)
+    runs = [run_of(i1, 40, 2), run_of(i2, 40, 10)]
+    out.append(("full_bucket", *table([r[0] for r in runs] + [rand(200)],
+                                      [r[1] for r in runs] + [rand(200)]),
+                (4,)))
+    i = int(np.nonzero(hi < 2**31)[0][0])
+    out.append(("lonely", *table([hi[i:i + 1], rng.integers(
+        2**31, 2**32, 999, dtype=np.uint64)], [lo[i:i + 1], rand(999)]),
+        (4,)))
+    ends = np.array([0, 0, 0, 2**32 - 1, 2**32 - 1, 2**32 - 1], np.uint64)
+    out.append(("edges", *table([hi[half], ends], [lo[half], np.array(
+        [0, 1, 2**32 - 1, 0, 5, 2**32 - 1], np.uint64)]), (4,)))
+    out.append(("m1", *table([hi[:1]], [lo[:1]]), (4,)))
+    row = int(np.argmax(np.asarray(emit).sum(1)))
+    out.append(("one_read", *table(
+        [np.asarray(hh)[row][emit[row]].view(np.uint32)],
+        [np.asarray(hl)[row][emit[row]].view(np.uint32)]), (4,)))
+    return out
+
+
+def edge_hashes(hh, hl, emit):
+    """Copies of ``(hh, hl)`` (numpy ``[B, NW]`` uint32) whose first eight
+    emitted windows hash to the ends of the range: hi 0 with lo 0, 1, 7
+    and 0xFFFFFFFF, hi 0xFFFFFFFF with lo 0, 5, 9 and 0xFFFFFFFF (some in
+    ``count_tables``'s ``edges`` table, some not)."""
+    hh, hl = np.array(hh, np.uint32), np.array(hl, np.uint32)
+    r, c = np.nonzero(emit)
+    m = 2**32 - 1
+    for (a, b), x, y in zip(((0, 0), (0, 1), (0, 7), (0, m), (m, 0), (m, 5),
+                             (m, 9), (m, m)), r, c):
+        hh[x, y], hl[x, y] = a, b
+    return hh, hl
 
 
 def mhc_shaped_csr(L: int = 120_000, seed: int = 0, n_bands: int = 300,

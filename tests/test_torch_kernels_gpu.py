@@ -30,9 +30,9 @@ from dipgenie_tpu_torch.probes import caps_tables, tables
 from dipgenie_tpu_torch.sketch.minimizers import sketch_sequence
 from dipgenie_tpu_torch.solver.diploid import csr_arrays, native_forward_csr
 from dipgenie_tpu_torch.utils.synth import (
-    CASES, GLOBAL_STATE_CASE, LIMIT_CASES, dense_graph, hand_graph,
-    limit_case, mhc_shaped_csr, parallel_edges_graph, ragged_reads,
-    random_leveled_csr, wide_window_graph,
+    CASES, GLOBAL_STATE_CASE, LIMIT_CASES, count_tables, dense_graph,
+    edge_hashes, hand_graph, limit_case, mhc_shaped_csr, parallel_edges_graph,
+    ragged_reads, random_leveled_csr, wide_window_graph,
 )
 
 pytestmark = pytest.mark.cuda
@@ -748,9 +748,31 @@ def test_caps_wrappers_reject_bad_inputs(name, cuda):
 SKETCH_KW = [(17, 7), (16, 5), (31, 25), (32, 3), (5, 1)]
 
 
-@pytest.mark.parametrize("k,w", SKETCH_KW)
-def test_sketch_kernel_matches_plain_version(k, w, cuda):
-    codes, lens = ragged_reads(k * 100 + w, 96, 400, k, w)
+# (k, w, B, L) of the kernel's block shapes (csrc/sketch.cu: a block of 256
+# windows of the flat range b * NW + j): one window a row (L = k + w - 1, a
+# block of 32 rows), 150 bp rows (96 windows, a block over 3 rows), 256 and
+# 257 windows a row, 400 bp, rows of 9 and 5 bases; B not a multiple of the
+# rows a block holds
+SKETCH_CASES = [pytest.param(k, w, 96, 400, id=f"{k}-{w}")
+                for k, w in SKETCH_KW] + [
+    pytest.param(31, 25, 203, 31 + 25 - 1, id="nw1"),
+    pytest.param(17, 7, 77, 17 + 7 - 1, id="nw1-17"),
+    pytest.param(31, 25, 1001, 150, id="150bp"),
+    pytest.param(32, 3, 1001, 150, id="150bp-32-3"),
+    pytest.param(5, 1, 1001, 150, id="150bp-5-1"),
+    pytest.param(31, 25, 13, 256 + 31 + 25 - 2, id="nw256"),
+    pytest.param(31, 25, 13, 256 + 31 + 25 - 1, id="nw257"),
+    pytest.param(31, 25, 37, 400, id="400bp"),
+    # rows shorter than 16 bases: a block's 16-aligned start reaches back
+    # over several rows
+    pytest.param(5, 1, 301, 9, id="short-rows"),
+    pytest.param(3, 2, 200, 5, id="short-rows-3-2"),
+]
+
+
+@pytest.mark.parametrize("k,w,B,L", SKETCH_CASES)
+def test_sketch_kernel_matches_plain_version(k, w, B, L, cuda):
+    codes, lens = ragged_reads(k * 100 + w + B, B, L, k, w)
     args = (torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda))
     before = sketch.batch_minimizer.launches
     got = sketch.batch_minimizer(*args, k, w)
@@ -798,23 +820,68 @@ def _count_table(hh, hl, emit, seed):
     return t_hi[order], t_lo[order]
 
 
-@pytest.mark.parametrize("max_dup", [4, 1])
-def test_sketch_count_kernel_matches_plain_version(max_dup, cuda):
+@pytest.mark.parametrize("k,w,L", [(31, 25, 150), (5, 1, 9)])
+def test_sketch_kernel_on_rows_not_16_aligned(k, w, L, cuda):
+    """The rows from 1 on as a view: codes not 16-byte aligned, which the
+    kernel reads byte by byte."""
+    codes, lens = ragged_reads(L, 301, L, k, w)
+    c = torch.from_numpy(codes).to(cuda)[1:]
+    n = torch.from_numpy(lens).to(cuda)[1:]
+    assert c.data_ptr() % 16
+    got = sketch.batch_minimizer(c, n, k, w)
+    want = sketch.batch_minimizer_ref(c, n, k, w)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+# the tables of utils/synth.count_tables, their max_dup values, and: the
+# hashes moved to the ends of the range (hi 0 and 0xFFFFFFFF); no emitted
+# window; the rows from 1 on as views (flags the kernel reads byte by byte)
+COUNT_CASES = [pytest.param("random", d, id=f"random-{d}") for d in (4, 1)] + [
+    pytest.param(name, d, id=f"{name}-{d}")
+    for name, dups in (("mixed", (4, 1, 0)), ("full_bucket", (4,)),
+                       ("lonely", (4,)), ("edges", (4,)), ("m1", (4,)),
+                       ("one_read", (4,)), ("edge_hashes", (4, 1)),
+                       ("none", (4,)), ("rows_view", (4,)))
+    for d in dups]
+
+
+@pytest.mark.parametrize("table,max_dup", COUNT_CASES)
+def test_sketch_count_kernel_matches_plain_version(table, max_dup, cuda):
     codes, lens = ragged_reads(3, 256, 200, 17, 7)
     hh, hl, emit, _ = sketch.batch_minimizer(
         torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda),
         17, 7)
-    t_hi, t_lo = _count_table(hh, hl, emit, 5)
+    if table == "random":
+        t_hi, t_lo = _count_table(hh, hl, emit, 5)
+    else:
+        host = [t.cpu().numpy() for t in (hh, hl, emit)]
+        tabs = {t[0]: t[1:3] for t in count_tables(*host, 5)}
+        t_hi, t_lo = tabs.get(table, tabs["edges"])
+        if table == "edge_hashes":
+            e_hi, e_lo = edge_hashes(*host)
+            hh, hl = (torch.from_numpy(a.view(np.int32)).to(cuda)
+                      for a in (e_hi, e_lo))
+        if table == "none":
+            emit = torch.zeros_like(emit)
+        if table == "rows_view":  # views from row 1: emit not 16-aligned
+            hh, hl, emit = hh[1:], hl[1:], emit[1:]
+            assert emit.data_ptr() % 16
     tables = (pmesh.u32_tensor(t_hi, cuda), pmesh.u32_tensor(t_lo, cuda))
     before = pmesh.sketch_count.launches
     got = pmesh.sketch_count(hh, hl, emit, *tables, max_dup)
     want = pmesh.sketch_count_ref(hh, hl, emit, *tables, max_dup)
     assert pmesh.sketch_count.launches == before + 1
     assert all(torch.equal(g, x) for g, x in zip(got, want))
-    assert int(got[0].sum()) > 0 and int(got[1].sum()) == int(got[0].sum())
-    one = pmesh.sharded_sketch_count_step(None, codes, lens, t_hi, t_lo, 17,
-                                          7, max_dup, device=cuda)
-    assert all(torch.equal(g, x) for g, x in zip(one, got))
+    hits = int(got[0].sum())
+    assert int(got[1].sum()) == hits
+    assert (hits == 0) == (table == "none" or max_dup == 0)
+    if table == "one_read":
+        assert int((got[1] > 0).sum()) == 1
+    if table in ("random", "mixed"):
+        one = pmesh.sharded_sketch_count_step(None, codes, lens, t_hi, t_lo,
+                                              17, 7, max_dup, device=cuda)
+        assert all(torch.equal(g, x) for g, x in zip(one, got))
 
 
 def _fit_grid(seed):
