@@ -59,7 +59,8 @@ result line):
      seconds per rank). The merges of ranks that share a card
      are gloo's, staged through host memory: not a multi-card number;
   S. device sketching, the dp sketch count and the fitter's grid NLL
-     (K10 minimizer_sketch, K11 sketch_count, K12 grid_nll) on a synthetic
+     (K10 minimizer_sketch, K11 sketch_count, K12 grid_nll and its table
+     pass grid_tables) on a synthetic
      pangenome of the MHC's size (S_BP bp, S_WALKS walks, reads from two
      walks at 2x: 131,201 reads of 150 bp): S1 each kernel against its
      plain version on the main path's inputs (all the reads, a haplotype,
@@ -68,13 +69,17 @@ result line):
      edges of its blocks (S1_SHAPES), K11 also on the adversarial tables
      of utils/synth.count_tables, on hashes at the ends of the range and
      with no emitted window, exact for K10 and K11, K12 within a relative
-     1e-5, each beside its plain version's time and its bound, K10's and
-     K11's as SM-cycles a window and an emitted window too; S2 the port's anchor stage with device sketching equal, field
+     1e-5, grid_tables within a relative 1e-5 an entry and its clamped
+     entries equal, each beside its plain version's time and its bound,
+     K10's, K11's and K12's as SM-cycles a window, an emitted window and a
+     grid point too; S2 the port's anchor stage with device sketching equal, field
      for field, to the host sketcher's, K10's launches and device time for
      the haplotypes and the reads (CUDA events), the drivers' host share
      and the native sketcher's time; S3 fit_histogram with the torch
-     backend (K12 on the card) equal to the numpy backend at the
-     pipeline's options; S4 F_RANKS gloo ranks spawned on the card with a
+     backend (grid_tables and K12 on the card, one launch each) equal to
+     the numpy backend at the pipeline's options, and its device stages
+     (grid_inputs, K12, the readback) each by CUDA events and by the host
+     clock after a synchronize, beside the whole fit; S4 F_RANKS gloo ranks spawned on the card with a
      (n_dp = 2, n_tp = 1) mesh: the dp sketch-count step on S2's reads
      (one empty read pads them to an even count) equal to one rank's in
      this process, the dp read sketch equal to S2's sets, then
@@ -149,9 +154,10 @@ S1_COUNT_READS = 4096  # reads whose hashes make S1's adversarial tables
 S_CALLS = 20  # kernel launches per CUDA-event timing in phase S1
 S_PLAIN_CALLS = 2  # plain-version calls per timing in phase S1
 GRID_NLL_RTOL = 1e-5  # K12 against its plain version: |a - b| / max(|b|, 1)
+S3_REPEATS = 5  # timings of phase S3's device stages, min taken
 # the C entry point of each of phase S's kernels
 S_ENTRY = {"minimizer_sketch": "dg_sketch", "sketch_count": "dg_sketch_count",
-           "grid_nll": "dg_grid_nll"}
+           "grid_nll": "dg_grid_nll", "grid_tables": "dg_grid_tables"}
 # special function unit results a second (one a log): 16 a clock on each
 # of the 132 SMs (CUDA C programming guide, compute capability 9.0) at the
 # H100 SXM's 1,980 MHz boost clock
@@ -184,6 +190,9 @@ KERNELS = {
                      "dipgenie_tpu/parallel/mesh.py:63"),
     "grid_nll": ("dipgenie_tpu_torch/csrc/grid_nll.cu",
                  "dipgenie_tpu/models/fitter.py:191"),
+    # the tables _grid_nll_jax builds before its map (:201-233)
+    "grid_tables": ("dipgenie_tpu_torch/csrc/grid_nll.cu",
+                    "dipgenie_tpu/models/fitter.py:201"),
     "chain_floor": ("dipgenie_tpu_torch/csrc/chain_floor.cu",
                     "scripts/tpu_floor_probe.py:76"),
     "chain_step16": ("dipgenie_tpu_torch/csrc/chain_step16.cu",
@@ -202,7 +211,7 @@ KIND_KERNEL = {"narrow": "narrow_run", "wide": "wide_dense_run",
 MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
              "wide_dense_run": "C", "wide_split_run": "E", "trace": "C",
              "wide_step": "F1", "minimizer_sketch": "S2",
-             "grid_nll": "S3", "sketch_count": "S4",
+             "grid_nll": "S3", "grid_tables": "S3", "sketch_count": "S4",
              **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2 and F3
@@ -357,6 +366,7 @@ class Smoke:
                                  sketch.batch_minimizer_ref),
             "sketch_count": (mesh.sketch_count, mesh.sketch_count_ref),
             "grid_nll": (fitter.grid_nll, fitter.grid_nll_ref),
+            "grid_tables": (fitter.grid_tables, fitter._grid_tables_torch),
             **caps.CHECKS,
         }
         self.err = {k: 0 for k in KERNELS}
@@ -1812,7 +1822,57 @@ class Smoke:
             f"{self.device_ms['grid_nll']:.6g} ms), plain "
             f"{times[1]} ms, bound {self.bound['grid_nll'][0]:.6g} ms "
             f"({self.bound['grid_nll'][1]}: one log a point and bin at "
-            f"{SFU_PER_S:.4g}/s)")
+            f"{SFU_PER_S:.4g}/s); "
+            f"{self.sm_cycles(self.ms['grid_nll'], points)} a grid point")
+        self.s1_tables(grid, xs)
+
+    def s1_tables(self, grid, xs):
+        """The table pass (grid_tables) against _grid_tables_torch on the
+        grid's axes, as grid_inputs hands them over (views of one buffer on
+        the card): every entry within a relative GRID_NLL_RTOL, clamped
+        entries equal; timed beside it, with its bound (the axes read and
+        the tables written once; one exp a pdf term of (u, sd or vw, copy,
+        bin) and one pow a zeta weight and a ferr term, on the SFUs)."""
+        from dipgenie_tpu_torch.models.fitter import axes_on
+
+        torch = self.torch
+        U, SD, VW, ZP, ZPH, _, _, SS = grid
+        copies = 10
+        views = axes_on(DEVICE, U, SD, VW, ZP, ZPH, SS, xs)
+        args = (*views[:6], copies, views[6], DEVICE)
+        kern, plain = self.fns["grid_tables"]
+        floor = torch.tensor(1e-35, dtype=torch.float32, device=DEVICE)
+        rel = 0.0
+        for g, w in zip(kern(*args), plain(*args)):
+            check(g.shape == w.shape and bool(torch.isfinite(g).all())
+                  and bool((g >= floor).all()),
+                  "grid_tables: shape, non-finite values or below 1e-35")
+            diff = (g.double() - w.double()).abs()
+            rel = max(rel, float((diff / w.double()).max()))
+            self.err["grid_tables"] = max(self.err["grid_tables"],
+                                          float(diff.max()))
+            clamped = w == floor
+            check(torch.equal(g[clamped], w[clamped]),
+                  "grid_tables: a clamped entry differs")
+        self.compared["grid_tables"] += 1
+        check(rel <= GRID_NLL_RTOL, f"grid_tables differs from its plain "
+              f"version: relative {rel:.3g} > {GRID_NLL_RTOL}")
+        nu, nsd, nvw, nzp, nzph, ns, nx = (len(a) for a in
+                                           (U, SD, VW, ZP, ZPH, SS, xs))
+        entries = (nu * nsd * nzp + nu * nvw * nzph + ns) * nx
+        nbytes = 4 * (nu + nsd + nvw + nzp + nzph + ns + nx + entries)
+        ops = (nu * nsd + nu * nvw) * copies * nx \
+            + (nzp + nzph) * copies + 2 * ns * nx
+        times = self.kernel_beside_plain("grid_tables", args, (nbytes, ops),
+                                         SFU_PER_S)
+        log(f"S1 grid_tables on {entries} table entries ({copies} copies, "
+            f"{nx} bins): relative difference {rel:.3g} (<= "
+            f"{GRID_NLL_RTOL}), max abs {self.err['grid_tables']:.6g}, "
+            f"clamped entries equal; kernel {times[0]} ms (device "
+            f"{self.device_ms['grid_tables']:.6g} ms), plain {times[1]} "
+            f"ms, bound {self.bound['grid_tables'][0]:.6g} ms "
+            f"({self.bound['grid_tables'][1]}: {nbytes} B, {ops} exp and "
+            f"pow)")
 
     def s1_count_edges(self, hh, hl, emit):
         """K11 against its plain version on the adversarial tables of
@@ -1944,8 +2004,10 @@ class Smoke:
         d["sets"] = sets
 
     def phase_s3(self):
-        """fit_histogram's torch backend (K12 on the card) against the
-        numpy backend on S2's histogram at the pipeline's options."""
+        """fit_histogram's torch backend (grid_tables and K12 on the card)
+        against the numpy backend on S2's histogram at the pipeline's
+        options; its device stages one by one, then the whole fit with its
+        launches counted."""
         from dipgenie_tpu_torch.models.fitter import fit_histogram
 
         pairs, opt = s_histogram(self.s["host"])
@@ -1953,6 +2015,7 @@ class Smoke:
         want = fit_histogram(pairs, opt)
         np_s = time.time() - t0
         fit_histogram(pairs, opt, backend="torch", device=DEVICE)  # warm
+        stages = self.s3_stages(opt.max_copy)
         self.sync()
         self.reset_counts()
         t0 = time.time()
@@ -1960,14 +2023,48 @@ class Smoke:
         self.sync()
         torch_s = time.time() - t0
         launches = self.launches["S3"] = self.counts()
-        want_l = {**dict.fromkeys(KERNELS, 0), "grid_nll": 1}
+        want_l = {**dict.fromkeys(KERNELS, 0), "grid_tables": 1,
+                  "grid_nll": 1}
         check(launches == want_l, f"S3 launches {launches}, want {want_l}")
         check(got == want and got == self.s["host"].fit,
               f"S3 torch fit {got} differs from numpy {want}")
         log(f"S3 fit_histogram ({len(pairs)} bins, max_copy {opt.max_copy}):"
-            f" torch backend {torch_s:.3f}s, numpy {np_s:.3f}s (host clock);"
-            f" parameters and nll ({got.nll!r}) equal; K12 "
-            f"{self.ms['grid_nll']:.4f} ms a launch (S1), 1 launch")
+            f" torch backend {torch_s:.6f}s, numpy {np_s:.6f}s (host clock);"
+            f" parameters and nll ({got.nll!r}) equal; launches grid_tables"
+            f" 1, grid_nll 1; its device stages alone, CUDA events / host "
+            f"clock after a synchronize (min of {S3_REPEATS}): {stages}")
+
+    def s3_stages(self, copies):
+        """grid_inputs (one copy of the axes, grid_tables), K12 and the
+        readback of fit_histogram's torch backend (fitter._grid_nll_torch)
+        one after the other on S3's grid, each bracketed by CUDA events
+        and by the host clock after a synchronize; min of S3_REPEATS."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.models.fitter import grid_inputs
+
+        grid, xs, ys = s_grid(self.s["host"])
+        names = ("grid_inputs", "grid_nll", "readback")
+        fns = (lambda _: grid_inputs(*grid, copies, xs, ys, DEVICE),
+               lambda ins: self.fns["grid_nll"][0](*ins),
+               lambda out: out.cpu().numpy().astype(np.float64))
+        best = {n: [float("inf")] * 2 for n in names}
+        for _ in range(S3_REPEATS):
+            x = None
+            for name, fn in zip(names, fns):
+                ev = self.events(2)
+                self.sync()
+                t0 = time.perf_counter()
+                ev[0].record()
+                x = fn(x)
+                ev[1].record()
+                self.sync()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                b = best[name]
+                b[:] = (min(b[0], ev[0].elapsed_time(ev[1])),
+                        min(b[1], host_ms))
+        return ", ".join(f"{n} {b[0]:.6g} / {b[1]:.6g} ms"
+                         for n, b in best.items())
 
     def phase_s4(self):
         """F_RANKS gloo ranks on the card, mesh (n_dp = F_RANKS, n_tp = 1):

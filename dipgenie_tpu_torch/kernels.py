@@ -77,9 +77,12 @@ _SIGNATURES = {
     # per_read [B], stream
     "dg_sketch_count": (_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P, _P),
-    # fhom, fhet, ferr, pd, pe, y, the grid's sizes (u, sd, vw, zp, zph,
-    # pd, pe, s) and the bins, out, stream
-    "dg_grid_nll": (_P, _P, _P, _P, _P, _P, *(_I,) * 9, _P, _P),
+    # fhom, fhet, ferr, pd, pe, y, the launch geometry (host uint32 words,
+    # models/fitter.py:grid_nll_geometry), out, stream
+    "dg_grid_nll": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # U, SD, VW, ZP, ZPH, SS, xs, their lengths (u, sd, vw, zp, zph, s, x),
+    # max_copy, fhom, fhet, ferr, stream
+    "dg_grid_tables": (*(_P,) * 7, *(_I,) * 8, _P, _P, _P, _P),
 }
 
 

@@ -9,9 +9,10 @@ tie rule of the nested loops (Fitter.hpp:391-405).
 
 Strategy here (vectorized instead of 8 nested scalar loops):
   1. factorized vectorized NLL over the whole grid (numpy float64, or
-     torch float32 with ``backend="torch"``: K12, ``csrc/grid_nll.cu``, on
-     the card): FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are
-     precomputed, then combined per (p_d,p_e,s) slice;
+     torch float32 with ``backend="torch"``: on the card the two kernels
+     of ``csrc/grid_nll.cu``, ``grid_tables`` then K12 ``grid_nll``):
+     FHOM[u,sd,zp,x], FHET[u,vw,zph,x], FERR[s,x] are precomputed, then
+     combined per (p_d,p_e,s) slice;
   2. the top-K candidates by vectorized NLL are re-evaluated with a
      scalar float64 routine replicating the C++ operation order exactly,
      and the winner is chosen with the loop-order tie-break — making the
@@ -195,10 +196,13 @@ def _grid_nll_numpy(
 def _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
     """``(fhom [u,sd,zp,x], fhet [u,vw,zph,x], ferr [s,x])`` float32 on
     ``device``: the small tables ``_grid_nll_jax`` builds outside its map,
-    in plain torch with its 1e-35 clamps."""
+    in plain torch with its 1e-35 clamps. The plain version of
+    ``grid_tables``; the axes are arrays or float32 tensors."""
     f32 = torch.float32
 
     def t(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=f32)
         return torch.as_tensor(np.asarray(a, np.float64), dtype=f32,
                                device=device)
 
@@ -231,6 +235,60 @@ def _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
         - torch.pow(X[None, :] + 1.0, -SSj[:, None])
     ferr = torch.where(ferr > 0.0, ferr, 1e-35)
     return fhom.contiguous(), fhet.contiguous(), ferr.contiguous()
+
+
+TABLE_AXES = ("U", "SD", "VW", "ZP", "ZPH", "SS", "xs")  # grid_tables'
+
+
+def pack_axes(*axes) -> tuple[np.ndarray, list[int]]:
+    """The axes as float32, end to end in one host array, and their
+    lengths."""
+    parts = [np.asarray(a, np.float64).astype(np.float32).reshape(-1)
+             for a in axes]
+    return np.concatenate(parts), [len(a) for a in parts]
+
+
+def axes_on(device, *axes) -> tuple[torch.Tensor, ...]:
+    """The axes on ``device`` in one host-to-device copy: float32 views of
+    one buffer, in the order given."""
+    host, lengths = pack_axes(*axes)
+    return torch.from_numpy(host).to(device).split(lengths)
+
+
+def grid_tables(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
+    """``(fhom, fhet, ferr)`` of ``_grid_tables_torch``. On a CUDA
+    ``device`` one launch of ``csrc/grid_nll.cu``'s table kernel; the axes
+    are host arrays (copied in one host-to-device copy) or 1-D float32
+    CUDA tensors. On the CPU ``_grid_tables_torch``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs,
+                                  device)
+    axes = (U, SD, VW, ZP, ZPH, SS, xs)
+    if not any(isinstance(a, torch.Tensor) for a in axes):
+        axes = axes_on(device, *axes)
+    for name, a in zip(TABLE_AXES, axes):
+        kernels.check_tensor(a, name, torch.float32, None, device)
+        if a.dim() != 1 or a.numel() < 1:
+            raise ValueError(f"{name}: want a non-empty 1-D axis, got shape "
+                             f"{tuple(a.shape)}")
+    if not isinstance(max_copy, (int, np.integer)) or max_copy < 1:
+        raise ValueError(f"max_copy {max_copy!r}: want an int >= 1")
+    nu, nsd, nvw, nzp, nzph, ns, nx = (a.numel() for a in axes)
+    f32 = dict(dtype=torch.float32, device=axes[0].device)
+    fhom = torch.empty((nu, nsd, nzp, nx), **f32)
+    fhet = torch.empty((nu, nvw, nzph, nx), **f32)
+    ferr = torch.empty((ns, nx), **f32)
+    rc = kernels.lib().dg_grid_tables(
+        *(a.data_ptr() for a in axes), nu, nsd, nvw, nzp, nzph, ns, nx,
+        int(max_copy), fhom.data_ptr(), fhet.data_ptr(), ferr.data_ptr(),
+        kernels.stream_of(fhom))
+    kernels.raise_on_error(rc, "grid_tables")
+    grid_tables.launches += 1
+    return fhom, fhet, ferr
+
+
+grid_tables.launches = 0
 
 
 def _check_grid(fhom, fhet, ferr, pd, pe, y) -> None:
@@ -272,6 +330,41 @@ def grid_nll_ref(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:
     return out
 
 
+GRID_THREADS = 256  # csrc/grid_nll.cu THREADS
+GRID_P_MAX = 8  # the most pd values (points) a K12 thread takes
+
+
+def divider(d: int) -> tuple[int, int, int]:
+    """``(d, mul, shift)`` with ``n // d == (n * mul) >> shift`` for every
+    ``0 <= n < 2**31`` (``mul`` < 2**32): K12's 32-bit division."""
+    p = 31 + (d - 1).bit_length()
+    return d, -(-(1 << p) // d), p
+
+
+def grid_nll_geometry(dims) -> np.ndarray:
+    """K12's launch geometry for a grid of ``dims = (u, sd, vw, zp, zph,
+    pd, pe, s, x)``: the uint32 words of ``csrc/grid_nll.cu``'s
+    ``Geometry``. A thread (a slot) takes one outer point (u, sd, vw, zp,
+    zph), one (pe, s) and ``p`` consecutive pd values; the pd axis is cut
+    in ``chunks`` of ``p`` (the last may be short), so an outer point has
+    ``chunks * pe * s`` slots."""
+    nu, nsd, nvw, nzp, nzph, npd, npe, ns, nx = (int(d) for d in dims)
+    if min(dims) < 1:
+        raise ValueError(f"grid of {tuple(dims)} points and bins: an axis "
+                         "is empty")
+    chunks = -(-npd // GRID_P_MAX)
+    p = -(-npd // chunks)
+    per_outer = chunks * npe * ns
+    slots = nu * nsd * nvw * nzp * nzph * per_outer
+    if slots >= 1 << 31 or nx >= 1 << 31:
+        raise ValueError(f"grid of {tuple(dims)} points and bins: "
+                         f"{slots} threads, past K12's 32-bit indices")
+    words = [p, slots, -(-slots // GRID_THREADS), npd, nx]
+    for d in (per_outer, npe * ns, ns, nzph, nzp, nvw, nsd):
+        words += divider(d)
+    return np.asarray(words, np.uint32)
+
+
 def grid_nll(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:
     """K12. CUDA tensors launch ``csrc/grid_nll.cu`` (one launch); CPU
     tensors take ``grid_nll_ref``."""
@@ -284,10 +377,11 @@ def grid_nll(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:
     nu, nsd, nzp, nx = fhom.shape
     _, nvw, nzph, _ = fhet.shape
     dims = (nu, nsd, nvw, nzp, nzph, len(pd), len(pe), ferr.shape[0])
+    geometry = grid_nll_geometry((*dims, nx))
     out = torch.empty(dims, dtype=torch.float32, device=fhom.device)
     rc = kernels.lib().dg_grid_nll(
         fhom.data_ptr(), fhet.data_ptr(), ferr.data_ptr(), pd.data_ptr(),
-        pe.data_ptr(), y.data_ptr(), *dims, nx, out.data_ptr(),
+        pe.data_ptr(), y.data_ptr(), geometry.ctypes.data, out.data_ptr(),
         kernels.stream_of(fhom))
     kernels.raise_on_error(rc, "grid_nll")
     grid_nll.launches += 1
@@ -299,13 +393,13 @@ grid_nll.launches = 0
 
 def grid_inputs(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys, device):
     """The float32 inputs ``(fhom, fhet, ferr, pd, pe, y)`` of K12 for a
-    grid on ``device``."""
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64),
-                               dtype=torch.float32, device=device)
-
-    return (*_grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs,
-                                device), t(PD), t(PE), t(ys))
+    grid on ``device``: one host-to-device copy of the ten axes
+    (``axes_on``; pd, pe and y are views of it), then ``grid_tables``
+    (one launch on a card)."""
+    U, SD, VW, ZP, ZPH, PD, PE, SS, X, Y = axes_on(
+        device, U, SD, VW, ZP, ZPH, PD, PE, SS, xs, ys)
+    return (*grid_tables(U, SD, VW, ZP, ZPH, SS, max_copy, X, device), PD,
+            PE, Y)
 
 
 def _grid_nll_torch(U, SD, VW, ZP, ZPH, PD, PE, SS, max_copy, xs, ys,

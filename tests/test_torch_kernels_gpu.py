@@ -7,6 +7,7 @@ also agree at unreachable states and stale lanes); the capability checks'
 float products take small integers, so they are exact too.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -925,6 +926,129 @@ def test_grid_nll_kernel_matches_plain_version(cuda):
     a = fitter.fit_histogram(pairs, opt, backend="numpy")
     b = fitter.fit_histogram(pairs, opt, backend="torch", device=cuda)
     assert a.P == b.P and a.nll == b.nll
+
+
+def _grid_case(name):
+    """``(grid, xs, ys, opt, pairs)`` of a K12 check: the default grid
+    (``_fit_grid(3)``); VW, PE and SS frozen (fit_varw=False,
+    fit_error=False; the kernels' grid takes each at its midpoint, the fit
+    at its seed); one bin; 200 bins; 1 and 20 copies."""
+    grid, xs, ys, opt, pairs = _fit_grid(3)
+    if name == "nx1":
+        pairs = [(3, 1e6)]
+        opt = fitter.KGFitOptions(max_copy=10, max_x_use=3, u_hi=3.0)
+        xs, ys = np.asarray([3]), np.asarray([1e6])
+    elif name == "nx200":
+        x = np.arange(1, 201)
+        f = np.round(1e5 * np.exp(-x / 30.0)) + 1 + (x % 7)
+        pairs = [(int(m), float(c)) for m, c in zip(x, f)]
+        opt = fitter.KGFitOptions(max_copy=10, max_x_use=200, u_hi=60.0)
+        xs, ys = x.astype(np.int64), f.astype(np.float64)
+    elif name != "default":
+        opt = dataclasses.replace(opt, **{
+            "frozen": dict(fit_varw=False, fit_error=False),
+            "copies1": dict(max_copy=1), "copies20": dict(max_copy=20)}[name])
+    lin, o = fitter._linspace, opt
+    frozen = name == "frozen"
+    grid = (lin(o.u_lo, o.u_hi, o.grid_u), lin(o.sd_lo, o.sd_hi, o.grid_sd),
+            lin(o.varw_lo, o.varw_hi, 1 if frozen else o.grid_varw),
+            lin(o.zp_lo, o.zp_hi, o.grid_zp), lin(o.zp_lo, o.zp_hi, o.grid_zp),
+            lin(o.pd_lo, o.pd_hi, o.grid_pd),
+            lin(o.pe_lo, o.pe_hi, 1 if frozen else o.grid_pe),
+            lin(o.s_lo, o.s_hi, 1 if frozen else o.grid_s))
+    return grid, xs, ys, opt, pairs
+
+
+GRID_CASES = ["default", "frozen", "nx1", "nx200", "copies1", "copies20"]
+
+
+def _rel(got, want):
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.parametrize("name", GRID_CASES)
+def test_grid_nll_kernel_on_grid_cases(name, cuda):
+    """K12 against its plain version on the default grid, with VW, PE and
+    SS frozen, on 1 and 200 bins and with 1 and 20 copies (relative 1e-5),
+    then the torch fit on the card equals the numpy fit on that case."""
+    grid, xs, ys, opt, pairs = _grid_case(name)
+    ins = fitter.grid_inputs(*grid, opt.max_copy, xs, ys, cuda)
+    before = fitter.grid_nll.launches
+    got = fitter.grid_nll(*ins)
+    want = fitter.grid_nll_ref(*ins)
+    assert fitter.grid_nll.launches == before + 1
+    assert got.shape == want.shape == tuple(len(a) for a in grid)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-5, _rel(got, want)
+    a = fitter.fit_histogram(pairs, opt, backend="numpy")
+    b = fitter.fit_histogram(pairs, opt, backend="torch", device=cuda)
+    assert a.P == b.P and a.nll == b.nll
+
+
+@pytest.mark.parametrize("name", GRID_CASES)
+def test_grid_tables_kernel_matches_plain_version(name, cuda):
+    """The table kernel against _grid_tables_torch on the card: every
+    entry within a relative 1e-5 (exp, pow and the sum over copies in
+    another order), every clamped entry equal; from host axes (one copy)
+    and from CUDA views of one buffer."""
+    grid, xs, _, opt, _ = _grid_case(name)
+    U, SD, VW, ZP, ZPH, _, _, SS = grid
+    want = fitter._grid_tables_torch(U, SD, VW, ZP, ZPH, SS, opt.max_copy,
+                                     xs, cuda)
+    views = fitter.axes_on(cuda, U, SD, VW, ZP, ZPH, SS, xs)
+    floor = torch.tensor(1e-35, dtype=torch.float32)
+    for axes in ((U, SD, VW, ZP, ZPH, SS, xs), views):
+        before = fitter.grid_tables.launches
+        got = fitter.grid_tables(*axes[:6], opt.max_copy, axes[6], cuda)
+        assert fitter.grid_tables.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+            assert bool(torch.isfinite(g).all()) and bool((g >= floor.to(g)).all())
+            rel = ((g.double() - w.double()).abs() / w.double()).max()
+            assert float(rel) <= 1e-5, float(rel)
+            clamped = w == floor.to(w)
+            assert torch.equal(g[clamped], w[clamped])
+
+
+def test_grid_inputs_is_one_table_launch(cuda):
+    """grid_inputs on the card: one grid_tables launch and no K12 launch;
+    pd, pe and y are the axes' float32 values."""
+    grid, xs, ys, opt, _ = _grid_case("default")
+    before = (fitter.grid_tables.launches, fitter.grid_nll.launches)
+    ins = fitter.grid_inputs(*grid, opt.max_copy, xs, ys, cuda)
+    assert (fitter.grid_tables.launches,
+            fitter.grid_nll.launches) == (before[0] + 1, before[1])
+    for t, a in zip(ins[3:], (grid[5], grid[6], ys)):
+        assert t.device.type == "cuda" and torch.equal(
+            t.cpu(), torch.as_tensor(np.asarray(a, np.float64),
+                                     dtype=torch.float32))
+
+
+def test_grid_tables_rejects_bad_inputs(cuda):
+    grid, xs, _, opt, _ = _grid_case("default")
+    U, SD, VW, ZP, ZPH, _, _, SS = grid
+    views = list(fitter.axes_on(cuda, U, SD, VW, ZP, ZPH, SS, xs))
+    before = fitter.grid_tables.launches
+
+    def call(axes, copies=10):
+        return fitter.grid_tables(*axes[:6], copies, axes[6], cuda)
+
+    with pytest.raises(ValueError, match="max_copy"):
+        call(views, 0)
+    with pytest.raises(ValueError, match="max_copy"):
+        call(views, 2.5)
+    with pytest.raises(ValueError, match="float32"):
+        call(views[:2] + [views[2].double()] + views[3:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(views[:3] + [views[3].cpu()] + views[4:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(views[:6] + [xs])
+    with pytest.raises(ValueError, match="1-D"):
+        call(views[:6] + [views[6][:0]])
+    with pytest.raises(ValueError, match="1-D"):
+        call([views[0].reshape(1, -1)] + views[1:])
+    assert fitter.grid_tables.launches == before
 
 
 def test_sketch_wrappers_reject_bad_inputs(cuda):
