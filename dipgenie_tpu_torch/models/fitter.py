@@ -21,6 +21,7 @@ Strategy here (vectorized instead of 8 nested scalar loops):
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 
@@ -341,13 +342,14 @@ def divider(d: int) -> tuple[int, int, int]:
     return d, -(-(1 << p) // d), p
 
 
-def grid_nll_geometry(dims) -> np.ndarray:
+@functools.lru_cache(maxsize=64)
+def grid_nll_geometry(dims: tuple) -> np.ndarray:
     """K12's launch geometry for a grid of ``dims = (u, sd, vw, zp, zph,
     pd, pe, s, x)``: the uint32 words of ``csrc/grid_nll.cu``'s
-    ``Geometry``. A thread (a slot) takes one outer point (u, sd, vw, zp,
-    zph), one (pe, s) and ``p`` consecutive pd values; the pd axis is cut
-    in ``chunks`` of ``p`` (the last may be short), so an outer point has
-    ``chunks * pe * s`` slots."""
+    ``Geometry`` (cached: do not write to it). A thread (a slot) takes one
+    outer point (u, sd, vw, zp, zph), one (pe, s) and ``p`` consecutive pd
+    values; the pd axis is cut in ``chunks`` of ``p`` (the last may be
+    short), so an outer point has ``chunks * pe * s`` slots."""
     nu, nsd, nvw, nzp, nzph, npd, npe, ns, nx = (int(d) for d in dims)
     if min(dims) < 1:
         raise ValueError(f"grid of {tuple(dims)} points and bins: an axis "
@@ -362,7 +364,9 @@ def grid_nll_geometry(dims) -> np.ndarray:
     words = [p, slots, -(-slots // GRID_THREADS), npd, nx]
     for d in (per_outer, npe * ns, ns, nzph, nzp, nvw, nsd):
         words += divider(d)
-    return np.asarray(words, np.uint32)
+    geometry = np.asarray(words, np.uint32)
+    geometry.setflags(write=False)
+    return geometry
 
 
 def grid_nll(fhom, fhet, ferr, pd, pe, y) -> torch.Tensor:

@@ -268,7 +268,7 @@ def main():
         keep = fitter.GRID_P_MAX
         for p in (1, 2, 4, 7, 8):
             fitter.GRID_P_MAX = p
-            g = fitter.grid_nll_geometry((*dims, nx))
+            g = fitter.grid_nll_geometry.__wrapped__((*dims, nx))
             fitter.GRID_P_MAX = keep
             ms = min(ms_of(run_new(geometry=g)) for _ in range(2))
             print(f"K12 with at most {p} pd values a thread (p = {g[0]}, "
@@ -280,7 +280,7 @@ def main():
             keep = {k: getattr(fitter, k) for k in over}
             for k, v in over.items():
                 setattr(fitter, k, v)
-            g = fitter.grid_nll_geometry((*dims, nx))
+            g = fitter.grid_nll_geometry.__wrapped__((*dims, nx))
             for k, v in keep.items():
                 setattr(fitter, k, v)
             fn = run_new(var, f"dg_grid_nll_{name}", g)
@@ -351,6 +351,11 @@ def main():
                 kinds[k] = kinds.get(k, 0) + 1
             print(f"grid_inputs {which}: device activities {kinds}",
                   flush=True)
+            if which == "new":
+                print("grid_inputs new, its device activities' us "
+                      "(profiler): " + ", ".join(
+                          f"{e.name[:30]} {e.time_range.elapsed_us()}"
+                          for e in ev), flush=True)
 
 
 if __name__ == "__main__":
