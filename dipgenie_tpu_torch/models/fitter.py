@@ -241,33 +241,26 @@ def _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
 TABLE_AXES = ("U", "SD", "VW", "ZP", "ZPH", "SS", "xs")  # grid_tables'
 
 
-def pack_axes(*axes) -> tuple[np.ndarray, list[int]]:
-    """The axes as float32, end to end in one host array, and their
-    lengths."""
+def axes_on(device, *axes) -> tuple[torch.Tensor, ...]:
+    """The axes on ``device`` in one host-to-device copy (packed end to
+    end in one float32 host array): float32 views of one buffer, in the
+    order given."""
     parts = [np.asarray(a, np.float64).astype(np.float32).reshape(-1)
              for a in axes]
-    return np.concatenate(parts), [len(a) for a in parts]
-
-
-def axes_on(device, *axes) -> tuple[torch.Tensor, ...]:
-    """The axes on ``device`` in one host-to-device copy: float32 views of
-    one buffer, in the order given."""
-    host, lengths = pack_axes(*axes)
-    return torch.from_numpy(host).to(device).split(lengths)
+    return torch.from_numpy(np.concatenate(parts)).to(device).split(
+        [len(a) for a in parts])
 
 
 def grid_tables(U, SD, VW, ZP, ZPH, SS, max_copy, xs, device):
     """``(fhom, fhet, ferr)`` of ``_grid_tables_torch``. On a CUDA
-    ``device`` one launch of ``csrc/grid_nll.cu``'s table kernel; the axes
-    are host arrays (copied in one host-to-device copy) or 1-D float32
-    CUDA tensors. On the CPU ``_grid_tables_torch``."""
+    ``device`` one launch of ``csrc/grid_nll.cu``'s table kernel on 1-D
+    float32 CUDA axes (``axes_on`` puts them there in one copy); on the
+    CPU ``_grid_tables_torch``."""
     device = torch.device(device)
     if device.type == "cpu":
         return _grid_tables_torch(U, SD, VW, ZP, ZPH, SS, max_copy, xs,
                                   device)
     axes = (U, SD, VW, ZP, ZPH, SS, xs)
-    if not any(isinstance(a, torch.Tensor) for a in axes):
-        axes = axes_on(device, *axes)
     for name, a in zip(TABLE_AXES, axes):
         kernels.check_tensor(a, name, torch.float32, None, device)
         if a.dim() != 1 or a.numel() < 1:

@@ -990,25 +990,23 @@ def test_grid_nll_kernel_on_grid_cases(name, cuda):
 def test_grid_tables_kernel_matches_plain_version(name, cuda):
     """The table kernel against _grid_tables_torch on the card: every
     entry within a relative 1e-5 (exp, pow and the sum over copies in
-    another order), every clamped entry equal; from host axes (one copy)
-    and from CUDA views of one buffer."""
+    another order), every clamped entry equal."""
     grid, xs, _, opt, _ = _grid_case(name)
     U, SD, VW, ZP, ZPH, _, _, SS = grid
     want = fitter._grid_tables_torch(U, SD, VW, ZP, ZPH, SS, opt.max_copy,
                                      xs, cuda)
-    views = fitter.axes_on(cuda, U, SD, VW, ZP, ZPH, SS, xs)
-    floor = torch.tensor(1e-35, dtype=torch.float32)
-    for axes in ((U, SD, VW, ZP, ZPH, SS, xs), views):
-        before = fitter.grid_tables.launches
-        got = fitter.grid_tables(*axes[:6], opt.max_copy, axes[6], cuda)
-        assert fitter.grid_tables.launches == before + 1
-        for g, w in zip(got, want):
-            assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
-            assert bool(torch.isfinite(g).all()) and bool((g >= floor.to(g)).all())
-            rel = ((g.double() - w.double()).abs() / w.double()).max()
-            assert float(rel) <= 1e-5, float(rel)
-            clamped = w == floor.to(w)
-            assert torch.equal(g[clamped], w[clamped])
+    axes = fitter.axes_on(cuda, U, SD, VW, ZP, ZPH, SS, xs)
+    floor = torch.tensor(1e-35, dtype=torch.float32, device=cuda)
+    before = fitter.grid_tables.launches
+    got = fitter.grid_tables(*axes[:6], opt.max_copy, axes[6], cuda)
+    assert fitter.grid_tables.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert bool(torch.isfinite(g).all()) and bool((g >= floor).all())
+        rel = ((g.double() - w.double()).abs() / w.double()).max()
+        assert float(rel) <= 1e-5, float(rel)
+        clamped = w == floor
+        assert torch.equal(g[clamped], w[clamped])
 
 
 def test_grid_inputs_is_one_table_launch(cuda):
@@ -1044,6 +1042,8 @@ def test_grid_tables_rejects_bad_inputs(cuda):
         call(views[:3] + [views[3].cpu()] + views[4:])
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(views[:6] + [xs])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call((U, SD, VW, ZP, ZPH, SS, xs))
     with pytest.raises(ValueError, match="1-D"):
         call(views[:6] + [views[6][:0]])
     with pytest.raises(ValueError, match="1-D"):
