@@ -22,8 +22,10 @@ result line):
      memory) the same way, then through PairDiploidDP with its launches
      counted, and beside its plain version;
   G. the level-chain probes (K5a chain_floor, K5b chain_step16, K6
-     chain_pair, K7 chain_edge: one block walks a chain of DP levels in one
-     launch): G1 each kernel against its plain version on short chains
+     chain_pair, K7 chain_edge; each walks a chain of DP levels in one
+     launch: K5a and K6 one block, K7 one block whose producer warp stages
+     the tables in a ring, K5b a cluster of blocks on as many SMs, one per
+     share of the rows, with the same ring): G1 each kernel against its plain version on short chains
      (every output element, exact), K6 and K7 against the numpy oracle and
      against each other; G2 the floor, pair and edge probes at their full
      chain lengths through their entry functions (launch counts, per-level
@@ -238,6 +240,8 @@ CHAIN_WORK = {
     "chain_edge": ((16 * 8 + 16 * 4 + 16 * 16) * 4 + 19 * 256 * 2,
                    2 * 19 * 256),
 }
+# the chain kernels whose G2 line gives clock cycles a level
+CYCLES_A_LEVEL = ("chain_step16", "chain_edge")
 # the probe variant that drives each chain kernel
 CHAIN_VARIANT = {"chain_floor": "floor0", "chain_step16": "step16",
                  "chain_pair": "pair16", "chain_edge": "edge16"}
@@ -740,14 +744,24 @@ class Smoke:
         self.plain_ms[name] = min(times[1])
         self.bound[name] = nbound
         s = self.slopes[CHAIN_VARIANT[name]]
+        cycles = {}
+        if name in CYCLES_A_LEVEL:  # the chain's clock cycles a level
+            from dipgenie_tpu_torch.ops.chain_ring import STEP16_CLUSTER
+
+            mhz = self.clock_mhz()
+            sms = (f"a cluster of {STEP16_CLUSTER} SMs"
+                   if name == "chain_step16" else "one SM")
+            cycles = {x: f", {x.per_level * mhz * 1e6:.1f} cycles a level "
+                      f"at {mhz:.0f} MHz on {sms}" for x in (s, live) if x}
         alive = ""
         if live:
             alive = ("; on the chain that stays alive "
                      f"{live.per_level * 1e6:.4f} us/level ({live.t1 * 1e3:.4f} -> {live.t2 * 1e3:.4f} "
-                     "ms), and on it what follows")
+                     f"ms{cycles.get(live, '')}), and on it what follows")
         log(f"G2 {name} ({CHAIN_VARIANT[name]}): {s.per_level * 1e6:.4f} "
             f"us/level (slope {T1}->{T2}: {s.t1 * 1e3:.4f} -> "
-            f"{s.t2 * 1e3:.4f} ms, CUDA events){alive}; on a chain of {T1} "
+            f"{s.t2 * 1e3:.4f} ms, CUDA events{cycles.get(s, '')}){alive}; "
+            f"on a chain of {T1} "
             f"levels "
             f"kernel {times[0]} ms, plain {times[1]} ms{library}, bound "
             f"{nbound[0]:.6g} ms ({nbound[1]}); per level bound "
@@ -1908,13 +1922,17 @@ class Smoke:
             f"0xFFFFFFFF, and with none emitted (hits in that order, each "
             f"max_dup): {', '.join(done)}")
 
-    def sm_cycles(self, ms, n):
-        """SM-cycles an item of a kernel taking ``ms`` for ``n`` items, on
-        every SM of the card at its maximum SM clock (nvidia-smi)."""
-        mhz = float(subprocess.run(
+    def clock_mhz(self):
+        """The card's maximum SM clock (nvidia-smi)."""
+        return float(subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.max.sm",
              "--format=csv,noheader,nounits"], capture_output=True,
             text=True, check=True).stdout.split()[0])
+
+    def sm_cycles(self, ms, n):
+        """SM-cycles an item of a kernel taking ``ms`` for ``n`` items, on
+        every SM of the card at its maximum SM clock (nvidia-smi)."""
+        mhz = self.clock_mhz()
         sms = self.torch.cuda.get_device_properties(0).multi_processor_count
         return (f"{ms * 1e-3 * sms * mhz * 1e6 / n:.4g} SM-cycles ({sms} "
                 f"SMs at {mhz:.0f} MHz)")

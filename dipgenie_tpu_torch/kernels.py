@@ -63,6 +63,9 @@ _SIGNATURES = {
     "dg_chain_floor": (_P, _I, _P, _P, _P),
     # pit, pwt [T, 8, 128], C [T, 64, 64], T, bp, v, stream
     "dg_chain_step16": (_P, _P, _P, _I, _P, _P, _P),
+    # int out[4]: K5b's clusters on the current device, blocks, threads,
+    # shared bytes
+    "dg_chain_step16_fit": (_P,),
     # tbl [T, 8, 256], T, bp, v, stream
     "dg_chain_pair": (_P, _I, _P, _P, _P),
     # tblc [T, 16, 8], tbl2c [T, 16, 4], S [T, 16, 16], T, bp, v, stream
@@ -195,3 +198,11 @@ def check_tensor(t, name, dtype, shape=None, device=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary (the bulk copies'
+    alignment)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies it in 16-byte units "
+                         "and wants a 16-byte aligned tensor")

@@ -116,7 +116,8 @@ def chain_edge_ref(tblc, tblr, tbl2c, tbl2r, S):
 
 def chain_edge(tblc, tblr, tbl2c, tbl2r, S, twins_checked=False):
     """K7. CUDA tensors launch ``csrc/chain_edge.cu`` (one launch per
-    chain); CPU tensors take ``chain_edge_ref``. ``twins_checked`` says
+    chain; the tables it reads 16-byte aligned); CPU tensors take
+    ``chain_edge_ref``. ``twins_checked`` says
     that the caller has held these tables to ``check_twins``."""
     if tblc.device.type == "cpu":
         return chain_edge_ref(tblc, tblr, tbl2c, tbl2r, S)
@@ -124,6 +125,8 @@ def chain_edge(tblc, tblr, tbl2c, tbl2r, S, twins_checked=False):
                     ("tbl2r", tbl2r), ("S", S)):
         kernels.check_tensor(t, name, torch.int32, None, tblc.device)
     _check(tblc, tblr, tbl2c, tbl2r, S)
+    for name, t in (("tblc", tblc), ("tbl2c", tbl2c), ("S", S)):
+        kernels.check_aligned(t, name)
     if not twins_checked:
         check_twins(tblc, tblr, tbl2c, tbl2r)
     T = tblc.shape[0]

@@ -19,12 +19,16 @@ carried from level to level and a backpointer block written per level:
   (``Ash[r] = A[r - 1]``, ``NEG`` at ``r = 0``; the weight is looked up at
   the source index, and there is no validity mask). ``best`` is the max of
   the 16 keys and of ``-2^31 + 1``; ``V' = best >> 4`` where that is above
-  ``-2^18``, else ``NEG``; ``bp = best & 15``. ``pi`` must lie in
-  ``[0, 16)``. It is a floor probe with a DP-shaped body, not a checked
-  DP; the port computes what the probe computes.
+  ``-2^18``, else ``NEG``; ``bp = best & 15``. A source ``pi`` outside
+  ``[0, 16)`` gathers ``NEG`` (the TPU kernel's selects match none). It is
+  a floor probe with a DP-shaped body, not a checked DP; the port computes
+  what the probe computes.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -102,6 +106,10 @@ def chain_step16_ref(pit, pwt, C):
     bp = torch.empty((T, R1 * B, B), dtype=torch.int16, device=dev)
     for t in range(T):
         pi = pit[t, :P, :B].to(torch.int64)
+        # a source outside [0, 16) matches none of the TPU kernel's selects
+        # and gathers NEG
+        ok = (pi >= 0) & (pi < B)
+        pi = pi.clamp(0, B - 1)
         pw = pwt[t, :P, :B]
         Ct = C[t].reshape(P, B, P, B)
         Vsh = _shift_rows(V)
@@ -110,11 +118,13 @@ def chain_step16_ref(pit, pwt, C):
             u = pi[p]
             wu = (pw[p][u] > 0)[None, :, None]
             A = torch.where(wu, Vsh[:, u, :], V[:, u, :])
+            A = torch.where(ok[p][None, :, None], A, NEG)
             Ash = _shift_rows(A)
             for q in range(P):
                 v = pi[q]
                 wv = (pw[q][v] > 0)[None, None, :]
                 G = torch.where(wv, Ash[:, :, v], A[:, :, v])
+                G = torch.where(ok[q][None, None, :], G, NEG)
                 best = torch.maximum(best, G * 16 + Ct[p, :, q, :][None])
         Vn = best >> 4
         V = torch.where(Vn > -(2**18), Vn, NEG)
@@ -122,9 +132,28 @@ def chain_step16_ref(pit, pwt, C):
     return bp, V.reshape(R1 * B, B)
 
 
+@functools.cache
+def step16_fit(device_index: int) -> tuple[int, int, int, int]:
+    """``(clusters, blocks, threads, shared bytes)``: how many of K5b's
+    clusters the card holds at once, and the cluster's shape. Raises when
+    it holds none."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        rc = kernels.lib().dg_chain_step16_fit(out)
+    kernels.raise_on_error(rc, "chain_step16 (cluster fit)")
+    fit = tuple(out)
+    if fit[0] < 1:
+        raise RuntimeError(
+            f"chain_step16: a cluster of {fit[1]} blocks of {fit[2]} threads "
+            f"and {fit[3]} bytes of shared memory does not fit on "
+            f"{torch.cuda.get_device_name(device_index)} "
+            f"(cudaOccupancyMaxActiveClusters: {fit[0]})")
+    return fit
+
+
 def chain_step16(pit, pwt, C):
-    """K5b. CUDA tensors launch ``csrc/chain_step16.cu`` (one launch per
-    chain); CPU tensors take ``chain_step16_ref``. Besides the
+    """K5b. CUDA tensors launch ``csrc/chain_step16.cu`` (one cluster
+    launch per chain); CPU tensors take ``chain_step16_ref``. Besides the
     backpointers it returns the final state, which the TPU kernel kept in
     scratch."""
     if pit.device.type == "cpu":
@@ -132,9 +161,8 @@ def chain_step16(pit, pwt, C):
     _check_step16(pit, pwt, C)
     for name, t in (("pit", pit), ("pwt", pwt), ("C", C)):
         kernels.check_tensor(t, name, torch.int32, None, pit.device)
-    if C.data_ptr() % 16:
-        raise ValueError("C: the kernel loads 16 bytes at a time and wants "
-                         "a 16-byte aligned tensor")
+        kernels.check_aligned(t, name)
+    step16_fit(pit.device.index)
     T = pit.shape[0]
     bp = torch.empty((T, R1 * B, B), dtype=torch.int16, device=pit.device)
     v = torch.empty((R1 * B, B), dtype=torch.int32, device=pit.device)

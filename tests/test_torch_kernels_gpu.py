@@ -17,8 +17,8 @@ import torch
 from dipgenie_tpu_torch import kernels
 from dipgenie_tpu_torch.models import fitter
 from dipgenie_tpu_torch.ops import (
-    caps, chain_edge, chain_floor, chain_pair, narrow, sketch, trace, wide,
-    wide_split, wide_step,
+    caps, chain_edge, chain_floor, chain_pair, chain_ring, narrow, sketch,
+    trace, wide, wide_split, wide_step,
 )
 from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
 from dipgenie_tpu_torch.ops.plan import (
@@ -591,14 +591,23 @@ CHAIN_KERNELS = {
 }
 
 
-@pytest.mark.parametrize("T,seed,cover", [(200, 0, 16), (40, 29, 9),
-                                          (6, 35, 16), (0, 0, 16)])
+# chain lengths around the ring of K5b's and K7's tables: one level, a
+# ring less one, a ring, a ring and one, two rings and three
+D = chain_ring.RING_DEPTH
+RING_LENGTHS = (1, D - 1, D, D + 1, 2 * D + 3)
+
+
+@pytest.mark.parametrize("T,seed,cover", [
+    (200, 0, 16), (40, 29, 9), (6, 35, 16), (0, 0, 16),
+    *[(T, 29, 9) for T in RING_LENGTHS], *[(T, 35, 16) for T in RING_LENGTHS],
+])
 @pytest.mark.parametrize("name", list(CHAIN_KERNELS))
 def test_chain_kernel_matches_plain_version(name, T, seed, cover, cuda):
     """K5a, K5b, K6 and K7 against their plain versions: every element of
     the backpointers and of the final state, on the probes' own chain, on
     chains whose states are alive at the end (several edges into one
-    destination, destinations with none), and on an empty chain."""
+    destination, destinations with none), on an empty chain, and at the
+    lengths around the table ring's wrap."""
     kern, plain, make = CHAIN_KERNELS[name]
     args = [torch.from_numpy(a).to(cuda) for a in make(T, seed, cover)]
     before = kern.launches
@@ -620,13 +629,13 @@ def test_chain_pair_and_edge_match_the_oracle(cuda):
     assert np.array_equal(v7.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("T", [120, 4 * D - 1, 4 * D, 4 * D + 1, 4 * D + 3])
 @pytest.mark.parametrize("which", ["pair", "edge"])
-def test_chain_kernels_on_the_chain_that_stays_alive(which, cuda):
-    """K6 and K7 on ``tables.LIVE`` (every state reachable at the end),
-    every element against the plain version; K6's padding rows come back
-    zero from the kernel, and K7 with its twins checked beforehand gives
-    the same."""
-    T = 120
+def test_chain_kernels_on_the_chain_that_stays_alive(which, T, cuda):
+    """K6 and K7 on ``tables.LIVE`` (every state reachable from level 24
+    on), every element against the plain version, also at lengths around
+    the wrap of K7's table ring; K6's padding rows come back zero from the
+    kernel, and K7 with its twins checked beforehand gives the same."""
     if which == "pair":
         args = [torch.from_numpy(tables.pair_tables(T, **tables.LIVE)[0])
                 .to(cuda)]
@@ -657,6 +666,50 @@ def test_chain_wrappers_reject_bad_inputs(cuda):
     tabs[1][0, 0, 0] += 1
     with pytest.raises(ValueError, match="transposes"):
         chain_edge.chain_edge(*tabs)
+    # a table 4 bytes past a 16-byte boundary: the bulk copies refuse it
+    tabs = [torch.from_numpy(a).to(cuda) for a in tables.edge_tables(4)[:5]]
+    for i, name in ((0, "tblc"), (2, "tbl2c"), (4, "S")):
+        bad = list(tabs)
+        bad[i] = _misaligned(tabs[i])
+        with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+            chain_edge.chain_edge(*bad)
+    step = [torch.from_numpy(a).to(cuda) for a in tables.step16_tables(4)]
+    for i, name in enumerate(("pit", "pwt", "C")):
+        bad = list(step)
+        bad[i] = _misaligned(step[i])
+        with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+            chain_floor.chain_step16(*bad)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    k = next(k for k in range(4) if (flat[k:].data_ptr() % 16) == 4)
+    out = flat[k:k + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("T", [1, D - 1, D, D + 1, 2 * D + 3, 60])
+def test_chain_step16_guards_sources_outside_the_block(T, cuda):
+    """K5b with corner entries of ``pit`` outside ``[0, 16)`` (negative and
+    past the block; weights on them too): the kernel guards them and
+    equals its plain version on every element."""
+    pit, pwt, C = tables.step16_tables(T, seed=5, tie_bits=True)
+    rng = np.random.default_rng(T)
+    bad = rng.random(pit[:, :4, :16].shape) < 0.2
+    pit[:, :4, :16] = np.where(
+        bad, rng.choice([-1, 16, 17, -(2**31), 2**31 - 1], bad.shape),
+        pit[:, :4, :16])
+    pwt[:, :4, :16] = (rng.random(bad.shape) < 0.3).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (pit, pwt, C)]
+    got, want = chain_floor.chain_step16(*args), \
+        chain_floor.chain_step16_ref(*args)
+    assert bad.any() and bool((want[1] > tables.NEG).any())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _caps_inputs(name, seed, device):

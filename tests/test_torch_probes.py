@@ -22,7 +22,9 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from dipgenie_tpu_torch.ops import chain_edge, chain_floor, chain_pair
+from dipgenie_tpu_torch.ops import (
+    chain_edge, chain_floor, chain_pair, chain_ring,
+)
 from dipgenie_tpu_torch.probes import __main__ as probes_main
 from dipgenie_tpu_torch.probes import floor, tables
 
@@ -88,8 +90,9 @@ def case_floor0(kept, chain):
 def case_step16(kept, chain):
     """C with random low 4 bits, so that the backpointers say which (p, q)
     won; the TPU kernel's state stays in scratch, so the state is held
-    through the backpointers of the levels after it."""
-    T = 5
+    through the backpointers of the levels after it. ``chain`` is the
+    length (5, or one past the CUDA kernel's table ring)."""
+    T = chain or 5
     pit, pwt, C = tables.step16_tables(T, seed=0, tie_bits=True)
     fn, _ = load_script("tpu_floor_probe").build_pallas16(T)
     fn(pit, pwt, C)
@@ -97,6 +100,25 @@ def case_step16(kept, chain):
     same(bp, kept["out"], "bp")
     assert len(np.unique(bp.numpy())) == 16
     assert v.shape == (304, 16) and (v > tables.NEG).any()
+
+
+def case_step16_outside(kept, chain):
+    """Corner entries of ``pit`` outside ``[0, 16)`` (negative, past the
+    block, the int32 ends), which the TPU kernel's select-form gathers
+    match to nothing: the plain version gathers NEG there too."""
+    T = 5
+    pit, pwt, C = tables.step16_tables(T, seed=3, tie_bits=True)
+    rng = np.random.default_rng(4)
+    bad = rng.random((T, 4, 16)) < 0.2
+    pit[:, :4, :16] = np.where(
+        bad, rng.choice([-1, 16, 17, -(2**31), 2**31 - 1], bad.shape),
+        pit[:, :4, :16])
+    pwt[:, :4, :16] = (rng.random(bad.shape) < 0.3).astype(np.int32)
+    fn, _ = load_script("tpu_floor_probe").build_pallas16(T)
+    fn(pit, pwt, C)
+    bp, v = chain_floor.chain_step16(*_t([pit, pwt, C]))
+    same(bp, kept["out"], "bp")
+    assert bad.any() and (v > tables.NEG).any()
 
 
 def case_pair(kept, chain):
@@ -123,9 +145,15 @@ def case_edge(kept, chain):
     assert (v > tables.NEG).sum() > 500 and np.count_nonzero(bp) > 1000
 
 
+# one past the CUDA kernels' table ring (ops/chain_ring.py RING_DEPTH)
+PAST_RING = chain_ring.RING_DEPTH + 1
+
+
 @pytest.mark.parametrize("case,chain", [
-    (case_floor0, None), (case_step16, None),
+    (case_floor0, None), (case_step16, None), (case_step16, PAST_RING),
+    (case_step16_outside, None),
     *[(case_pair, c) for c in LIVE6], *[(case_edge, c) for c in LIVE6],
+    (case_edge, (PAST_RING, 35, 16)),
 ], ids=lambda x: x.__name__[5:] if callable(x) else str(x))
 def test_plain_version_matches_script_kernel(case, chain, interpreted):
     case(interpreted, chain)
