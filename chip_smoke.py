@@ -23,15 +23,18 @@ result line):
      counted, and beside its plain version;
   G. the level-chain probes (K5a chain_floor, K5b chain_step16, K6
      chain_pair, K7 chain_edge; each walks a chain of DP levels in one
-     launch: K5a and K6 one block, K7 one block whose producer warp stages
-     the tables in a ring, K5b a cluster of blocks on as many SMs, one per
-     share of the rows, with the same ring): G1 each kernel against its plain version on short chains
-     (every output element, exact), K6 and K7 against the numpy oracle and
-     against each other; G2 the floor, pair and edge probes at their full
-     chain lengths through their entry functions (launch counts, per-level
-     slopes; K6 and K7 on the scripts' chain, whose states die out, and on
-     one that stays alive), each kernel beside its plain version and its
-     bound at the shorter length, and the plain versions' slopes on short chains; G3
+     launch: K6 and K7 one block whose producer warp stages the tables in
+     a ring, K5b a cluster of blocks on as many SMs, one per share of the
+     rows, with the same ring; K5a a scan of the chain's prefix sums over
+     the card's blocks): G1 each kernel against its plain version on short
+     chains (every output element, exact), K6 and K7 against the numpy
+     oracle and against each other; G2 the floor, pair and edge probes at
+     their full chain lengths through their entry functions (launch
+     counts, per-level slopes; K6 and K7 on the scripts' chain, whose
+     states die out, and on one that stays alive), each kernel beside its
+     plain version and its bound at the shorter length (K5a beside
+     torch.cumsum at both lengths), and the plain versions' slopes on
+     short chains; G3
      the compiled parity gate (build/GPU_PARITY.json);
   C. the DP at MHC scale (R = 18, ~4.7e8 states, synthetic MHC-shaped
      graph, wide levels 33-96): launch counts of the main path, forward
@@ -240,8 +243,10 @@ CHAIN_WORK = {
     "chain_edge": ((16 * 8 + 16 * 4 + 16 * 16) * 4 + 19 * 256 * 2,
                    2 * 19 * 256),
 }
+# cycles the card spins before a call timed behind a spin (~0.2 ms)
+SPIN_CYCLES = 400_000
 # the chain kernels whose G2 line gives clock cycles a level
-CYCLES_A_LEVEL = ("chain_step16", "chain_edge")
+CYCLES_A_LEVEL = ("chain_step16", "chain_pair", "chain_edge")
 # the probe variant that drives each chain kernel
 CHAIN_VARIANT = {"chain_floor": "floor0", "chain_step16": "step16",
                  "chain_pair": "pair16", "chain_edge": "edge16"}
@@ -717,7 +722,9 @@ class Smoke:
             run[2] = lambda: torch.cumsum(args[0], 0, dtype=torch.int32)
         times, outs = {w: [] for w in run}, {}
         for which in (1, 0, 2, 2, 0, 1) if 2 in run else (1, 0, 0, 1):
-            ms, outs[which] = self.timed(run[which])
+            # K5a's chains take tens of us: its calls are timed behind a
+            # spin
+            ms, outs[which] = self.timed(run[which], spin=2 in run)
             times[which].append(ms)
         self.compare(name, outs[0], outs[1])
         if 2 in run:
@@ -727,12 +734,15 @@ class Smoke:
                 "G2 chain_floor: torch.cumsum differs from K5a")
             self.library_ms[name] = min(times[2])
             library = (f", torch.cumsum {times[2]} ms (the same acc chain, "
-                       "no mask)")
+                       "no mask; each call behind a spin of the card)")
         state = outs[0][1].numel() * outs[0][1].element_size()
         del outs
         nbytes, ops = CHAIN_WORK[name]
         nbound = bound(T1 * nbytes + state, T1 * ops)
         level = bound(nbytes, ops)
+        longer = ""
+        if 2 in run:  # K5a and torch.cumsum on the longer chain too
+            longer = self.time_floor_longer(kern, T2, nbytes, ops, state)
         short = []
         for T in PLAIN_SLOPE:
             a, _ = self.chain_inputs(name, T, **chain)
@@ -764,10 +774,32 @@ class Smoke:
             f"on a chain of {T1} "
             f"levels "
             f"kernel {times[0]} ms, plain {times[1]} ms{library}, bound "
-            f"{nbound[0]:.6g} ms ({nbound[1]}); per level bound "
+            f"{nbound[0]:.6g} ms ({nbound[1]}){longer}; per level bound "
             f"{level[0] * 1e6:.4f} ns ({level[1]}: {nbytes} B, {ops} ops), "
             f"plain version {plain_us:.3f} us/level (slope "
             f"{PLAIN_SLOPE[0]}->{PLAIN_SLOPE[1]})")
+
+    def time_floor_longer(self, kern, T, nbytes, ops, state):
+        """K5a beside torch.cumsum on a chain of T levels (in turns
+        cumsum, kernel, kernel, cumsum; CUDA events, min of 2), the two
+        held equal, and the bound there: the text for K5a's G2 line."""
+        torch = self.torch
+        args, _ = self.chain_inputs("chain_floor", T)
+        run = {0: lambda: kern(*args),
+               2: lambda: torch.cumsum(args[0], 0, dtype=torch.int32)}
+        times, outs = {0: [], 2: []}, {}
+        for which in (2, 0, 0, 2):
+            ms, outs[which] = self.timed(run[which], spin=True)
+            times[which].append(ms)
+        acc = outs[2]
+        check(bool(torch.equal(acc[-1], outs[0][1]) and torch.equal(
+            (acc & 0x7FFF).to(torch.int16), outs[0][0])),
+            f"G2 chain_floor: torch.cumsum differs from K5a at {T} levels")
+        del outs, acc
+        nbound = bound(T * nbytes + state, T * ops)
+        return (f"; on a chain of {T} levels kernel {times[0]} ms, "
+                f"torch.cumsum {times[2]} ms, bound {nbound[0]:.6g} ms "
+                f"({nbound[1]})")
 
     def phase_g3(self):
         """The compiled parity gate on the card."""
@@ -1142,10 +1174,14 @@ class Smoke:
         finally:
             setattr(lib, entry, launch)
 
-    def timed(self, fn):
-        """(CUDA-event ms, output) of one call."""
+    def timed(self, fn, spin=False):
+        """(CUDA-event ms, output) of one call; with ``spin`` queued behind
+        a spin of the card, so that the host's launches and allocations
+        stay out of the events and they time the device's work."""
         a, b = self.events(2)
         self.sync()
+        if spin and DEVICE == "cuda":
+            self.torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         out = fn()
         b.record()

@@ -59,8 +59,8 @@ _SIGNATURES = {
     # desc [T, 8], bases [segments, 6], T, R, recs [ceil(T / 64) * 64, 7],
     # stream
     "dg_trace": (_P, _P, _I, _I, _P, _P),
-    # tbl [T, 8, 128], T, bp, acc, stream
-    "dg_chain_floor": (_P, _I, _P, _P, _P),
+    # tbl [T, 8, 128], T, bp, acc, status (zeroed), sums, stream
+    "dg_chain_floor": (_P, _I, _P, _P, _P, _P, _P),
     # pit, pwt [T, 8, 128], C [T, 64, 64], T, bp, v, stream
     "dg_chain_step16": (_P, _P, _P, _I, _P, _P, _P),
     # int out[4]: K5b's clusters on the current device, blocks, threads,

@@ -6,7 +6,11 @@ Replace ``build_pallas0`` and ``build_pallas16`` of
 carried from level to level and a backpointer block written per level:
 
 * ``chain_floor`` is the empty body: ``acc += tbl[t]`` (int32, wrapping),
-  ``bp[t] = acc & 0x7FFF`` as int16.
+  ``bp[t] = acc & 0x7FFF`` as int16: 1,024 independent prefix sums along
+  ``T``, which the kernel takes as one scan over the card, in chunks of
+  ``FLOOR_CHUNK`` levels, a block of ``FLOOR_THREADS`` threads a chunk,
+  each chunk's carry from a look-back over ``FLOOR_LOOK`` chunks at a time
+  (``csrc/chain_floor.cu``).
 * ``chain_step16`` is a DP-shaped body at ``B = 16``, ``P = 4``: the state
   ``V [19 * 16, 16]`` int32 (row ``r * 16 + i``, column ``j``) starts at 0
   on ``(r, 0, 0)`` and ``NEG`` elsewhere. With ``Vsh[r] = V[r - 1]``
@@ -35,6 +39,10 @@ import torch
 from .. import kernels
 
 R1, B, P = 19, 16, 4
+FLOOR_LANES = 8 * 128  # K5a's prefix sums
+FLOOR_CHUNK = 48  # K5a's levels a block (csrc/chain_floor.cu CHUNK)
+FLOOR_THREADS = 256  # K5a's threads a block, 4 lanes each (THREADS)
+FLOOR_LOOK = 8  # chunks a look-back step of K5a reads (LOOK)
 NEG = -(2**19)
 _BEST0 = -(2**31) + 1
 
@@ -61,19 +69,33 @@ def chain_floor_ref(tbl: torch.Tensor):
     return bp, acc
 
 
+def floor_chunks(T: int) -> int:
+    """K5a's chunks (blocks) for a chain of ``T`` levels: one chunk of no
+    level where ``T = 0``, which writes ``acc = 0``."""
+    return max(-(-T // FLOOR_CHUNK), 1)
+
+
 def chain_floor(tbl: torch.Tensor):
-    """K5a. A CUDA ``tbl`` launches ``csrc/chain_floor.cu`` (one launch
-    per chain); a CPU ``tbl`` takes ``chain_floor_ref``."""
+    """K5a. A CUDA ``tbl`` (16-byte aligned: the kernel loads 16 bytes a
+    thread) launches ``csrc/chain_floor.cu``, one launch per chain after
+    the zeroing of its status words and ticket; a CPU ``tbl`` takes
+    ``chain_floor_ref``."""
     if tbl.device.type == "cpu":
         return chain_floor_ref(tbl)
     _check(tbl, "tbl", (8, 128))
     kernels.check_tensor(tbl, "tbl", torch.int32)
-    T = tbl.shape[0]
-    bp = torch.empty(tbl.shape, dtype=torch.int16, device=tbl.device)
-    acc = torch.empty((8, 128), dtype=torch.int32, device=tbl.device)
+    kernels.check_aligned(tbl, "tbl")
+    T, dev = tbl.shape[0], tbl.device
+    chunks = floor_chunks(T)
+    bp = torch.empty(tbl.shape, dtype=torch.int16, device=dev)
+    acc = torch.empty((8, 128), dtype=torch.int32, device=dev)
+    status = torch.zeros(1 + chunks * FLOOR_THREADS, dtype=torch.int32,
+                         device=dev)
+    sums = torch.empty(2 * chunks * FLOOR_LANES, dtype=torch.int32,
+                       device=dev)
     rc = kernels.lib().dg_chain_floor(
-        tbl.data_ptr(), T, bp.data_ptr(), acc.data_ptr(),
-        kernels.stream_of(tbl))
+        tbl.data_ptr(), T, bp.data_ptr(), acc.data_ptr(), status.data_ptr(),
+        sums.data_ptr(), kernels.stream_of(tbl))
     kernels.raise_on_error(rc, "chain_floor")
     chain_floor.launches += 1
     return bp, acc

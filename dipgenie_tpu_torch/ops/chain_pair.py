@@ -17,7 +17,8 @@ largest key of the run of lanes that ends at ``lastE[d]`` (none if
 ``REACH_T``, else ``NEG``, and the backpointer is the winner's tie code
 ``key & 255`` where the state was reached, else 0. With ``tie = 255 -
 lane`` the earliest lane wins among equal values. ``lastE[d]`` must be
-the last lane of its run and ``tie`` must lie in ``[0, 256)``.
+the last lane of its run or -1, ``tie`` must lie in ``[0, 256)`` and
+``wsum`` in ``{0, 1, 2}`` (two edges' weights).
 
 The TPU kernel packs the key into int32, exact for ``|cand + sc| <
 2^22``; here the key is 64 bits wide, which gives the same result below
@@ -79,12 +80,13 @@ def chain_pair_ref(tbl: torch.Tensor):
 
 def chain_pair(tbl: torch.Tensor):
     """K6. A CUDA ``tbl`` launches ``csrc/chain_pair.cu`` (one launch per
-    chain, which also zeroes the padding rows of ``bp``); a CPU ``tbl``
-    takes ``chain_pair_ref``."""
+    chain, which also zeroes the padding rows of ``bp``; ``tbl`` 16-byte
+    aligned for its bulk copies); a CPU ``tbl`` takes ``chain_pair_ref``."""
     if tbl.device.type == "cpu":
         return chain_pair_ref(tbl)
     _check(tbl)
     kernels.check_tensor(tbl, "tbl", torch.int32)
+    kernels.check_aligned(tbl, "tbl")
     T = tbl.shape[0]
     bp = torch.empty((T, BP_ROWS, NP2), dtype=torch.int16, device=tbl.device)
     v = torch.empty((R1, NP2), dtype=torch.int32, device=tbl.device)

@@ -5,8 +5,10 @@ lengths):
 
   scan1    a loop on the host, one trivial tensor op per level (``c + 1 +
            x[0, 0]``): what a level costs when the host dispatches it
-  floor0   K5a ``chain_floor``: one launch, the level loop inside the
-           kernel, an empty body (the script's ``pallas0``)
+  floor0   K5a ``chain_floor``: one launch, an empty body (the script's
+           ``pallas0``); its 1,024 prefix sums are one scan over the
+           card's blocks, so it no longer measures one block's floor of
+           an empty-body chain
   step16   K5b ``chain_step16``: the same with a (B = 16, P = 4) DP-shaped
            body (the script's ``pallas16``)
   scandus  a loop on the host with a DP-step-sized body per level: table

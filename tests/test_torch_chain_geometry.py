@@ -1,10 +1,12 @@
-"""The geometry of the level-chain kernels K5b ``chain_step16`` and K7
-``chain_edge`` on the CPU: the table ring's stages and parities
-(``ops/chain_ring.py`` mirrors ``csrc/chain_ring.cuh``), K5b's split of the
-rows over a cluster and the halo each block pushes, and numpy walks of
-both kernels' index arithmetic (guard rows, the extra column, the order of
-K7's edge pairs) against the plain PyTorch versions. Integer results are
-compared exactly, element by element.
+"""The geometry of the level-chain kernels K5a ``chain_floor``, K5b
+``chain_step16``, K6 ``chain_pair`` and K7 ``chain_edge`` on the CPU: the
+table ring's stages and parities (``ops/chain_ring.py`` mirrors
+``csrc/chain_ring.cuh``), K5b's split of the rows over a cluster and the
+halo each block pushes, K6's decode and backpointer stages, numpy walks of
+K5b's, K6's and K7's index arithmetic (guard rows, the extra column, the
+order of K7's edge pairs, K6's (value, tie) compares) and of K5a's chunked
+scan with its look-back, against the plain PyTorch versions. Integer
+results are compared exactly, element by element.
 """
 
 import os
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from dipgenie_tpu_torch.ops import chain_edge, chain_floor, chain_ring
+from dipgenie_tpu_torch.ops import (
+    chain_edge, chain_floor, chain_pair, chain_ring,
+)
 from dipgenie_tpu_torch.probes import tables
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -31,7 +35,8 @@ def _source(name):
         return fh.read()
 
 
-@pytest.mark.parametrize("name", ["chain_step16.cu", "chain_edge.cu"])
+@pytest.mark.parametrize("name", ["chain_step16.cu", "chain_edge.cu",
+                                  "chain_pair.cu"])
 def test_ring_depth_matches_the_source(name):
     assert re.search(r"constexpr int D = (\d+);", _source(name)).group(1) \
         == str(chain_ring.RING_DEPTH)
@@ -331,3 +336,302 @@ def test_edge_decode_keeps_the_fields_the_kernel_reads(kind):
             run = [e for e in range(EB) if c[e, 1] == c[l, 1]]
             assert (d >> 5) & 15 == l == max(run)
             assert d & 31 == len(run) and d >> 9 == _edge_word(c, l)
+
+
+NP2 = chain_ring.NP2
+S_BP = chain_ring.PAIR_BP_STAGES
+# chain lengths around the wrap of K6's backpointer stages
+BP_LENGTHS = (S_BP - 1, S_BP, S_BP + 1, 2 * S_BP + 1)
+
+
+def test_pair_bp_stages_match_the_source():
+    got = re.search(r"constexpr int BP_STAGES = (\d+);",
+                    _source("chain_pair.cu")).group(1)
+    assert int(got) == chain_ring.PAIR_BP_STAGES >= 2
+
+
+def test_pair_producers_match_the_source():
+    got = re.search(r"constexpr int PRODUCERS = (\d+);",
+                    _source("chain_pair.cu")).group(1)
+    assert int(got) == chain_ring.PAIR_PRODUCERS
+    assert 8 % chain_ring.PAIR_PRODUCERS == 0
+
+
+@pytest.mark.parametrize("kind", ["cover9", "ties", "one_run", "no_lane",
+                                  "long_runs"])
+def test_pair_decode_is_the_same_for_any_producer_split(kind):
+    """The run starts carried across the producer warps (a warp with no
+    start at or below a lane takes the last start of the warps before)
+    equal those of one warp walking all eight rounds, also where runs
+    cross the warps' quarters."""
+    tbl = _pair_case(kind, 4)
+    for t in range(tbl.shape[0]):
+        one = chain_ring.pair_decode(tbl[t], 1)
+        for n in (2, 4, 8):
+            assert chain_ring.pair_decode(tbl[t], n) == one
+
+
+@pytest.mark.parametrize("name,value", [
+    ("CHUNK", chain_floor.FLOOR_CHUNK), ("THREADS", chain_floor.FLOOR_THREADS),
+    ("LOOK", chain_floor.FLOOR_LOOK)])
+def test_floor_constants_match_the_source(name, value):
+    got = re.search(rf"constexpr int {name} = (\d+);",
+                    _source("chain_floor.cu")).group(1)
+    assert int(got) == value
+    assert chain_floor.FLOOR_THREADS * 4 == chain_floor.FLOOR_LANES
+
+
+@pytest.mark.parametrize("stages", [2, S_BP, 4])
+@pytest.mark.parametrize("T", [0, 1, *BP_LENGTHS, *RING_LENGTHS])
+def test_bp_schedule_stages_are_read_before_written(T, stages):
+    """An emulation of K6's bulk stores: ``wait_group.read n`` leaves only
+    the last ``n`` stores unread; the consumers write a stage only once
+    the store of the level it held last has read it (counting the
+    producer's waits before the barrier that lets them write), every store
+    reads the level it stores, once, after that level's barrier, and every
+    store has read its stage before the kernel exits."""
+    holds = [None] * stages  # the level each stage holds
+    issued, read, done = [], set(), set()
+    last_wait = {}  # the stores read at the producer's wait before level t
+    for ev in chain_ring.bp_schedule(T, stages):
+        if ev[0] == "write":
+            _, t, s = ev
+            assert s == t % stages
+            prev = holds[s]
+            if prev is not None:  # the consumers write after barrier t - 1
+                assert prev in last_wait.get(t - 1, set()), (t, prev)
+            holds[s] = t
+        elif ev[0] == "wait":
+            _, t, n = ev
+            read |= set(issued[:max(len(issued) - n, 0)])
+            last_wait[t] = set(read)
+        elif ev[0] == "barrier":
+            done.add(ev[1])
+        else:
+            _, t, s = ev
+            assert t in done and holds[s] == t and t not in issued
+            issued.append(t)
+    assert issued == list(range(T)) and read == set(issued)
+
+
+def _pair_walk(tbl):
+    """A numpy walk of K6 on the producer's decode (``pair_decode``): a
+    consumer a destination pair over all 19 rows, the run's last lane from
+    the second pass and the others from the first, gathers at offsets into V's
+    rows r + 2 (two NEG guard rows), the candidate that is larger in value,
+    then in tie, winning in 32-bit compares, the sum wrapping as int32."""
+    T = tbl.shape[0]
+    V = np.full((R1 + 2) * NP2, NEG, np.int64)
+    V[2 * NP2::NP2] = 0  # lane 0 of every row r >= 0
+    bp = np.zeros((T, chain_pair.BP_ROWS, NP2), np.int16)
+    rows = np.arange(R1) * NP2
+    for t in range(T):
+        lane, pre = chain_ring.pair_decode(tbl[t])
+        Vn = V.copy()
+        for d in range(NP2):
+            head, off0, tie0, add0 = pre[d]
+            n, last = head & 511, head >> 9
+            best = np.full(R1, -(2**31), np.int64)
+            code = np.full(R1, -1, np.int64)
+            for k in range(n):
+                e = last - k
+                off, tk, add = (off0, tie0, add0) if k == 0 else lane[e][1:]
+                g = V[off + rows]
+                cand = _wrap32(g + add)
+                up = (g >= REACH_T) & ((cand > best)
+                                       | ((cand == best) & (tk > code)))
+                best = np.where(up, cand, best)
+                code = np.where(up, tk, code)
+            reach = best > REACH_T
+            Vn[2 * NP2 + rows + d] = np.where(reach, best, NEG)
+            bp[t, :R1, d] = np.where(reach, code, 0)
+        V = Vn
+    return bp, V[2 * NP2:].reshape(R1, NP2).astype(np.int32)
+
+
+def _pair_case(kind, T):
+    """K6's tables: the probes' chains, ties permuted at random, one run of
+    all 256 lanes, and destinations without a lane."""
+    if kind == "cover9":
+        return tables.pair_tables(T, 29, 9)[0]
+    if kind == "cover16":
+        return tables.pair_tables(T, 35, 16)[0]
+    if kind == "live":
+        return tables.pair_tables(T, **tables.LIVE)[0]
+    rng = np.random.default_rng(T)
+    if kind == "ties":  # visiting order cannot decide a winner
+        tbl = tables.pair_tables(T, 29, 9)[0]
+        for t in range(T):
+            tbl[t, 2] = rng.permutation(NP2)
+        return tbl
+    if kind == "one_run":  # every lane in one run; some pairs take none
+        tbl = tables.pair_tables(T, **tables.LIVE)[0]
+        tbl[:, 3] = 7
+        tbl[:, 4] = np.where(rng.random((T, NP2)) < 0.5, NP2 - 1, -1)
+        tbl[:, 2] = [rng.permutation(NP2) for _ in range(T)]
+        return tbl
+    if kind == "long_runs":  # runs of 1-150 lanes across the quarters
+        tbl = tables.pair_tables(T, **tables.LIVE)[0]
+        for t in range(T):
+            cuts = np.sort(rng.choice(np.arange(1, NP2), 5, replace=False))
+            seg = np.searchsorted(cuts, np.arange(NP2), side="right")
+            tbl[t, 3] = seg
+            tbl[t, 4] = -1
+            tbl[t, 4, :6] = [int(np.flatnonzero(seg == r)[-1])
+                             for r in range(6)]
+            tbl[t, 2] = rng.permutation(NP2)
+            tbl[t, 0] = rng.integers(0, 6, NP2)  # from the pairs reached
+        return tbl
+    # "no_lane": the chain that stays alive with a fifth of its
+    # destination pairs' lastE set to -1
+    tbl = tables.pair_tables(T, **tables.LIVE)[0]
+    tbl[:, 4] = np.where(rng.random((T, NP2)) < 0.2, -1, tbl[:, 4])
+    return tbl
+
+
+@pytest.mark.parametrize("T", [S_BP + 1, D + 1, 2 * D + 3, 30])
+@pytest.mark.parametrize("kind", ["cover9", "cover16", "live", "ties",
+                                  "no_lane"])
+def test_pair_walk_matches_plain_version(kind, T):
+    """K6's decode, guard-row offsets and (value, tie) compares equal
+    ``chain_pair_ref`` on every backpointer and state: runs of several
+    lanes and destinations with none (cover 9), one lane a destination
+    (cover 16), the chain that stays alive, ties permuted at random within
+    [0, 256), and lastE = -1 on the live chain."""
+    tbl = _pair_case(kind, T)
+    bp, v = _pair_walk(tbl)
+    want_bp, want_v = chain_pair.chain_pair_ref(torch.from_numpy(tbl))
+    assert np.array_equal(bp, want_bp.numpy())
+    assert np.array_equal(v, want_v.numpy())
+    assert np.count_nonzero(bp) > 100
+
+
+@pytest.mark.parametrize("kind", ["one_run", "long_runs"])
+@pytest.mark.parametrize("T", [1, 3])
+def test_pair_walk_on_one_run_of_all_lanes(T, kind):
+    """A level whose 256 lanes form one run, taken by half the destination
+    pairs (the others have none), and levels of six long runs that cross
+    the producer warps' quarters, ties permuted: the walk over the whole
+    runs equals ``chain_pair_ref``."""
+    tbl = _pair_case(kind, T)
+    bp, v = _pair_walk(tbl)
+    want_bp, want_v = chain_pair.chain_pair_ref(torch.from_numpy(tbl))
+    assert np.array_equal(bp, want_bp.numpy())
+    assert np.array_equal(v, want_v.numpy())
+    assert (v > NEG).any() and (v == NEG).any()
+
+
+@pytest.mark.parametrize("kind", ["cover9", "ties", "one_run", "no_lane"])
+def test_pair_decode_keeps_the_fields_the_kernel_reads(kind):
+    """The decode against the tables: every lane's word holds the first
+    lane of its run of equal seg, its gather offset, tie and score, and
+    each destination pair's word its run's length and last lane (length 0
+    where lastE is -1) and the last lane's gather offset, tie and score."""
+    tbl = _pair_case(kind, 5)
+    for t in range(tbl.shape[0]):
+        gidx, sc, tie, seg, laste, wsum = tbl[t, :6]
+        lane, pre = chain_ring.pair_decode(tbl[t])
+        for e in range(NP2):
+            f = e
+            while f > 0 and seg[f - 1] == seg[e]:
+                f -= 1
+            assert lane[e] == (f, (2 - wsum[e]) * NP2 + gidx[e], tie[e],
+                               sc[e])
+        for d in range(NP2):
+            head, off, tk, add = pre[d]
+            l = int(laste[d])
+            if l < 0:
+                assert head & 511 == 0
+                continue
+            run = [e for e in range(NP2) if seg[e] == seg[l]]
+            assert head >> 9 == l == max(run) and head & 511 == len(run)
+            assert off == (2 - wsum[l]) * NP2 + gidx[l]
+            assert (tk, add) == (tie[l], sc[l])
+
+
+def _floor_scan(tbl, seed):
+    """A numpy walk of K5a's chunked scan: chunks of ``FLOOR_CHUNK``
+    levels, each scanned in registers and its sum published (AGG), then a
+    look-back ``FLOOR_LOOK`` chunks at a time over the chunks before it,
+    adding AGG sums until an inclusive prefix (INC) is met, a window read
+    again until it is set down to its first INC; then its own INC, and the
+    carry added to its levels. The chunks' steps interleave in a random
+    order drawn from ``seed``; the sums wrap as uint32."""
+    C, L = chain_floor.FLOOR_CHUNK, chain_floor.FLOOR_LOOK
+    T = tbl.shape[0]
+    chunks = chain_floor.floor_chunks(T)
+    x = tbl.reshape(T, chain_floor.FLOOR_LANES).view(np.uint32)
+    status = [0] * chunks
+    agg, inc = {}, {}
+    bp = np.zeros(x.shape, np.uint32)
+    acc = None
+    rng = np.random.default_rng(seed)
+    # per chunk: its step (0 load and AGG, 1 look-back, 2 done), carry, j
+    state = {c: [0, np.zeros(x.shape[1], np.uint32), c - 1]
+             for c in range(chunks)}
+    while state:
+        c = int(rng.choice(list(state)))
+        st = state[c]
+        part = x[c * C:(c + 1) * C]
+        own = part.sum(0, dtype=np.uint32) if len(part) else \
+            np.zeros(x.shape[1], np.uint32)
+        if st[0] == 0:
+            if c == 0:
+                inc[0], status[0] = own, 2
+                st[0] = 2
+            else:
+                agg[c], status[c] = own, 1
+                st[0] = 1
+            if st[0] == 1:
+                continue
+        elif st[0] == 1:
+            j = st[2]
+            win = [status[j - q] if j - q >= 0 else 2 for q in range(L)]
+            upto = next((q + 1 for q in range(L) if win[q] == 2), L)
+            if any(w == 0 for w in win[:upto]):
+                continue  # not ready: read the window again later
+            for q in range(upto):
+                st[1] = st[1] + (inc if win[q] == 2 else agg)[j - q]
+            if upto == L and win[L - 1] != 2:
+                st[2] = j - L
+                continue
+            inc[c], status[c] = st[1] + own, 2
+            st[0] = 2
+        carry = st[1]
+        run = np.cumsum(part, 0, dtype=np.uint32) + carry
+        bp[c * C:(c + 1) * C] = run & 0x7FFF
+        if c == chunks - 1:
+            acc = (carry + own).view(np.int32)
+        del state[c]
+    return (bp.astype(np.int16).reshape(tbl.shape),
+            acc.reshape(tbl.shape[1:]))
+
+
+def _floor_table(T, seed):
+    """Values near +-2^31 and small ones, so that the int32 sums wrap."""
+    rng = np.random.default_rng(seed)
+    big = rng.choice(np.array([2**31 - 1, -(2**31), 2**31 - 7, -(2**31) + 3,
+                               2**30 + 5], np.int64), (T, 8, 128))
+    small = rng.integers(-(1 << 20), 1 << 20, (T, 8, 128))
+    return np.where(rng.random((T, 8, 128)) < 0.5, big, small).astype(np.int32)
+
+
+_C = chain_floor.FLOOR_CHUNK
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("T", [0, 1, _C - 1, _C, _C + 1,
+                               _C * (2 * chain_floor.FLOOR_LOOK + 3) + 5])
+def test_floor_scan_matches_plain_version(T, seed):
+    """K5a's chunked scan with its look-back, in two random interleavings
+    of the chunks, equals ``chain_floor_ref`` on every backpointer and on
+    acc, at 0 and 1 levels, around a chunk, and over enough chunks that a
+    look-back reads several windows; the sums wrap."""
+    tbl = _floor_table(T, seed)
+    bp, acc = _floor_scan(tbl, seed)
+    want_bp, want_acc = chain_floor.chain_floor_ref(torch.from_numpy(tbl))
+    assert np.array_equal(bp, want_bp.numpy())
+    assert np.array_equal(acc, want_acc.numpy())
+    if T > _C:  # the int32 sums did wrap
+        acc64 = tbl.astype(np.int64).sum(0)
+        assert (acc64 != acc).any()

@@ -718,6 +718,102 @@ def test_chain_step16_guards_sources_outside_the_block(T, cuda):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+# K5a's chunks and K6's backpointer stages
+FC, FL = chain_floor.FLOOR_CHUNK, chain_floor.FLOOR_LOOK
+S_BP = chain_ring.PAIR_BP_STAGES
+
+
+def _floor_wrapping(T, seed):
+    """A floor table of values near +-2^31 and small ones: the int32 sums
+    wrap."""
+    rng = np.random.default_rng(seed)
+    big = rng.choice(np.array([2**31 - 1, -(2**31), 2**31 - 7, 2**30 + 5],
+                              np.int64), (T, 8, 128))
+    small = rng.integers(-(1 << 20), 1 << 20, (T, 8, 128))
+    return np.where(rng.random((T, 8, 128)) < 0.5, big, small).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("T", [1, FC - 1, FC, FC + 1, 2 * FC,
+                               FC * (2 * FL + 3) + 5, 4000, 40000])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_chain_floor_around_its_chunks(T, wrap, cuda):
+    """K5a's scan against its plain version on every backpointer and on
+    acc: around a chunk, over enough chunks that a look-back reads several
+    windows, at the probe's two chain lengths, on tables whose sums wrap;
+    one kernel launch a chain."""
+    tbl = _floor_wrapping(T, T) if wrap else tables.floor_tables(T, T)
+    args = [torch.from_numpy(tbl).to(cuda)]
+    before = chain_floor.chain_floor.launches
+    got = chain_floor.chain_floor(*args)
+    assert chain_floor.chain_floor.launches == before + 1
+    want = chain_floor.chain_floor_ref(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _pair_ties(T, seed):
+    """The chain of seed 29, cover 9, with each level's ties permuted at
+    random: visiting order cannot decide a winner."""
+    tbl = tables.pair_tables(T, 29, 9)[0]
+    rng = np.random.default_rng(seed)
+    for t in range(T):
+        tbl[t, 2] = rng.permutation(256)
+    return tbl
+
+
+def _pair_long_runs(T, seed):
+    """Levels of six runs of 1-150 lanes that cross the producer warps'
+    quarters, taken by destination pairs 0-5 (the others have none), their
+    sources among those pairs, ties permuted."""
+    tbl = tables.pair_tables(T, **tables.LIVE)[0]
+    rng = np.random.default_rng(seed)
+    for t in range(T):
+        cuts = np.sort(rng.choice(np.arange(1, 256), 5, replace=False))
+        seg = np.searchsorted(cuts, np.arange(256), side="right")
+        tbl[t, 3] = seg
+        tbl[t, 4] = -1
+        tbl[t, 4, :6] = [int(np.flatnonzero(seg == r)[-1]) for r in range(6)]
+        tbl[t, 2] = rng.permutation(256)
+        tbl[t, 0] = rng.integers(0, 6, 256)
+    return tbl
+
+
+@pytest.mark.parametrize("T", sorted({*RING_LENGTHS, S_BP - 1, S_BP,
+                                      S_BP + 1, 2 * S_BP + 1, 40}))
+@pytest.mark.parametrize("kind", ["cover9", "live", "ties", "long_runs"])
+def test_chain_pair_around_its_bp_stages(kind, T, cuda):
+    """K6 against its plain version on every backpointer (padding rows
+    zero) and state, at the lengths around the wrap of its backpointer
+    stages and of the table ring, on a chain with several lanes into a
+    destination and none into others, on the chain that stays alive, with
+    ties permuted, and on long runs across the producer warps' quarters."""
+    if kind == "cover9":
+        tbl = tables.pair_tables(T, 29, 9)[0]
+    elif kind == "live":
+        tbl = tables.pair_tables(T, **tables.LIVE)[0]
+    elif kind == "ties":
+        tbl = _pair_ties(T, T)
+    else:
+        tbl = _pair_long_runs(T, T)
+    args = [torch.from_numpy(tbl).to(cuda)]
+    got, want = chain_pair.chain_pair(*args), chain_pair.chain_pair_ref(*args)
+    assert not got[0][:, 19:].any()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_chain_pair_and_floor_refuse_misaligned_tables(cuda):
+    """A table 4 bytes past a 16-byte boundary: K6's bulk copies and K5a's
+    16-byte loads refuse it."""
+    tbl = torch.from_numpy(tables.pair_tables(4)[0]).to(cuda)
+    with pytest.raises(ValueError, match="tbl: .*aligned"):
+        chain_pair.chain_pair(_misaligned(tbl))
+    tbl = torch.from_numpy(tables.floor_tables(4, 1)).to(cuda)
+    with pytest.raises(ValueError, match="tbl: .*aligned"):
+        chain_floor.chain_floor(_misaligned(tbl))
+
+
 def _caps_inputs(name, seed, device):
     ins, expect = caps_tables.make(name, seed)
     return probe_caps.to_device(ins, device), torch.from_numpy(expect)
