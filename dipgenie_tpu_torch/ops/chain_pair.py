@@ -21,8 +21,9 @@ the last lane of its run or -1, ``tie`` must lie in ``[0, 256)`` and
 ``wsum`` in ``{0, 1, 2}`` (two edges' weights).
 
 The TPU kernel packs the key into int32, exact for ``|cand + sc| <
-2^22``; here the key is 64 bits wide, which gives the same result below
-that limit and stays exact above it.
+2^22``; here the plain version's key is 64 bits wide and the kernel
+compares the value, then the tie, as two 32-bit words: both give the same
+result below that limit and stay exact above it.
 """
 
 from __future__ import annotations

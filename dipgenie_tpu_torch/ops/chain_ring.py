@@ -13,13 +13,14 @@ the host for the CPU tests and ``chip_smoke.py``'s lines.
   block ``b`` taking ``[b * 19 // n, (b + 1) * 19 // n)``; row ``r`` reads
   rows ``r``, ``r - 1`` and ``r - 2`` of the level before, so its owner
   pushes it into the owners of rows ``r + 1`` and ``r + 2``.
-* K6's decode (``pair_decode``) and its backpointer stages
-  (``bp_schedule``): the consumers write level ``t``'s backpointers into
-  stage ``t % PAIR_BP_STAGES`` of shared memory, and one bulk store after
-  the barrier of level ``t`` copies the stage out.
+* K6's decode (``pair_decode``, by ``PAIR_PRODUCERS`` warps) and its
+  backpointer stages (``bp_schedule``): the consumers write level ``t``'s
+  backpointers into stage ``t % PAIR_BP_STAGES`` of shared memory, and one
+  bulk store after the barrier of level ``t`` copies the stage out.
 
 The CUDA sources state the same constants (``D``, ``CLUSTER``,
-``BP_STAGES``); ``tests/test_torch_chain_geometry.py`` holds the two equal.
+``BP_STAGES``, ``PRODUCERS``); ``tests/test_torch_chain_geometry.py``
+holds the two equal.
 """
 
 from __future__ import annotations
