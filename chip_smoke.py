@@ -44,6 +44,23 @@ result line):
      largest slice, and K1's, K2's and K-T's times beside their plain
      versions' and their bounds on a plan prefix; the DP stage probe on
      the same plan, and K1's time per transition beside phase G's floors;
+  U. (after C, on C's graph and native result) the fused and chunked
+     tiers (K13 fused_forward and K14 fused_trace, csrc/fused_dp.cu; K15
+     chunk_step and K16 chunk_trace, csrc/chunk_dp.cu): U1 each kernel
+     against its plain version on every output element, exact, on the
+     three slices, the JAX tiers' random graphs, the high in-degree graph
+     (in-degree 40) and W's transitions into and out of its widest level
+     (1,022; the next in-degree 152) from a random state; U2 both tiers on
+     C through the solver's entry (launches counted: one a transition, K15
+     twice, K16 once a replay span), then by stages (plan beside
+     plan_pairs', ship, forward and traceback by CUDA events, peak memory,
+     states/s), each equal to the native tier, and each kernel beside its
+     plain version and its bound on C's first U_PREFIX transitions; U3 W
+     (synth.mhc_shaped_csr with 20 bands of levels 513-1,024 wide, ~2.9e9
+     states) through --dp-backend auto: the torch tier's planner stops at
+     its window limit with one [W::diploid_dp] line, the fused tier runs
+     and equals the native tier; then the chunked tier on W, its peak
+     memory beside the fused tier's;
   E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
      states, every wide run 31 windows): the same readings for its main
      path through K3 (K-T on the whole plan too), K3 beside its plain
@@ -114,6 +131,8 @@ result line):
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object of per-kernel results; the last line is
 the JSON status object. Logs and tables go to build/chip_smoke/.
+Arguments, when given, name the phases to run (``python3 chip_smoke.py C
+U``); the per-kernel line then lists the kernels those phases measured.
 """
 
 from __future__ import annotations
@@ -206,6 +225,15 @@ KERNELS = {
                    "scripts/tpu_pair_probe.py:103"),
     "chain_edge": ("dipgenie_tpu_torch/csrc/chain_edge.cu",
                    "scripts/tpu_edge_probe.py:94"),
+    # the fused and chunked tiers (XLA device functions of the JAX package)
+    "fused_forward": ("dipgenie_tpu_torch/csrc/fused_dp.cu",
+                      "dipgenie_tpu/ops/diploid_fused.py:462"),
+    "fused_trace": ("dipgenie_tpu_torch/csrc/fused_dp.cu",
+                    "dipgenie_tpu/ops/diploid_fused.py:530"),
+    "chunk_step": ("dipgenie_tpu_torch/csrc/chunk_dp.cu",
+                   "dipgenie_tpu/ops/diploid_jax.py:177"),
+    "chunk_trace": ("dipgenie_tpu_torch/csrc/chunk_dp.cu",
+                    "dipgenie_tpu/ops/diploid_jax.py:543"),
 }
 # the level-chain kernels (phase G), in the order of their probes
 CHAINS = ("chain_floor", "chain_step16", "chain_pair", "chain_edge")
@@ -217,6 +245,8 @@ MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
              "wide_dense_run": "C", "wide_split_run": "E", "trace": "C",
              "wide_step": "F1", "minimizer_sketch": "S2",
              "grid_nll": "S3", "grid_tables": "S3", "sketch_count": "S4",
+             "fused_forward": "U2 fused", "fused_trace": "U2 fused",
+             "chunk_step": "U2 chunked", "chunk_trace": "U2 chunked",
              **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2 and F3
@@ -280,6 +310,13 @@ REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
 K2_STAGE = 2560
 H_CALLS = 200  # launches per CUDA-event timing in phase H2
 H_PROFILED = 50  # launches per profile of a check in phase H2
+# phase U: W, the graph past the torch tier's window limit (MHC-shaped, 20
+# bands of levels 513-1,024 wide); C's first U_PREFIX transitions, on which
+# K13-K16 are timed beside their plain versions; the JAX tiers' random
+# graphs (random_leveled_csr(seed, 12, 5, 8), R = 5)
+W_SHAPE = dict(n_bands=20, wmin=513, wmax=1024)
+U_PREFIX = 2000
+U_RANDOM = (0, 1, 2, 3)
 
 
 def log(msg: str) -> None:
@@ -351,8 +388,8 @@ class Smoke:
         self.ref_cxx = ref_cxx  # the compiler of native/libdgcore.so
         from dipgenie_tpu_torch.models import fitter
         from dipgenie_tpu_torch.ops import (
-            caps, chain_edge, chain_floor, chain_pair, narrow, sketch, trace,
-            wide, wide_split, wide_step,
+            caps, chain_edge, chain_floor, chain_pair, chunked, fused, narrow,
+            sketch, trace, wide, wide_split, wide_step,
         )
         from dipgenie_tpu_torch.parallel import mesh
 
@@ -376,6 +413,10 @@ class Smoke:
             "sketch_count": (mesh.sketch_count, mesh.sketch_count_ref),
             "grid_nll": (fitter.grid_nll, fitter.grid_nll_ref),
             "grid_tables": (fitter.grid_tables, fitter._grid_tables_torch),
+            "fused_forward": (fused.fused_forward, fused.fused_forward_ref),
+            "fused_trace": (fused.fused_trace, fused.fused_trace_ref),
+            "chunk_step": (chunked.chunk_step, chunked.chunk_step_ref),
+            "chunk_trace": (chunked.chunk_trace, chunked.chunk_trace_ref),
             **caps.CHECKS,
         }
         self.err = {k: 0 for k in KERNELS}
@@ -389,6 +430,8 @@ class Smoke:
         self.trace_full = {}  # phases C and E: K-T on the whole plan
         self.big = {}  # phase E's plan and result, for phase F
         self.d18 = None  # phase D's 18-walk pangenome and native FASTA
+        self.plan_s = {}  # phases C and E: plan_pairs' host seconds
+        self.c = None  # phase C's graph and native result, for phase U
         self.s = {}  # phase S's pangenome, reads and anchor stages
 
     def counts(self):
@@ -1019,7 +1062,7 @@ class Smoke:
             f"{int(widths.max())}), {states} DP states (R={R})")
         t0 = time.time()
         plan = plan_pairs(*arrs, R)
-        plan_s = time.time() - t0
+        plan_s = self.plan_s[tag] = time.time() - t0
         split_slices.seconds = 0.0
         t0 = time.time()
         dplan = plan_to_device(plan, DEVICE)
@@ -1271,8 +1314,9 @@ class Smoke:
 
         from dipgenie_tpu_torch.probes import dp_stages
 
-        plan, dplan, _ = self.main_path("C", mhc_shaped_csr(
-            L=L_MHC, seed=SEED, n_bands=N_BANDS))
+        arrs = mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS)
+        plan, dplan, got = self.main_path("C", arrs)
+        self.c = {"arrs": arrs, "want": got}
         self.time_prefix("C", dplan, ("narrow_run", "wide_dense_run", "trace"))
         del dplan
         # the walk of the dense tables that picks K2 or K3 for a run and
@@ -1292,6 +1336,383 @@ class Smoke:
                 f"{v} {s.per_level * 1e6:.4f} us/level"
                 for v, s in self.slopes.items()
                 if v not in ("scan1", "scandus")))
+
+    # ---------------- phase U ----------------
+    def phase_u(self):
+        """The fused and chunked tiers (K13-K16): U1 every kernel against
+        its plain version, U2 both tiers on C, U3 W through ``auto``."""
+        from dipgenie_tpu_torch.ops import fused
+        from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+        if self.c is None:  # phase C not run: its graph and native result
+            arrs = mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS)
+            self.c = {"arrs": arrs, "want": native_forward_csr(arrs, R)}
+        w = mhc_shaped_csr(L=L_MHC, seed=SEED, **W_SHAPE)
+        t0 = time.time()
+        wplan = fused.plan_fused(*w, R)
+        log(f"U W fused plan {time.time() - t0:.3f}s (host clock)")
+        self.phase_u1(wplan)
+        self.phase_u2()
+        self.phase_u3(w, wplan)
+
+    def phase_u1(self, wplan):
+        """K13-K16 against their plain versions, every output element, on
+        the real slices, the JAX tiers' random graphs, the high in-degree
+        graph and W's transitions into and out of its widest level."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.solver.diploid import csr_arrays
+        from dipgenie_tpu_torch.utils.synth import (
+            high_indegree_graph, random_leveled_csr,
+        )
+
+        t0 = time.time()
+        cases = []
+        for name in NPZ:
+            d = np.load(os.path.join(REPO, "tests", "data", name + ".npz"))
+            cases.append((name, [d[k] for k in CSR_KEYS], int(d["R"])))
+        cases += [(f"random {s}", random_leveled_csr(s, 12, 5, 8), 5)
+                  for s in U_RANDOM]
+        cases.append(("high in-degree", csr_arrays(*high_indegree_graph()),
+                      3))
+        for tag, arrs, r in cases:
+            self.u_check_graph(tag, arrs, r)
+        self.u_check_w(wplan)
+        log(f"U1 K13-K16 == their plain versions on every element: "
+            f"{len(cases)} graphs and W's widest level "
+            f"({time.time() - t0:.1f}s)")
+
+    def u_check_graph(self, tag, arrs, r):
+        """Every transition of a graph through K13 and K15 (forward and
+        replay) from the plain path's states, then K14 and K16 on the
+        whole plan, each against its plain version."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import fused
+        from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+        torch = self.torch
+        plan = fused.plan_fused(*arrs, r)
+        desc, R1 = plan.desc, r + 1
+        dev = ship(plan.vplan, DEVICE, plan.desc)
+        k13, p13 = self.fns["fused_forward"]
+        k15, p15 = self.fns["chunk_step"]
+        codes = [torch.zeros(plan.bp_bytes, dtype=torch.uint8, device=DEVICE)
+                 for _ in range(2)]
+        sizes = R1 * desc[:, 1] ** 2
+        off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        words = [torch.zeros(int(sizes.sum()), dtype=torch.int32,
+                             device=DEVICE) for _ in range(2)]
+        V = initial_state(r, int(plan.vplan.widths[0]), DEVICE)
+        SH = torch.zeros_like(V)
+        for t in range(plan.T):
+            got = k13(dev, t, t + 1, V, codes[0])
+            want = p13(dev, t, t + 1, V, codes[1])
+            self.compare("fused_forward",
+                         (got, fused._codes(codes[0], desc[t], R1)),
+                         (want, fused._codes(codes[1], desc[t], R1)))
+            a = off[t:t + 1]
+            g15 = k15(dev, t, t + 1, V, SH, words[0], a)
+            w15 = p15(dev, t, t + 1, V, SH, words[1], a)
+            n = slice(int(a[0]), int(a[0] + sizes[t]))
+            self.compare("chunk_step", (*g15, words[0][n]),
+                         (*w15, words[1][n]))
+            V, SH = w15
+        rows = [self.fns["fused_trace"][i](dev, codes[i], r) for i in (0, 1)]
+        self.compare("fused_trace", (rows[0][0], torch.tensor(rows[0][1])),
+                     (rows[1][0], torch.tensor(rows[1][1])))
+        walk = []
+        for i in (0, 1):
+            carry = torch.tensor([0, 0, r], dtype=torch.int32, device=DEVICE)
+            out = torch.zeros((plan.T, 4), dtype=torch.int32, device=DEVICE)
+            self.fns["chunk_trace"][i](desc[:, 1], off, words[i], carry, out)
+            walk.append((out, carry))
+        self.compare("chunk_trace", walk[0], walk[1])
+        check(int(V[r, 0, 0]) >= 0, f"U1 {tag}: the sink is unreachable")
+        log(f"U1 {tag}: {plan.T} transitions, in-degree up to "
+            f"{int(desc[:, 2].max())}: K13-K16 == plain")
+
+    def u_check_w(self, wplan):
+        """K13 and K15 (replay) on W's transitions into and out of its
+        widest level, from a random state, against their plain versions."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import fused
+        from dipgenie_tpu_torch.ops.vertex_plan import NEG, ship
+
+        torch = self.torch
+        desc, R1 = wplan.desc, R + 1
+        dev = ship(wplan.vplan, DEVICE, wplan.desc)
+        t_in = int(np.argmax(desc[:, 1]))
+        rng = np.random.default_rng(SEED)
+        for t in (t_in, t_in + 1):
+            k, k2, P = (int(x) for x in desc[t, :3])
+            shape = (R1, k, k)
+            val = rng.integers(0, 1000, shape)
+            V = torch.from_numpy(np.where(rng.random(shape) < 0.33, NEG, val)
+                                 .astype(np.int32)).to(DEVICE)
+            SH = torch.from_numpy(rng.integers(0, 50, shape).astype(
+                np.int32)).to(DEVICE)
+            codes = [torch.zeros(wplan.bp_bytes, dtype=torch.uint8,
+                                 device=DEVICE) for _ in range(2)]
+            outs = [self.fns["fused_forward"][i](dev, t, t + 1, V, codes[i])
+                    for i in (0, 1)]
+            self.compare("fused_forward",
+                         (outs[0], fused._codes(codes[0], desc[t], R1)),
+                         (outs[1], fused._codes(codes[1], desc[t], R1)))
+            del codes, outs
+            words = [torch.zeros(R1 * k2 * k2, dtype=torch.int32,
+                                 device=DEVICE) for _ in range(2)]
+            outs = [self.fns["chunk_step"][i](dev, t, t + 1, V, SH, words[i],
+                                              [0]) for i in (0, 1)]
+            self.compare("chunk_step", (*outs[0], words[0]),
+                         (*outs[1], words[1]))
+            live = int((outs[1][0] >= 0).sum())
+            del words, outs
+            self.torch.cuda.empty_cache()
+            log(f"U1 W transition {t}: widths {k} -> {k2}, in-degree up to "
+                f"{P}, {R1 * k2 * k2} states ({live} reachable): K13 and K15 "
+                "== plain")
+
+    def phase_u2(self):
+        """Both tiers on C through the solver's entry (launches counted),
+        then by stages: plan, ship (host clock), forward and traceback (CUDA
+        events), peak memory; each result equal to the native tier's."""
+        from dipgenie_tpu_torch.ops import chunked, fused
+        from dipgenie_tpu_torch.ops.vertex_plan import plan_vertices
+        from dipgenie_tpu_torch.solver.diploid import vertex_forward
+        from dipgenie_tpu_torch.utils.synth import dp_states
+
+        torch = self.torch
+        arrs, want = self.c["arrs"], self.c["want"]
+        states = dp_states(arrs[0], R)
+        T = len(arrs[0]) - 2
+        for tier, name in (("fused", "fused"), ("jax", "chunked")):
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            t0 = time.time()
+            got = vertex_forward(arrs, R, DEVICE, tier)
+            wall = time.time() - t0
+            launches = self.launches[f"U2 {name}"] = self.counts()
+            check(got == want, f"U2 {name} tier differs from the native "
+                  f"tier: {got[:2]} vs {want[:2]}")
+            used = {k: v for k, v in launches.items() if v}
+            if tier == "fused":
+                expect = {"fused_forward": T, "fused_trace": 1}
+            else:
+                dp = chunked.DeviceDiploidDP(plan_vertices(*arrs), R, DEVICE)
+                expect = {"chunk_step": 2 * T,
+                          "chunk_trace": len(dp.spans)}
+            check(used == expect, f"U2 {name} launches {used}, want {expect}")
+            log(f"U2 {name} tier through the solver's entry: "
+                f"{wall:.3f}s (plan, ship, forward, traceback; host clock), "
+                f"peak memory {torch.cuda.max_memory_allocated()} B, "
+                f"launches {used}; == native tier")
+
+        for name in ("fused", "chunked"):
+            t0 = time.time()
+            if name == "fused":
+                plan = fused.plan_fused(*arrs, R)
+                dp = fused.FusedDiploidDP(plan, DEVICE)
+            else:
+                dp = chunked.DeviceDiploidDP(plan_vertices(*arrs), R, DEVICE)
+            plan_s = time.time() - t0
+            t0 = time.time()
+            dev = dp.ship()
+            self.sync()
+            ship_s = time.time() - t0
+            warm = dp.forward(dev)  # the card idled through the plan
+            self.sync()
+            del warm
+            ev = self.events(3)
+            torch.cuda.reset_peak_memory_stats()
+            ev[0].record()
+            if name == "fused":
+                V, bp = dp.forward(dev)
+                ev[1].record()
+                rows, sh = fused.fused_trace(dev, bp, R)
+                ev[2].record()
+                self.sync()
+                got = (int(V[R, 0, 0]), sh,
+                       fused.path_transitions(rows.cpu().numpy()))
+                del bp
+            else:
+                V, SH, ckpts = dp.forward(dev)
+                ev[1].record()
+                rows = dp.traceback(dev, ckpts)
+                ev[2].record()
+                self.sync()
+                got = (int(V[R, 0, 0]), int(SH[R, 0, 0]),
+                       fused.path_transitions(rows.cpu().numpy()))
+            check(got == want, f"U2 {name} (by stages) differs from the "
+                  "native tier")
+            fwd_s = ev[0].elapsed_time(ev[1]) / 1e3
+            tb_s = ev[1].elapsed_time(ev[2]) / 1e3
+            peak = torch.cuda.max_memory_allocated()
+            pairs = (f"{self.plan_s['C']:.3f}s" if "C" in self.plan_s
+                     else "not run")
+            log(f"U2 {name} on C ({T} transitions, {states} DP states): plan "
+                f"{plan_s:.3f}s (plan_pairs {pairs}), ship {ship_s:.3f}s "
+                f"(host clock), forward {fwd_s:.4f}s, "
+                f"traceback {tb_s:.4f}s (CUDA events), {states / fwd_s:.4e} "
+                f"DP states/s, peak memory {peak} B, card "
+                f"{torch.cuda.get_device_name(0)}")
+            del dev, rows
+            torch.cuda.empty_cache()
+        self.u_time(arrs)
+
+    def u_time(self, arrs):
+        """K13-K16 beside their plain versions on C's first U_PREFIX
+        transitions, in turns plain, kernel, kernel, plain (CUDA events,
+        min of 2), with their bounds from the prefix's tables."""
+        import dataclasses
+
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import fused
+        from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+        torch = self.torch
+        plan = fused.plan_fused(*arrs, R)
+        n, R1 = min(U_PREFIX, plan.T), R + 1
+        dev = ship(plan.vplan, DEVICE, plan.desc)
+        sub = dataclasses.replace(dev, desc=dev.desc[:n],
+                                  desc_dev=dev.desc_dev[:n],
+                                  widths=dev.widths[:n + 1])
+        desc = plan.desc[:n]
+        nbytes = int(plan.desc[n, fused.BP_OFF]) if n < plan.T \
+            else plan.bp_bytes
+        sizes = R1 * desc[:, 1] ** 2
+        off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        V0 = initial_state(R, int(plan.vplan.widths[0]), DEVICE)
+        SH0 = torch.zeros_like(V0)
+        codes = [torch.zeros(nbytes, dtype=torch.uint8, device=DEVICE)
+                 for _ in range(2)]
+        words = [torch.zeros(int(sizes.sum()), dtype=torch.int32,
+                             device=DEVICE) for _ in range(2)]
+        def fused_trace(w):
+            rows, sh = self.fns["fused_trace"][w](sub, codes[w], R)
+            return rows, torch.tensor(sh)
+
+        runs = {
+            "fused_forward": lambda w: (
+                self.fns["fused_forward"][w](sub, 0, n, V0, codes[w]),
+                codes[w]),
+            "fused_trace": fused_trace,
+            "chunk_step": lambda w: (
+                *self.fns["chunk_step"][w](sub, 0, n, V0, SH0, words[w], off),
+                words[w]),
+            "chunk_trace": lambda w: self.u_walk(w, desc, off, words[w]),
+        }
+        work = u_work(plan, n)
+        for name, run in runs.items():
+            times, outs = {0: [], 1: []}, {}
+            for which in (1, 0, 0, 1):  # plain, kernel, kernel, plain
+                ms, outs[which] = self.timed(lambda: run(which))
+                times[which].append(ms)
+            self.compare(name, outs[0], outs[1])
+            del outs
+            with self.profiler() as prof:
+                run(0)
+                self.sync()
+            rows = self.device_rows(prof, f"profile_U_{name}.txt")
+            self.ms[name] = min(times[0])
+            self.plain_ms[name] = min(times[1])
+            self.bound[name] = bound(*work[name])
+            self.prefix_tr[name] = n
+            busy = sum(t for _, t, _ in rows) / 1e3
+            if busy:
+                device = (f"device {busy:.4f} ms by the profiler, idle share "
+                          f"{1 - busy / self.ms[name]:.4f}")
+            else:  # the walkers: one launch, which the profile may miss
+                entry = {"fused_trace": "dg_fused_trace",
+                         "chunk_trace": "dg_chunk_trace"}.get(name)
+                pairs = []
+                if entry:
+                    with self.launch_events(entry) as pairs:
+                        run(0)
+                        self.sync()
+                device = (f"device {pairs[0][0].elapsed_time(pairs[0][1]):.4f}"
+                          " ms by CUDA events around the launch" if pairs
+                          else "device not measured: no row in the profile")
+            log(f"U {name} on C's first {n} transitions: kernel {times[0]} "
+                f"ms ({device}), plain "
+                f"{times[1]} ms (CUDA events), bound "
+                f"{self.bound[name][0]:.6g} ms ({self.bound[name][1]}; "
+                f"{work[name][0]} B, {work[name][1]} int32 operations)")
+
+    def u_walk(self, w, desc, off, words):
+        torch = self.torch
+        carry = torch.tensor([0, 0, R], dtype=torch.int32, device=DEVICE)
+        out = torch.zeros((len(desc), 4), dtype=torch.int32, device=DEVICE)
+        self.fns["chunk_trace"][w](desc[:, 1], off, words, carry, out)
+        return out, carry
+
+    def phase_u3(self, w, wplan):
+        """W through ``auto``: the torch tier's planner stops at its window
+        limit with one [W::diploid_dp] line, the fused tier runs and equals
+        the native tier; then the chunked tier on W, its peak memory beside
+        the fused tier's."""
+        import io
+
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import chunked, pair_plan
+        from dipgenie_tpu_torch.ops.vertex_plan import plan_vertices
+        from dipgenie_tpu_torch.solver.diploid import (
+            device_forward, native_forward_csr,
+        )
+        from dipgenie_tpu_torch.utils.synth import dp_states
+
+        torch = self.torch
+        widths = np.diff(w[0])
+        T = len(widths) - 1
+        states = dp_states(w[0], R)
+        log(f"U3 W: {len(widths)} levels, {int((widths > 512).sum())} wider "
+            f"than 512 (up to {int(widths.max())}), in-degree up to "
+            f"{int(wplan.desc[:, 2].max())}, {states} DP states (R={R}), "
+            f"fused backpointers {wplan.bp_bytes} B")
+        t0 = time.time()
+        want = native_forward_csr(w, R)
+        log(f"U3 W native C++ tier {time.time() - t0:.1f}s (host)")
+        err = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stderr(err):
+            got = device_forward(w, R, "auto", DEVICE)
+        wall = time.time() - t0
+        launches = {k: v for k, v in self.counts().items() if v}
+        self.launches["U3"] = launches
+        peak_fused = torch.cuda.max_memory_allocated()
+        warns = [x for x in err.getvalue().splitlines()
+                 if x.startswith("[W::")]
+        for line in err.getvalue().splitlines():
+            log(f"U3 stderr: {line}")
+        check(len(warns) == 1 and f"1024-lane windows, past "
+              f"{pair_plan.SPLIT_NB_MAX} (a level wider than 512); running "
+              "the fused tier" in warns[0],
+              f"U3 the [W::diploid_dp] line: {warns}")
+        check(launches == {"fused_forward": T, "fused_trace": 1},
+              f"U3 launches {launches}")
+        check(got == want, f"U3 W through auto differs from the native "
+              f"tier: {got[:2]} vs {want[:2]}")
+        log(f"U3 W through auto: {wall:.3f}s (the torch tier's planner up "
+            f"to its limit, then the fused tier; host clock), peak memory "
+            f"{peak_fused} B, launches {launches}; value {got[0]} s_het "
+            f"{got[1]} == native tier")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        dp = chunked.DeviceDiploidDP(plan_vertices(*w), R, DEVICE)
+        got = dp.run()
+        check(got == want, "U3 the chunked tier on W differs from the "
+              "native tier")
+        log(f"U3 W chunked tier: {time.time() - t0:.3f}s (plan to result, "
+            f"host clock), {len(dp.ops)} ops, {len(dp.spans)} spans; "
+            f"peak memory {torch.cuda.max_memory_allocated()} B beside the "
+            f"fused tier's {peak_fused} B; == native tier")
 
     def phase_e(self):
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP
@@ -2313,6 +2734,44 @@ def caps_read_bytes(name: str, ins) -> int:
     return needs.get(name, sum(a.nbytes for a in ins))
 
 
+def u_work(plan, n: int) -> dict:
+    """(bytes, int32 operations) of K13-K16 on a fused plan's first ``n``
+    transitions: each table word a transition needs read once (its slots,
+    in-degrees and colour words; K14 its descriptor row, the code it reads,
+    two slots and four colour words a word; K16 its two descriptor words
+    and the packed word it reads), states in and out once, each code and
+    packed word written once, each walker row written once; an add and a
+    max per candidate and row it reaches (rows r >= wu + wv), and ten
+    operations a colour word per candidate pair for its score."""
+    import numpy as np
+
+    desc = plan.desc[:n]
+    R1 = plan.R + 1
+    pred, deg = plan.vplan.pred, plan.vplan.deg
+    cand = 0
+    for d in desc:
+        k2, P, po, do = int(d[1]), int(d[2]), int(d[4]), int(d[5])
+        real = (np.arange(P)[None, :] < deg[do:do + k2, None]).reshape(-1)
+        w1 = int((pred[po:po + k2 * P][real] & 1).sum())
+        w0 = int(real.sum()) - w1
+        rows = w0 * w0 * R1 + 2 * w0 * w1 * max(R1 - 1, 0) + w1 * w1 * max(
+            R1 - 2, 0)
+        cand += 2 * rows + 10 * int(d[3]) * (w0 + w1) ** 2
+    k, k2 = desc[:, 0], desc[:, 1]
+    W = desc[:, 3]
+    tables = int((4 * k2 * desc[:, 2] + 4 * k2 + 8 * (k + k2) * W).sum())
+    v_in, v_out = int((4 * R1 * k * k).sum()), int((4 * R1 * k2 * k2).sum())
+    code = np.where(desc[:, 2] <= 256, 2, 4)
+    codes = int((R1 * k2 * k2 * code).sum())
+    return {
+        "fused_forward": (tables + v_in + v_out + codes, cand),
+        "fused_trace": (int((64 + code + 8 + 16 * W + 16).sum()),
+                        int((6 + 4 * W).sum())),
+        "chunk_step": (tables + 2 * v_in + 3 * v_out, cand),
+        "chunk_trace": (n * (16 + 4 + 16), 6 * n),
+    }
+
+
 def plan_prefix(plan, n_levels: int):
     """The whole runs of a PairPlan or a DevPlan that lie within its first
     ``n_levels`` levels, as a plan of its own."""
@@ -2544,9 +3003,13 @@ def main() -> int:
     add_caps_kernels()
 
     smoke = Smoke(torch, ref_cxx)
-    for phase in (smoke.phase_b, smoke.phase_g, smoke.phase_h, smoke.phase_c,
-                  smoke.phase_e, smoke.phase_f1, smoke.phase_f2,
-                  smoke.phase_s, smoke.phase_d, smoke.phase_f3):
+    phases = (smoke.phase_b, smoke.phase_g, smoke.phase_h, smoke.phase_c,
+              smoke.phase_u, smoke.phase_e, smoke.phase_f1, smoke.phase_f2,
+              smoke.phase_s, smoke.phase_d, smoke.phase_f3)
+    only = {a.upper() for a in sys.argv[1:]}
+    for phase in phases:
+        if only and phase.__name__.split("_")[1].upper() not in only:
+            continue
         t0 = time.time()
         phase()
         torch.cuda.empty_cache()
@@ -2560,6 +3023,9 @@ def main() -> int:
          "bound_by": smoke.bound[name][1],
          "library_ms": smoke.library_ms.get(name)}
         for name, (src, rep) in KERNELS.items()
+        # a run of some phases only (arguments) lists what it measured
+        if not only or (name in smoke.ms
+                        and MAIN_PATH[name] in smoke.launches)
     ]}
     print(smi)
     print(json.dumps(result))

@@ -2,9 +2,14 @@
 ``dipgenie_tpu``'s CLI (``dipgenie_tpu/cli.py``, the reference's
 ``src/main.cpp:24-209``), and
 
-* ``--dp-backend auto|torch|native|exact``: ``auto`` (the default) is the
-  torch tier on ``--device``; ``jax``, ``fused`` and ``pallas`` are TPU
-  tiers and are rejected with a message;
+* ``--dp-backend auto|torch|fused|jax|native|exact``: ``auto`` (the
+  default) is the torch tier (the pair DP) on ``--device``, and runs a
+  graph with a level wider than 512, past the pair planner's window limit,
+  on the fused tier with one ``[W::diploid_dp]`` line; ``fused`` is the
+  fused tier (one forward keeping every backpointer, then one traceback),
+  ``jax`` the chunked tier (checkpoints, then a replay and a walk a span;
+  the JAX CLI's flag name), both on ``--device`` for levels up to 4,096
+  wide; ``pallas`` is a TPU tier and is rejected with a message;
 * ``--device cuda|cpu`` (default ``cuda``): ``cpu`` runs the kernels'
   plain PyTorch versions. With ``cuda`` and no card the run stops with
   exit code 1 before any host work;
@@ -13,9 +18,11 @@
   the same exit code 1 before any host work where the card is missing,
   and takes ``-k`` up to 32.
 
-A graph past the pair planner's limits (``ops/pair_plan.py:PlanLimit``)
-ends the run with one ``[E::main]`` line naming ``--dp-backend native``
-and exit code 1.
+A graph past a tier's limits (``ops/pair_plan.py:PlanLimit``, raised by
+the pair planner and by the vertex tiers' planner and memory counts) ends
+the run with one ``[E::main]`` line naming ``--dp-backend native`` and
+exit code 1, as does a tp mesh given to ``fused`` or ``jax``
+(``MeshUnsupported``: their sharding is not ported yet).
 
 Parsed-but-unused flags, for parity (each is equally dead in the
 reference binary): -H, -c, -N, -l.
@@ -29,10 +36,11 @@ import sys
 from . import PHI_VERSION
 from .device import NoCudaDevice, resolve_device
 from .ops.pair_plan import PlanLimit
+from .solver.diploid import MeshUnsupported
 from .solver.pipeline import Pipeline, PipelineConfig
 from .utils import timing
 
-_TPU_TIERS = ("jax", "fused", "pallas")
+_TPU_TIERS = ("pallas",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,10 +77,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-h", action="store_true", help="Show help")
     ap.add_argument("--version", action="store_true")
     ap.add_argument("--dp-backend", type=str, default="auto",
-                    choices=["auto", "torch", "native", "exact", *_TPU_TIERS])
+                    choices=["auto", "torch", "fused", "jax", "native",
+                             "exact", *_TPU_TIERS],
+                    help="DP tier: auto (the torch tier, the fused tier "
+                         "past its window limit), torch, fused, jax (the "
+                         "chunked tier), native, exact [auto]")
     ap.add_argument("--device", type=str, default="cuda",
                     choices=["cuda", "cpu"],
-                    help="device of the torch DP tier and of device "
+                    help="device of the device DP tiers and of device "
                          "sketching [cuda]")
     ap.add_argument("--sketch-backend", type=str, default="host",
                     choices=["host", "device"],
@@ -87,8 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _reject(args) -> str | None:
     if args.dp_backend in _TPU_TIERS:
         return (f"--dp-backend {args.dp_backend} is a TPU tier of "
-                "dipgenie_tpu; use --dp-backend torch (or auto, native, "
-                "exact)")
+                "dipgenie_tpu; use --dp-backend torch (or auto, fused, jax, "
+                "native, exact)")
     if args.sketch_backend == "device" and not 1 <= args.k <= 32:
         return (f"--sketch-backend device takes -k up to 32 (a k-mer is two "
                 f"16-base lanes), not {args.k}; use --sketch-backend host")
@@ -162,7 +174,7 @@ def main(argv: list[str] | None = None) -> int:
                 checkpoint_dir=args.checkpoint_dir or None,
             )
             Pipeline(args.g, args.r, args.o, cfg).run()
-    except (NoCudaDevice, PlanLimit) as e:
+    except (NoCudaDevice, PlanLimit, MeshUnsupported) as e:
         print(f"[E::main] {e}", file=sys.stderr)
         return 1
 

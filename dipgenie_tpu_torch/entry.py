@@ -4,8 +4,9 @@
 * ``entry(device)`` returns ``(fn, args)``: ``fn(*args)`` is one pair-DP
   step on the port's main path, one K1 launch (``ops/narrow.py``) on the
   first narrow run of the plan of ``tests/data/mhc_slice_csr.npz``. The JAX
-  entry runs one level of its chunked tier (``_step_body``), which is not
-  ported (its chunked and fused tiers are settled as not ported);
+  entry runs one level of its chunked tier (``_step_body``), whose
+  counterpart is K15 (``ops/chunked.py``); the port's main path is the
+  pair DP;
 * ``dryrun_multichip(n)`` runs in each of ``n`` ranks of an initialised
   process group, factors ``n`` into ``n_dp × n_tp`` as the JAX dry run does
   (``n_tp = 2`` where ``n`` is even) and runs: stage 1, the dp sketch-count
@@ -16,7 +17,7 @@
   ``mhc_slice_csr.npz`` against its baked exact-tier oracle; stage 4, the
   same on ``mhc_slice_wide_csr.npz`` (15 wide levels through K4). The JAX
   dry run's stage 2, one tp-sharded step of the chunked tier, has no
-  counterpart: that tier is not ported.
+  counterpart yet: the chunked tier's tp sharding is not ported.
 
 The slices are read from the checkout's ``tests/data``.
 """

@@ -86,6 +86,17 @@ _SIGNATURES = {
     # U, SD, VW, ZP, ZPH, SS, xs, their lengths (u, sd, vw, zp, zph, s, x),
     # max_copy, fhom, fhet, ferr, stream
     "dg_grid_tables": (*(_P,) * 7, *(_I,) * 8, _P, _P, _P, _P),
+    # desc (host [T, 8] int64), t0, t1, R1, pred, deg, masks, va, vb, bp,
+    # stream
+    "dg_fused_forward": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # desc (device), T, R, pred, masks, bp, rows [T, 4], sh [1], stream
+    "dg_fused_trace": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # desc (host), t0, t1, R1, pred, deg, masks, va, vb, sa, sb, bp (or
+    # null), bp_off (host, t1 - t0 int64), stream
+    "dg_chunk_forward": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P),
+    # tdesc [n, 2] int64, n, bp, carry [3], rows [n, 4], stream
+    "dg_chunk_trace": (_P, _I, _P, _P, _P, _P),
 }
 
 

@@ -60,6 +60,11 @@ class PlanLimit(ValueError):
     ``SPLIT_NB_MAX``); the native tier (``--dp-backend native``) runs it."""
 
 
+class WindowLimit(PlanLimit):
+    """A wide run past ``SPLIT_NB_MAX`` windows (a level wider than 512).
+    ``--dp-backend auto`` runs such a graph on the fused tier."""
+
+
 # --------------------------------------------------------------------
 # host-side colour mask -> per-pair score machinery
 # --------------------------------------------------------------------
@@ -571,7 +576,7 @@ def _plan_wide_run(t0, t1, widths, pair_tables, R):
         )
         tabs.append((gidx, ws, score, dstl, w1, symd, Bin, Bout))
     if need_nb > SPLIT_NB_MAX:
-        raise PlanLimit(
+        raise WindowLimit(
             f"a wide run needs {need_nb} 1024-lane windows, past "
             f"{SPLIT_NB_MAX} (a level wider than 512); use --dp-backend "
             "native"

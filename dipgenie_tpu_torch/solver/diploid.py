@@ -9,7 +9,14 @@ and ``_forward_native`` (``dipgenie_tpu/solver/diploid.py:50-245``):
   window-sharded over the mesh's tp ranks). Any R, level widths up to
   512 and DP values up to ``VALUE_MAX`` (2,147,221,502) plan; past the
   last two the planner raises ``PlanLimit``, which is passed on (the CLI
-  prints it as one ``[E::main]`` line): there is no fallback tier;
+  prints it as one ``[E::main]`` line);
+* ``auto``: the torch tier, except that a graph past its window limit (a
+  level wider than 512: ``pair_plan.WindowLimit``) goes to the fused tier
+  with one ``[W::diploid_dp]`` line naming the limit. Only that planner
+  exception routes: a kernel, build or launch error is raised;
+* ``fused`` / ``jax``: the fused tier (``ops/fused.py``) / the chunked
+  tier (``ops/chunked.py``) on ``device``, levels up to 4,096 wide (no
+  tp mesh yet: ``MeshUnsupported``);
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
 
@@ -31,17 +38,22 @@ import torch
 from .. import native
 from ..graph.expanded import AnchorRec, ExpandedGraph, FlatAnchors
 from ..graph.pangenome import PangenomeIndex
+from ..ops import chunked, fused
 from ..ops.diploid_pair import RUNS, PairDiploidDP
 from ..ops.narrow import narrow_run_global
+from ..ops.pair_plan import WindowLimit
 from ..ops.plan import (
     DENSE_NB_LIMIT, DENSE_NB_MAX, K2_SLICE_PAIRS, plan_pairs,
 )
 from ..ops.trace import trace
+from ..ops.vertex_plan import P, W, plan_vertices
 from ..utils.synth import dp_states
 from ..utils.timing import log_stage
 from .haploid import _fmt
 
-BACKENDS = ("torch", "native", "exact")
+BACKENDS = ("auto", "torch", "fused", "jax", "native", "exact")
+# the tiers that run on the device
+DEVICE_TIERS = ("auto", "torch", "fused", "jax")
 
 NEG_INF = -(2**31) // 4
 
@@ -271,9 +283,7 @@ def torch_forward(arrs, R: int, device, mesh=None):
     if on_card:
         torch.cuda.reset_peak_memory_stats(dp.device)
     result = dp.run()
-    launched = " ".join(
-        f"{w.__name__}={w.launches - b}" for w, b in zip(wrappers, before)
-    )
+    launched = _launches(wrappers, before)
     peak = (f", peak device memory "
             f"{torch.cuda.max_memory_allocated(dp.device)} B" if on_card
             else "")
@@ -285,6 +295,88 @@ def torch_forward(arrs, R: int, device, mesh=None):
     return result
 
 
+class MeshUnsupported(ValueError):
+    """A tp mesh given to a tier that does not shard yet."""
+
+
+def check_mesh(backend: str, mesh) -> None:
+    """``MeshUnsupported`` for a tp mesh with the fused or chunked tier."""
+    if mesh is not None and backend in ("fused", "jax"):
+        raise MeshUnsupported(
+            f"--dp-backend {backend} does not take a tp mesh yet; use "
+            "--dp-backend torch (its wide runs shard over the mesh) or "
+            "native")
+
+
+def _launches(wrappers, before) -> str:
+    return " ".join(f"{w.__name__}={w.launches - b}"
+                    for w, b in zip(wrappers, before))
+
+
+def vertex_forward(arrs, R: int, device, backend: str):
+    """(sink_value, sink_s_het, transitions) of the fused (``backend``
+    ``fused``) or chunked (``jax``) tier on ``device``, with its plan's
+    and its run's log lines."""
+    t0 = time.time()
+    if backend == "fused":
+        plan = fused.plan_fused(*arrs, R)
+        vplan = plan.vplan
+    else:
+        plan = vplan = plan_vertices(*arrs)
+    t_plan = time.time() - t0
+    if backend == "fused":
+        dp = fused.FusedDiploidDP(plan, device)
+        wrappers = (fused.fused_forward, fused.fused_trace)
+        name, shape = "fused", f"backpointers {plan.bp_bytes} B"
+    else:
+        dp = chunked.DeviceDiploidDP(plan, R, device)
+        wrappers = (chunked.chunk_step, chunked.chunk_trace)
+        name = "chunked"
+        shape = (f"{len(dp.ops)} ops, {len(dp.spans)} replay spans of "
+                 f"{dp.ckpt_every} ops")
+    desc = vplan.desc
+    log_stage(
+        "diploid_dp",
+        f"vertex plan ready in {t_plan:.1f}s: {len(vplan.widths)} levels, "
+        f"{dp_states(arrs[0], R)} DP states, widest level "
+        f"{int(vplan.widths.max())}, in-degree up to "
+        f"{int(desc[:, P].max(initial=0))}, colour words up to "
+        f"{int(desc[:, W].max(initial=0))}; {shape}",
+    )
+    before = [w.launches for w in wrappers]
+    t0 = time.time()
+    on_card = dp.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dp.device)
+    result = dp.run()
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated(dp.device)} B" if on_card
+            else "")
+    log_stage(
+        "diploid_dp",
+        f"{name} tier on {device}: ship+forward+traceback in "
+        f"{time.time() - t0:.1f}s{peak}; kernel launches "
+        f"{_launches(wrappers, before)}",
+    )
+    return result
+
+
+def device_forward(arrs, R: int, backend: str, device, mesh=None):
+    """The device tiers (``DEVICE_TIERS``) on the CSR arrays; ``auto``
+    routes a graph past the torch tier's window limit to the fused tier."""
+    if backend in ("fused", "jax"):
+        check_mesh(backend, mesh)
+        return vertex_forward(arrs, R, device, backend)
+    try:
+        return torch_forward(arrs, R, device, mesh)
+    except WindowLimit as e:
+        if backend != "auto" or mesh is not None:
+            raise
+        print(f"[W::diploid_dp] torch tier: {str(e).split('; use')[0]}; "
+              "running the fused tier", file=sys.stderr, flush=True)
+    return vertex_forward(arrs, R, device, "fused")
+
+
 def diploid_dp_solver(
     g: ExpandedGraph,
     R: int,
@@ -293,7 +385,7 @@ def diploid_dp_solver(
     index: PangenomeIndex,
     out=sys.stdout,
     progress: bool = False,
-    backend: str = "torch",
+    backend: str = "auto",
     n_threads: int = 0,
     device="cuda",
     mesh=None,
@@ -307,9 +399,9 @@ def diploid_dp_solver(
 
     print("Creating hetro/hom-zygous colors per vertex lists", file=out)
     print("Running DP", file=out)
-    if backend == "torch":
-        sink_val, sink_shet, transitions = torch_forward(
-            csr_arrays(g, color_homo_bv), R, device, mesh
+    if backend in DEVICE_TIERS:
+        sink_val, sink_shet, transitions = device_forward(
+            csr_arrays(g, color_homo_bv), R, backend, device, mesh
         )
     elif backend == "native":
         sink_val, sink_shet, transitions = _forward_native(

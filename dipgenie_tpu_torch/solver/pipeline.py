@@ -6,9 +6,15 @@ DP → FASTA output) with the port's DP tiers. ``dp_backend``:
 
 * ``auto`` (the default) and ``torch``: the pair DP of ``ops/`` on
   ``device``: the CUDA kernels on ``cuda``, their plain PyTorch versions
-  on ``cpu``. With ``device="cuda"`` and no card, ``run()`` raises
-  ``NoCudaDevice`` before any host work: the port never moves to the CPU
-  unless asked to;
+  on ``cpu`` (``auto`` runs a graph with a level wider than 512, past the
+  pair planner's window limit, on the fused tier);
+* ``fused`` / ``jax``: the fused tier / the chunked tier
+  (``ops/fused.py``, ``ops/chunked.py``) on ``device``, likewise.
+
+For every device tier, with ``device="cuda"`` and no card ``run()`` raises
+``NoCudaDevice`` before any host work: the port never moves to the CPU
+unless asked to. A tp ``mesh`` with ``fused`` or ``jax`` raises
+``MeshUnsupported``, also before any host work;
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
 
@@ -37,12 +43,12 @@ from ..solver.anchors import (
     compute_and_classify_anchors,
     materialize_hits,
 )
-from ..solver.diploid import diploid_dp_solver
+from ..solver.diploid import DEVICE_TIERS, check_mesh, diploid_dp_solver
 from ..solver.haploid import dp_approximation_solver
 from ..utils import checkpoint
 from ..utils.timing import log_stage
 
-BACKENDS = ("auto", "torch", "native", "exact")
+BACKENDS = ("auto", "torch", "fused", "jax", "native", "exact")
 
 
 def get_hap_name(gfa_name: str, reads_name: str) -> str:
@@ -70,8 +76,8 @@ class PipelineConfig:
     debug: bool = False
     verbose: bool = True
     progress: bool = False
-    dp_backend: str = "auto"  # auto | torch | native | exact
-    device: str = "cuda"  # cuda | cpu: where the torch tier runs
+    dp_backend: str = "auto"  # auto | torch | fused | jax | native | exact
+    device: str = "cuda"  # cuda | cpu: where the device tiers run
     sketch_backend: str = "host"  # host | device (K10 on ``device``)
     # optional checkpoint directory: the anchor stage (sketch + join +
     # classify) resumes from disk on rerun (utils/checkpoint.py)
@@ -84,11 +90,12 @@ class PipelineConfig:
 
     @property
     def backend(self) -> str:
-        """The DP tier that runs: ``auto`` is ``torch``."""
+        """The DP tier asked for (``auto`` is the torch tier, routed past
+        its window limit)."""
         if self.dp_backend not in BACKENDS:
             raise ValueError(
                 f"unknown DP backend {self.dp_backend!r}: {BACKENDS}")
-        return "torch" if self.dp_backend == "auto" else self.dp_backend
+        return self.dp_backend
 
 
 class Pipeline:
@@ -110,7 +117,8 @@ class Pipeline:
 
     def run(self, out=sys.stdout) -> None:
         cfg = self.cfg
-        if cfg.backend == "torch" or cfg.sketch_backend == "device":
+        check_mesh(cfg.backend, cfg.mesh)  # before any host work
+        if cfg.backend in DEVICE_TIERS or cfg.sketch_backend == "device":
             resolve_device(cfg.device)  # fail before any host work
         if self.index is None:
             self.load()
@@ -143,8 +151,7 @@ class Pipeline:
         backend = cfg.backend
         # native C++ graph build unless the exact tier was requested, which
         # exercises the Python graph path
-        use_native_build = native.available() and backend in (
-            "native", "torch")
+        use_native_build = native.available() and backend != "exact"
         if use_native_build:
             build = build_expanded_graph_native(self.index, self.anchors)
             g = build.graph

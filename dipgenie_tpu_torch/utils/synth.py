@@ -185,6 +185,27 @@ def wide_window_graph(width: int):
     return g, [bool(x) for x in rng.random(6) < 0.5]
 
 
+def high_indegree_graph():
+    """``(ExpandedGraph, color_homo_bv)`` of ``test_fused_dp_high_indegree``
+    of ``tests/test_device_kernels.py`` (the same draws in the same order):
+    widths ``[1, 40, 40, 40, 1]``, every vertex to 36 of the next level's
+    40, so the wide levels' in-degree passes 32; R = 3 there."""
+    rng = np.random.default_rng(7)
+    widths = [1, 40, 40, 40, 1]
+    g, starts = _leveled_graph(widths)
+    for l in range(len(widths) - 1):
+        k2 = widths[l + 1]
+        for u in range(starts[l], starts[l + 1]):
+            for v in rng.choice(k2, size=min(k2, 36), replace=False):
+                g.adj_list[u].append(
+                    (int(starts[l + 1] + v), int(rng.random() < 0.2)))
+    for v in range(len(g.adj_list)):
+        for c in rng.choice(6, size=rng.integers(0, 3), replace=False):
+            g.color[v].append(int(c))
+        g.color[v].sort()
+    return g, [bool(x) for x in rng.random(6) < 0.5]
+
+
 def heavy_chain(L: int = 1100, n_hom: int = 4096, seed: int = 0):
     """``(ExpandedGraph, color_homo_bv)`` of a chain of width-2 levels whose
     DP values pass 4,100,000: every vertex carries the same ``n_hom`` HOM

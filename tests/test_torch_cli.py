@@ -123,7 +123,7 @@ def test_default_flags_without_card_do_not_fall_back(tmp_path,
 
 @pytest.mark.parametrize("flags,msg", [
     (["--dp-backend", "pallas"], "TPU tier"),
-    (["--dp-backend", "jax"], "TPU tier"),
+    (["--dp-backend", "pallas", "--device", "cpu"], "TPU tier"),
     (["--sketch-backend", "device", "-k", "33"], "-k up to 32"),
 ])
 def test_tpu_only_flags_are_rejected(flags, msg, capsys):
@@ -185,6 +185,99 @@ def test_cli_past_the_value_bound_prints_one_error_line(tmp_path,
     assert "--dp-backend native" in errors[0]
     assert "Traceback" not in p.stderr and "torch tier on" not in p.stderr
     assert not (tmp_path / "out.fa").exists()
+
+
+@pytest.fixture(scope="module")
+def small_pangenome(tmp_path_factory):
+    """4 walks over 10 kbp: the JAX chunked tier's CLI compiles a program
+    for each op shape, ~100 s on tiny_pangenome's wider levels."""
+    from dipgenie_tpu_torch.utils.synth import pangenome
+
+    return pangenome(str(tmp_path_factory.mktemp("pg4")), n_bp=10_000,
+                     n_walks=4, seed=1)
+
+
+@pytest.mark.parametrize("backend", ["fused", "jax"])
+def test_vertex_tier_cli_matches_jax_cli(backend, tmp_path, request):
+    """``--dp-backend fused|jax --device cpu`` (K13-K16's plain versions)
+    and the JAX package's CLI with the same flag: the same FASTA bytes and
+    stdout (apart from the timing line)."""
+    gfa, reads = request.getfixturevalue(
+        "tiny_pangenome" if backend == "fused" else "small_pangenome")
+    outs = {}
+    for tag, args in (
+        ("port", ["-m", "dipgenie_tpu_torch", "--device", "cpu"]),
+        ("jax", ["-m", "dipgenie_tpu"]),
+    ):
+        d = tmp_path / tag
+        d.mkdir()
+        p = _run([*args, "--dp-backend", backend, "-p2", "-R18", "-g", gfa,
+                  "-r", reads, "-o", "out.fa"], d)
+        assert p.returncode == 0, p.stderr[-3000:]
+        outs[tag] = (p.stdout, (d / "out.fa").read_bytes(), p.stderr)
+    assert outs["port"][1] == outs["jax"][1]
+    assert len(outs["port"][1]) > 10_000
+    assert _strip(outs["port"][0]) == _strip(outs["jax"][0])
+    name = "fused" if backend == "fused" else "chunked"
+    assert f"{name} tier on cpu" in outs["port"][2]
+
+
+def test_cli_auto_past_the_window_limit_runs_the_fused_tier(
+        tmp_path, tiny_pangenome):
+    """``auto`` with the pair planner's window limit patched to 4 in the
+    CLI's process (tiny_pangenome's widest run needs 5 windows): one
+    ``[W::diploid_dp]`` line naming the limit, then the fused tier writes
+    the native tier's FASTA."""
+    gfa, reads = tiny_pangenome
+    code = (
+        "import sys\n"
+        "from dipgenie_tpu_torch.ops import pair_plan\n"
+        "pair_plan.SPLIT_NB_MAX = 4\n"
+        "from dipgenie_tpu_torch.cli import main\n"
+        "sys.exit(main(sys.argv[1:]))\n"
+    )
+    outs = {}
+    for tag, args in (("auto", ["-c", code, "--device", "cpu"]),
+                      ("native", ["-m", "dipgenie_tpu_torch", "--dp-backend",
+                                  "native"])):
+        d = tmp_path / tag
+        d.mkdir()
+        p = _run([*args, "-p2", "-R18", "-g", gfa, "-r", reads, "-o",
+                  "out.fa"], d)
+        assert p.returncode == 0, p.stderr[-3000:]
+        outs[tag] = (p.stdout, (d / "out.fa").read_bytes(), p.stderr)
+    warns = [x for x in outs["auto"][2].splitlines()
+             if x.startswith("[W::")]
+    assert len(warns) == 1, outs["auto"][2][-2000:]
+    assert warns[0].startswith("[W::diploid_dp] torch tier: a wide run "
+                               "needs 5 1024-lane windows, past 4")
+    assert "fused tier on cpu" in outs["auto"][2]
+    assert outs["auto"][1] == outs["native"][1]
+    assert _strip(outs["auto"][0]) == _strip(outs["native"][0])
+
+
+@pytest.mark.parametrize("backend", ["fused", "jax"])
+def test_mesh_with_vertex_tier_prints_one_error_line(backend, monkeypatch,
+                                                     capsys, tmp_path):
+    """A tp mesh with ``fused`` or ``jax`` (their sharding is not ported
+    yet): one ``[E::main]`` line, exit 1, before any host work."""
+    import functools
+
+    from dipgenie_tpu_torch import cli
+    from dipgenie_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(n_dp=1, n_tp=2, tp_rank=0, dp_rank=0, tp=None, dp=None)
+    monkeypatch.setattr(cli, "PipelineConfig", functools.partial(
+        cli.PipelineConfig, mesh=mesh))
+    rc = cli.main(["--dp-backend", backend, "--device", "cpu", "-g",
+                   "missing.gfa", "-r", "x.fq", "-o", str(tmp_path / "o.fa")])
+    err = capsys.readouterr().err
+    errors = [x for x in err.splitlines() if x.startswith("[E::")]
+    assert rc == 1 and len(errors) == 1, err
+    assert errors[0] == (f"[E::main] --dp-backend {backend} does not take a "
+                         "tp mesh yet; use --dp-backend torch (its wide runs "
+                         "shard over the mesh) or native")
+    assert "Loaded graph" not in err
 
 
 def test_toy_diploid_torch_cpu_matches_golden(tmp_path):

@@ -1240,3 +1240,132 @@ def test_parallel_edges_dense_run_goes_to_k3(cuda):
 
     got = assemble(int(V[4, 0]), recs.cpu().numpy())
     assert got == native_forward_csr(arrs, 4)
+
+
+# ---------------- K13-K16: the fused and chunked tiers ----------------
+
+# the JAX tiers' random graphs, the real slices, test_fused_dp_high_indegree's
+# graph, and one band of three levels 1,000-1,024 wide (the shape of W,
+# ops/vertex_plan.py's widest levels past the pair planner)
+VERTEX_CASES = NPZ + list(CASES[:4]) + ["high_indegree", "wide_1000"]
+
+
+def vertex_case(case):
+    """(CSR arrays, R) of a VERTEX_CASES entry."""
+    from dipgenie_tpu_torch.utils.synth import high_indegree_graph
+
+    if case == "high_indegree":
+        return csr_arrays(*high_indegree_graph()), 3
+    if case == "wide_1000":
+        return mhc_shaped_csr(L=40, seed=3, n_bands=1, band_len=3,
+                              wmin=1000, wmax=1024), 18
+    return case_csr(case)
+
+
+@pytest.mark.parametrize("case", VERTEX_CASES)
+def test_fused_kernels_match_plain_versions(case, cuda):
+    """K13 on each transition from the plain path's state, every V and
+    code element equal to its plain version; K13 over the whole plan in
+    one call; K14 on the codes equal to its plain version."""
+    from dipgenie_tpu_torch.ops import fused
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = vertex_case(case)
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    bk = torch.empty(plan.bp_bytes, dtype=torch.uint8, device=cuda)
+    bp = torch.empty_like(bk)
+    V0 = initial_state(R, int(plan.vplan.widths[0]), cuda)
+    V, before = V0, fused.fused_forward.launches
+    for t in range(plan.T):
+        got = fused.fused_forward(dev, t, t + 1, V, bk)
+        V = fused.fused_forward_ref(dev, t, t + 1, V, bp)
+        assert torch.equal(got, V), t
+        assert torch.equal(fused._codes(bk, plan.desc[t], R + 1),
+                           fused._codes(bp, plan.desc[t], R + 1)), t
+    assert fused.fused_forward.launches == before + plan.T
+    whole = torch.empty_like(bk)
+    assert torch.equal(fused.fused_forward(dev, 0, plan.T, V0, whole), V)
+    rows, sh = fused.fused_trace(dev, whole, R)
+    want = fused.fused_trace_ref(dev, bp, R)
+    assert torch.equal(rows, want[0]) and sh == want[1]
+
+
+@pytest.mark.parametrize("case", VERTEX_CASES)
+def test_chunk_kernels_match_plain_versions(case, cuda):
+    """K15 on each transition (forward and replay) from the plain path's
+    state: V, SH and the packed backpointers equal to its plain version;
+    K16 over the whole plan as one span, and in two spans, equal to its
+    plain version."""
+    from dipgenie_tpu_torch.ops import chunked
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = vertex_case(case)
+    plan = plan_vertices_of(arrs)
+    dev = ship(plan, cuda)
+    V = initial_state(R, int(plan.widths[0]), cuda)
+    SH = torch.zeros_like(V)
+    sizes = (R + 1) * plan.desc[:, 1] ** 2
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    bk = torch.empty(int(sizes.sum()), dtype=torch.int32, device=cuda)
+    bp = torch.empty_like(bk)
+    for t in range(plan.T):
+        got = chunked.chunk_step(dev, t, t + 1, V, SH, bk, off[t:t + 1])
+        fwd = chunked.chunk_step(dev, t, t + 1, V, SH)
+        V, SH = chunked.chunk_step_ref(dev, t, t + 1, V, SH, bp,
+                                       off[t:t + 1])
+        for g in (got, fwd):
+            assert torch.equal(g[0], V) and torch.equal(g[1], SH), t
+    assert torch.equal(bk, bp)
+    k2s = plan.desc[:, 1]
+    for cut in (plan.T, plan.T // 2):
+        out = {}
+        for which, fn in (("kernel", chunked.chunk_trace),
+                          ("plain", chunked.chunk_trace_ref)):
+            carry = torch.tensor([0, 0, R], dtype=torch.int32, device=cuda)
+            rows = torch.zeros((plan.T, 4), dtype=torch.int32, device=cuda)
+            for t0, t1 in ((cut, plan.T), (0, cut)):
+                if t1 > t0:
+                    fn(k2s[t0:t1], off[t0:t1], bp, carry, rows[t0:t1])
+            out[which] = (rows, carry)
+        assert torch.equal(out["kernel"][0], out["plain"][0])
+        assert torch.equal(out["kernel"][1], out["plain"][1])
+
+
+def plan_vertices_of(arrs):
+    from dipgenie_tpu_torch.ops.vertex_plan import plan_vertices
+
+    return plan_vertices(*arrs)
+
+
+@pytest.mark.parametrize("case", VERTEX_CASES)
+def test_vertex_tiers_on_card_match_native(case, cuda):
+    """Both tiers on the card equal the native tier (the slices' baked
+    oracles equal it too)."""
+    from dipgenie_tpu_torch.ops import chunked, fused
+
+    arrs, R = vertex_case(case)
+    want = native_forward_csr(arrs, R)
+    assert fused.FusedDiploidDP(fused.plan_fused(*arrs, R), cuda).run() == want
+    assert chunked.DeviceDiploidDP(plan_vertices_of(arrs), R, cuda,
+                                   ckpt_every=3).run() == want
+
+
+def test_vertex_wrappers_reject_bad_inputs(cuda):
+    from dipgenie_tpu_torch.ops import chunked, fused
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = vertex_case("mhc_slice_csr")
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    V = initial_state(R, 1, cuda)
+    bp = torch.empty(plan.bp_bytes, dtype=torch.uint8, device=cuda)
+    before = (fused.fused_forward.launches, chunked.chunk_step.launches)
+    with pytest.raises(ValueError, match="dtype"):
+        fused.fused_forward(dev, 0, 1, V.long(), bp)
+    with pytest.raises(ValueError, match="bp"):
+        fused.fused_forward(dev, 0, 1, V, bp.view(torch.int16))
+    with pytest.raises(ValueError, match="SH"):
+        chunked.chunk_step(dev, 0, 1, V, V.float())
+    assert (fused.fused_forward.launches,
+            chunked.chunk_step.launches) == before

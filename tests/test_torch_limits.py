@@ -169,3 +169,32 @@ def test_parallel_edges_destination_past_a_k2_slice_goes_to_k3():
     (seg,) = plan_pairs(*csr_arrays(*small), 4).segments
     assert dense_destinations(seg)[1] == 209 ** 2
     assert segment_kind(seg) == "wide"
+
+
+def test_auto_routes_past_the_window_limit_to_the_fused_tier(capfd):
+    """The width-513 graph of the window case above: ``torch`` raises the
+    planner's ``WindowLimit`` (its ``[E::main]`` line stays as it was);
+    ``auto`` prints one ``[W::diploid_dp]`` line naming the limit and runs
+    the fused tier, whose result equals the native tier's; ``fused`` and
+    ``jax`` run it with no warning."""
+    from dipgenie_tpu_torch.ops.pair_plan import WindowLimit
+    from dipgenie_tpu_torch.solver.diploid import device_forward
+
+    g = synth.dense_graph(np.random.default_rng(5), [1, 513, 1], deg=2)
+    chb = [True] * 6
+    arrs, R = csr_arrays(g, chb), 2
+    want = native_forward_csr(arrs, R)
+    with pytest.raises(WindowLimit, match="--dp-backend native"):
+        device_forward(arrs, R, "torch", "cpu")
+    capfd.readouterr()
+    assert device_forward(arrs, R, "auto", "cpu") == want
+    err = capfd.readouterr().err.splitlines()
+    warns = [x for x in err if x.startswith("[W::")]
+    assert warns == [
+        "[W::diploid_dp] torch tier: a wide run needs 258 1024-lane "
+        f"windows, past {SPLIT_NB_MAX} (a level wider than 512); running "
+        "the fused tier"]
+    for backend in ("fused", "jax"):
+        assert device_forward(arrs, R, backend, "cpu") == want
+    assert not [x for x in capfd.readouterr().err.splitlines()
+                if x.startswith("[W::")]
