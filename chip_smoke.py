@@ -50,12 +50,17 @@ result line):
      against its plain version on every output element, exact, on the
      three slices, the JAX tiers' random graphs, the high in-degree graph
      (in-degree 40) and W's transitions into and out of its widest level
-     (1,022; the next in-degree 152) from a random state; U2 both tiers on
-     C through the solver's entry (launches counted: one a transition, K15
-     twice, K16 once a replay span), then by stages (plan beside
-     plan_pairs', ship, forward and traceback by CUDA events, peak memory,
-     states/s), each equal to the native tier, and each kernel beside its
-     plain version and its bound on C's first U_PREFIX transitions; U3 W
+     (1,022; the next in-degree 152) from a random state, then K13 and K15
+     over whole plans and across run ends, bands at and one past the run
+     kernel's shared-memory edge included; U2 both tiers on C through the
+     solver's entry (launches counted against the host cut,
+     ops/vertex_plan.py:plan_launches: one a run of narrow transitions,
+     one a wide transition, K15 in the forward and the replay, K16 once a
+     replay span), then by stages (plan beside plan_pairs', ship, forward
+     and traceback by CUDA events, peak memory, states/s), each equal to
+     the native tier, K13's device time split between its run and
+     per-transition kernels, and each kernel beside its plain version and
+     its bound on C's first U_PREFIX transitions; U3 W
      (synth.mhc_shaped_csr with 20 bands of levels 513-1,024 wide, ~2.9e9
      states) through --dp-backend auto: the torch tier's planner stops at
      its window limit with one [W::diploid_dp] line, the fused tier runs
@@ -1379,6 +1384,7 @@ class Smoke:
         for tag, arrs, r in cases:
             self.u_check_graph(tag, arrs, r)
         self.u_check_w(wplan)
+        self.u_check_runs(cases)
         log(f"U1 K13-K16 == their plain versions on every element: "
             f"{len(cases)} graphs and W's widest level "
             f"({time.time() - t0:.1f}s)")
@@ -1439,7 +1445,7 @@ class Smoke:
         import numpy as np
 
         from dipgenie_tpu_torch.ops import fused
-        from dipgenie_tpu_torch.ops.vertex_plan import NEG, ship
+        from dipgenie_tpu_torch.ops.vertex_plan import ship
 
         torch = self.torch
         desc, R1 = wplan.desc, R + 1
@@ -1448,12 +1454,7 @@ class Smoke:
         rng = np.random.default_rng(SEED)
         for t in (t_in, t_in + 1):
             k, k2, P = (int(x) for x in desc[t, :3])
-            shape = (R1, k, k)
-            val = rng.integers(0, 1000, shape)
-            V = torch.from_numpy(np.where(rng.random(shape) < 0.33, NEG, val)
-                                 .astype(np.int32)).to(DEVICE)
-            SH = torch.from_numpy(rng.integers(0, 50, shape).astype(
-                np.int32)).to(DEVICE)
+            V, SH = self.u_random_state((R1, k, k), rng)
             codes = [torch.zeros(wplan.bp_bytes, dtype=torch.uint8,
                                  device=DEVICE) for _ in range(2)]
             outs = [self.fns["fused_forward"][i](dev, t, t + 1, V, codes[i])
@@ -1474,6 +1475,79 @@ class Smoke:
             log(f"U1 W transition {t}: widths {k} -> {k2}, in-degree up to "
                 f"{P}, {R1 * k2 * k2} states ({live} reachable): K13 and K15 "
                 "== plain")
+
+    def u_check_runs(self, cases):
+        """K13 and K15 (forward and replay) over whole plans in one call,
+        and cut at a third (a run ended short on each side), against their
+        plain versions on every element: U1's graphs, and MHC-shaped graphs
+        with a band of levels at and one past the widest the run kernel
+        holds at R (its shared-memory edge, for K13 and for K15)."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import fused
+        from dipgenie_tpu_torch.ops.vertex_plan import (
+            initial_state, run_smem_bytes, ship,
+        )
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+        torch = self.torch
+        budget = fused.smem_budget(DEVICE)
+        edges = {sh: max(w for w in range(1, 64)
+                         if run_smem_bytes(w, R + 1, sh) <= budget)
+                 for sh in (False, True)}
+        bands = sorted({w + d for w in edges.values() for d in (0, 1)})
+        cases = list(cases) + [
+            (f"band {w}", mhc_shaped_csr(L=60, seed=w, n_bands=1,
+                                         band_len=4, wmin=w, wmax=w), R)
+            for w in bands]
+        runs = cross = 0
+        for tag, arrs, r in cases:
+            plan = fused.plan_fused(*arrs, r)
+            dev = ship(plan.vplan, DEVICE, plan.desc)
+            R1, T = r + 1, plan.T
+            sizes = R1 * plan.desc[:, 1] ** 2
+            for t0, t1 in ((0, T), (0, max(T // 3, 1)), (max(T // 3, 1), T)):
+                if t1 <= t0:
+                    continue
+                cut = fused.launch_cut(dev, t0, t1, R1, False)
+                runs += int((cut[:, 2] > 0).sum())
+                cross += int(((cut[:, 2] > 0) & (cut[:, 0] > t0)).sum())
+                k = int(plan.vplan.widths[t0])
+                V = (initial_state(r, k, DEVICE) if t0 == 0 else
+                     self.u_random_state((R1, k, k))[0])
+                SH = torch.zeros_like(V)
+                codes = [torch.zeros(plan.bp_bytes, dtype=torch.uint8,
+                                     device=DEVICE) for _ in range(2)]
+                outs = [self.fns["fused_forward"][i](dev, t0, t1, V, codes[i])
+                        for i in (0, 1)]
+                self.compare("fused_forward", (outs[0], codes[0]),
+                             (outs[1], codes[1]))
+                o = np.concatenate([[0], np.cumsum(sizes[t0:t1])[:-1]])
+                words = [torch.zeros(int(sizes[t0:t1].sum()),
+                                     dtype=torch.int32, device=DEVICE)
+                         for _ in range(2)]
+                outs = [self.fns["chunk_step"][i](dev, t0, t1, V, SH,
+                                                  words[i], o)
+                        for i in (0, 1)]
+                self.compare("chunk_step", (*outs[0], words[0]),
+                             (*outs[1], words[1]))
+        log(f"U1 K13 and K15 over whole plans and across run ends "
+            f"({len(cases)} graphs, {runs} runs, the widest runs at R={R} "
+            f"{edges[False]} (K13) and {edges[True]} (K15) wide, bands "
+            f"{bands}): == plain")
+
+    def u_random_state(self, shape, rng=None):
+        """(V, SH) on the card: V with a third of its states unreachable."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops.vertex_plan import NEG
+
+        rng = np.random.default_rng(SEED) if rng is None else rng
+        val = rng.integers(0, 1000, shape)
+        V = np.where(rng.random(shape) < 0.33, NEG, val).astype(np.int32)
+        SH = rng.integers(0, 50, shape).astype(np.int32)
+        return (self.torch.from_numpy(V).to(DEVICE),
+                self.torch.from_numpy(SH).to(DEVICE))
 
     def phase_u2(self):
         """Both tiers on C through the solver's entry (launches counted),
@@ -1499,10 +1573,11 @@ class Smoke:
                   f"tier: {got[:2]} vs {want[:2]}")
             used = {k: v for k, v in launches.items() if v}
             if tier == "fused":
-                expect = {"fused_forward": T, "fused_trace": 1}
+                expect = {"fused_forward": u_launches(arrs, [(0, T)], False),
+                          "fused_trace": 1}
             else:
                 dp = chunked.DeviceDiploidDP(plan_vertices(*arrs), R, DEVICE)
-                expect = {"chunk_step": 2 * T,
+                expect = {"chunk_step": 2 * u_launches(arrs, dp.spans, True),
                           "chunk_trace": len(dp.spans)}
             check(used == expect, f"U2 {name} launches {used}, want {expect}")
             log(f"U2 {name} tier through the solver's entry: "
@@ -1560,7 +1635,37 @@ class Smoke:
                 f"{torch.cuda.get_device_name(0)}")
             del dev, rows
             torch.cuda.empty_cache()
+        self.u_split(arrs)
         self.u_time(arrs)
+
+    def u_split(self, arrs):
+        """K13's device time on C's fused forward (one profiled forward)
+        between its run kernel (runs of narrow transitions) and its
+        per-transition kernel (wide transitions), beside the launches of
+        each."""
+        from dipgenie_tpu_torch.ops import fused
+
+        plan = fused.plan_fused(*arrs, R)
+        dp = fused.FusedDiploidDP(plan, DEVICE)
+        dev = dp.ship()
+        cut = fused.launch_cut(dev, 0, plan.T, R + 1, False)
+        with self.profiler() as prof:
+            ms, (V, bp) = self.timed(lambda: dp.forward(dev))
+        del V, bp
+        rows = self.device_rows(prof, "profile_U_split.txt")
+        run = sum(t for k, t, _ in rows if "vertex_run" in k) / 1e3
+        step = sum(t for k, t, _ in rows if "vertex_step" in k) / 1e3
+        n_run = int((cut[:, 2] > 0).sum())
+        busy = sum(t for _, t, _ in rows) / 1e3
+        log(f"U K13 on C's fused forward {ms:.4f} ms (CUDA events): run "
+            f"kernel {run:.4f} ms device in {n_run} launches ("
+            f"{int((cut[cut[:, 2] > 0, 1] - cut[cut[:, 2] > 0, 0]).sum())} "
+            f"transitions), per-transition kernel {step:.4f} ms in "
+            f"{len(cut) - n_run} launches; shares of K13's device time "
+            f"{run / max(run + step, 1e-9):.4f} / "
+            f"{step / max(run + step, 1e-9):.4f}; idle share "
+            f"{1 - busy / ms:.4f} (profiler)")
+        self.torch.cuda.empty_cache()
 
     def u_time(self, arrs):
         """K13-K16 beside their plain versions on C's first U_PREFIX
@@ -1694,8 +1799,9 @@ class Smoke:
               f"{pair_plan.SPLIT_NB_MAX} (a level wider than 512); running "
               "the fused tier" in warns[0],
               f"U3 the [W::diploid_dp] line: {warns}")
-        check(launches == {"fused_forward": T, "fused_trace": 1},
-              f"U3 launches {launches}")
+        expect = {"fused_forward": u_launches(w, [(0, T)], False),
+                  "fused_trace": 1}
+        check(launches == expect, f"U3 launches {launches}, want {expect}")
         check(got == want, f"U3 W through auto differs from the native "
               f"tier: {got[:2]} vs {want[:2]}")
         log(f"U3 W through auto: {wall:.3f}s (the torch tier's planner up "
@@ -2732,6 +2838,18 @@ def caps_read_bytes(name: str, ins) -> int:
     if name == "scalar_prefetch_grid":
         return ins[0].nbytes + len(set(ins[0].tolist())) * 8 * 128 * 4
     return needs.get(name, sum(a.nbytes for a in ins))
+
+
+def u_launches(arrs, spans, with_sh: bool) -> int:
+    """K13's (``with_sh`` False) or K15's launches over ``spans`` of a
+    graph's transitions at R: the host cut's count on this card."""
+    from dipgenie_tpu_torch.ops import fused
+    from dipgenie_tpu_torch.ops.vertex_plan import plan_launches, plan_vertices
+
+    desc = plan_vertices(*arrs).desc
+    budget = fused.smem_budget(DEVICE)
+    return sum(len(plan_launches(desc[t0:t1], R + 1, with_sh, budget))
+               for t0, t1 in spans)
 
 
 def u_work(plan, n: int) -> dict:

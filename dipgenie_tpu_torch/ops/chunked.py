@@ -15,11 +15,12 @@ and the checkpoints, not the whole plan's backpointers (the fused tier's).
   in reverse with backpointers and walks each (``:684-717``).
 * K15 ``chunk_step`` (``csrc/chunk_dp.cu``; replaces ``_step_body``
   ``:177-272`` through ``_scan_fn`` ``:440-464`` and ``_big_fn``
-  ``:466-484``): one launch a transition, a thread a state, the same
-  maximum as the fused tier's K13, carrying ``SH`` (the winner's source
-  SH plus its ``popcount((Tl | Tl) ^ (Tr | Tr))``); on replay it also
-  writes ``pi | pj << 12 | wu << 24 | wv << 25`` (0 at unreachable
-  states).
+  ``:466-484``): the launches ``vertex_plan.plan_launches`` cuts, as the
+  fused tier's K13 (a run of narrow transitions in one block, V and SH in
+  shared memory; a wide transition over the card), the same maximum,
+  carrying ``SH`` (the winner's source SH plus its ``popcount((Tl | Tl) ^
+  (Tr | Tr))``); on replay it also writes ``pi | pj << 12 | wu << 24 | wv
+  << 25`` (0 at unreachable states).
 * K16 ``chunk_trace`` (replaces ``_trace_fn`` ``:543-567``): one thread
   walks a replayed span's packed words in reverse from a device carry
   ``(i2, j2, r)``.
@@ -40,7 +41,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
-from .fused import check_free, path_transitions
+from .fused import check_free, check_tables, launch_cut, path_transitions
 from .vertex_plan import (
     K, K2, P, W, DevTables, VertexPlan, candidates, initial_state, ship,
     transition_ref,
@@ -127,11 +128,16 @@ def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs):
     R1 = V.shape[0]
     for name, x in (("V", V), ("SH", SH)):
         kernels.check_tensor(x, name, torch.int32, None, dev.device)
+    check_tables(dev)
     if bp is not None:
         kernels.check_tensor(bp, "bp", torch.int32, None, dev.device)
         bp_off = np.ascontiguousarray(bp_off, np.int64)
         if len(bp_off) != t1 - t0:
             raise ValueError("chunk_step: one bp offset a transition")
+        size = R1 * dev.desc[t0:t1 - 1, K2] ** 2
+        if not np.array_equal(bp_off[1:], bp_off[:-1] + size):
+            raise ValueError("chunk_step: bp_off must put each transition's "
+                             "words right after the previous one's")
     kmax = int(dev.desc[t0:t1, K2].max())
     n = R1 * max(kmax * kmax, V[0].numel())
     if bufs is None:
@@ -147,34 +153,39 @@ def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs):
         s = 0
         vb[0, :V.numel()] = V.reshape(-1)
         sb[0, :SH.numel()] = SH.reshape(-1)
+    cut = launch_cut(dev, t0, t1, R1, True)
     rc = kernels.lib().dg_chunk_forward(
-        dev.desc.ctypes.data, t0, t1, R1, dev.pred.data_ptr(),
-        dev.deg.data_ptr(), dev.masks.data_ptr(), vb[s].data_ptr(),
-        vb[1 - s].data_ptr(), sb[s].data_ptr(), sb[1 - s].data_ptr(),
+        dev.desc.ctypes.data, dev.desc_dev.data_ptr(), cut.ctypes.data,
+        len(cut), t0, R1, dev.pred.data_ptr(), dev.deg.data_ptr(),
+        dev.masks.data_ptr(), vb[s].data_ptr(), vb[1 - s].data_ptr(),
+        sb[s].data_ptr(), sb[1 - s].data_ptr(),
         bp.data_ptr() if bp is not None else None,
         bp_off.ctypes.data if bp is not None else None,
         kernels.stream_of(V))
     kernels.raise_on_error(rc, "chunk_step")
-    k2, last = int(dev.desc[t1 - 1, K2]), s ^ ((t1 - t0) % 2)
+    k2, last = int(dev.desc[t1 - 1, K2]), s ^ (len(cut) % 2)
     m = R1 * k2 * k2
-    return vb[last, :m].view(R1, k2, k2), sb[last, :m].view(R1, k2, k2)
+    return (vb[last, :m].view(R1, k2, k2), sb[last, :m].view(R1, k2, k2),
+            len(cut))
 
 
 def chunk_step(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
                SH: torch.Tensor, bp=None, bp_off=None, bufs=None):
-    """K15 over transitions ``t0 .. t1 - 1`` (one launch each; the count
-    grows by ``t1 - t0``). With ``bufs`` (``state_buffers``) the states
-    stay in its slots from call to call: where ``V`` and ``SH`` are views
-    of one slot, nothing is copied, and the result is views of a slot.
+    """K15 over transitions ``t0 .. t1 - 1`` (the launches of
+    ``fused.launch_cut``; the count grows by their number). With ``bufs``
+    (``state_buffers``) the states stay in its slots from call to call:
+    where ``V`` and ``SH`` are views of one slot, nothing is copied, and
+    the result is views of a slot. On the card ``bp_off`` must lay the
+    transitions' words out one after another (as every caller does).
     CPU tensors take ``chunk_step_ref``."""
     if t1 <= t0:
         return V, SH
     if V.device.type == "cpu":
         return chunk_step_ref(dev, t0, t1, V, SH, bp, bp_off)
-    out = _launch_step(dev, t0, t1, V.contiguous(), SH.contiguous(), bp,
-                       bp_off, bufs)
-    chunk_step.launches += t1 - t0
-    return out
+    *out, n = _launch_step(dev, t0, t1, V.contiguous(), SH.contiguous(), bp,
+                           bp_off, bufs)
+    chunk_step.launches += n
+    return tuple(out)
 
 
 def chunk_trace_ref(k2s, bp_off, bp: torch.Tensor, carry: torch.Tensor,

@@ -12,12 +12,15 @@ TPU compile-shape workarounds and have no counterpart.
 
 * K13 ``fused_forward`` (``csrc/fused_dp.cu``; replaces ``_forward_fn``,
   ``diploid_fused.py:462``, and its body ``_branch_step`` ``:306-414``):
-  one launch a transition, a thread a state ``(r, i2, j2)`` of ``[R+1,
-  k2, k2]``, over the real slots of both destinations; V double-buffered
-  in global memory. It writes the winner's slot pair ``p * P + q`` as the
-  state's backpointer code: int16 where the transition's in-degree ``P``
-  is at most 256, int32 past that, at the transition's int64 byte offset
-  in one flat buffer (0 at unreachable states, which it re-pins to NEG).
+  the launches ``vertex_plan.plan_launches`` cuts: a run of narrow
+  transitions in one launch of one block, V ``[R+1, k, k]`` in shared
+  memory; a wide transition in one launch over the card, V in global
+  memory. A work item is a destination pair and a group of rows, walking
+  the real slots of both destinations once, each candidate scored once.
+  It writes the winner's slot pair ``p * P + q`` as the state's
+  backpointer code: int16 where the transition's in-degree ``P`` is at
+  most 256, int32 past that, at the transition's int64 byte offset in one
+  flat buffer (0 at unreachable states, which it re-pins to NEG).
 * K14 ``fused_trace`` (replaces ``_trace_fn`` ``:530-605``): one thread
   walks the codes from the sink back to level 0, decodes each into ``(pi,
   pj, wu, wv)`` from the slot tables and adds the chosen pair's
@@ -31,6 +34,8 @@ has free, ``PlanLimit``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,11 +45,10 @@ from .. import kernels
 from ..device import resolve_device
 from .pair_plan import PlanLimit
 from .vertex_plan import (
-    DESC_COLS, K2, P, PRED_OFF, DevTables, VertexPlan, candidates,
-    initial_state, plan_vertices, popcount, ship, transition_ref, _words,
+    BP_OFF, K2, P, PRED_OFF, DevTables, VertexPlan, candidates,
+    initial_state, plan_launches, plan_vertices, popcount, ship,
+    transition_ref, _words,
 )
-
-BP_OFF = DESC_COLS - 1  # desc column: the transition's bp byte offset
 CODE16_SLOTS = 256  # a code p * P + q fits 16 bits up to this in-degree
 
 
@@ -106,35 +110,73 @@ def fused_forward_ref(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
     return V
 
 
+@functools.cache
+def _smem_optin(index: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = kernels.lib().dg_vertex_smem_optin(ctypes.addressof(out))
+    kernels.raise_on_error(rc, "dg_vertex_smem_optin")
+    return out.value
+
+
+def smem_budget(device) -> int:
+    """The shared memory a block may opt in to on ``device``
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, asked once a card): the
+    budget of ``plan_launches``."""
+    device = torch.device(device)
+    return _smem_optin(device.index if device.index is not None
+                       else torch.cuda.current_device())
+
+
+def launch_cut(dev: DevTables, t0: int, t1: int, R1: int,
+               with_sh: bool) -> np.ndarray:
+    """``plan_launches`` of transitions ``t0 .. t1 - 1`` on ``dev``'s card,
+    its rows' transitions absolute (``[n, 3]`` int64, contiguous)."""
+    cut = plan_launches(dev.desc[t0:t1], R1, with_sh,
+                        smem_budget(dev.device))
+    cut[:, :2] += t0
+    return np.ascontiguousarray(cut)
+
+
+def check_tables(dev: DevTables) -> None:
+    """The run kernel copies the tables in 16-byte-aligned spans."""
+    for name in ("pred", "deg", "masks"):
+        kernels.check_aligned(getattr(dev, name), name)
+
+
 def _launch_forward(dev, t0, t1, V, bp):
-    """The last V after K13 over ``t0 .. t1 - 1``, one launch a
-    transition (a view of one of two state buffers)."""
+    """``(the last V, launches)`` after K13 over ``t0 .. t1 - 1`` (the V a
+    view of one of two state buffers)."""
     R1 = V.shape[0]
     kernels.check_tensor(V, "V", torch.int32, None, dev.device)
     kernels.check_tensor(bp, "bp", torch.uint8, None, dev.device)
+    check_tables(dev)
+    cut = launch_cut(dev, t0, t1, R1, False)
     kmax = int(dev.desc[t0:t1, K2].max())
     buf = torch.empty((2, R1 * max(kmax * kmax, V[0].numel())),
                       dtype=torch.int32, device=V.device)
     buf[0, :V.numel()] = V.reshape(-1)
     rc = kernels.lib().dg_fused_forward(
-        dev.desc.ctypes.data, t0, t1, R1, dev.pred.data_ptr(),
-        dev.deg.data_ptr(), dev.masks.data_ptr(), buf[0].data_ptr(),
-        buf[1].data_ptr(), bp.data_ptr(), kernels.stream_of(V))
+        dev.desc.ctypes.data, dev.desc_dev.data_ptr(), cut.ctypes.data,
+        len(cut), R1, dev.pred.data_ptr(), dev.deg.data_ptr(),
+        dev.masks.data_ptr(), buf[0].data_ptr(), buf[1].data_ptr(),
+        bp.data_ptr(), kernels.stream_of(V))
     kernels.raise_on_error(rc, "fused_forward")
     k2 = int(dev.desc[t1 - 1, K2])
-    return buf[(t1 - t0) % 2, :R1 * k2 * k2].view(R1, k2, k2)
+    return buf[len(cut) % 2, :R1 * k2 * k2].view(R1, k2, k2), len(cut)
 
 
 def fused_forward(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
                   bp: torch.Tensor) -> torch.Tensor:
-    """K13 over transitions ``t0 .. t1 - 1`` (one launch each; the count
-    grows by ``t1 - t0``). CPU tensors take ``fused_forward_ref``."""
+    """K13 over transitions ``t0 .. t1 - 1`` (the launches of
+    ``launch_cut``; the count grows by their number). CPU tensors take
+    ``fused_forward_ref``."""
     if t1 <= t0:
         return V
     if V.device.type == "cpu":
         return fused_forward_ref(dev, t0, t1, V, bp)
-    out = _launch_forward(dev, t0, t1, V.contiguous(), bp)
-    fused_forward.launches += t1 - t0
+    out, n = _launch_forward(dev, t0, t1, V.contiguous(), bp)
+    fused_forward.launches += n
     return out
 
 

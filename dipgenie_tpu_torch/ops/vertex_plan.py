@@ -33,6 +33,11 @@ The port's own limits (past each, ``PlanLimit``; the native tier,
 Any in-degree and any number of colours plan. Backpointer memory, the last
 limit, is counted by each tier before its forward (``fused.py``,
 ``chunked.py``).
+
+``plan_launches`` cuts a tier's call over transitions ``t0 .. t1 - 1`` into
+kernel launches (``csrc/vertex_dp.cuh``): a maximal run of narrow
+transitions whose states fit shared memory is one launch of the run
+kernel, every other transition one launch of the per-transition kernel.
 """
 
 from __future__ import annotations
@@ -49,7 +54,21 @@ WIDTH_MAX = 4096
 VALUE_MAX = 2**31 - 1
 # desc columns: the transition's shape and its offsets into the flat tables
 K, K2, P, W, PRED_OFF, DEG_OFF, MASK_OFF = range(7)
-DESC_COLS = 8  # column 7 is the fused tier's backpointer byte offset
+BP_OFF = 7  # the fused tier's backpointer byte offset (0 in the plan's)
+EDGES = 8  # the edges into the destination level (its in-degrees' sum)
+DESC_COLS = 9
+# the run kernel's shared memory (csrc/vertex_dp.cuh STAGES, STAGE_BYTES,
+# STAGE_HEAD, RUN_FIXED, EDGES_MAX, GUARD): after the ring's barriers a
+# ring of stages, a level's header, decoded edges and tables in one; two
+# score tables of [E, E] int16 (E the level's edges, at most
+# RUN_EDGES_MAX, as its width); then the states, a pair's R1 rows after
+# RUN_GUARD unreachable ones
+RUN_STAGES = 8
+RUN_STAGE_BYTES = 2560
+RUN_STAGE_HEAD = 1104
+RUN_FIXED = 256
+RUN_EDGES_MAX = 64
+RUN_GUARD = 2
 
 
 @dataclass
@@ -186,10 +205,66 @@ def plan_vertices(level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_colors,
     desc[:, PRED_OFF] = pred_off[:-1]
     desc[:, DEG_OFF] = level_ptr[1:-1] - level_ptr[1] if T else 0
     desc[:, MASK_OFF] = mask_off[:-1]
+    desc[:, EDGES] = (np.add.reduceat(indeg[level_ptr[1]:], level_ptr[1:-1]
+                                      - level_ptr[1]) if T else 0)
     deg = indeg[level_ptr[1]:].astype(np.int32) if T else np.zeros(
         0, np.int32)
     return VertexPlan(widths=widths, desc=desc, pred=pred, deg=deg,
                       masks=masks, value_bound=value_bound)
+
+
+def stage_bytes(desc: np.ndarray) -> np.ndarray:
+    """Bytes of each transition's tables in a ring stage of the run kernel:
+    the header and the decoded edges, then its slots, in-degrees and colour
+    words, each copied as the 16-byte-aligned span around it (at most 16
+    bytes more than its size rounded up to 16)."""
+    k, k2, P_, W_ = (desc[:, c].astype(np.int64) for c in (K, K2, P, W))
+
+    def span(nbytes):
+        return (nbytes + 15) // 16 * 16 + 16
+
+    return (RUN_STAGE_HEAD + span(4 * k2 * P_) + span(4 * k2)
+            + span(8 * (k + k2) * W_))
+
+
+def run_smem_bytes(kmax, R1: int, with_sh: bool):
+    """Shared-memory bytes of a run kernel whose widest level is ``kmax``
+    wide (``csrc/vertex_dp.cuh:run_smem``): the ring, two score tables,
+    then ``[kmax * kmax, R1 + RUN_GUARD]`` states double-buffered: V
+    (int32), and the level's codes (int16) for K13, or SH and the packed
+    words (int32 each) with ``with_sh`` for K15."""
+    kmax = np.asarray(kmax, np.int64)
+    return (RUN_FIXED + RUN_STAGES * RUN_STAGE_BYTES
+            + 4 * RUN_EDGES_MAX ** 2
+            + (24 if with_sh else 12) * (R1 + RUN_GUARD) * kmax * kmax)
+
+
+def plan_launches(desc: np.ndarray, R1: int, with_sh: bool,
+                  budget: int) -> np.ndarray:
+    """The kernel launches of the transitions ``desc`` (rows of a plan's
+    descriptor table, in order), as ``[n, 3]`` int64 rows ``(first, end,
+    kmax)`` indexing those rows, in order. A transition is narrow where its
+    tables fit a ring stage, its edges and width ``RUN_EDGES_MAX`` (its
+    score table) and its states, double-buffered at its wider level
+    (``run_smem_bytes``), ``budget`` bytes of shared memory; a maximal run of consecutive narrow transitions is one launch
+    of the run kernel (``kmax`` its widest level), every other transition a
+    launch of its own on the per-transition kernel (``kmax`` 0)."""
+    desc = np.asarray(desc, np.int64).reshape(-1, DESC_COLS)
+    n = len(desc)
+    if n == 0:
+        return np.zeros((0, 3), np.int64)
+    w = np.maximum(desc[:, K], desc[:, K2])
+    narrow = ((stage_bytes(desc) <= RUN_STAGE_BYTES)
+              & (desc[:, EDGES] <= RUN_EDGES_MAX)
+              & (desc[:, K2] <= RUN_EDGES_MAX)
+              & (run_smem_bytes(w, R1, with_sh) <= budget))
+    starts = ~narrow
+    starts[0] = True
+    starts[1:] |= ~narrow[:-1]
+    first = np.flatnonzero(starts)
+    end = np.append(first[1:], n)
+    kmax = np.where(narrow[first], np.maximum.reduceat(w, first), 0)
+    return np.stack([first, end, kmax], 1).astype(np.int64)
 
 
 def plan_transitions(*csr) -> list[Transition]:
@@ -202,7 +277,8 @@ def plan_transitions(*csr) -> list[Transition]:
 @dataclass
 class DevTables:
     """A plan's tables on a device: ``desc`` stays on the host too (the C
-    entry points read it there to launch one kernel a transition)."""
+    entry points read it there to launch the per-transition kernel; the
+    run kernel reads ``desc_dev``)."""
 
     desc: np.ndarray  # [T, DESC_COLS] int64, host
     desc_dev: torch.Tensor  # the same on the device

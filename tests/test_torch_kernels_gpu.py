@@ -1283,9 +1283,14 @@ def test_fused_kernels_match_plain_versions(case, cuda):
         assert torch.equal(got, V), t
         assert torch.equal(fused._codes(bk, plan.desc[t], R + 1),
                            fused._codes(bp, plan.desc[t], R + 1)), t
-    assert fused.fused_forward.launches == before + plan.T
+    assert fused.fused_forward.launches == before + sum(
+        len(fused.launch_cut(dev, t, t + 1, R + 1, False))
+        for t in range(plan.T))
     whole = torch.empty_like(bk)
+    before = fused.fused_forward.launches
     assert torch.equal(fused.fused_forward(dev, 0, plan.T, V0, whole), V)
+    assert fused.fused_forward.launches == before + len(
+        fused.launch_cut(dev, 0, plan.T, R + 1, False))
     rows, sh = fused.fused_trace(dev, whole, R)
     want = fused.fused_trace_ref(dev, bp, R)
     assert torch.equal(rows, want[0]) and sh == want[1]
@@ -1369,3 +1374,186 @@ def test_vertex_wrappers_reject_bad_inputs(cuda):
         chunked.chunk_step(dev, 0, 1, V, V.float())
     assert (fused.fused_forward.launches,
             chunked.chunk_step.launches) == before
+
+
+# ---------------- K13 / K15: runs of narrow transitions in one launch ------
+
+def band_case(width, R=18, L=60, seed=0, band_len=4):
+    """(CSR arrays, R): an MHC-shaped graph (narrow widths 2-32) with one
+    band of ``band_len`` levels ``width`` wide."""
+    return mhc_shaped_csr(L=L, seed=seed, n_bands=1, band_len=band_len,
+                          wmin=width, wmax=width), R
+
+
+def _ties_case():
+    """Parallel edges into one destination (each source three times, equal
+    weights): exact ties that the first slot pair breaks, inside a run."""
+    from dipgenie_tpu_torch.utils.synth import parallel_edges_graph
+
+    return csr_arrays(*parallel_edges_graph(width=8, in_edges=24)), 4
+
+
+RUN_CASES = {
+    # at the shared-memory edges: K15 keeps V and SH double-buffered to
+    # width 26 at R = 18, K13 V to width 36 (ops/vertex_plan.py:
+    # run_smem_bytes against the card's 232,448 bytes)
+    **{f"width{w}": band_case(w) for w in (24, 25, 26, 27, 32, 33, 36, 37)},
+    "R0": band_case(20, R=0, L=120, seed=1),
+    "R60": band_case(24, R=60, L=80, seed=2),
+    "ties": _ties_case(),
+    "mhc": (mhc_shaped_csr(L=400, seed=5, n_bands=3), 18),
+}
+
+
+def _random_state(shape, seed, device):
+    """V with 40% of its states unreachable, SH small; int32 on device."""
+    from dipgenie_tpu_torch.ops.vertex_plan import NEG
+
+    rng = np.random.default_rng(seed)
+    val = rng.integers(0, 1000, shape)
+    V = np.where(rng.random(shape) < 0.4, NEG, val).astype(np.int32)
+    SH = rng.integers(0, 50, shape).astype(np.int32)
+    return torch.from_numpy(V).to(device), torch.from_numpy(SH).to(device)
+
+
+def _cuts(T):
+    """Call ranges: the whole plan, and the plan cut at awkward points (a
+    run cut short at both ends)."""
+    m = [0, 1, max(T // 3, 1), max(T // 3, 1) + 1, T - 1, T]
+    return [(0, T), *((a, b) for a, b in zip(sorted(set(m)),
+                                            sorted(set(m))[1:]) if b > a)]
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_run_kernels_match_plain_versions_over_runs(case, cuda):
+    """K13 and K15 (forward and replay) over whole runs and across run
+    boundaries, from the initial state and from a random state with
+    unreachable entries: every V, code, SH and packed word equal to the
+    plain versions'; each call launches the host cut's count, runs
+    included."""
+    from dipgenie_tpu_torch.ops import chunked, fused
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = RUN_CASES[case]
+    R1 = R + 1
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    sizes = R1 * plan.desc[:, 1] ** 2
+    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    kinds = set()
+    for t0, t1 in _cuts(plan.T):
+        k = int(plan.vplan.widths[t0])
+        starts = [_random_state((R1, k, k), t0, cuda)]
+        if t0 == 0:
+            V0 = initial_state(R, k, cuda)
+            starts.append((V0, torch.zeros_like(V0)))
+        for V0, SH0 in starts:
+            codes = [torch.zeros(plan.bp_bytes, dtype=torch.uint8,
+                                 device=cuda) for _ in range(2)]
+            cut = fused.launch_cut(dev, t0, t1, R1, False)
+            kinds |= {bool(x) for x in cut[:, 2] > 0}
+            before = fused.fused_forward.launches
+            got = fused.fused_forward(dev, t0, t1, V0, codes[0])
+            assert fused.fused_forward.launches == before + len(cut)
+            want = fused.fused_forward_ref(dev, t0, t1, V0, codes[1])
+            assert torch.equal(got, want), (t0, t1)
+            for t in range(t0, t1):
+                assert torch.equal(fused._codes(codes[0], plan.desc[t], R1),
+                                   fused._codes(codes[1], plan.desc[t], R1)), t
+            del codes
+            o = off[t0:t1] - off[t0]
+            n = int(sizes[t0:t1].sum())
+            words = [torch.zeros(n, dtype=torch.int32, device=cuda)
+                     for _ in range(2)]
+            before = chunked.chunk_step.launches
+            g15 = chunked.chunk_step(dev, t0, t1, V0, SH0, words[0], o)
+            fwd = chunked.chunk_step(dev, t0, t1, V0, SH0)
+            assert chunked.chunk_step.launches == before + 2 * len(
+                fused.launch_cut(dev, t0, t1, R1, True))
+            w15 = chunked.chunk_step_ref(dev, t0, t1, V0, SH0, words[1], o)
+            for g in (g15, fwd):
+                assert torch.equal(g[0], w15[0]), (t0, t1)
+                assert torch.equal(g[1], w15[1]), (t0, t1)
+            assert torch.equal(words[0], words[1]), (t0, t1)
+    if case in ("width24", "width25", "width26", "R0", "ties"):
+        assert kinds == {True}, kinds  # every transition in a run
+    if case in ("width37", "R60"):
+        assert kinds == {True, False}, kinds  # runs cut by the band
+
+
+def test_wide_to_narrow_level_matches_plain_versions(cuda):
+    """A band of levels 1,000-1,024 wide feeding a narrow level (in-degree
+    past 200): the per-transition kernel on the wide transitions, runs on
+    the narrow ones, from a random state; every element equal."""
+    from dipgenie_tpu_torch.ops import chunked, fused
+    from dipgenie_tpu_torch.ops.vertex_plan import ship
+
+    arrs = mhc_shaped_csr(L=30, seed=4, n_bands=1, band_len=3, wmin=1000,
+                          wmax=1024)
+    R, R1 = 18, 19
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    t_in = int(np.argmax(plan.desc[:, 2]))
+    assert plan.desc[t_in, 2] > 200 and plan.desc[t_in, 0] >= 1000
+    for t0, t1 in ((t_in, t_in + 1), (t_in, min(t_in + 6, plan.T))):
+        k = int(plan.desc[t0, 0])
+        V0, SH0 = _random_state((R1, k, k), t0, cuda)
+        codes = [torch.zeros(plan.bp_bytes, dtype=torch.uint8, device=cuda)
+                 for _ in range(2)]
+        got = fused.fused_forward(dev, t0, t1, V0, codes[0])
+        want = fused.fused_forward_ref(dev, t0, t1, V0, codes[1])
+        assert torch.equal(got, want)
+        assert int((want >= 0).sum()) > 0
+        assert torch.equal(codes[0], codes[1])
+        del codes
+        sizes = R1 * plan.desc[t0:t1, 1] ** 2
+        o = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        words = [torch.zeros(int(sizes.sum()), dtype=torch.int32,
+                             device=cuda) for _ in range(2)]
+        g = chunked.chunk_step(dev, t0, t1, V0, SH0, words[0], o)
+        w = chunked.chunk_step_ref(dev, t0, t1, V0, SH0, words[1], o)
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+        assert torch.equal(words[0], words[1])
+
+
+def test_run_kernel_refused_launch_raises(cuda, monkeypatch):
+    """A run whose states the card's shared memory cannot hold, cut for a
+    budget past the card's: the run kernel's opt-in is refused and both
+    wrappers raise, their counts unmoved; no per-transition retry."""
+    from dipgenie_tpu_torch.ops import chunked, fused
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = band_case(30, R=40)
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    monkeypatch.setattr(fused, "smem_budget", lambda device: 1 << 22)
+    cut = fused.launch_cut(dev, 0, plan.T, R + 1, False)
+    assert len(cut) == 1 and cut[0, 2] >= 30
+    V = initial_state(R, 1, cuda)
+    bp = torch.zeros(plan.bp_bytes, dtype=torch.uint8, device=cuda)
+    before = (fused.fused_forward.launches, chunked.chunk_step.launches)
+    with pytest.raises(RuntimeError, match="fused_forward"):
+        fused.fused_forward(dev, 0, plan.T, V, bp)
+    with pytest.raises(RuntimeError, match="chunk_step"):
+        chunked.chunk_step(dev, 0, plan.T, V, torch.zeros_like(V))
+    assert (fused.fused_forward.launches,
+            chunked.chunk_step.launches) == before
+
+
+def test_chunk_step_refuses_scattered_word_offsets(cuda):
+    """On the card a call's packed words lie one transition after another;
+    other offsets raise before any launch."""
+    from dipgenie_tpu_torch.ops import chunked
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = band_case(8, L=12)
+    plan = plan_vertices_of(arrs)
+    dev = ship(plan, cuda)
+    V = initial_state(R, 1, cuda)
+    n = (R + 1) * int((plan.desc[:2, 1] ** 2).sum())
+    bp = torch.zeros(2 * n, dtype=torch.int32, device=cuda)
+    before = chunked.chunk_step.launches
+    with pytest.raises(ValueError, match="right after"):
+        chunked.chunk_step(dev, 0, 2, V, torch.zeros_like(V), bp,
+                           np.array([0, n], np.int64))
+    assert chunked.chunk_step.launches == before
