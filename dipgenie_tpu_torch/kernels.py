@@ -86,13 +86,14 @@ _SIGNATURES = {
     # U, SD, VW, ZP, ZPH, SS, xs, their lengths (u, sd, vw, zp, zph, s, x),
     # max_copy, fhom, fhet, ferr, stream
     "dg_grid_tables": (*(_P,) * 7, *(_I,) * 8, _P, _P, _P, _P),
-    # desc (host [T, 8] int64), desc_dev, cut (host [n, 3] int64,
+    # desc (host [T, 9] int64), desc_dev, cut (host [n, 3] int64,
     # ops/vertex_plan.py:plan_launches), n, R1, pred, deg, masks, va, vb,
     # bp, stream
     "dg_fused_forward": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # int *bytes: the shared memory a block may opt in to (current device)
     "dg_vertex_smem_optin": (_P,),
-    # desc (device), T, R, pred, masks, bp, rows [T, 4], sh [1], stream
+    # desc (device [T, 9]), T, R, pred, masks, bp, rows [T, 4], sh [1],
+    # stream
     "dg_fused_trace": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
     # desc (host), desc_dev, cut (host [n, 3]), n, t0, R1, pred, deg,
     # masks, va, vb, sa, sb, bp (or null), bp_off (host, one int64 a

@@ -13,11 +13,11 @@ TPU compile-shape workarounds and have no counterpart.
 * K13 ``fused_forward`` (``csrc/fused_dp.cu``; replaces ``_forward_fn``,
   ``diploid_fused.py:462``, and its body ``_branch_step`` ``:306-414``):
   the launches ``vertex_plan.plan_launches`` cuts: a run of narrow
-  transitions in one launch of one block, V ``[R+1, k, k]`` in shared
-  memory; a wide transition in one launch over the card, V in global
-  memory. A work item is a destination pair and a group of rows, walking
-  the real slots of both destinations once, each candidate scored once.
-  It writes the winner's slot pair ``p * P + q`` as the state's
+  transitions in one launch of one block, V in shared memory, each
+  level's scores computed once into a table and a thread a state walking
+  its pair's real slot pairs; a wide transition in one launch over the
+  card, V in global memory, a warp a destination pair scoring each
+  candidate once for all the rows. It writes the winner's slot pair ``p * P + q`` as the state's
   backpointer code: int16 where the transition's in-degree ``P`` is at
   most 256, int32 past that, at the transition's int64 byte offset in one
   flat buffer (0 at unreachable states, which it re-pins to NEG).

@@ -246,9 +246,10 @@ def plan_launches(desc: np.ndarray, R1: int, with_sh: bool,
     kmax)`` indexing those rows, in order. A transition is narrow where its
     tables fit a ring stage, its edges and width ``RUN_EDGES_MAX`` (its
     score table) and its states, double-buffered at its wider level
-    (``run_smem_bytes``), ``budget`` bytes of shared memory; a maximal run of consecutive narrow transitions is one launch
-    of the run kernel (``kmax`` its widest level), every other transition a
-    launch of its own on the per-transition kernel (``kmax`` 0)."""
+    (``run_smem_bytes``), ``budget`` bytes of shared memory; a maximal run
+    of consecutive narrow transitions is one launch of the run kernel
+    (``kmax`` its widest level), every other transition a launch of its
+    own on the per-transition kernel (``kmax`` 0)."""
     desc = np.asarray(desc, np.int64).reshape(-1, DESC_COLS)
     n = len(desc)
     if n == 0:
