@@ -1385,6 +1385,7 @@ class Smoke:
             self.u_check_graph(tag, arrs, r)
         self.u_check_w(wplan)
         self.u_check_runs(cases)
+        self.u_check_walks()
         log(f"U1 K13-K16 == their plain versions on every element: "
             f"{len(cases)} graphs and W's widest level "
             f"({time.time() - t0:.1f}s)")
@@ -1428,13 +1429,11 @@ class Smoke:
         rows = [self.fns["fused_trace"][i](dev, codes[i], r) for i in (0, 1)]
         self.compare("fused_trace", (rows[0][0], torch.tensor(rows[0][1])),
                      (rows[1][0], torch.tensor(rows[1][1])))
-        walk = []
-        for i in (0, 1):
-            carry = torch.tensor([0, 0, r], dtype=torch.int32, device=DEVICE)
-            out = torch.zeros((plan.T, 4), dtype=torch.int32, device=DEVICE)
-            self.fns["chunk_trace"][i](desc[:, 1], off, words[i], carry, out)
-            walk.append((out, carry))
-        self.compare("chunk_trace", walk[0], walk[1])
+        woff = torch.from_numpy(np.append(off, int(sizes.sum()))).to(DEVICE)
+        for spans in ([(0, plan.T)], u_spans(plan.T)):
+            self.compare("chunk_trace", *(
+                self.u_walk(i, dev, woff, words[i], r, spans)
+                for i in (0, 1)))
         check(int(V[r, 0, 0]) >= 0, f"U1 {tag}: the sink is unreachable")
         log(f"U1 {tag}: {plan.T} transitions, in-degree up to "
             f"{int(desc[:, 2].max())}: K13-K16 == plain")
@@ -1536,6 +1535,85 @@ class Smoke:
             f"{edges[False]} (K13) and {edges[True]} (K15) wide, bands "
             f"{bands}): == plain")
 
+    def u_check_walks(self):
+        """K14 and K16 on walks with staged transitions and transitions read
+        through L2, against their plain versions on every element: levels
+        1,000-1,024 wide among narrow ones, and narrow levels whose r falls
+        past the rows staged a batch earlier (every second edge a
+        recombination); K16 in spans (the last transition alone, the first
+        span). The walkers' cycle stamps must show both kinds."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import chunked, fused
+        from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+        torch = self.torch
+        falls = list(mhc_shaped_csr(L=300, seed=4, n_bands=2, band_len=3))
+        deg = np.diff(falls[1])
+        falls[3] = falls[3].copy()
+        falls[3][falls[1][:-1][deg == 2] + 1] = 1
+        cases = {"wide 1000": mhc_shaped_csr(L=40, seed=3, n_bands=1,
+                                             band_len=3, wmin=1000,
+                                             wmax=1024),
+                 "r falls": tuple(falls)}
+        for tag, arrs in cases.items():
+            plan = fused.plan_fused(*arrs, R)
+            dev = ship(plan.vplan, DEVICE, plan.desc)
+            T, R1 = plan.T, R + 1
+            V0 = initial_state(R, int(plan.vplan.widths[0]), DEVICE)
+            codes = torch.zeros(plan.bp_bytes, dtype=torch.uint8,
+                                device=DEVICE)
+            fused.fused_forward(dev, 0, T, V0, codes)
+            got = self.fns["fused_trace"][0](dev, codes, R)
+            want = self.fns["fused_trace"][1](dev, codes, R)
+            self.compare("fused_trace", (got[0], torch.tensor(got[1])),
+                         (want[0], torch.tensor(want[1])))
+            cyc = torch.zeros(T, dtype=torch.int32, device=DEVICE)
+            fused.fused_trace(dev, codes, R, cyc)
+            k14 = self.u_stamps(cyc)
+            sizes = R1 * plan.desc[:, 1] ** 2
+            woff = np.zeros(T + 1, np.int64)
+            np.cumsum(sizes, out=woff[1:])
+            words = torch.zeros(int(woff[-1]), dtype=torch.int32,
+                                device=DEVICE)
+            chunked.chunk_step(dev, 0, T, V0, torch.zeros_like(V0), words,
+                               woff[:-1])
+            wdev = torch.from_numpy(woff).to(DEVICE)
+            for spans in ([(0, T)], u_spans(T)):
+                self.compare("chunk_trace", *(
+                    self.u_walk(i, dev, wdev, words, R, spans)
+                    for i in (0, 1)))
+            chunked.chunk_trace(dev, wdev, 0, T, words, torch.tensor(
+                [0, 0, R], dtype=torch.int32, device=DEVICE), torch.zeros(
+                (T, 4), dtype=torch.int32, device=DEVICE), cyc)
+            k16 = self.u_stamps(cyc)
+            check(all(k[0][0] and k[1][0] for k in (k14, k16)),
+                  f"U1 {tag}: the walkers' stamps show only one kind of "
+                  f"transition: K14 {k14}, K16 {k16}")
+            log(f"U1 {tag}: {T} transitions, K14 and K16 == plain; walker "
+                f"cycles (staged / through L2): K14 {self.u_cycles(k14)}, "
+                f"K16 {self.u_cycles(k16)}")
+
+    def u_stamps(self, cyc):
+        """The walker's cycle stamps (cycles << 1 | staged) as ((n, mean,
+        median) of the staged steps, the same of the steps read through
+        L2)."""
+        import numpy as np
+
+        c = cyc.cpu().numpy().astype(np.int64)
+        out = []
+        for kind in (1, 0):
+            x = (c >> 1)[(c & 1) == kind]
+            out.append((len(x), float(x.mean()) if len(x) else 0.0,
+                        float(np.median(x)) if len(x) else 0.0))
+        return tuple(out)
+
+    @staticmethod
+    def u_cycles(stamps):
+        return " / ".join(f"{n} steps mean {m:.1f} median {md:.0f}"
+                          for n, m, md in stamps)
+
     def u_random_state(self, shape, rng=None):
         """(V, SH) on the card: V with a third of its states unreachable."""
         import numpy as np
@@ -1611,7 +1689,12 @@ class Smoke:
                 self.sync()
                 got = (int(V[R, 0, 0]), sh,
                        fused.path_transitions(rows.cpu().numpy()))
-                del bp
+                cyc = torch.zeros(T, dtype=torch.int32, device=DEVICE)
+                fused.fused_trace(dev, bp, R, cyc)
+                log(f"U2 K14 on C's whole plan, walker cycles a transition "
+                    f"(staged / through L2): "
+                    f"{self.u_cycles(self.u_stamps(cyc))}")
+                del bp, cyc
             else:
                 V, SH, ckpts = dp.forward(dev)
                 ev[1].record()
@@ -1690,6 +1773,7 @@ class Smoke:
             else plan.bp_bytes
         sizes = R1 * desc[:, 1] ** 2
         off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        woff = torch.from_numpy(np.append(off, int(sizes.sum()))).to(DEVICE)
         V0 = initial_state(R, int(plan.vplan.widths[0]), DEVICE)
         SH0 = torch.zeros_like(V0)
         codes = [torch.zeros(nbytes, dtype=torch.uint8, device=DEVICE)
@@ -1708,7 +1792,8 @@ class Smoke:
             "chunk_step": lambda w: (
                 *self.fns["chunk_step"][w](sub, 0, n, V0, SH0, words[w], off),
                 words[w]),
-            "chunk_trace": lambda w: self.u_walk(w, desc, off, words[w]),
+            "chunk_trace": lambda w: self.u_walk(w, sub, woff, words[w], R,
+                                                 [(0, n)]),
         }
         work = u_work(plan, n)
         for name, run in runs.items():
@@ -1727,31 +1812,48 @@ class Smoke:
             self.bound[name] = bound(*work[name])
             self.prefix_tr[name] = n
             busy = sum(t for _, t, _ in rows) / 1e3
-            if busy:
+            entry = {"fused_trace": "dg_fused_trace",
+                     "chunk_trace": "dg_chunk_trace"}.get(name)
+            if entry:  # the walkers: one launch, which the profile misses
+                with self.launch_events(entry) as pairs:
+                    run(0)
+                    self.sync()
+                device = (f"device {pairs[0][0].elapsed_time(pairs[0][1]):.4f}"
+                          " ms by CUDA events around the launch")
+            elif busy:
                 device = (f"device {busy:.4f} ms by the profiler, idle share "
                           f"{1 - busy / self.ms[name]:.4f}")
-            else:  # the walkers: one launch, which the profile may miss
-                entry = {"fused_trace": "dg_fused_trace",
-                         "chunk_trace": "dg_chunk_trace"}.get(name)
-                pairs = []
-                if entry:
-                    with self.launch_events(entry) as pairs:
-                        run(0)
-                        self.sync()
-                device = (f"device {pairs[0][0].elapsed_time(pairs[0][1]):.4f}"
-                          " ms by CUDA events around the launch" if pairs
-                          else "device not measured: no row in the profile")
+            else:
+                device = "device not measured: no row in the profile"
+            if name in ("fused_trace", "chunk_trace"):
+                cyc = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+                if name == "fused_trace":
+                    fused.fused_trace(sub, codes[0], R, cyc)
+                else:
+                    self.u_walk(0, sub, woff, words[0], R, [(0, n)], cyc)
+                device += (", walker cycles a transition (staged / through "
+                           f"L2) {self.u_cycles(self.u_stamps(cyc))}")
             log(f"U {name} on C's first {n} transitions: kernel {times[0]} "
                 f"ms ({device}), plain "
                 f"{times[1]} ms (CUDA events), bound "
                 f"{self.bound[name][0]:.6g} ms ({self.bound[name][1]}; "
                 f"{work[name][0]} B, {work[name][1]} int32 operations)")
 
-    def u_walk(self, w, desc, off, words):
+    def u_walk(self, w, dev, woff, words, r, spans, cyc=None):
+        """(rows, carry) of K16 (``w`` 0) or its plain version (1) over
+        ``spans`` in that order from the sink at ``r``, each span's words at
+        its own offset of the plan-wide ``words``."""
         torch = self.torch
-        carry = torch.tensor([0, 0, R], dtype=torch.int32, device=DEVICE)
-        out = torch.zeros((len(desc), 4), dtype=torch.int32, device=DEVICE)
-        self.fns["chunk_trace"][w](desc[:, 1], off, words, carry, out)
+        carry = torch.tensor([0, 0, r], dtype=torch.int32, device=DEVICE)
+        out = torch.zeros((dev.T, 4), dtype=torch.int32, device=DEVICE)
+        base = woff.cpu().numpy()
+        for t0, t1 in spans:
+            args = (dev, woff, t0, t1, words[int(base[t0]):], carry,
+                    out[t0:t1])
+            if cyc is None:
+                self.fns["chunk_trace"][w](*args)
+            else:
+                self.fns["chunk_trace"][w](*args, cyc[t0:t1])
         return out, carry
 
     def phase_u3(self, w, wplan):
@@ -2850,6 +2952,13 @@ def u_launches(arrs, spans, with_sh: bool) -> int:
     budget = fused.smem_budget(DEVICE)
     return sum(len(plan_launches(desc[t0:t1], R + 1, with_sh, budget))
                for t0, t1 in spans)
+
+
+def u_spans(T: int):
+    """K16's spans in the traceback's order: the last transition alone, a
+    middle span, then the first span (which ends the walk)."""
+    cuts = sorted({0, max(T // 3, 1), max(T - 1, 1), T})
+    return [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a][::-1]
 
 
 def u_work(plan, n: int) -> dict:

@@ -34,6 +34,7 @@ _LIB_NAME = "libdgtorch.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argtypes of every C entry point (csrc/*.cu)
 _SIGNATURES = {
     # tbl, tb_desc [T, 4], T, R1, lanes, shared_v, v_in, v_out, bp256,
@@ -92,16 +93,17 @@ _SIGNATURES = {
     "dg_fused_forward": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # int *bytes: the shared memory a block may opt in to (current device)
     "dg_vertex_smem_optin": (_P,),
-    # desc (device [T, 9]), T, R, pred, masks, bp, rows [T, 4], sh [1],
-    # stream
-    "dg_fused_trace": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+    # desc_dev [T, 9], T, R, pred, its words, masks, bp, its bytes, rows
+    # [T, 4], sh [1], cycles [T] (or null), stream
+    "dg_fused_trace": (_P, _I, _I, _P, _L, _P, _P, _L, _P, _P, _P, _P),
     # desc (host), desc_dev, cut (host [n, 3]), n, t0, R1, pred, deg,
     # masks, va, vb, sa, sb, bp (or null), bp_off (host, one int64 a
     # transition from t0), stream
     "dg_chunk_forward": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P),
-    # tdesc [n, 2] int64, n, bp, carry [3], rows [n, 4], stream
-    "dg_chunk_trace": (_P, _I, _P, _P, _P, _P),
+    # desc_dev [T, 9], woff [T + 1] int64, t0, n, bp, its words, carry
+    # [3], rows [n, 4], cycles [n] (or null), stream
+    "dg_chunk_trace": (_P, _P, _I, _I, _P, _L, _P, _P, _P, _P),
 }
 
 

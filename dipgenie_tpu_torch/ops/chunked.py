@@ -21,9 +21,13 @@ and the checkpoints, not the whole plan's backpointers (the fused tier's).
   carrying ``SH`` (the winner's source SH plus its ``popcount((Tl | Tl) ^
   (Tr | Tr))``); on replay it also writes ``pi | pj << 12 | wu << 24 | wv
   << 25`` (0 at unreachable states).
-* K16 ``chunk_trace`` (replaces ``_trace_fn`` ``:543-567``): one thread
-  walks a replayed span's packed words in reverse from a device carry
-  ``(i2, j2, r)``.
+* K16 ``chunk_trace`` (replaces ``_trace_fn`` ``:543-567``): the walk of
+  a replayed span's packed words in reverse from a device carry ``(i2, j2,
+  r)``, one launch of the staged walk of ``csrc/vertex_trace.cuh`` (a
+  producer warp copies each transition's rows ``[r - 2, r]`` into shared
+  memory a batch ahead of the walker). A span passes only ``(t0, t1)``:
+  the widths are the descriptors on the card, the offsets one table of
+  the plan (``word_offsets``), made once a traceback.
 
 The resize, finalize and path-buffer steps of the JAX tier are plain
 tensor code here (states sized to each level, a ``[T, 4]`` path tensor);
@@ -124,7 +128,7 @@ def state_buffers(plan: VertexPlan, R: int, device) -> torch.Tensor:
     return torch.empty((2, 2, n), dtype=torch.int32, device=device)
 
 
-def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs):
+def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs, cut):
     R1 = V.shape[0]
     for name, x in (("V", V), ("SH", SH)):
         kernels.check_tensor(x, name, torch.int32, None, dev.device)
@@ -153,7 +157,8 @@ def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs):
         s = 0
         vb[0, :V.numel()] = V.reshape(-1)
         sb[0, :SH.numel()] = SH.reshape(-1)
-    cut = launch_cut(dev, t0, t1, R1, True)
+    if cut is None:
+        cut = launch_cut(dev, t0, t1, R1, True)
     rc = kernels.lib().dg_chunk_forward(
         dev.desc.ctypes.data, dev.desc_dev.data_ptr(), cut.ctypes.data,
         len(cut), t0, R1, dev.pred.data_ptr(), dev.deg.data_ptr(),
@@ -170,9 +175,10 @@ def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs):
 
 
 def chunk_step(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
-               SH: torch.Tensor, bp=None, bp_off=None, bufs=None):
-    """K15 over transitions ``t0 .. t1 - 1`` (the launches of
-    ``fused.launch_cut``; the count grows by their number). With ``bufs``
+               SH: torch.Tensor, bp=None, bp_off=None, bufs=None, cut=None):
+    """K15 over transitions ``t0 .. t1 - 1`` (the launches of ``cut``,
+    ``fused.launch_cut`` of the range where it is None; the count grows by
+    their number). With ``bufs``
     (``state_buffers``) the states stay in its slots from call to call:
     where ``V`` and ``SH`` are views of one slot, nothing is copied, and
     the result is views of a slot. On the card ``bp_off`` must lay the
@@ -183,48 +189,70 @@ def chunk_step(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
     if V.device.type == "cpu":
         return chunk_step_ref(dev, t0, t1, V, SH, bp, bp_off)
     *out, n = _launch_step(dev, t0, t1, V.contiguous(), SH.contiguous(), bp,
-                           bp_off, bufs)
+                           bp_off, bufs, cut)
     chunk_step.launches += n
     return tuple(out)
 
 
-def chunk_trace_ref(k2s, bp_off, bp: torch.Tensor, carry: torch.Tensor,
+def word_offsets(desc: np.ndarray, R1: int) -> np.ndarray:
+    """``[T + 1]`` int64: each transition's first packed word where every
+    transition's ``[R+1, k2, k2]`` words lie one after another (the last
+    entry the total). A span ``t0 .. t1 - 1`` keeps transition ``t``'s
+    words at ``woff[t] - woff[t0]`` of its buffer."""
+    woff = np.zeros(len(desc) + 1, np.int64)
+    np.cumsum(R1 * desc[:, K2].astype(np.int64) ** 2, out=woff[1:])
+    return woff
+
+
+def chunk_trace_ref(dev: DevTables, woff: torch.Tensor, t0: int, t1: int,
+                    bp: torch.Tensor, carry: torch.Tensor,
                     rows: torch.Tensor) -> None:
-    """Plain version of K16: walks a span's transitions in reverse from
-    ``carry = (i2, j2, r)`` (int32 [3], updated in place), writing row
-    ``i`` of ``rows [n, 4]`` int32 from transition ``i``'s packed word
-    at ``(r, i2, j2)`` (``k2s[i]`` wide, at element ``bp_off[i]`` of
-    ``bp``). ``r`` is clamped to 0; no packed word of a reachable state
-    takes it below."""
+    """Plain version of K16: walks transitions ``t1 - 1`` down to ``t0``
+    from ``carry = (i2, j2, r)`` (int32 [3], updated in place), writing
+    row ``t - t0`` of ``rows [t1 - t0, 4]`` int32 from transition ``t``'s
+    packed word at ``(r, i2, j2)`` (its block at element ``woff[t] -
+    woff[t0]`` of ``bp``, ``k2`` wide). ``r`` is clamped to 0; no packed
+    word of a reachable state takes it below."""
+    off = woff[t0:t1 + 1].tolist()
     i2, j2, r = (int(x) for x in carry.tolist())
-    for i in range(len(k2s) - 1, -1, -1):
-        k2 = int(k2s[i])
-        word = int(bp[int(bp_off[i]) + (r * k2 + i2) * k2 + j2])
+    for t in range(t1 - 1, t0 - 1, -1):
+        k2 = int(dev.desc[t, K2])
+        word = int(bp[off[t - t0] - off[0] + (r * k2 + i2) * k2 + j2])
         a, b = word & 0xFFF, (word >> 12) & 0xFFF
         wu, wv = (word >> 24) & 1, (word >> 25) & 1
-        rows[i] = torch.tensor([a, b, wu, wv], dtype=torch.int32)
+        rows[t - t0] = torch.tensor([a, b, wu, wv], dtype=torch.int32)
         i2, j2, r = a, b, max(r - wu - wv, 0)
     carry.copy_(torch.tensor([i2, j2, r], dtype=torch.int32))
 
 
-def chunk_trace(k2s, bp_off, bp: torch.Tensor, carry: torch.Tensor,
-                rows: torch.Tensor) -> None:
-    """K16: one launch, one thread (see ``chunk_trace_ref``). CPU tensors
-    take the plain version."""
+def chunk_trace(dev: DevTables, woff: torch.Tensor, t0: int, t1: int,
+                bp: torch.Tensor, carry: torch.Tensor, rows: torch.Tensor,
+                cycles=None) -> None:
+    """K16: one launch of the staged walk (see ``chunk_trace_ref``); no
+    host copy. ``woff`` is ``word_offsets`` on the card. With ``cycles``
+    (int32 ``[t1 - t0]``) the walker writes its clock cycles a transition
+    ``<< 1 | 1`` where the transition's word was read from shared memory.
+    CPU tensors take the plain version."""
     if bp.device.type == "cpu":
-        return chunk_trace_ref(k2s, bp_off, bp, carry, rows)
-    n = len(k2s)
-    kernels.check_tensor(bp, "bp", torch.int32, None, bp.device)
-    kernels.check_tensor(carry, "carry", torch.int32, (3,), bp.device)
-    kernels.check_tensor(rows, "rows", torch.int32, (n, 4), bp.device)
-    tdesc = torch.from_numpy(np.stack(
-        [np.asarray(k2s, np.int64), np.asarray(bp_off, np.int64)], 1
-    ).reshape(-1)).to(bp.device)
+        return chunk_trace_ref(dev, woff, t0, t1, bp, carry, rows)
+    n = t1 - t0
+    if not 0 <= t0 <= t1 <= dev.T:
+        raise ValueError(f"chunk_trace: transitions {t0} .. {t1} of {dev.T}")
+    kernels.check_tensor(bp, "bp", torch.int32, None, dev.device)
+    kernels.check_tensor(woff, "woff", torch.int64, (dev.T + 1,), dev.device)
+    kernels.check_tensor(carry, "carry", torch.int32, (3,), dev.device)
+    kernels.check_tensor(rows, "rows", torch.int32, (n, 4), dev.device)
+    kernels.check_aligned(rows, "rows")
+    if cycles is not None:
+        kernels.check_tensor(cycles, "cycles", torch.int32, (n,), dev.device)
     rc = kernels.lib().dg_chunk_trace(
-        tdesc.data_ptr(), n, bp.data_ptr(), carry.data_ptr(),
-        rows.data_ptr(), kernels.stream_of(bp))
+        dev.desc_dev.data_ptr(), woff.data_ptr(), t0, n, bp.data_ptr(),
+        bp.numel(), carry.data_ptr(), rows.data_ptr(),
+        cycles.data_ptr() if cycles is not None else None,
+        kernels.stream_of(bp))
     kernels.raise_on_error(rc, "chunk_trace")
-    chunk_trace.launches += 1
+    if n:
+        chunk_trace.launches += 1
 
 
 chunk_step.launches = 0
@@ -255,6 +283,7 @@ class DeviceDiploidDP:
         self.spans = [(self.ops[i].t0,
                        self.ops[min(i + ckpt_every, len(self.ops)) - 1].t1)
                       for i in starts]
+        self.cuts = None  # each span's launch cut, kept by the forward
 
     def span_bytes(self, t0: int, t1: int) -> int:
         """Packed backpointer bytes of the span ``t0 .. t1 - 1``."""
@@ -279,35 +308,39 @@ class DeviceDiploidDP:
 
     def forward(self, dev: DevTables):
         """K15 over every span (one host call a span): ``(V, SH)`` of the
-        last level and each span's checkpoint ``(V, SH)``."""
+        last level and each span's checkpoint ``(V, SH)``. Each span's
+        launch cut is kept in ``cuts`` for the replay."""
         V = initial_state(self.R, int(self.plan.widths[0]), self.device)
         SH = torch.zeros_like(V)
         bufs = state_buffers(self.plan, self.R, self.device)
         ckpts = []
-        for t0, t1 in self.spans:
+        self.cuts = [launch_cut(dev, t0, t1, self.R + 1, True)
+                     for t0, t1 in self.spans]
+        for (t0, t1), cut in zip(self.spans, self.cuts):
             # copies: the next call overwrites the buffers
             ckpts.append((V.clone(), SH.clone()))
-            V, SH = chunk_step(dev, t0, t1, V, SH, bufs=bufs)
+            V, SH = chunk_step(dev, t0, t1, V, SH, bufs=bufs, cut=cut)
         return V, SH, ckpts
 
     def traceback(self, dev: DevTables, ckpts) -> torch.Tensor:
         """Each span in reverse: replay from its checkpoint with
-        backpointers (K15), then walk it (K16). Returns the path's ``[T,
+        backpointers (K15, the forward's cut), then walk it (K16), the
+        words in one buffer for the largest span. Returns the path's ``[T,
         4]`` rows; the checkpoints are used up."""
         p, R = self.plan, self.R
         rows = torch.zeros((p.T, 4), dtype=torch.int32, device=self.device)
         carry = torch.tensor([0, 0, R], dtype=torch.int32, device=self.device)
         bufs = state_buffers(p, R, self.device)
-        for t0, t1 in reversed(self.spans):
-            k2s = p.desc[t0:t1, K2]
-            sizes = (R + 1) * k2s ** 2
-            off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-            bp = torch.empty(max(int(sizes.sum()), 1), dtype=torch.int32,
-                             device=self.device)
+        woff = word_offsets(p.desc, R + 1)
+        woff_dev = torch.from_numpy(woff).to(self.device)
+        words = max((self.span_bytes(*sp) for sp in self.spans), default=4)
+        bp = torch.empty(max(words // 4, 1), dtype=torch.int32,
+                         device=self.device)
+        for (t0, t1), cut in zip(reversed(self.spans), reversed(self.cuts)):
             Vr, SHr = ckpts.pop()
-            chunk_step(dev, t0, t1, Vr, SHr, bp, off, bufs)
-            chunk_trace(k2s, off, bp, carry, rows[t0:t1])
-            del bp
+            chunk_step(dev, t0, t1, Vr, SHr, bp, woff[t0:t1] - woff[t0],
+                       bufs, cut=cut)
+            chunk_trace(dev, woff_dev, t0, t1, bp, carry, rows[t0:t1])
         return rows
 
     def run(self):

@@ -21,10 +21,14 @@ TPU compile-shape workarounds and have no counterpart.
   backpointer code: int16 where the transition's in-degree ``P`` is at
   most 256, int32 past that, at the transition's int64 byte offset in one
   flat buffer (0 at unreachable states, which it re-pins to NEG).
-* K14 ``fused_trace`` (replaces ``_trace_fn`` ``:530-605``): one thread
-  walks the codes from the sink back to level 0, decodes each into ``(pi,
-  pj, wu, wv)`` from the slot tables and adds the chosen pair's
-  ``popcount((Tl | Tl) ^ (Tr | Tr))`` to ``s_het``.
+* K14 ``fused_trace`` (replaces ``_trace_fn`` ``:530-605``): the walk of
+  the codes from the sink back to level 0, each decoded into ``(pi, pj,
+  wu, wv)`` from the slot tables, and ``s_het``, the chosen pairs'
+  ``popcount((Tl | Tl) ^ (Tr | Tr))`` summed. One launch of the staged
+  walk of ``csrc/vertex_trace.cuh``: a producer warp copies each
+  transition's code rows ``[r - 2, r]`` and slot table into shared memory
+  a batch ahead of the walker; a recorder warp adds ``s_het``
+  (``path_shet_ref`` is its plain version) and stores the rows.
 
 A wrapper launches its kernel for CUDA tensors (raising where it cannot)
 and takes the plain PyTorch version (``*_ref``) for CPU tensors. The
@@ -45,8 +49,8 @@ from .. import kernels
 from ..device import resolve_device
 from .pair_plan import PlanLimit
 from .vertex_plan import (
-    BP_OFF, K2, P, PRED_OFF, DevTables, VertexPlan, candidates,
-    initial_state, plan_launches, plan_vertices, popcount, ship,
+    BP_OFF, K, K2, MASK_OFF, P, PRED_OFF, W, DevTables, VertexPlan,
+    candidates, initial_state, plan_launches, plan_vertices, popcount, ship,
     transition_ref, _words,
 )
 CODE16_SLOTS = 256  # a code p * P + q fits 16 bits up to this in-degree
@@ -119,11 +123,17 @@ def _smem_optin(index: int) -> int:
     return out.value
 
 
+# the H100's opt-in shared memory a block, the budget of a CPU run's cuts
+SMEM_OPTIN_CPU = 232_448
+
+
 def smem_budget(device) -> int:
     """The shared memory a block may opt in to on ``device``
-    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, asked once a card): the
-    budget of ``plan_launches``."""
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, asked once a card; on
+    the CPU ``SMEM_OPTIN_CPU``): the budget of ``plan_launches``."""
     device = torch.device(device)
+    if device.type == "cpu":
+        return SMEM_OPTIN_CPU
     return _smem_optin(device.index if device.index is not None
                        else torch.cuda.current_device())
 
@@ -183,8 +193,9 @@ def fused_forward(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
 def fused_trace_ref(dev: DevTables, bp: torch.Tensor, R: int):
     """Plain version of K14: ``(rows [T, 4] int32, s_het)`` from the
     codes; row ``t`` is ``(pi, pj, wu, wv)`` of transition ``t`` on the
-    path from the sink pair (0, 0) at ``r = R``. ``r`` is clamped to 0,
-    which only a walk from an unreachable sink needs."""
+    path from the sink pair (0, 0) at ``r = R``, ``s_het`` the walk's own
+    sum of its popcounts. ``r`` is clamped to 0, which only a walk from an
+    unreachable sink needs."""
     T = dev.T
     rows = torch.zeros((T, 4), dtype=torch.int32, device=bp.device)
     i2 = j2 = 0
@@ -207,21 +218,57 @@ def fused_trace_ref(dev: DevTables, bp: torch.Tensor, R: int):
     return rows, sh
 
 
-def fused_trace(dev: DevTables, bp: torch.Tensor, R: int):
-    """K14: one launch, one thread walking the codes (see
-    ``fused_trace_ref``). CPU tensors take the plain version."""
+def path_shet_ref(dev: DevTables, rows: torch.Tensor) -> int:
+    """Plain version of K14's recorder: ``s_het`` of a path's ``[T, 4]``
+    rows, every transition at once: transition ``t``'s sources ``(a, b)``
+    are its row, its destinations the next row's sources (the sink pair (0,
+    0) for the last), and it adds ``popcount((Tl[a] | Tl[b]) ^ (Tr[i2] |
+    Tr[j2]))`` over its colour words. An exact integer sum in any order."""
+    T = dev.T
+    if T == 0:
+        return 0
+    dv = rows.device
+    d = torch.from_numpy(dev.desc).to(dv)
+    k, k2, W_, mo = d[:, K], d[:, K2], d[:, W], d[:, MASK_OFF]
+    src = rows[:, :2].to(torch.int64)
+    dst = torch.cat([src[1:], torch.zeros((1, 2), dtype=torch.int64,
+                                          device=dv)])
+    t = torch.repeat_interleave(torch.arange(T, device=dv), W_)
+    w = torch.arange(len(t), device=dv) - (torch.cumsum(W_, 0) - W_)[t]
+    tl = mo + k * W_
+    tr = tl + (k + k2) * W_
+    masks = dev.masks.to(torch.int64) & 0xFFFFFFFF
+
+    def word(plane, v):
+        return masks[(plane + v * W_)[t] + w]
+
+    x = ((word(tl, src[:, 0]) | word(tl, src[:, 1]))
+         ^ (word(tr, dst[:, 0]) | word(tr, dst[:, 1])))
+    return int(popcount(x).sum())
+
+
+def fused_trace(dev: DevTables, bp: torch.Tensor, R: int, cycles=None):
+    """K14: one launch of the staged walk (see ``fused_trace_ref``; the
+    rows and ``s_het`` of ``path_shet_ref``). With ``cycles`` (int32
+    ``[T]`` on the card) the walker writes its clock cycles a transition
+    ``<< 1 | 1`` where the transition's code was read from shared memory.
+    CPU tensors take the plain version."""
     if bp.device.type == "cpu":
         return fused_trace_ref(dev, bp, R)
     kernels.check_tensor(bp, "bp", torch.uint8, None, dev.device)
     T = dev.T
+    if cycles is not None:
+        kernels.check_tensor(cycles, "cycles", torch.int32, (T,), dev.device)
     rows = torch.empty((max(T, 1), 4), dtype=torch.int32, device=bp.device)
     sh = torch.empty(1, dtype=torch.int32, device=bp.device)
     rc = kernels.lib().dg_fused_trace(
-        dev.desc_dev.data_ptr(), T, R, dev.pred.data_ptr(),
-        dev.masks.data_ptr(), bp.data_ptr(), rows.data_ptr(), sh.data_ptr(),
+        dev.desc_dev.data_ptr(), T, R, dev.pred.data_ptr(), dev.pred.numel(),
+        dev.masks.data_ptr(), bp.data_ptr(), bp.numel(), rows.data_ptr(),
+        sh.data_ptr(), cycles.data_ptr() if cycles is not None else None,
         kernels.stream_of(bp))
     kernels.raise_on_error(rc, "fused_trace")
-    fused_trace.launches += 1
+    if T:
+        fused_trace.launches += 1
     return rows[:T], int(sh.item())
 
 

@@ -106,8 +106,9 @@ def test_walker_matches_trace_fn(seed):
     jcarry = jnp.asarray([0, 0, R], jnp.int32)
     rows = torch.zeros((plan.T, 4), dtype=torch.int32)
     cut = plan.T // 2
+    woff = torch.from_numpy(chunked.word_offsets(plan.desc, R + 1))
     for t0, t1 in ((cut, plan.T), (0, cut)):
-        chunked.chunk_trace_ref(k2s[t0:t1], off[t0:t1], bp, carry,
+        chunked.chunk_trace_ref(dev, woff, t0, t1, bp[int(off[t0]):], carry,
                                 rows[t0:t1])
         jcarry, jrows = jdp._trace_fn(t1 - t0)(jnp.asarray(ys[t0:t1]),
                                                jcarry)

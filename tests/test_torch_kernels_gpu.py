@@ -1291,17 +1291,32 @@ def test_fused_kernels_match_plain_versions(case, cuda):
     assert torch.equal(fused.fused_forward(dev, 0, plan.T, V0, whole), V)
     assert fused.fused_forward.launches == before + len(
         fused.launch_cut(dev, 0, plan.T, R + 1, False))
-    rows, sh = fused.fused_trace(dev, whole, R)
+    cycles = torch.zeros(plan.T, dtype=torch.int32, device=cuda)
+    before = fused.fused_trace.launches
+    rows, sh = fused.fused_trace(dev, whole, R, cycles)
+    assert fused.fused_trace.launches == before + 1
     want = fused.fused_trace_ref(dev, bp, R)
     assert torch.equal(rows, want[0]) and sh == want[1]
+    assert fused.path_shet_ref(dev, rows) == sh
+    assert (cycles >> 1).min() > 0
+
+
+def walk_spans(T):
+    """K16's spans in the order the traceback takes them: the last
+    transition alone, a middle span, then the first span (which ends the
+    walk)."""
+    cuts = sorted({0, max(T // 3, 1), max(T - 1, 1), T})
+    spans = [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+    return spans[::-1]
 
 
 @pytest.mark.parametrize("case", VERTEX_CASES)
 def test_chunk_kernels_match_plain_versions(case, cuda):
     """K15 on each transition (forward and replay) from the plain path's
     state: V, SH and the packed backpointers equal to its plain version;
-    K16 over the whole plan as one span, and in two spans, equal to its
-    plain version."""
+    K16 over the whole plan as one span, and in spans (a span of one
+    transition, the first span), rows and carry equal to its plain
+    version, one launch a span."""
     from dipgenie_tpu_torch.ops import chunked
     from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
 
@@ -1310,9 +1325,9 @@ def test_chunk_kernels_match_plain_versions(case, cuda):
     dev = ship(plan, cuda)
     V = initial_state(R, int(plan.widths[0]), cuda)
     SH = torch.zeros_like(V)
-    sizes = (R + 1) * plan.desc[:, 1] ** 2
-    off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-    bk = torch.empty(int(sizes.sum()), dtype=torch.int32, device=cuda)
+    woff = chunked.word_offsets(plan.desc, R + 1)
+    off = woff[:-1]
+    bk = torch.empty(int(woff[-1]), dtype=torch.int32, device=cuda)
     bp = torch.empty_like(bk)
     for t in range(plan.T):
         got = chunked.chunk_step(dev, t, t + 1, V, SH, bk, off[t:t + 1])
@@ -1322,19 +1337,110 @@ def test_chunk_kernels_match_plain_versions(case, cuda):
         for g in (got, fwd):
             assert torch.equal(g[0], V) and torch.equal(g[1], SH), t
     assert torch.equal(bk, bp)
-    k2s = plan.desc[:, 1]
-    for cut in (plan.T, plan.T // 2):
+    wdev = torch.from_numpy(woff).to(cuda)
+    for spans in ([(0, plan.T)], walk_spans(plan.T)):
         out = {}
         for which, fn in (("kernel", chunked.chunk_trace),
                           ("plain", chunked.chunk_trace_ref)):
             carry = torch.tensor([0, 0, R], dtype=torch.int32, device=cuda)
             rows = torch.zeros((plan.T, 4), dtype=torch.int32, device=cuda)
-            for t0, t1 in ((cut, plan.T), (0, cut)):
-                if t1 > t0:
-                    fn(k2s[t0:t1], off[t0:t1], bp, carry, rows[t0:t1])
+            before = chunked.chunk_trace.launches
+            for t0, t1 in spans:
+                fn(dev, wdev, t0, t1, bp[int(woff[t0]):], carry, rows[t0:t1])
+            if which == "kernel":
+                assert chunked.chunk_trace.launches == before + len(spans)
             out[which] = (rows, carry)
         assert torch.equal(out["kernel"][0], out["plain"][0])
         assert torch.equal(out["kernel"][1], out["plain"][1])
+
+
+def band_walk_case():
+    """An MHC-shaped graph whose second edges all weigh 1, at R = 18: the
+    path's r falls by up to 2 a transition, past the rows the producer
+    staged a batch earlier (BAND = 2 below r), until it reaches 0."""
+    arrs = list(mhc_shaped_csr(L=300, seed=4, n_bands=2, band_len=3))
+    adj_ptr, adj_w = arrs[1], arrs[3].copy()
+    deg = np.diff(adj_ptr)
+    adj_w[adj_ptr[:-1][deg == 2] + 1] = 1
+    arrs[3] = adj_w
+    return tuple(arrs), 18
+
+
+@pytest.mark.parametrize("case", ["wide_1000", "r_falls"])
+def test_walks_stage_and_take_l2_path(case, cuda):
+    """K14 and K16 on one walk with staged transitions and transitions
+    read through L2 (``wide_1000``: levels 1,000-1,024 wide among narrow
+    ones; ``r_falls``: narrow levels whose r falls past the staged rows),
+    equal to their plain versions; the walkers' cycle stamps say both
+    kinds ran."""
+    from dipgenie_tpu_torch.ops import chunked, fused
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = vertex_case(case) if case == "wide_1000" else band_walk_case()
+    plan = fused.plan_fused(*arrs, R)
+    dev = ship(plan.vplan, cuda, plan.desc)
+    bp = torch.zeros(plan.bp_bytes, dtype=torch.uint8, device=cuda)
+    V0 = initial_state(R, int(plan.vplan.widths[0]), cuda)
+    V = fused.fused_forward(dev, 0, plan.T, V0, bp)
+    assert int(V[R, 0, 0]) >= 0
+    cyc = torch.zeros(plan.T, dtype=torch.int32, device=cuda)
+    rows, sh = fused.fused_trace(dev, bp, R, cyc)
+    want = fused.fused_trace_ref(dev, bp, R)
+    assert torch.equal(rows, want[0]) and sh == want[1]
+    staged = (cyc & 1).bool()
+    assert staged.any() and not staged.all()
+    if case == "r_falls":  # r after each step of the walk, in walk order
+        r = R - torch.cumsum(rows[:, 2:].sum(1).flip(0), 0)
+        assert int(r.min()) <= 0 and int(R - r[31]) > 2
+
+    woff = chunked.word_offsets(plan.desc, R + 1)
+    words = torch.zeros(int(woff[-1]), dtype=torch.int32, device=cuda)
+    chunked.chunk_step(dev, 0, plan.T, V0, torch.zeros_like(V0), words,
+                       woff[:-1])
+    wdev = torch.from_numpy(woff).to(cuda)
+    out = {}
+    for which in ("kernel", "plain"):
+        carry = torch.tensor([0, 0, R], dtype=torch.int32, device=cuda)
+        got = torch.zeros((plan.T, 4), dtype=torch.int32, device=cuda)
+        if which == "kernel":
+            chunked.chunk_trace(dev, wdev, 0, plan.T, words, carry, got, cyc)
+        else:
+            chunked.chunk_trace_ref(dev, wdev, 0, plan.T, words, carry, got)
+        out[which] = (got, carry)
+    assert torch.equal(out["kernel"][0], out["plain"][0])
+    assert torch.equal(out["kernel"][1], out["plain"][1])
+    assert torch.equal(out["kernel"][0], rows)
+    staged = (cyc & 1).bool()
+    assert staged.any() and not staged.all()
+
+
+@pytest.mark.parametrize("case", ["mhc_slice_csr", "wide_1000"])
+def test_chunked_traceback_on_one_buffer(case, cuda):
+    """The traceback of ``DeviceDiploidDP`` (one word buffer for every
+    span, the forward's cuts, K16 with the plan-wide offsets) gives the
+    rows of the loop it replaced: a buffer a span, offsets from 0 a span,
+    the cut made again, the plain walk."""
+    from dipgenie_tpu_torch.ops import chunked
+
+    arrs, R = vertex_case(case)
+    plan = plan_vertices_of(arrs)
+    dp = chunked.DeviceDiploidDP(plan, R, cuda, ckpt_every=3)
+    dev = dp.ship()
+    _, _, ckpts = dp.forward(dev)
+    rows = dp.traceback(dev, ckpts)
+    _, _, ckpts = dp.forward(dev)
+    old = torch.zeros_like(rows)
+    carry = torch.tensor([0, 0, R], dtype=torch.int32, device=cuda)
+    woff = torch.from_numpy(chunked.word_offsets(plan.desc, R + 1))
+    for t0, t1 in reversed(dp.spans):
+        sizes = (R + 1) * plan.desc[t0:t1, 1] ** 2
+        off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        bp = torch.empty(int(sizes.sum()), dtype=torch.int32, device=cuda)
+        Vr, SHr = ckpts.pop()
+        chunked.chunk_step(dev, t0, t1, Vr, SHr, bp, off)
+        chunked.chunk_trace_ref(dev, woff, t0, t1, bp, carry, old[t0:t1])
+    assert torch.equal(rows, old)
+    assert len(dp.spans) > 1
 
 
 def plan_vertices_of(arrs):
