@@ -18,8 +18,8 @@
 //   a batch at a time; it only falls, by at most 2 a transition) and, for
 //   K14, around its [k2, P] slot table. What does not fit a slot (and
 //   K14's int32 codes) takes the L2 path: cp.async.bulk.prefetch.L2 of the
-//   same rows (or of row r alone, up to PREFETCH_MAX bytes) and the walker
-//   reads global memory.
+//   same rows (up to PREFETCH_MAX bytes) and the walker reads global
+//   memory.
 // * Walker (thread 0), a batch at a time: it waits on the batch's barrier,
 //   reads the batch's eight records into registers, and takes the eight
 //   steps unrolled, with no branch between them. A step's chain is one
@@ -36,12 +36,12 @@
 //   walker's chain.
 //
 // Measured (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W; the walker's
-// clock64 stamps): a staged step ~235 SM cycles for K14, ~123 for K16, and
+// clock64 stamps): a staged step ~229 SM cycles for K14, ~123 for K16, and
 // ~300 more at the first step of a batch (its barrier and its records); a
-// step through L2 ~650 (K14). The first design, a step at a time with a
-// 64-byte record read and the progress published every step, took ~465
-// and ~335 cycles a staged step: its taken branches and per-step
-// bookkeeping, not its reads, set the pace.
+// step through L2 ~660 (K14). A step's chain alone is ~100 cycles: the
+// bookkeeping and taken branches of a step at a time (a record read and
+// the progress published every step: ~465 / ~335 cycles), not the reads,
+// set the pace; hence the unrolled batch.
 #pragma once
 
 #include "vertex_dp.cuh"
@@ -222,11 +222,8 @@ __device__ __forceinline__ void stage(Smem& s, unsigned char* ring,
   dg::ring::expect_bytes(bar, cbytes + pbytes);
   if (sc) {
     dg::ring::bulk_load(sp, c0, cbytes, bar);
-  } else if (c1 - c0 <= PREFETCH_MAX) {
+  } else {
     prefetch_l2(pmax(c0, align_up(g.blk)), pmin(c1, align_down(g.blk_end)));
-  } else {  // row r alone
-    prefetch_l2(pmax(align_down(src + hi * row), align_up(g.blk)),
-                pmin(align_up(src + (hi + 1) * row), align_down(g.blk_end)));
   }
   if (sp_ok) {
     dg::ring::bulk_load(sp + cbytes, p0, pbytes, bar);
@@ -279,9 +276,9 @@ __device__ __forceinline__ unsigned shet_of(const Args& g, int t, int a,
   return n;
 }
 
-// Walk step i (transition t = T - 1 - i) belongs to unit i / UNIT, whose
-// rows [t_lo, t_hi) lie in ring block unit % RAW_UNITS, row t at t - t_lo.
-__device__ __forceinline__ int unit_hi(int T, int k) { return T - k * UNIT; }
+// Walk step i (transition t = T - 1 - i) belongs to unit k = i / UNIT,
+// whose rows [unit_lo, T - k * UNIT) lie in ring block k % RAW_UNITS, row t
+// at t - unit_lo.
 __device__ __forceinline__ int unit_lo(int T, int k) {
   return max(T - (k + 1) * UNIT, 0);
 }
@@ -296,7 +293,7 @@ __device__ void record(Smem& s, const Args& g, int lane) {
   unsigned long long sh = 0;
   int pa = 0, pb = 0;
   for (int k = 0; k * UNIT < T; ++k) {
-    const int hi = unit_hi(T, k), lo = unit_lo(T, k), n = hi - lo;
+    const int lo = unit_lo(T, k), n = T - k * UNIT - lo;
     while (s.done < min((k + 1) * UNIT, T)) __nanosleep(RECORD_SPIN_NS);
     const int4* blk = s.rows + (k % RAW_UNITS) * UNIT;
     if (FUSED) {
