@@ -52,7 +52,11 @@ result line):
      (in-degree 40) and W's transitions into and out of its widest level
      (1,022; the next in-degree 152) from a random state, then K13 and K15
      over whole plans and across run ends, bands at and one past the run
-     kernel's shared-memory edge included; U2 both tiers on C through the
+     kernel's shared-memory edge included, and K15's per-transition
+     kernel on tp shares (chunk_share) on every wide transition of C's
+     first U_PREFIX, for 1, 2 and 3 ranks: each share equal to its plain
+     version, the shares stitched equal to the unshared launch, words
+     included; U2 both tiers on C through the
      solver's entry (launches counted against the host cut,
      ops/vertex_plan.py:plan_launches: one a run of narrow transitions,
      one a wide transition, K15 in the forward and the replay, K16 once a
@@ -123,6 +127,24 @@ result line):
   F3. the port's pipeline with a mesh of F_RANKS gloo ranks on the card on
      phase D's 18-walk pangenome: each rank's FASTA byte-identical to
      phase D's native-tier FASTA, every wide run through K4;
+  F4. the chunked tier over a tp mesh (ops/chunked.py:chunk_step_tp: K15's
+     runs on every rank, each wide transition split by destination pairs
+     over the ranks, chunk_share, with one all-gather, K16 on every rank)
+     through the solver's entry: F4a C on a one-rank gloo mesh in this
+     process (the merges' cost alone), then one share of C's widest
+     wide transition beside its plain version and its bound; F4b C on
+     F_RANKS gloo ranks sharing the card; F4c W's first F4_W_BANDS band(s)
+     (a prefix of W closed by a sink: each wide gather through gloo moves
+     ~0.4 GB) on F_RANKS ranks through --dp-backend auto, whose planner
+     stops at its window limit with one [W::diploid_dp] line naming the
+     chunked tier over the mesh. Every rank's result equals the native
+     tier (C's, and on W's prefix the single-device chunked tier's and the
+     native tier's on the same levels); each part logs forward and
+     traceback seconds (CUDA events), the all-gathers (count, bytes, host
+     seconds, the host's wait for the card before them), K15's run and
+     share launches, K16's launches and the peak memory per rank. The
+     ranks' gathers are gloo's, staged through host memory: not a
+     multi-card number;
   H. (run after G) the 30 capability checks (K8, K9: csrc/caps_*.cu):
      H1 the probes caps and caps2 through their entry functions (one
      launch per check, 30 PASS lines), then every kernel against its plain
@@ -239,6 +261,10 @@ KERNELS = {
                    "dipgenie_tpu/ops/diploid_jax.py:177"),
     "chunk_trace": ("dipgenie_tpu_torch/csrc/chunk_dp.cu",
                     "dipgenie_tpu/ops/diploid_jax.py:543"),
+    # K15's per-transition kernel on one tp rank's destination pairs (the
+    # JAX tier's step sharded over tp)
+    "chunk_share": ("dipgenie_tpu_torch/csrc/chunk_dp.cu",
+                    "dipgenie_tpu/parallel/mesh.py:90"),
 }
 # the level-chain kernels (phase G), in the order of their probes
 CHAINS = ("chain_floor", "chain_step16", "chain_pair", "chain_edge")
@@ -252,9 +278,14 @@ MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
              "grid_nll": "S3", "grid_tables": "S3", "sketch_count": "S4",
              "fused_forward": "U2 fused", "fused_trace": "U2 fused",
              "chunk_step": "U2 chunked", "chunk_trace": "U2 chunked",
+             "chunk_share": "F4a",
              **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
-F_RANKS = 2  # ranks sharing the card in phases F2 and F3
+F_RANKS = 2  # ranks sharing the card in phases F2, F3 and F4
+# phase F4c: W's first bands, a prefix of W closed by a sink (each wide
+# transition's all-gather through gloo moves ~0.4 GB: V, SH and the words
+# at width 1,022, R = 18)
+F4_W_BANDS = 1
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory bytes/s, and
 # the float32 rate outside the tensor cores, taken for the kernels' int32
 # adds and compares (the table has no int32 row)
@@ -422,6 +453,7 @@ class Smoke:
             "fused_trace": (fused.fused_trace, fused.fused_trace_ref),
             "chunk_step": (chunked.chunk_step, chunked.chunk_step_ref),
             "chunk_trace": (chunked.chunk_trace, chunked.chunk_trace_ref),
+            "chunk_share": (chunked.chunk_share, chunked.chunk_share_ref),
             **caps.CHECKS,
         }
         self.err = {k: 0 for k in KERNELS}
@@ -438,6 +470,7 @@ class Smoke:
         self.plan_s = {}  # phases C and E: plan_pairs' host seconds
         self.c = None  # phase C's graph and native result, for phase U
         self.s = {}  # phase S's pangenome, reads and anchor stages
+        self.smi = ""  # the card's name and power limit (nvidia-smi)
 
     def counts(self):
         return {k: f[0].launches for k, f in self.fns.items()}
@@ -1386,6 +1419,7 @@ class Smoke:
         self.u_check_w(wplan)
         self.u_check_runs(cases)
         self.u_check_walks()
+        self.u_check_shares()
         log(f"U1 K13-K16 == their plain versions on every element: "
             f"{len(cases)} graphs and W's widest level "
             f"({time.time() - t0:.1f}s)")
@@ -1534,6 +1568,63 @@ class Smoke:
             f"({len(cases)} graphs, {runs} runs, the widest runs at R={R} "
             f"{edges[False]} (K13) and {edges[True]} (K15) wide, bands "
             f"{bands}): == plain")
+
+    def u_check_shares(self):
+        """K15's per-transition kernel on tp shares (``chunk_share``) on
+        C's first U_PREFIX transitions, from the path's state: every
+        per-transition launch of the card's cut split for TP_SHARDS ranks,
+        each share equal to its plain version on every element, and the
+        shares stitched by ``place`` (as the all-gather stacks them) equal
+        to the unshared launch, V, SH and words."""
+        from dipgenie_tpu_torch.ops import chunked, fused
+        from dipgenie_tpu_torch.ops.vertex_plan import (
+            initial_state, plan_vertices, ship,
+        )
+
+        torch = self.torch
+        plan = plan_vertices(*self.c["arrs"])
+        n, R1 = min(U_PREFIX, plan.T), R + 1
+        dev = ship(plan, DEVICE)
+        k15 = self.fns["chunk_step"][0]
+        share, share_ref = self.fns["chunk_share"]
+        V = initial_state(R, int(plan.widths[0]), DEVICE)
+        SH = torch.zeros_like(V)
+        wide = short = 0
+        for first, end, kmax in fused.launch_cut(dev, 0, n, R1,
+                                                 True).tolist():
+            if kmax > 0:
+                V, SH = (x.clone() for x in k15(dev, first, end, V, SH))
+                continue
+            k2 = int(plan.desc[first, 1])
+            kk2 = k2 * k2
+            words = torch.zeros(R1 * kk2, dtype=torch.int32, device=DEVICE)
+            want = (*(x.reshape(-1) for x in k15(
+                dev, first, end, V, SH, words, [0])), words)
+            for n_tp in TP_SHARDS:
+                S = chunked.share_of(kk2, n_tp, 0)[2]
+                g = torch.full((n_tp, 3, R1, S), -7, dtype=torch.int32,
+                               device=DEVICE)
+                for d in range(n_tp):
+                    p0, p1, _ = chunked.share_of(kk2, n_tp, d)
+                    share(dev, first, V, SH, p0, p1, g[d])
+                    self.compare("chunk_share", tuple(
+                        g[d, c, :, :p1 - p0] for c in range(3)),
+                        share_ref(dev, first, V, SH, p0, p1))
+                stitched = []
+                for c in range(3):
+                    stitched.append(torch.empty(R1 * kk2, dtype=torch.int32,
+                                                device=DEVICE))
+                    chunked.place(g[:, c], stitched[-1], kk2)
+                self.compare("chunk_share", tuple(stitched), want)
+                short += kk2 % n_tp != 0
+            wide += 1
+            V, SH = (x.view(R1, k2, k2).clone() for x in want[:2])
+        check(wide > 0 and short > 0, f"U1 shares: {wide} wide transitions, "
+              f"{short} short last shares")
+        log(f"U1 chunk_share on C's first {n} transitions: {wide} wide "
+            f"transitions split for {TP_SHARDS} ranks ({short} splits with "
+            "a short last share), each share == plain, the shares stitched "
+            "== the unshared launch (V, SH, words)")
 
     def u_check_walks(self):
         """K14 and K16 on walks with staged transitions and transitions read
@@ -2301,6 +2392,206 @@ class Smoke:
                 f"FASTA byte-identical to the native tier ({len(native_fa)} "
                 f"B), launches {counts}")
 
+    # ---------------- phase F4 ----------------
+    def phase_f4(self):
+        """The chunked tier over a tp mesh: F4a C on a one-rank gloo mesh
+        in this process and one share timed, F4b C on F_RANKS ranks, F4c
+        W's first bands on F_RANKS ranks through ``auto``."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+        from dipgenie_tpu_torch.utils.synth import mhc_shaped_csr
+
+        if self.c is None:  # phases C and U not run: C and its native result
+            arrs = mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS)
+            self.c = {"arrs": arrs, "want": native_forward_csr(arrs, R)}
+        self.phase_f4a()
+        path = os.path.join(OUT_DIR, "phase_f4_c.npz")
+        np.savez(path, **dict(zip(CSR_KEYS, self.c["arrs"])))
+        try:
+            results = spawn_ranks("f4b", {"kind": "chunked", "arrs": path})
+        finally:
+            os.remove(path)
+        for r, res in enumerate(results):
+            check(res["result"] == self.c["want"], f"F4b rank {r}: "
+                  f"{res['result'][:2]} differs from the native tier's "
+                  f"{self.c['want'][:2]}")
+            self.f4_check(f"F4b rank {r}", res)
+            log(f"F4b rank {r} of {F_RANKS} (gloo, one card) on C: "
+                + self.f4_line(res) + "; == native tier")
+        self.phase_f4c()
+
+    def phase_f4a(self):
+        """C through the chunked tier's entry on a one-rank gloo mesh in
+        this process (every wide transition one share and one gather that
+        moves nothing between ranks), then C's widest wide transition's
+        first share of F_RANKS timed beside its plain version."""
+        import torch.distributed as dist
+
+        from dipgenie_tpu_torch.parallel.mesh import make_mesh
+        from dipgenie_tpu_torch.solver.diploid import vertex_forward
+
+        torch = self.torch
+        arrs, want = self.c["arrs"], self.c["want"]
+        dist.init_process_group("gloo", init_method=pg_file("f4a"),
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(n_tp=1)
+            self.torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with timed_chunked(torch) as runs:
+                self.reset_counts()
+                got = vertex_forward(arrs, R, DEVICE, "jax", mesh)
+                launches = self.launches["F4a"] = self.counts()
+            res = {"result": got, "peak": torch.cuda.max_memory_allocated(),
+                   "launches": launches, **runs[-1]}
+        finally:
+            dist.destroy_process_group()
+        check(got == want, f"F4a C on one rank: {got[:2]} differs from the "
+              f"native tier's {want[:2]}")
+        self.f4_check("F4a", res)
+        log(f"F4a C on a one-rank tp mesh (gloo, in this process): "
+            + self.f4_line(res) + "; == native tier")
+        self.f4_time_share(res["widest"])
+
+    def f4_check(self, tag, res):
+        """The launches and gathers a rank made: K15's run launches and
+        shares and the gathers in the forward and again in the replay,
+        K16 once a span."""
+        c = res["cuts"]
+        want = {"chunk_step": 2 * c["runs"], "chunk_share": 2 * c["shares"],
+                "chunk_trace": c["spans"]}
+        got = {k: res["launches"][k] for k in want}
+        check(got == want, f"{tag} launches {got}, want {want}")
+        check(res["stats"]["gathers"] == 2 * c["wide"] > 0,
+              f"{tag}: {res['stats']['gathers']} gathers, want "
+              f"{2 * c['wide']}")
+
+    def f4_line(self, res):
+        st, c = res["stats"], res["cuts"]
+        return (f"forward {res['forward_s']:.4f}s, traceback "
+                f"{res['traceback_s']:.4f}s (CUDA events); {st['gathers']} "
+                f"all-gathers ({c['wide']} wide transitions, in the forward "
+                f"and the replay) of {st['gather_bytes']} B in "
+                f"{st['gather_seconds']:.4f}s, {st['wait_seconds']:.4f}s "
+                f"waiting for the card before them (host timer); launches "
+                f"K15 runs {res['launches']['chunk_step']}, K15 shares "
+                f"{res['launches']['chunk_share']}, K16 "
+                f"{res['launches']['chunk_trace']}; peak memory "
+                f"{res['peak']} B; card {self.smi}")
+
+    def f4_time_share(self, widest):
+        """``chunk_share`` on rank 0's share of F_RANKS of C's widest wide
+        transition, from the chunked path's state, beside its plain version
+        (in turns plain, kernel, kernel, plain; CUDA events) and its
+        bound."""
+        from dipgenie_tpu_torch.ops import chunked
+        from dipgenie_tpu_torch.ops.vertex_plan import (
+            initial_state, plan_vertices, ship,
+        )
+
+        torch = self.torch
+        plan = plan_vertices(*self.c["arrs"])
+        dev = ship(plan, DEVICE)
+        t = widest
+        R1, k2 = R + 1, int(plan.desc[t, 1])
+        V = initial_state(R, int(plan.widths[0]), DEVICE)
+        V, SH = (x.clone() for x in chunked.chunk_step(
+            dev, 0, t, V, torch.zeros_like(V)))
+        p0, p1, S = chunked.share_of(k2 * k2, F_RANKS, 0)
+        outs = [torch.zeros((3, R1, S), dtype=torch.int32, device=DEVICE)
+                for _ in range(2)]
+        kern, plain = self.fns["chunk_share"]
+
+        def run(w):
+            if w == 0:
+                return kern(dev, t, V, SH, p0, p1, outs[0])[:, :, :p1 - p0]
+            return torch.stack(plain(dev, t, V, SH, p0, p1))
+
+        times, got = {0: [], 1: []}, {}
+        for which in (1, 0, 0, 1):
+            ms, got[which] = self.timed(lambda: run(which))
+            times[which].append(ms)
+        self.compare("chunk_share", got[0], got[1])
+        with self.launch_events("dg_chunk_step_share") as pairs:
+            run(0)
+            self.sync()
+        device = pairs[0][0].elapsed_time(pairs[0][1])
+        self.ms["chunk_share"] = min(times[0])
+        self.plain_ms["chunk_share"] = min(times[1])
+        nbytes, ops = share_work(plan, t, p0, p1, R1)
+        self.bound["chunk_share"] = bound(nbytes, ops)
+        log(f"F4a chunk_share on rank 0's share of {F_RANKS} of C's widest "
+            f"wide transition {t} (widths {int(plan.desc[t, 0])} -> {k2}, "
+            f"pairs [{p0}, {p1})): kernel {times[0]} ms (device "
+            f"{device:.4f} ms by CUDA events around the launch), plain "
+            f"{times[1]} ms (CUDA events), bound "
+            f"{self.bound['chunk_share'][0]:.6g} ms "
+            f"({self.bound['chunk_share'][1]}; {nbytes} B, {ops} int32 "
+            f"operations); card {self.smi}")
+
+    def phase_f4c(self):
+        """W's first F4_W_BANDS band(s), a prefix closed by a sink, on
+        F_RANKS ranks through ``device_forward(..., "auto", mesh)``: one
+        [W::diploid_dp] line naming the window limit and the chunked tier
+        over the mesh; every rank's result equal to the single-device
+        chunked tier's and the native tier's on the same levels."""
+        import numpy as np
+
+        from dipgenie_tpu_torch.ops import chunked
+        from dipgenie_tpu_torch.ops.vertex_plan import plan_vertices
+        from dipgenie_tpu_torch.solver.diploid import native_forward_csr
+        from dipgenie_tpu_torch.utils.synth import dp_states, mhc_shaped_csr
+
+        torch = self.torch
+        w = mhc_shaped_csr(L=L_MHC, seed=SEED, **W_SHAPE)
+        widths = np.diff(w[0])
+        wide = np.flatnonzero(widths >= W_SHAPE["wmin"])
+        ends = wide[np.append(np.diff(wide) > 1, True)]  # each band's last
+        n_levels = int(ends[F4_W_BANDS - 1]) + 2
+        prefix = csr_prefix(w, n_levels)
+        pw = np.diff(prefix[0])
+        t0 = time.time()
+        want = native_forward_csr(prefix, R)
+        native_s = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        single = chunked.DeviceDiploidDP(plan_vertices(*prefix), R,
+                                         DEVICE).run()
+        single_s = time.time() - t0
+        single_peak = torch.cuda.max_memory_allocated()
+        check(single == want, "F4c the single-device chunked tier on W's "
+              "prefix differs from the native tier")
+        log(f"F4c W cut to its first {F4_W_BANDS} band(s): levels 0-"
+            f"{n_levels - 1} of W's {len(widths)} and a sink, "
+            f"{len(pw)} levels, {int((pw > 512).sum())} wider than 512 (up "
+            f"to {int(pw.max())}), {dp_states(prefix[0], R)} DP states; "
+            f"native tier {native_s:.1f}s (host), single-device chunked "
+            f"tier {single_s:.3f}s (plan to result, host clock), peak memory "
+            f"{single_peak} B; == native tier")
+        torch.cuda.empty_cache()
+        path = os.path.join(OUT_DIR, "phase_f4_w.npz")
+        np.savez(path, **dict(zip(CSR_KEYS, prefix)))
+        try:
+            results = spawn_ranks("f4c", {"kind": "chunked", "arrs": path,
+                                          "auto": True})
+        finally:
+            os.remove(path)
+        for r, res in enumerate(results):
+            warns = [x for x in res["log"].splitlines()
+                     if x.startswith("[W::")]
+            check(len(warns) == 1 and warns[0].startswith(
+                "[W::diploid_dp] torch tier: ") and warns[0].endswith(
+                f"running the chunked tier over the tp mesh of {F_RANKS} "
+                "ranks"), f"F4c rank {r}: the [W::diploid_dp] line: {warns}")
+            check(res["result"] == single == want, f"F4c rank {r}: "
+                  f"{res['result'][:2]} differs from the single-device "
+                  f"chunked tier's {single[:2]}")
+            self.f4_check(f"F4c rank {r}", res)
+            log(f"F4c rank {r} of {F_RANKS} (gloo, one card) on W's prefix "
+                f"through auto ({warns[0]}): " + self.f4_line(res)
+                + "; == the single-device chunked tier == native tier")
+
     # ---------------- phase S ----------------
     def phase_s(self):
         self.s_data()
@@ -2999,6 +3290,119 @@ def u_work(plan, n: int) -> dict:
     }
 
 
+def share_work(plan, t: int, p0: int, p1: int, R1: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of K15's per-transition kernel on the
+    destination pairs ``[p0, p1)`` of transition ``t`` (``u_work``'s
+    count restricted to the pairs): the transition's tables, V and SH in
+    once each, V', SH' and the words of the pairs out once; an add and a
+    max per candidate and row it reaches, ten operations a colour word per
+    candidate pair for its score."""
+    import numpy as np
+
+    k, k2, P, W, po, do = (int(x) for x in plan.desc[t, :6])
+    deg = plan.deg[do:do + k2].astype(np.int64)
+    pred = plan.pred[po:po + k2 * P].reshape(k2, P)
+    w1 = ((pred & 1) * (np.arange(P)[None, :] < deg[:, None])).sum(1)
+    w0 = deg - w1
+    pairs = np.arange(p0, p1)
+    i2, j2 = pairs // k2, pairs % k2
+    rows = (w0[i2] * w0[j2] * R1 + (w0[i2] * w1[j2] + w1[i2] * w0[j2])
+            * max(R1 - 1, 0) + w1[i2] * w1[j2] * max(R1 - 2, 0))
+    ops = 2 * int(rows.sum()) + 10 * W * int((deg[i2] * deg[j2]).sum())
+    tables = 4 * k2 * P + 4 * k2 + 8 * (k + k2) * W
+    return tables + 2 * 4 * R1 * k * k + 3 * 4 * R1 * (p1 - p0), ops
+
+
+def csr_prefix(arrs, n_levels: int):
+    """The CSR arrays of a graph's levels ``0 .. n_levels - 1`` and one
+    sink level after them: every vertex of the last kept level gets one
+    edge of weight 0 to the sink, which has no colours."""
+    import numpy as np
+
+    level_ptr, adj_ptr, adj_v, adj_w, hom_ptr, hom_c, het_ptr, het_c = arrs
+    nv = int(level_ptr[n_levels])
+    last = int(level_ptr[n_levels - 1])
+    ne = int(adj_ptr[last])
+    lp = np.append(level_ptr[:n_levels + 1], nv + 1)
+    ap = np.concatenate([adj_ptr[:last + 1],
+                         ne + np.arange(1, nv - last + 1),
+                         [ne + nv - last]]).astype(adj_ptr.dtype)
+    av = np.concatenate([adj_v[:ne], np.full(nv - last, nv)]).astype(
+        adj_v.dtype)
+    aw = np.concatenate([adj_w[:ne], np.zeros(nv - last)]).astype(adj_w.dtype)
+    hp = np.append(hom_ptr[:nv + 1], hom_ptr[nv])
+    tp = np.append(het_ptr[:nv + 1], het_ptr[nv])
+    return (lp, ap, av, aw, hp, hom_c[:int(hom_ptr[nv])], tp,
+            het_c[:int(het_ptr[nv])])
+
+
+@contextlib.contextmanager
+def timed_chunked(torch):
+    """While the block runs, ``chunked.DeviceDiploidDP`` (which the
+    solver's entry builds) is a subclass whose forward and traceback are
+    bracketed by CUDA events; yields the list of each run's forward and
+    traceback seconds, its share and gather counters, what its cuts hold
+    (run launches, wide transitions, this rank's non-empty shares, spans)
+    and its widest wide transition."""
+    import numpy as np
+
+    from dipgenie_tpu_torch.ops import chunked
+
+    base, runs = chunked.DeviceDiploidDP, []
+
+    class Timed(base):
+        def forward(self, dev):
+            self.ev = [torch.cuda.Event(enable_timing=True)
+                       for _ in range(3)]
+            self.ev[0].record()
+            out = super().forward(dev)
+            self.ev[1].record()
+            return out
+
+        def traceback(self, dev, ckpts):
+            rows = super().traceback(dev, ckpts)
+            self.ev[2].record()
+            torch.cuda.synchronize()
+            n = 1 if self.mesh is None else self.mesh.n_tp
+            d = 0 if self.mesh is None else self.mesh.tp_rank
+            cut = np.concatenate(self.cuts)
+            wide = cut[cut[:, 2] == 0, 0]
+            k2 = self.plan.desc[wide, 1]
+            runs.append({
+                "forward_s": self.ev[0].elapsed_time(self.ev[1]) / 1e3,
+                "traceback_s": self.ev[1].elapsed_time(self.ev[2]) / 1e3,
+                "stats": dict(self.stats),
+                "cuts": {"runs": int((cut[:, 2] > 0).sum()),
+                         "wide": len(wide), "spans": len(self.spans),
+                         "shares": sum(
+                             p1 > p0 for p0, p1, _ in
+                             (chunked.share_of(int(x) ** 2, n, d)
+                              for x in k2))},
+                "widest": int(wide[np.argmax(k2)]) if len(wide) else -1})
+            return rows
+
+    chunked.DeviceDiploidDP = Timed
+    try:
+        yield runs
+    finally:
+        chunked.DeviceDiploidDP = base
+
+
+@contextlib.contextmanager
+def fd2_to(path: str):
+    """File descriptor 2 into ``path`` while the block runs."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "w") as fh:
+        os.dup2(fh.fileno(), 2)
+        try:
+            yield
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+
+
 def plan_prefix(plan, n_levels: int):
     """The whole runs of a PairPlan or a DevPlan that lie within its first
     ``n_levels`` levels, as a plan of its own."""
@@ -3036,7 +3440,7 @@ def spawn_ranks(tag: str, job: dict) -> list:
 
 
 def rank_main(rank: int, world: int, job: dict, init: str, out: str) -> None:
-    """One spawned rank of phase F2, F3 or S4 on the card (cuda:0)."""
+    """One spawned rank of phase F2, F3, F4 or S4 on the card (cuda:0)."""
     import pickle
 
     import torch
@@ -3051,7 +3455,7 @@ def rank_main(rank: int, world: int, job: dict, init: str, out: str) -> None:
     try:
         mesh = make_mesh(*job.get("mesh", (1, world)))
         fn = {"dp": rank_dp, "pipeline": rank_pipeline,
-              "sketch": rank_sketch}[job["kind"]]
+              "sketch": rank_sketch, "chunked": rank_chunked}[job["kind"]]
         res = fn(torch, mesh, job, f"{out}{rank}")
         with open(f"{out}{rank}.pkl", "wb") as fh:
             pickle.dump(res, fh)
@@ -3150,6 +3554,40 @@ def rank_sketch(torch, mesh, job, out):
             "dryrun_s": time.time() - t2, "launches": launches}
 
 
+def rank_chunked(torch, mesh, job, out):
+    """F4b / F4c: the chunked tier over the mesh through the solver's
+    entry, ``vertex_forward(..., "jax", mesh)`` or with ``job["auto"]``
+    ``device_forward(..., "auto", mesh)``; its log (stderr), result,
+    forward and traceback seconds, gathers, launches and peak memory."""
+    import numpy as np
+
+    from dipgenie_tpu_torch.ops import chunked
+    from dipgenie_tpu_torch.solver.diploid import (
+        device_forward, vertex_forward,
+    )
+
+    d = np.load(job["arrs"])
+    arrs = tuple(d[k] for k in CSR_KEYS)
+    wrappers = {"chunk_step": chunked.chunk_step,
+                "chunk_share": chunked.chunk_share,
+                "chunk_trace": chunked.chunk_trace}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with timed_chunked(torch) as runs, fd2_to(f"{out}.log"):
+        if job.get("auto"):
+            got = device_forward(arrs, R, "auto", DEVICE, mesh)
+        else:
+            got = vertex_forward(arrs, R, DEVICE, "jax", mesh)
+    with open(f"{out}.log") as fh:
+        text = fh.read()
+    os.remove(f"{out}.log")
+    return {"result": got, "log": text,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            **runs[-1]}
+
+
 def build_all():
     """Phase A: the CUDA kernels, the port's native runtime and the JAX
     package's (for the reference CLI of phase D), built at once. Returns
@@ -3230,9 +3668,10 @@ def main() -> int:
     add_caps_kernels()
 
     smoke = Smoke(torch, ref_cxx)
+    smoke.smi = smi
     phases = (smoke.phase_b, smoke.phase_g, smoke.phase_h, smoke.phase_c,
               smoke.phase_u, smoke.phase_e, smoke.phase_f1, smoke.phase_f2,
-              smoke.phase_s, smoke.phase_d, smoke.phase_f3)
+              smoke.phase_s, smoke.phase_d, smoke.phase_f3, smoke.phase_f4)
     only = {a.upper() for a in sys.argv[1:]}
     for phase in phases:
         if only and phase.__name__.split("_")[1].upper() not in only:

@@ -5,7 +5,8 @@
 * ``--dp-backend auto|torch|fused|jax|native|exact``: ``auto`` (the
   default) is the torch tier (the pair DP) on ``--device``, and runs a
   graph with a level wider than 512, past the pair planner's window limit,
-  on the fused tier with one ``[W::diploid_dp]`` line; ``fused`` is the
+  on the fused tier (under a tp mesh, the chunked tier over the mesh) with
+  one ``[W::diploid_dp]`` line; ``fused`` is the
   fused tier (one forward keeping every backpointer, then one traceback),
   ``jax`` the chunked tier (checkpoints, then a replay and a walk a span;
   the JAX CLI's flag name), both on ``--device`` for levels up to 4,096
@@ -21,8 +22,7 @@
 A graph past a tier's limits (``ops/pair_plan.py:PlanLimit``, raised by
 the pair planner and by the vertex tiers' planner and memory counts) ends
 the run with one ``[E::main]`` line naming ``--dp-backend native`` and
-exit code 1, as does a tp mesh given to ``fused`` or ``jax``
-(``MeshUnsupported``: their sharding is not ported yet).
+exit code 1.
 
 Parsed-but-unused flags, for parity (each is equally dead in the
 reference binary): -H, -c, -N, -l.
@@ -36,7 +36,6 @@ import sys
 from . import PHI_VERSION
 from .device import NoCudaDevice, resolve_device
 from .ops.pair_plan import PlanLimit
-from .solver.diploid import MeshUnsupported
 from .solver.pipeline import Pipeline, PipelineConfig
 from .utils import timing
 
@@ -174,7 +173,7 @@ def main(argv: list[str] | None = None) -> int:
                 checkpoint_dir=args.checkpoint_dir or None,
             )
             Pipeline(args.g, args.r, args.o, cfg).run()
-    except (NoCudaDevice, PlanLimit, MeshUnsupported) as e:
+    except (NoCudaDevice, PlanLimit) as e:
         print(f"[E::main] {e}", file=sys.stderr)
         return 1
 

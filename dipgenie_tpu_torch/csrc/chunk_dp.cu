@@ -15,6 +15,14 @@
 // per-transition kernel, whose SH is read from global memory once a state
 // (the winner's source); no padding, no no-op steps.
 //
+// Over a tp mesh (ops/chunked.py:chunk_step_tp; the JAX tier sharded its
+// state over the destination rows, parallel/mesh.py:90-109) the host
+// drives the cut launch by launch, since a collective sits between two
+// launches: a run is dg_chunk_forward on a one-row cut, the same on every
+// rank; a wide transition is dg_chunk_step_share, the per-transition
+// kernel on this rank's destination pairs [p0, p1), its V', SH' and words
+// into compact [R1, pitch] buffers that one all-gather collects.
+//
 // K16 replaces `_trace_fn` (:543-567): the walk of a replayed span's
 // packed words in reverse from the carry (i2, j2, r) in device memory,
 // leaving the carry for the span before it. It is the staged walk of
@@ -59,6 +67,28 @@ extern "C" int dg_chunk_forward(const long long* desc,
   };
   return launch_cut<true>(desc, desc_dev, cut, n_launch, R1, pred, deg,
                           masks, va, vb, sa, sb, words, words, stream);
+}
+
+// One wide transition on the destination pairs [p0, p1) of its k2 * k2:
+// desc_row the transition's host descriptor row; vin, shin [R1, k, k]; state
+// (r, pair) to element r * pitch + pair - p0 of vout, shout and words (or
+// null: no words). An empty range launches nothing.
+extern "C" int dg_chunk_step_share(const long long* desc_row,
+                                   const int32_t* pred, const int32_t* deg,
+                                   const uint32_t* masks, const int32_t* vin,
+                                   const int32_t* shin, int32_t* vout,
+                                   int32_t* shout, int32_t* words,
+                                   long long p0, long long p1,
+                                   long long pitch, int R1,
+                                   cudaStream_t stream) {
+  const Tables tb = tables_of(desc_row, pred, deg, masks);
+  const long long kk2 = (long long)tb.k2 * tb.k2;
+  if (R1 < 1 || p0 < 0 || p1 < p0 || p1 > kk2 || pitch < p1 - p0)
+    return (int)cudaErrorInvalidValue;
+  if (p1 == p0) return 0;
+  return (int)launch_step<true>(tb, vin, vout, shin, shout,
+                                reinterpret_cast<char*>(words), R1, p0, p1,
+                                pitch, stream);
 }
 
 // The walk of transitions t0 .. t0 + n - 1: desc_dev [T, DESC_COLS];

@@ -150,21 +150,27 @@ inline int rows_per_lane(int R1) {
 // with the winner's slot pair, and among equal keys the first in (p, q)
 // order stays, the tie order above. out: K13's codes of the transition,
 // K15's packed words of the transition or null.
+//
+// The warps take the destination pairs [p0, p1) of the k2 * k2 (all of
+// them for K13 and the single-device K15; one tp rank's share for the
+// chunked tier over a mesh), and state (r, pair) goes to element r * pitch
+// + pair - p0 of vout, shout and out: a share lands in a compact [R1,
+// pitch] buffer.
 template <bool CHUNK, int RPL>
 __global__ void __launch_bounds__(THREADS)
 vertex_step_kernel(Tables t, const int32_t* __restrict__ vin,
                    int32_t* __restrict__ vout,
                    const int32_t* __restrict__ shin,
                    int32_t* __restrict__ shout, char* __restrict__ out,
-                   int R1) {
-  const long long kk = (long long)t.k * t.k, kk2 = (long long)t.k2 * t.k2;
+                   int R1, long long p0, long long p1, long long pitch) {
+  const long long kk = (long long)t.k * t.k, np = p1 - p0;
   const int lane = threadIdx.x & 31, W = t.W, P = t.P;
   const long long chunks = (R1 + 32 * RPL - 1) / (32 * RPL);
   const long long nwarps = (long long)gridDim.x * (blockDim.x / 32);
   for (long long task = (blockIdx.x * (long long)blockDim.x + threadIdx.x) /
                         32;
-       task < chunks * kk2; task += nwarps) {
-    const long long c = task / kk2, pair = task - c * kk2;
+       task < chunks * np; task += nwarps) {
+    const long long c = task / np, pair = p0 + (task - c * np);
     const int i2 = (int)(pair / t.k2), j2 = (int)(pair - (long long)i2 * t.k2);
     const int r0 = (int)c * 32 * RPL + lane;
     long long best[RPL];
@@ -224,7 +230,7 @@ vertex_step_kernel(Tables t, const int32_t* __restrict__ vin,
     for (int m = 0; m < RPL; ++m) {
       const int r = r0 + 32 * m;
       if (r >= R1) break;
-      const long long y = r * kk2 + pair;
+      const long long y = r * pitch + (pair - p0);
       const bool ok = best[m] >= 0;
       vout[y] = ok ? (int)(best[m] >> 24) : NEG;
       if (!CHUNK) {
@@ -255,33 +261,37 @@ template <bool CHUNK, int RPL>
 inline cudaError_t launch_step_rpl(const Tables& tb, const int32_t* vin,
                                    int32_t* vout, const int32_t* shin,
                                    int32_t* shout, char* out, int R1,
-                                   cudaStream_t stream) {
+                                   long long p0, long long p1,
+                                   long long pitch, cudaStream_t stream) {
   const long long chunks = (R1 + 32 * RPL - 1) / (32 * RPL);
-  const long long warps = chunks * tb.k2 * (long long)tb.k2;
+  const long long warps = chunks * (p1 - p0);
   vertex_step_kernel<CHUNK, RPL><<<grid_of(32 * warps), THREADS, 0,
                                    stream>>>(tb, vin, vout, shin, shout, out,
-                                             R1);
+                                             R1, p0, p1, pitch);
   return cudaGetLastError();
 }
 
+// The per-transition kernel on the destination pairs [p0, p1) (p1 > p0),
+// written at pitch; launch_cut passes every pair at pitch k2 * k2.
 template <bool CHUNK>
 inline cudaError_t launch_step(const Tables& tb, const int32_t* vin,
                                int32_t* vout, const int32_t* shin,
                                int32_t* shout, char* out, int R1,
+                               long long p0, long long p1, long long pitch,
                                cudaStream_t stream) {
   switch (rows_per_lane(R1)) {
     case 1:
       return launch_step_rpl<CHUNK, 1>(tb, vin, vout, shin, shout, out, R1,
-                                       stream);
+                                       p0, p1, pitch, stream);
     case 2:
       return launch_step_rpl<CHUNK, 2>(tb, vin, vout, shin, shout, out, R1,
-                                       stream);
+                                       p0, p1, pitch, stream);
     case 3:
       return launch_step_rpl<CHUNK, 3>(tb, vin, vout, shin, shout, out, R1,
-                                       stream);
+                                       p0, p1, pitch, stream);
     default:
       return launch_step_rpl<CHUNK, 4>(tb, vin, vout, shin, shout, out, R1,
-                                       stream);
+                                       p0, p1, pitch, stream);
   }
 }
 
@@ -718,10 +728,12 @@ inline int launch_cut(const long long* desc, const long long* desc_dev,
       e = launch_run<CHUNK>(desc_dev + first * DESC_COLS, (int)(end - first),
                             R1, kmax, pred, deg, masks, vbuf[c], vbuf[c ^ 1],
                             sbuf[c], sbuf[c ^ 1], out_run(first), stream);
-    else
-      e = launch_step<CHUNK>(
-          tables_of(desc + first * DESC_COLS, pred, deg, masks), vbuf[c],
-          vbuf[c ^ 1], sbuf[c], sbuf[c ^ 1], out_of(first), R1, stream);
+    else {
+      const Tables tb = tables_of(desc + first * DESC_COLS, pred, deg, masks);
+      const long long kk2 = (long long)tb.k2 * tb.k2;
+      e = launch_step<CHUNK>(tb, vbuf[c], vbuf[c ^ 1], sbuf[c], sbuf[c ^ 1],
+                             out_of(first), R1, 0, kk2, kk2, stream);
+    }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

@@ -12,12 +12,17 @@
   (``n_tp = 2`` where ``n`` is even) and runs: stage 1, the dp sketch-count
   step (``parallel.mesh.sharded_sketch_count_step``: K10 and K11, a sum
   over dp) on reads cut from a haplotype whose sketch is the table,
-  against a one-rank run of the same reads, with some matches; stage 3,
-  in place of the chunked tier's, the tp pair DP over all ``n`` ranks on
-  ``mhc_slice_csr.npz`` against its baked exact-tier oracle; stage 4, the
-  same on ``mhc_slice_wide_csr.npz`` (15 wide levels through K4). The JAX
-  dry run's stage 2, one tp-sharded step of the chunked tier, has no
-  counterpart yet: the chunked tier's tp sharding is not ported.
+  against a one-rank run of the same reads, with some matches; stage 2,
+  one tp-sharded transition of the chunked tier
+  (``parallel.mesh.sharded_dp_level_step``: K15's per-transition kernel
+  on each tp rank's share of the destination pairs, one all-gather) on
+  the widest level of ``mhc_slice_wide_csr.npz``, against the unshared
+  transition (``chunked.chunk_step``) on this rank; stage 3, the chunked
+  tier over all ``n`` ranks (``chunked.DeviceDiploidDP(mesh=)``) on
+  ``mhc_slice_csr.npz`` against its baked exact-tier oracle, as the JAX
+  dry run's stage 3; stages 4 and 5, the tp pair DP over all ``n`` ranks
+  on ``mhc_slice_csr.npz`` and on ``mhc_slice_wide_csr.npz`` (15 wide
+  levels through K4), against the same oracles.
 
 The slices are read from the checkout's ``tests/data``.
 """
@@ -64,10 +69,14 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     the module docstring); raises where a stage disagrees."""
     import torch.distributed as dist
 
+    from .ops import chunked
     from .ops.diploid_pair import PairDiploidDP
     from .ops.plan import plan_pairs
     from .ops.sketch import encode_reads
-    from .parallel.mesh import make_mesh, sharded_sketch_count_step
+    from .ops.vertex_plan import K2, initial_state, plan_vertices, ship
+    from .parallel.mesh import (
+        make_mesh, sharded_dp_level_step, sharded_sketch_count_step,
+    )
     from .sketch.minimizers import sketch_sequence
 
     dev = resolve_device(device)
@@ -101,9 +110,35 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         raise AssertionError("stage 1: no read minimizer matched the table "
                              "(or the counts and per-read sums disagree)")
 
-    # ---- stages 3 and 4: the tp pair DP on all ranks, against the baked
-    # exact-tier oracles ----
+    # ---- stage 2: one tp-sharded chunked transition, the widest of the
+    # wide slice, from the chunked state before it ----
+    arrs, R, _ = load_slice("mhc_slice_wide_csr")
+    plan = plan_vertices(*arrs)
+    dev_t = ship(plan, dev)
+    t = int(np.argmax(plan.desc[:, K2]))
+    V0 = initial_state(R, int(plan.widths[0]), dev)
+    V, SH = chunked.chunk_step(dev_t, 0, t, V0, torch.zeros_like(V0))
+    V, SH = V.clone(), SH.clone()
+    got = sharded_dp_level_step(mesh, dev_t, t, V, SH)
+    k2 = int(plan.desc[t, K2])
+    words = torch.empty((R + 1) * k2 * k2, dtype=torch.int32, device=dev)
+    want = (*chunked.chunk_step(dev_t, t, t + 1, V, SH, words, [0]),
+            words.view(R + 1, k2, k2))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"stage 2: the tp-sharded transition {t} "
+                             "differs from the unshared one")
+    if not int((got[0] >= 0).sum()):
+        raise AssertionError(f"stage 2: transition {t} reaches no state")
+
+    # ---- stage 3: the chunked tier over all ranks; stages 4 and 5: the
+    # tp pair DP; each against the baked exact-tier oracle ----
     tp_mesh = make_mesh(n_dp=1, n_tp=n_devices)
+    arrs, R, oracle = load_slice("mhc_slice_csr")
+    got = chunked.DeviceDiploidDP(plan_vertices(*arrs), R, dev,
+                                  mesh=tp_mesh).run()
+    if got != oracle:
+        raise AssertionError(f"tp chunked tier on mhc_slice_csr: {got[:2]} "
+                             f"differs from the exact tier's {oracle[:2]}")
     for name in ("mhc_slice_csr", "mhc_slice_wide_csr"):
         arrs, R, oracle = load_slice(name)
         got = PairDiploidDP(plan_pairs(*arrs, R), dev, mesh=tp_mesh).run()

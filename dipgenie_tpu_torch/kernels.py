@@ -101,6 +101,10 @@ _SIGNATURES = {
     # transition from t0), stream
     "dg_chunk_forward": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P),
+    # desc row (host), pred, deg, masks, vin, shin, vout, shout, words (or
+    # null), p0, p1, pitch, R1, stream
+    "dg_chunk_step_share": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
+                            _I, _P),
     # desc_dev [T, 9], woff [T + 1] int64, t0, n, bp, its words, carry
     # [3], rows [n, 4], cycles [n] (or null), stream
     "dg_chunk_trace": (_P, _P, _I, _I, _P, _L, _P, _P, _P, _P),

@@ -29,15 +29,34 @@ and the checkpoints, not the whole plan's backpointers (the fused tier's).
   the widths are the descriptors on the card, the offsets one table of
   the plan (``word_offsets``), made once a traceback.
 
+Over a tp mesh (``DeviceDiploidDP(mesh=)``, the counterpart of the JAX
+tier's ``mesh=``, ``:283-339``, and of ``parallel/mesh.py:90-109``;
+``chunk_step_tp``) every rank runs the same host cut launch by launch. A
+run of narrow transitions runs whole on every rank. A per-transition
+launch is split by destination pairs: rank ``d`` of ``n`` runs K15's
+per-transition kernel on the pairs ``[d * S, (d + 1) * S)`` of the ``k2 *
+k2`` (``S = ceil(k2 * k2 / n)``, the last share padded; ``chunk_share``),
+writing V', SH' and, on replay, the packed words into a compact ``[C, R+1,
+S]`` buffer; one all-gather of equal sizes over the tp group collects the
+shares and one copy a plane puts them in place. So every rank holds the
+same state, checkpoints and span words as the single-device tier, and
+walks them with K16 as it does. (The JAX tier sharded the state's
+destination rows and let XLA gather the source rows; here the state stays
+replicated, and pairs balance the work better than rows.) The cut depends
+on the card's shared-memory opt-in, so the ranks compare their cuts' sums
+once before the forward and raise where they differ.
+
 The resize, finalize and path-buffer steps of the JAX tier are plain
 tensor code here (states sized to each level, a ``[T, 4]`` path tensor);
-its timers (``measure_passes``, ``measure_forward``, for ``bench.py``),
-its throttle (a queue-depth workaround for remote TPUs) and its sharding
-helpers are not ported (a tp mesh is the next slice's).
+its timers (``measure_passes``, ``measure_forward``, for ``bench.py``)
+and its throttle (a queue-depth workaround for remote TPUs) are not
+ported.
 """
 
 from __future__ import annotations
 
+import time
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +64,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_equal
 from .fused import check_free, check_tables, launch_cut, path_transitions
 from .vertex_plan import (
     K, K2, P, W, DevTables, VertexPlan, candidates, initial_state, ship,
@@ -128,6 +148,13 @@ def state_buffers(plan: VertexPlan, R: int, device) -> torch.Tensor:
     return torch.empty((2, 2, n), dtype=torch.int32, device=device)
 
 
+def _slot(bufs, V, SH):
+    """The slot of ``bufs`` that holds ``(V, SH)``, or None."""
+    return next((i for i in (0, 1)
+                 if V.data_ptr() == bufs[0, i].data_ptr()
+                 and SH.data_ptr() == bufs[1, i].data_ptr()), None)
+
+
 def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs, cut):
     R1 = V.shape[0]
     for name, x in (("V", V), ("SH", SH)):
@@ -151,8 +178,7 @@ def _launch_step(dev, t0, t1, V, SH, bp, bp_off, bufs, cut):
                          f"[2, 2, >= {n}] on {V.device}")
     vb, sb = bufs[0], bufs[1]
     # the states where they are when a previous call left them there
-    s = next((i for i in (0, 1) if V.data_ptr() == vb[i].data_ptr()
-              and SH.data_ptr() == sb[i].data_ptr()), None)
+    s = _slot(bufs, V, SH)
     if s is None:
         s = 0
         vb[0, :V.numel()] = V.reshape(-1)
@@ -192,6 +218,189 @@ def chunk_step(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
                            bp_off, bufs, cut)
     chunk_step.launches += n
     return tuple(out)
+
+
+def chunk_share_ref(dev: DevTables, t: int, V: torch.Tensor,
+                    SH: torch.Tensor, p0: int, p1: int, words: bool = True):
+    """Plain version of K15's per-transition kernel on the destination
+    pairs ``[p0, p1)`` of transition ``t``'s ``k2 * k2``: ``(V', SH',
+    packed words or None)`` of those pairs, each ``[R+1, p1 - p0]`` int32
+    (``chunk_step_ref``'s transition restricted to the share)."""
+    R1, k2 = V.shape[0], int(dev.desc[t, K2])
+    bp = (torch.zeros(R1 * k2 * k2, dtype=torch.int32, device=V.device)
+          if words else None)
+    Vn, SHn = chunk_step_ref(dev, t, t + 1, V, SH, bp, [0])
+
+    def cut(x):
+        return x.reshape(R1, k2 * k2)[:, p0:p1]
+
+    return cut(Vn), cut(SHn), cut(bp) if words else None
+
+
+def chunk_share(dev: DevTables, t: int, V: torch.Tensor, SH: torch.Tensor,
+                p0: int, p1: int, out: torch.Tensor) -> torch.Tensor:
+    """K15's per-transition kernel on the destination pairs ``[p0, p1)``
+    of transition ``t`` (one launch of ``dg_chunk_step_share``; the count
+    grows by one where the range is not empty): V', SH' and, where ``out``
+    has three planes, the packed words, state ``(r, pair)`` at ``out[:, r,
+    pair - p0]`` of ``out [2 | 3, R+1, pitch]`` int32 (``pitch >= p1 -
+    p0``; the elements past ``p1 - p0`` are left as they were). CPU
+    tensors take ``chunk_share_ref``. Returns ``out``."""
+    R1, k, k2 = V.shape[0], int(dev.desc[t, K]), int(dev.desc[t, K2])
+    C, pitch = out.shape[0], out.shape[2]
+    if not (0 <= p0 <= p1 <= k2 * k2 and p1 - p0 <= pitch and C in (2, 3)
+            and out.shape[1] == R1):
+        raise ValueError(f"chunk_share: pairs [{p0}, {p1}) of {k2 * k2} "
+                         f"into out {tuple(out.shape)}")
+    if V.device.type == "cpu":
+        got = chunk_share_ref(dev, t, V, SH, p0, p1, C == 3)
+        for c in range(C):
+            out[c, :, :p1 - p0] = got[c]
+        return out
+    for name, x in (("V", V), ("SH", SH)):
+        kernels.check_tensor(x, name, torch.int32, (R1, k, k), dev.device)
+    kernels.check_tensor(out, "out", torch.int32, None, dev.device)
+    if p1 == p0:
+        return out
+    rc = kernels.lib().dg_chunk_step_share(
+        dev.desc[t].ctypes.data, dev.pred.data_ptr(), dev.deg.data_ptr(),
+        dev.masks.data_ptr(), V.data_ptr(), SH.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr() if C == 3 else None, p0, p1, pitch, R1,
+        kernels.stream_of(V))
+    kernels.raise_on_error(rc, "chunk_share")
+    chunk_share.launches += 1
+    return out
+
+
+def share_of(kk2: int, n: int, d: int) -> tuple[int, int, int]:
+    """``(p0, p1, S)``: rank ``d`` of ``n``'s destination pairs ``[p0,
+    p1)`` of ``kk2`` in equal shares of ``S`` (the last ones short or
+    empty)."""
+    S = -(-kk2 // n)
+    p0 = min(d * S, kk2)
+    return p0, min(p0 + S, kk2), S
+
+
+def place(g: torch.Tensor, dest: torch.Tensor, kk2: int) -> None:
+    """The gathered shares ``g [n, R+1, S]`` of one plane (rank ``d``'s
+    pairs ``[d * S, (d + 1) * S)``) into ``dest``, a flat tensor holding
+    ``[R+1, kk2]`` from its start: one copy for the whole shares, one for
+    a short last share."""
+    R1, S = g.shape[1], g.shape[2]
+    full = kk2 // S
+    dest.as_strided((R1, full, S), (kk2, S, 1)).copy_(
+        g[:full].permute(1, 0, 2))
+    rest = kk2 - full * S
+    if rest:
+        dest[full * S:].as_strided((R1, rest), (kk2, 1)).copy_(
+            g[full, :, :rest])
+
+
+def new_stats() -> dict:
+    """The counters ``chunk_step_tp`` adds to: share launches (CPU or
+    card), all-gathers, their bytes (the gathered tensor's), the host
+    seconds in them, and the host seconds spent waiting for the card
+    before a gather staged through host memory."""
+    return {"shares": 0, "gathers": 0, "gather_bytes": 0,
+            "gather_seconds": 0.0, "wait_seconds": 0.0}
+
+
+def _gather(out: torch.Tensor, mesh, stats: dict) -> torch.Tensor:
+    import torch.distributed as dist
+
+    if out.is_cuda and dist.get_backend(mesh.tp) == "gloo":
+        t0 = time.perf_counter()
+        torch.cuda.current_stream(out.device).synchronize()
+        stats["wait_seconds"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = all_gather_equal(out, mesh.tp)
+    stats["gather_seconds"] += time.perf_counter() - t0
+    stats["gathers"] += 1
+    stats["gather_bytes"] += g.numel() * g.element_size()
+    return g
+
+
+def chunk_step_tp(dev: DevTables, t0: int, t1: int, V: torch.Tensor,
+                  SH: torch.Tensor, mesh, bp=None, bp_off=None, bufs=None,
+                  cut=None, stats: dict | None = None):
+    """K15 over transitions ``t0 .. t1 - 1`` on this rank of ``mesh``'s tp
+    group: the launches of ``cut`` (``fused.launch_cut`` of the range
+    where None), one at a time. A run (``kmax > 0``) runs whole
+    (``chunk_step`` on its one-row cut); a per-transition launch runs on
+    this rank's share of the destination pairs (``share_of``,
+    ``chunk_share``) and one all-gather over ``mesh.tp`` collects the
+    shares, which ``place`` puts into the state buffers (and the words
+    into ``bp`` at ``bp_off``). Returns ``(V, SH)`` and leaves ``bp`` the
+    same on every rank, equal to ``chunk_step``'s. ``bufs`` as for
+    ``chunk_step`` (made here on the card where None). CPU tensors take
+    the plain versions through the same split and gathers. ``stats``
+    (``new_stats``) counts shares and gathers. A failed launch or
+    collective raises."""
+    if t1 <= t0:
+        return V, SH
+    R1 = V.shape[0]
+    stats = new_stats() if stats is None else stats
+    if cut is None:
+        cut = launch_cut(dev, t0, t1, R1, True)
+    if bp is not None:
+        bp_off = np.ascontiguousarray(bp_off, np.int64)
+        if len(bp_off) != t1 - t0:
+            raise ValueError("chunk_step_tp: one bp offset a transition")
+    need = R1 * int(max(dev.desc[t0:t1, K2].max() ** 2, V[0].numel()))
+    if bufs is None and V.device.type == "cuda":
+        bufs = torch.empty((2, 2, need), dtype=torch.int32, device=V.device)
+    elif bufs is not None and bufs.shape[2] < need:
+        raise ValueError(f"chunk_step_tp: bufs {tuple(bufs.shape)}, want "
+                         f"[2, 2, >= {need}]")
+    n, d = mesh.n_tp, mesh.tp_rank
+    C = 2 if bp is None else 3
+    wide = cut[cut[:, 2] == 0, 0]
+    S_max = max((share_of(int(dev.desc[t, K2]) ** 2, n, d)[2] for t in wide),
+                default=0)
+    share = torch.empty(C * R1 * S_max, dtype=torch.int32, device=V.device)
+    for first, end, kmax in cut.tolist():
+        off = None if bp is None else bp_off[first - t0:end - t0]
+        if kmax > 0:
+            V, SH = chunk_step(dev, first, end, V.contiguous(),
+                               SH.contiguous(), bp, off, bufs,
+                               cut=np.array([[first, end, kmax]], np.int64))
+            continue
+        k2 = int(dev.desc[first, K2])
+        kk2 = k2 * k2
+        p0, p1, S = share_of(kk2, n, d)
+        out = share[:C * R1 * S].view(C, R1, S)
+        chunk_share(dev, first, V.contiguous(), SH.contiguous(), p0, p1, out)
+        stats["shares"] += 1
+        g = _gather(out, mesh, stats)
+        if bufs is None:
+            Vd = torch.empty(R1 * kk2, dtype=torch.int32, device=V.device)
+            SHd = torch.empty_like(Vd)
+        else:
+            s = _slot(bufs, V, SH)
+            o = 0 if s is None else 1 - s
+            Vd, SHd = bufs[0, o, :R1 * kk2], bufs[1, o, :R1 * kk2]
+        dests = [Vd, SHd] + ([bp[int(off[0]):]] if bp is not None else [])
+        for c, dest in enumerate(dests):
+            place(g[:, c], dest, kk2)
+        V, SH = Vd.view(R1, k2, k2), SHd.view(R1, k2, k2)
+    return V, SH
+
+
+def check_cuts(cuts, mesh, device) -> None:
+    """Raises where the ranks of ``mesh.tp`` cut the launches differently
+    (the cut depends on each card's shared-memory opt-in): one all-gather
+    of each rank's sum of its cuts, before the forward."""
+    flat = np.ascontiguousarray(np.concatenate(cuts) if cuts
+                                else np.zeros((0, 3), np.int64))
+    mine = torch.tensor([zlib.crc32(flat.tobytes()), len(flat)],
+                        dtype=torch.int64, device=device)
+    sums = all_gather_equal(mine, mesh.tp).cpu()
+    if not bool((sums == sums[0]).all()):
+        raise RuntimeError(
+            "the chunked tier's tp ranks cut the launches differently "
+            f"(crc32, launches a rank: {sums.tolist()}); their cards differ "
+            "in shared memory a block")
 
 
 def word_offsets(desc: np.ndarray, R1: int) -> np.ndarray:
@@ -256,6 +465,7 @@ def chunk_trace(dev: DevTables, woff: torch.Tensor, t0: int, t1: int,
 
 
 chunk_step.launches = 0
+chunk_share.launches = 0
 chunk_trace.launches = 0
 
 
@@ -265,16 +475,25 @@ class DeviceDiploidDP:
     (K16); one host read of the result at the end. The ops only cut the
     spans: K15 runs a span's transitions in one host call.
 
+    With a tp ``mesh`` (``parallel.mesh``) every span goes through
+    ``chunk_step_tp`` (its wide transitions split over the tp ranks, one
+    all-gather each), after one check that every rank cut the launches
+    alike; every rank walks and returns the same result. ``stats`` counts
+    the shares and gathers (``new_stats``).
+
     Where the checkpoints, the largest span's backpointers and the state
-    buffers need more device memory than the card has free after the
-    tables are shipped (``fused.check_free``), ``PlanLimit`` before the
-    forward."""
+    buffers (and over a mesh the share and gather buffers) need more
+    device memory than the card has free after the tables are shipped
+    (``fused.check_free``), ``PlanLimit`` before the forward."""
 
     def __init__(self, plan: VertexPlan, R: int, device="cuda",
-                 ckpt_every: int = CKPT_EVERY, chunk: int = CHUNK_MAX):
+                 ckpt_every: int = CKPT_EVERY, chunk: int = CHUNK_MAX,
+                 mesh=None):
         self.plan = plan
         self.R = R
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.stats = new_stats()
         self.ckpt_every = ckpt_every
         self.ops = build_program(plan.desc, chunk)
         # a checkpoint before ops 0, ckpt_every, 2 * ckpt_every, ...; span
@@ -295,7 +514,18 @@ class DeviceDiploidDP:
         R1, w = self.R + 1, self.plan.widths.astype(np.int64)
         ckpts = sum(2 * 4 * R1 * int(w[t0]) ** 2 for t0, _ in self.spans[1:])
         spans = max((self.span_bytes(*sp) for sp in self.spans), default=0)
-        return ckpts + spans + 4 * 2 * 4 * R1 * int((w ** 2).max())
+        tp = 0
+        if self.mesh is not None:  # a share [3, R1, S] and n of them gathered
+            n = self.mesh.n_tp
+            tp = 4 * 3 * R1 * -(-int((w ** 2).max()) // n) * (n + 1)
+        return ckpts + spans + 4 * 2 * 4 * R1 * int((w ** 2).max()) + tp
+
+    def _step(self, dev, t0, t1, V, SH, bp=None, bp_off=None, bufs=None,
+              cut=None):
+        if self.mesh is None:
+            return chunk_step(dev, t0, t1, V, SH, bp, bp_off, bufs, cut=cut)
+        return chunk_step_tp(dev, t0, t1, V, SH, self.mesh, bp, bp_off, bufs,
+                             cut=cut, stats=self.stats)
 
     def ship(self) -> DevTables:
         """The tables on the device; raises ``PlanLimit`` where the run
@@ -316,10 +546,12 @@ class DeviceDiploidDP:
         ckpts = []
         self.cuts = [launch_cut(dev, t0, t1, self.R + 1, True)
                      for t0, t1 in self.spans]
+        if self.mesh is not None:
+            check_cuts(self.cuts, self.mesh, self.device)
         for (t0, t1), cut in zip(self.spans, self.cuts):
             # copies: the next call overwrites the buffers
             ckpts.append((V.clone(), SH.clone()))
-            V, SH = chunk_step(dev, t0, t1, V, SH, bufs=bufs, cut=cut)
+            V, SH = self._step(dev, t0, t1, V, SH, bufs=bufs, cut=cut)
         return V, SH, ckpts
 
     def traceback(self, dev: DevTables, ckpts) -> torch.Tensor:
@@ -338,7 +570,7 @@ class DeviceDiploidDP:
                          device=self.device)
         for (t0, t1), cut in zip(reversed(self.spans), reversed(self.cuts)):
             Vr, SHr = ckpts.pop()
-            chunk_step(dev, t0, t1, Vr, SHr, bp, woff[t0:t1] - woff[t0],
+            self._step(dev, t0, t1, Vr, SHr, bp, woff[t0:t1] - woff[t0],
                        bufs, cut=cut)
             chunk_trace(dev, woff_dev, t0, t1, bp, carry, rows[t0:t1])
         return rows

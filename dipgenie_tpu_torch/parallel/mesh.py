@@ -10,7 +10,13 @@ the caller (gloo for ranks that share a card or run on the CPU). The rank
 
 Axes:
 
-* **tp**: the pair DP's wide runs. Every 1024-lane destination window of
+* **tp**, for the chunked tier (``ops/chunked.py:chunk_step_tp``): every
+  wide transition's destination pairs are split into equal shares, one a
+  tp rank; each rank runs K15's per-transition kernel on its share against
+  the replicated state, and one all-gather over the tp group
+  (``all_gather_equal``) collects V', SH' and the replay's words. Runs of
+  narrow transitions and the walk run on every rank.
+* **tp**, for the pair DP: its wide runs. Every 1024-lane destination window of
   a wide transition is owned by one tp rank (``win % n_tp``); each rank
   computes its windows' partial state with K4 against the replicated
   state and the partials merge with one ``all_reduce(MAX)`` over the tp
@@ -194,6 +200,26 @@ def sketch_count(hash_hi, hash_lo, emit, table_hi, table_lo,
 sketch_count.launches = 0
 
 
+def all_gather_equal(t: torch.Tensor, group) -> torch.Tensor:
+    """``[n, *t.shape]``: the group's ranks' ``t`` (the same shape on every
+    rank) stacked in rank order, on ``t``'s device. One collective: under
+    gloo staged through host memory (the copy to the host waits for
+    ``t``'s stream; a CUDA tensor goes through pinned buffers, which
+    PyTorch's host allocator keeps for the next call, and comes back by
+    an asynchronous copy), under NCCL on the card."""
+    n = dist.get_world_size(group)
+    if dist.get_backend(group) == "gloo":
+        pin = t.is_cuda
+        src = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+        src.copy_(t)
+        out = torch.empty((n, *t.shape), dtype=t.dtype, pin_memory=pin)
+        dist.all_gather(list(out.unbind(0)), src, group=group)
+        return out.to(t.device, non_blocking=pin)
+    out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
 def all_gather_cat(t: torch.Tensor, group) -> torch.Tensor:
     """The group's ranks' ``t`` concatenated in rank order, on ``t``'s
     device (through host memory where the group is gloo's)."""
@@ -235,3 +261,23 @@ def sharded_sketch_count_step(mesh, codes, lens, table_hi, table_lo, k: int,
         dist.all_reduce(counts, dist.ReduceOp.SUM, group=mesh.dp)
         per_read = all_gather_cat(per_read, mesh.dp)
     return counts, per_read
+
+
+def sharded_dp_level_step(mesh, dev, t: int, V: torch.Tensor,
+                          SH: torch.Tensor):
+    """One chunked-tier transition ``t`` (``ops/chunked.py``, K15) with its
+    destination pairs split over the tp ranks of ``mesh``: each rank runs
+    the per-transition kernel on its share of the ``k2 * k2`` pairs and one
+    all-gather over ``mesh.tp`` puts the shares together. ``dev`` is the
+    plan's ``DevTables``, ``(V, SH)`` the replicated ``[R+1, k, k]`` int32
+    states before it. Returns ``(V', SH', words)``, each ``[R+1, k2, k2]``
+    int32, the same on every rank (``words`` the packed backpointers)."""
+    from ..ops.chunked import chunk_step_tp
+    from ..ops.vertex_plan import K2
+
+    R1, k2 = V.shape[0], int(dev.desc[t, K2])
+    words = torch.empty(R1 * k2 * k2, dtype=torch.int32, device=V.device)
+    # a per-transition launch whatever the transition's width
+    cut = np.array([[t, t + 1, 0]], np.int64)
+    V2, SH2 = chunk_step_tp(dev, t, t + 1, V, SH, mesh, words, [0], cut=cut)
+    return V2, SH2, words.view(R1, k2, k2)

@@ -11,12 +11,19 @@ and ``_forward_native`` (``dipgenie_tpu/solver/diploid.py:50-245``):
   last two the planner raises ``PlanLimit``, which is passed on (the CLI
   prints it as one ``[E::main]`` line);
 * ``auto``: the torch tier, except that a graph past its window limit (a
-  level wider than 512: ``pair_plan.WindowLimit``) goes to the fused tier
-  with one ``[W::diploid_dp]`` line naming the limit. Only that planner
-  exception routes: a kernel, build or launch error is raised;
+  level wider than 512: ``pair_plan.WindowLimit``) goes, with one
+  ``[W::diploid_dp]`` line naming the limit and the tier, to the fused
+  tier, or with a tp ``mesh`` to the chunked tier over the mesh (the
+  counterpart of the JAX ``pallas`` route's fallback to its chunked tier,
+  ``dipgenie_tpu/solver/diploid.py:296-307``). Only that planner
+  exception routes: a kernel, build, launch or collective error is
+  raised;
 * ``fused`` / ``jax``: the fused tier (``ops/fused.py``) / the chunked
-  tier (``ops/chunked.py``) on ``device``, levels up to 4,096 wide (no
-  tp mesh yet: ``MeshUnsupported``);
+  tier (``ops/chunked.py``) on ``device``, levels up to 4,096 wide. With a
+  tp ``mesh`` the chunked tier splits its wide transitions over the tp
+  ranks (``chunked.chunk_step_tp``); the fused tier does not shard, and
+  runs whole on every rank with one ``[W::diploid_dp]`` line saying so,
+  as the JAX package runs it (``dipgenie_tpu/solver/diploid.py:277-283``);
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
 
@@ -295,28 +302,16 @@ def torch_forward(arrs, R: int, device, mesh=None):
     return result
 
 
-class MeshUnsupported(ValueError):
-    """A tp mesh given to a tier that does not shard yet."""
-
-
-def check_mesh(backend: str, mesh) -> None:
-    """``MeshUnsupported`` for a tp mesh with the fused or chunked tier."""
-    if mesh is not None and backend in ("fused", "jax"):
-        raise MeshUnsupported(
-            f"--dp-backend {backend} does not take a tp mesh yet; use "
-            "--dp-backend torch (its wide runs shard over the mesh) or "
-            "native")
-
-
 def _launches(wrappers, before) -> str:
     return " ".join(f"{w.__name__}={w.launches - b}"
                     for w, b in zip(wrappers, before))
 
 
-def vertex_forward(arrs, R: int, device, backend: str):
+def vertex_forward(arrs, R: int, device, backend: str, mesh=None):
     """(sink_value, sink_s_het, transitions) of the fused (``backend``
     ``fused``) or chunked (``jax``) tier on ``device``, with its plan's
-    and its run's log lines."""
+    and its run's log lines; the chunked tier's wide transitions split
+    over the tp ranks of ``mesh`` where one is given."""
     t0 = time.time()
     if backend == "fused":
         plan = fused.plan_fused(*arrs, R)
@@ -329,8 +324,9 @@ def vertex_forward(arrs, R: int, device, backend: str):
         wrappers = (fused.fused_forward, fused.fused_trace)
         name, shape = "fused", f"backpointers {plan.bp_bytes} B"
     else:
-        dp = chunked.DeviceDiploidDP(plan, R, device)
-        wrappers = (chunked.chunk_step, chunked.chunk_trace)
+        dp = chunked.DeviceDiploidDP(plan, R, device, mesh=mesh)
+        wrappers = (chunked.chunk_step, chunked.chunk_share,
+                    chunked.chunk_trace)
         name = "chunked"
         shape = (f"{len(dp.ops)} ops, {len(dp.spans)} replay spans of "
                  f"{dp.ckpt_every} ops")
@@ -352,29 +348,48 @@ def vertex_forward(arrs, R: int, device, backend: str):
     peak = (f", peak device memory "
             f"{torch.cuda.max_memory_allocated(dp.device)} B" if on_card
             else "")
+    tp = ""
+    if backend == "jax" and mesh is not None:
+        st = dp.stats
+        tp = (f"; over a tp mesh of {mesh.n_tp} ranks: {st['shares']} wide "
+              f"transitions split, {st['gathers']} all-gathers of "
+              f"{st['gather_bytes']} B in {st['gather_seconds']:.3f}s, "
+              f"{st['wait_seconds']:.3f}s waiting for the card before them "
+              "(host clock)")
     log_stage(
         "diploid_dp",
         f"{name} tier on {device}: ship+forward+traceback in "
         f"{time.time() - t0:.1f}s{peak}; kernel launches "
-        f"{_launches(wrappers, before)}",
+        f"{_launches(wrappers, before)}{tp}",
     )
     return result
 
 
 def device_forward(arrs, R: int, backend: str, device, mesh=None):
     """The device tiers (``DEVICE_TIERS``) on the CSR arrays; ``auto``
-    routes a graph past the torch tier's window limit to the fused tier."""
+    routes a graph past the torch tier's window limit to the fused tier,
+    or with a tp ``mesh`` to the chunked tier over it."""
+    if backend == "fused" and mesh is not None:
+        print(f"[W::diploid_dp] fused tier: not sharded over the tp mesh; "
+              f"it runs whole on each of its {mesh.n_tp} ranks",
+              file=sys.stderr, flush=True)
     if backend in ("fused", "jax"):
-        check_mesh(backend, mesh)
-        return vertex_forward(arrs, R, device, backend)
+        return vertex_forward(arrs, R, device, backend,
+                              mesh if backend == "jax" else None)
     try:
         return torch_forward(arrs, R, device, mesh)
     except WindowLimit as e:
-        if backend != "auto" or mesh is not None:
+        if backend != "auto":
             raise
-        print(f"[W::diploid_dp] torch tier: {str(e).split('; use')[0]}; "
-              "running the fused tier", file=sys.stderr, flush=True)
-    return vertex_forward(arrs, R, device, "fused")
+        limit = str(e).split('; use')[0]
+    if mesh is None:
+        print(f"[W::diploid_dp] torch tier: {limit}; running the fused tier",
+              file=sys.stderr, flush=True)
+        return vertex_forward(arrs, R, device, "fused")
+    print(f"[W::diploid_dp] torch tier: {limit}; running the chunked tier "
+          f"over the tp mesh of {mesh.n_tp} ranks", file=sys.stderr,
+          flush=True)
+    return vertex_forward(arrs, R, device, "jax", mesh)
 
 
 def diploid_dp_solver(

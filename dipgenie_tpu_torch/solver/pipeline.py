@@ -11,10 +11,13 @@ DP → FASTA output) with the port's DP tiers. ``dp_backend``:
 * ``fused`` / ``jax``: the fused tier / the chunked tier
   (``ops/fused.py``, ``ops/chunked.py``) on ``device``, likewise.
 
-For every device tier, with ``device="cuda"`` and no card ``run()`` raises
-``NoCudaDevice`` before any host work: the port never moves to the CPU
-unless asked to. A tp ``mesh`` with ``fused`` or ``jax`` raises
-``MeshUnsupported``, also before any host work;
+With a tp ``mesh`` the torch tier shards its wide runs and the chunked
+tier its wide transitions over the mesh's tp ranks (``auto`` then sends a
+graph past the pair planner's window limit to the chunked tier over the
+mesh), and the fused tier runs whole on every rank with one
+``[W::diploid_dp]`` line. For every device tier, with ``device="cuda"``
+and no card ``run()`` raises ``NoCudaDevice`` before any host work: the
+port never moves to the CPU unless asked to;
 * ``native`` / ``exact``: the native C++ tier / the exact numpy tier, on
   the host.
 
@@ -43,7 +46,7 @@ from ..solver.anchors import (
     compute_and_classify_anchors,
     materialize_hits,
 )
-from ..solver.diploid import DEVICE_TIERS, check_mesh, diploid_dp_solver
+from ..solver.diploid import DEVICE_TIERS, diploid_dp_solver
 from ..solver.haploid import dp_approximation_solver
 from ..utils import checkpoint
 from ..utils.timing import log_stage
@@ -117,7 +120,6 @@ class Pipeline:
 
     def run(self, out=sys.stdout) -> None:
         cfg = self.cfg
-        check_mesh(cfg.backend, cfg.mesh)  # before any host work
         if cfg.backend in DEVICE_TIERS or cfg.sketch_backend == "device":
             resolve_device(cfg.device)  # fail before any host work
         if self.index is None:

@@ -256,28 +256,77 @@ def test_cli_auto_past_the_window_limit_runs_the_fused_tier(
     assert _strip(outs["auto"][0]) == _strip(outs["native"][0])
 
 
-@pytest.mark.parametrize("backend", ["fused", "jax"])
-def test_mesh_with_vertex_tier_prints_one_error_line(backend, monkeypatch,
-                                                     capsys, tmp_path):
-    """A tp mesh with ``fused`` or ``jax`` (their sharding is not ported
-    yet): one ``[E::main]`` line, exit 1, before any host work."""
-    import functools
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory, tiny_pangenome):
+    """Two gloo ranks (``tests/torch_tp_ranks.py``) on the CPU: the CLI
+    with ``--dp-backend jax`` and ``fused`` and the mesh in its
+    ``PipelineConfig`` on the pangenome of ``tests/test_torch_tp.py``, and
+    ``auto`` on a graph with a level 600 wide through ``device_forward``;
+    the native tier's FASTA of the same pangenome."""
+    from dipgenie_tpu_torch.solver.diploid import csr_arrays
+    from dipgenie_tpu_torch.solver.pipeline import Pipeline, PipelineConfig
+    from tests.test_torch_fused import width600_graph
+    from tests.torch_tp_ranks import run_ranks
 
-    from dipgenie_tpu_torch import cli
-    from dipgenie_tpu_torch.parallel.mesh import Mesh
+    gfa, reads = tiny_pangenome
+    tmp = tmp_path_factory.mktemp("cli_mesh")
+    native = tmp / "native.fa"
+    Pipeline(gfa, reads, str(native), PipelineConfig(
+        device="cpu", dp_backend="native", verbose=False)).run(
+            out=io.StringIO())
+    argv = ["--device", "cpu", "-p2", "-R18", "-g", gfa, "-r", reads]
+    job = {"cli": {b: ["--dp-backend", b, *argv] for b in ("jax", "fused")},
+           "auto": {"width600": (csr_arrays(*width600_graph()), 3)}}
+    return tmp, run_ranks(2, job, str(tmp)), native.read_bytes()
 
-    mesh = Mesh(n_dp=1, n_tp=2, tp_rank=0, dp_rank=0, tp=None, dp=None)
-    monkeypatch.setattr(cli, "PipelineConfig", functools.partial(
-        cli.PipelineConfig, mesh=mesh))
-    rc = cli.main(["--dp-backend", backend, "--device", "cpu", "-g",
-                   "missing.gfa", "-r", "x.fq", "-o", str(tmp_path / "o.fa")])
-    err = capsys.readouterr().err
-    errors = [x for x in err.splitlines() if x.startswith("[E::")]
-    assert rc == 1 and len(errors) == 1, err
-    assert errors[0] == (f"[E::main] --dp-backend {backend} does not take a "
-                         "tp mesh yet; use --dp-backend torch (its wide runs "
-                         "shard over the mesh) or native")
-    assert "Loaded graph" not in err
+
+@pytest.mark.parametrize("backend", ["jax", "fused"])
+def test_mesh_vertex_tier_two_ranks_writes_native_fasta(backend, mesh_ranks):
+    """Under a mesh of 2 ranks ``--dp-backend jax`` (its wide transitions
+    split over the ranks) and ``fused`` (whole on every rank, with one
+    ``[W::diploid_dp]`` line saying so) write the native tier's FASTA on
+    every rank."""
+    tmp, ranks, native = mesh_ranks
+    assert len(native) > 30_000
+    for r, res in enumerate(ranks):
+        rc, err = res["cli"][backend]
+        assert rc == 0, err[-3000:]
+        assert not [x for x in err.splitlines() if x.startswith("[E::")]
+        warns = [x for x in err.splitlines() if x.startswith("[W::")]
+        if backend == "fused":
+            assert warns == ["[W::diploid_dp] fused tier: not sharded over "
+                             "the tp mesh; it runs whole on each of its 2 "
+                             "ranks"], err[-2000:]
+            assert "fused tier on cpu" in err
+        else:
+            assert not warns, err[-2000:]
+            assert "chunked tier on cpu" in err
+            assert "over a tp mesh of 2 ranks" in err
+        assert (tmp / f"rank{r}_{backend}.fa").read_bytes() == native
+
+
+def test_mesh_auto_past_the_window_limit_runs_the_chunked_tier(mesh_ranks):
+    """``auto`` under a mesh of 2 ranks on a graph with a level 600 wide:
+    one ``[W::diploid_dp]`` line naming the window limit and the chunked
+    tier over the mesh, and on every rank the exact tier's result, the
+    wide transitions split over the ranks."""
+    from dipgenie_tpu.solver.diploid import _forward_exact, build_color_masks
+    from tests.test_torch_fused import width600_graph
+
+    g, chb = width600_graph()
+    want = _forward_exact(g, 3, *build_color_masks(g, chb))
+    for res in mesh_ranks[1]:
+        got, err = res["auto"]["width600"]
+        warns = [x for x in err.splitlines() if x.startswith("[W::")]
+        assert len(warns) == 1, err[-2000:]
+        assert warns[0].startswith("[W::diploid_dp] torch tier: a wide run "
+                                   "needs ")
+        assert warns[0].endswith("(a level wider than 512); running the "
+                                 "chunked tier over the tp mesh of 2 ranks")
+        assert "chunked tier on cpu" in err
+        assert re.search(r"over a tp mesh of 2 ranks: [1-9]\d* wide "
+                         r"transitions split", err), err[-2000:]
+        assert got == want
 
 
 def test_toy_diploid_torch_cpu_matches_golden(tmp_path):

@@ -1354,6 +1354,52 @@ def test_chunk_kernels_match_plain_versions(case, cuda):
         assert torch.equal(out["kernel"][1], out["plain"][1])
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("case", ["mhc_slice_wide_csr", "wide_1000"])
+def test_chunk_share_matches_plain_and_unshared(case, n, cuda):
+    """K15's per-transition kernel on each of ``n`` tp ranks' shares of a
+    transition's destination pairs (``chunk_share``, compact buffers, the
+    last share short where ``k2 * k2`` does not divide by ``n``), from the
+    path's state: each share equal to its plain version, and the shares
+    stitched by ``place`` equal to the unshared launch, V, SH and words;
+    one launch a non-empty share. Every transition of the wide slice (its
+    narrow ones too), and the widest of ``wide_1000``."""
+    from dipgenie_tpu_torch.ops import chunked
+    from dipgenie_tpu_torch.ops.vertex_plan import initial_state, ship
+
+    arrs, R = vertex_case(case)
+    plan = plan_vertices_of(arrs)
+    dev = ship(plan, cuda)
+    R1 = R + 1
+    V = initial_state(R, int(plan.widths[0]), cuda)
+    SH = torch.zeros_like(V)
+    ts = (range(plan.T) if case == "mhc_slice_wide_csr"
+          else [int(np.argmax(plan.desc[:, 1]))])
+    if case == "wide_1000":
+        V, SH = chunked.chunk_step(dev, 0, ts[0], V, SH)
+    for t in ts:
+        k2 = int(plan.desc[t, 1])
+        kk2 = k2 * k2
+        bp = torch.zeros(R1 * kk2, dtype=torch.int32, device=cuda)
+        want = chunked.chunk_step(dev, t, t + 1, V, SH, bp, [0])
+        S = chunked.share_of(kk2, n, 0)[2]
+        g = torch.full((n, 3, R1, S), -7, dtype=torch.int32, device=cuda)
+        for d in range(n):
+            p0, p1, _ = chunked.share_of(kk2, n, d)
+            before = chunked.chunk_share.launches
+            chunked.chunk_share(dev, t, V, SH, p0, p1, g[d])
+            assert chunked.chunk_share.launches == before + (p1 > p0)
+            ref = chunked.chunk_share_ref(dev, t, V, SH, p0, p1)
+            for c in range(3):
+                assert torch.equal(g[d, c, :, :p1 - p0], ref[c]), (t, d, c)
+        for c, w in enumerate((*want, bp)):
+            dest = torch.empty(R1 * kk2, dtype=torch.int32, device=cuda)
+            chunked.place(g[:, c], dest, kk2)
+            assert torch.equal(dest, w.reshape(-1)), (t, c)
+        V, SH = (x.clone() for x in want)
+    assert int(V[R].max()) >= 0
+
+
 def band_walk_case():
     """An MHC-shaped graph whose second edges all weigh 1, at R = 18: the
     path's r falls by up to 2 a transition, past the rows the producer
