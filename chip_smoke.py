@@ -334,13 +334,9 @@ CAPS_SOURCES = {
 }
 CAPS_PRODUCTS = ("batched_dot_3d", "batched_dot_bcast_lhs", "dot2d_f32")
 TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (data sheet)
-# the redesigned capability checks and their device us per launch before
-# the redesign (PERF.md section 6, H100 80GB HBM3, 700 W)
 # K1's us per narrow transition on phase C's prefix before its redesign (the
 # kernel it replaced, timed beside it on the same card: PERF.md section 6)
 K1_BEFORE_US = 4.7145
-REDESIGNED = {"roll_sublane": 4.121, "batched_dot_bcast_lhs": 7.004,
-              "manual_dma_dynoff": 1.501, "dma_in_when": 1.214}
 # the pairs of a slice K2 stages in shared memory (csrc/wide_dense_run.cu
 # STAGE); a larger slice reads its words from the table
 K2_STAGE = 2560
@@ -1002,25 +998,35 @@ class Smoke:
                     run()
             self.sync()
         rows = self.device_rows(prof, f"profile_H_{name}.txt")
-        kern = sum(t for k, t, _ in rows if "caps_" in k) / H_PROFILED
+        # a check is one kernel a call: its rows' own count (a profile
+        # may miss launches); a library call may launch several
+        n = sum(c for k, _, c in rows if "caps_" in k)
+        kern = sum(t for k, t, _ in rows if "caps_" in k) / max(n, 1)
         lib = sum(t for k, t, _ in rows if "caps_" not in k) / H_PROFILED
         return kern or None, (lib or None) if len(runs) > 1 else None
 
     def phase_h2(self):
-        """Each check's kernel beside its plain version and the library
-        call, on the scripts' inputs: per launch by CUDA events over
-        H_CALLS launches (min of 2, in turns plain, kernel, library,
-        library, kernel, plain) and by the profiler; and its bound."""
+        """Each check's new launch path beside the replaced one (PR 5's
+        wrapper, and the replaced kernels where a kernel was redesigned:
+        probes/caps_replaced.py), its plain version and the library call,
+        on the scripts' inputs: per call by CUDA events over H_CALLS calls
+        (min of 2, in turns plain, replaced, new, library, library, new,
+        replaced, plain) and device time per launch by the profiler
+        (replaced and new in profiles of their own); and its bound."""
         from dipgenie_tpu_torch.ops.caps import NAMES
-        from dipgenie_tpu_torch.probes import caps, caps_tables
+        from dipgenie_tpu_torch.probes import caps, caps_replaced, caps_tables
 
         torch = self.torch
+        summary = []
         for name in NAMES:
             ins, expect = caps_tables.make(name)
             args = caps.to_device(ins, DEVICE)
             kern, plain = self.fns[name]
+            old = caps_replaced.CHECKS[name]
             runs = {"plain": lambda: plain(*args),
-                    "kernel": lambda: kern(*args)}
+                    "replaced": lambda: old(*args),
+                    "new": lambda: kern(*args)}
+            self.compare(name, old(*args), kern(*args))
             lib = self.caps_library(name, args)
             if lib:
                 runs["library"] = lib[0]
@@ -1029,19 +1035,21 @@ class Smoke:
                         expect).to(DEVICE))), f"H2 {name}: the library "
                         "call's output differs from the expectation")
             times = {w: [] for w in runs}
-            for which in ("plain", "kernel", "library", "library", "kernel",
-                          "plain"):
+            for which in ("plain", "replaced", "new", "library", "library",
+                          "new", "replaced", "plain"):
                 if which in runs:
                     times[which].append(self.per_launch_ms(runs[which]))
+            dev_o, _ = self.caps_device_us(name + "_replaced",
+                                           [runs["replaced"]])
             dev_k, dev_l = self.caps_device_us(
-                name, [runs[w] for w in ("kernel", "library") if w in runs])
+                name, [runs[w] for w in ("new", "library") if w in runs])
             nbytes = expect.nbytes + caps_read_bytes(name, ins)
             if name in CAPS_PRODUCTS:  # a multiply and an add per term
                 nbound = bound(nbytes, 2 * expect.size * ins[0].shape[-1],
                                TF32_OPS_PER_S)
             else:  # at most one int32 operation per output element
                 nbound = bound(nbytes, expect.size)
-            self.ms[name] = min(times["kernel"])
+            self.ms[name] = min(times["new"])
             self.plain_ms[name] = min(times["plain"])
             self.bound[name] = nbound
             self.library_ms[name] = min(times["library"]) if lib else None
@@ -1049,19 +1057,35 @@ class Smoke:
             def us(x):
                 return "not in the profile" if x is None else f"{x:.3f} us"
 
+            def ev(which):
+                return [round(t * 1e3, 3) for t in times[which]]
+
             lib_msg = "no one PyTorch call computes it"
             if lib:
-                lib_msg = (f"library {[t * 1e3 for t in times['library']]} "
-                           f"us (device {us(dev_l)}"
+                lib_msg = (f"library {ev('library')} us (device {us(dev_l)}"
                            + (f"; {lib[1]}" if lib[1] else "") + ")")
-            log(f"H2 {name}: kernel {[t * 1e3 for t in times['kernel']]} us "
-                f"per launch (device {us(dev_k)}), plain "
-                f"{[t * 1e3 for t in times['plain']]} us, {lib_msg}; bound "
-                f"{nbound[0] * 1e6:.4f} ns ({nbound[1]}: {nbytes} B)")
-            if name in REDESIGNED:
-                log(f"H2 {name} (redesigned): device {us(dev_k)} per launch "
-                    f"against {REDESIGNED[name]:.3f} us before, and the "
-                    f"library call's {us(dev_l)}")
+            redesigned = (" (kernel redesigned)"
+                          if name in caps_replaced.REDESIGNED else "")
+            log(f"H2 {name}{redesigned}: new {ev('new')} us per call "
+                f"(device {us(dev_k)}), replaced {ev('replaced')} us "
+                f"(device {us(dev_o)}), plain {ev('plain')} us, {lib_msg}; "
+                f"bound {nbound[0] * 1e6:.4f} ns ({nbound[1]}: {nbytes} B)")
+            summary.append((name, self.ms[name], min(times["replaced"]),
+                            self.library_ms[name], dev_k, dev_o))
+        with_lib = [x for x in summary if x[3] is not None]
+        beat = [x[0] for x in with_lib if x[1] <= x[3]]
+        lost = [f"{x[0]} {x[1] * 1e3:.3f} / {x[3] * 1e3:.3f}"
+                for x in with_lib if x[1] > x[3]]
+        rises = [(x[4] - x[5], x[0]) for x in summary
+                 if x[4] is not None and x[5] is not None]
+        rise = (f"{max(rises)[0]:+.3f} us ({max(rises)[1]})" if rises
+                else "not measured")
+        ratio = [x[1] / x[2] for x in summary]
+        log(f"H2 new path: {len(beat)} of {len(with_lib)} checks with a "
+            f"library call take no longer than it (events, min of 2); "
+            f"slower: {lost or 'none'}; new / replaced event time "
+            f"{min(ratio):.3f}-{max(ratio):.3f}; the largest device-time "
+            f"change new - replaced {rise}; card {self.smi}")
 
     def per_launch_ms(self, fn):
         """CUDA-event ms per call over H_CALLS calls of ``fn``, after one

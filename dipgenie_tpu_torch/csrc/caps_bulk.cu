@@ -32,13 +32,16 @@
 //     the strided corner lands dense in shared memory. The map is encoded
 //     here on the host with cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPoint (no -lcuda), and passed as a __grid_constant__
-//     kernel parameter;
+//     kernel parameter. It is encoded again only when A's address
+//     changes;
 //   * a bulk copy started under a run-time condition, the barrier armed for
 //     0 bytes where the condition does not hold, then plain stores.
 // TMA wants 16-byte aligned global addresses and strides and a 128-byte
 // aligned shared destination; the wrapper passes the tensor's base (which
 // it checks for 16-byte alignment) and the offset, never a sliced pointer.
 #include <cuda.h>
+
+#include <mutex>
 
 #include "caps.cuh"
 
@@ -146,17 +149,23 @@ caps_manual_dma(const int32_t* __restrict__ A, int32_t* __restrict__ out,
 }
 
 // out [19, 8, 8] = A[slab, :, :8, :8] + 1 of A [4, 19, 16, 16] int16,
-// loaded by one TMA tensor copy.
-__global__ void __launch_bounds__(256)
+// loaded by one TMA tensor copy: thread 0 sets the barrier up and starts
+// the copy before the block's barrier; then each of 152 threads adds 1 to
+// its 16 bytes (8 int16, two to a word: __vadd2 keeps each half's carry in
+// it) and stores them with one 16-byte store. (The kernel this replaces
+// started the copy after the block's barrier and stored through shared
+// memory with a bulk copy: 1.436 us of device time on an H100 80GB HBM3 at
+// 700 W, PERF.md section 6.)
+constexpr uint32_t CORNER_BYTES = 19 * 8 * 8 * 2;  // 152 x 16 bytes
+
+__global__ void __launch_bounds__(160)
 caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
-                 int16_t* __restrict__ out, int slab) {
-  constexpr uint32_t BYTES = 19 * 8 * 8 * 2;
-  __shared__ __align__(128) int16_t s[19 * 8 * 8];
+                 int4* __restrict__ out, int slab) {
+  __shared__ __align__(128) int4 s[CORNER_BYTES / 16];
   __shared__ __align__(8) uint64_t bar;
-  if (threadIdx.x == 0) barrier_init(&bar);
-  __syncthreads();
   if (threadIdx.x == 0) {
-    expect_bytes(&bar, BYTES);
+    barrier_init(&bar);
+    expect_bytes(&bar, CORNER_BYTES);
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
         "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem(s)),
@@ -164,12 +173,16 @@ caps_dma_strided(const __grid_constant__ CUtensorMap tmap,
         "r"(slab * 19), "r"(smem(&bar))
         : "memory");
   }
-  wait_phase0(&bar);
-  for (int i = threadIdx.x; i < 19 * 8 * 8; i += blockDim.x)
-    s[i] = (int16_t)(s[i] + 1);
-  fence_to_async();
   __syncthreads();
-  if (threadIdx.x == 0) bulk_store(out, s, BYTES);
+  wait_phase0(&bar);
+  if (threadIdx.x < CORNER_BYTES / 16) {
+    const int4 v = s[threadIdx.x];
+    const unsigned one = 0x00010001u;
+    out[threadIdx.x] = make_int4((int)__vadd2((unsigned)v.x, one),
+                                 (int)__vadd2((unsigned)v.y, one),
+                                 (int)__vadd2((unsigned)v.z, one),
+                                 (int)__vadd2((unsigned)v.w, one));
+  }
 }
 
 // out [8, 128] = A[slab] of A [4, 8, 128] int32: 8 blocks of one warp,
@@ -226,20 +239,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of A [4, 19, 16, 16] int16 seen as [76, 16, 16], box [19, 8, 8].
+// The map of A [4, 19, 16, 16] int16 seen as [76, 16, 16], box [19, 8, 8],
+// encoded only when A's address differs from the last call's (the map
+// holds the address, the shape and the strides, and only the address can
+// change); the kernel takes it by value, so a launch queued with the last
+// map keeps it.
 int strided_corner_map(const void* A, CUtensorMap* tmap) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {16, 16, 4 * 19};
-  const cuuint64_t strides[2] = {16 * 2, 16 * 16 * 2};  // bytes, dims 1, 2
-  const cuuint32_t box[3] = {8, 8, 19};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult rc = encode(
-      tmap, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3, const_cast<void*>(A), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  static std::mutex mu;
+  static const void* last = nullptr;
+  static CUtensorMap map;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (A != last) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+    const cuuint64_t dims[3] = {16, 16, 4 * 19};
+    const cuuint64_t strides[2] = {16 * 2, 16 * 16 * 2};  // bytes, dims 1, 2
+    const cuuint32_t box[3] = {8, 8, 19};
+    const cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult rc = encode(
+        &map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3, const_cast<void*>(A), dims,
+        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (rc != CUDA_SUCCESS) {
+      last = nullptr;
+      return (int)cudaErrorInvalidValue;
+    }
+    last = A;
+  }
+  *tmap = map;
+  return 0;
 }
 
 }  // namespace
@@ -258,8 +287,7 @@ int caps::bulk(int check, const void* in0, const void* in1, void* out,
       CUtensorMap tmap;
       const int rc = strided_corner_map(in0, &tmap);
       if (rc != 0) return rc;
-      caps_dma_strided<<<1, 256, 0, s>>>(tmap, static_cast<int16_t*>(out),
-                                         arg);
+      caps_dma_strided<<<1, 160, 0, s>>>(tmap, static_cast<int4*>(out), arg);
       break;
     }
     case DMA_IN_WHEN:  // arg: the slab, 0..3

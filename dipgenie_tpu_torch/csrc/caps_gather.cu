@@ -14,7 +14,8 @@
 //   * a gather inside a 16-lane group (the TPU's in-vreg lane gather) is
 //     __shfl_sync with width 16: a warp holds 32 lanes of a row;
 //   * a gather anywhere in a 256-lane row, and a gather along the columns
-//     (the TPU's sublanes), stage the rows in shared memory and index it;
+//     (the TPU's sublanes), stage the rows in shared memory and index it
+//     (the column gather a slab of 256 / ROWS columns a block);
 //   * pltpu.roll along lanes is index arithmetic over a slab staged in
 //     shared memory; inside a 16-wide segment it is a shuffle; along
 //     sublanes (whole rows) it is a copy with no staging: each thread
@@ -55,17 +56,30 @@ caps_lane_gather_cross(const int32_t* __restrict__ A,
   out[i] = row[idx[i] & 255];
 }
 
-// [ROWS, 128]: out[i, j] = A[idx[i, j], j]. One block, A in shared memory.
+// [ROWS, 128]: out[i, j] = A[idx[i, j], j]. Blocks of 256 threads, block
+// b owning the COLS = 256 / ROWS columns COLS b .. COLS (b + 1) - 1 (4
+// blocks at 8 rows, 8 at 16), a thread an element: each thread loads its
+// element of A into the block's [ROWS, COLS] slab and its index, both
+// before the barrier, so that the two loads are in flight together; then
+// it picks its element from the slab. The one block of 1,024 threads this
+// replaces staged all of A on one SM and loaded the indices only after its
+// barrier: 1.433 / 1.818 us of device time at 8 / 16 rows on an H100 80GB
+// HBM3 at 700 W (PERF.md section 6), where 16, 32 and 64 columns a block
+// took 1.06 / 1.04 / 1.08 us at 8 rows and 1.05 / 1.09 / 1.20 at 16.
 template <int ROWS>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(256)
 caps_sublane_gather(const int32_t* __restrict__ A,
                     const int32_t* __restrict__ idx,
                     int32_t* __restrict__ out) {
-  __shared__ int32_t s[ROWS * 128];
-  for (int i = threadIdx.x; i < ROWS * 128; i += blockDim.x) s[i] = A[i];
+  constexpr int COLS = 256 / ROWS;
+  __shared__ int32_t s[ROWS][COLS];
+  const int r = threadIdx.x / COLS, c = threadIdx.x % COLS;
+  const int i = r * 128 + blockIdx.x * COLS + c;
+  const int32_t a = A[i];
+  const int k = idx[i] & (ROWS - 1);
+  s[r][c] = a;
   __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * 128; i += blockDim.x)
-    out[i] = s[(idx[i] & (ROWS - 1)) * 128 + (i & 127)];
+  out[i] = s[k][c];
 }
 
 // np.roll along the middle axis of A seen as [gridDim.x, n, inner]:
@@ -151,11 +165,11 @@ int caps::gather(int check, const void* in0, const void* in1, void* out,
     case LANE_GATHER_CROSS_VREG:
       caps_lane_gather_cross<<<16, 256, 0, s>>>(a, b, o);
       break;
-    case SUBLANE_GATHER_8:
-      caps_sublane_gather<8><<<1, 1024, 0, s>>>(a, b, o);
+    case SUBLANE_GATHER_8:  // 4 blocks of 32 columns
+      caps_sublane_gather<8><<<8 * 128 / 256, 256, 0, s>>>(a, b, o);
       break;
-    case SUBLANE_GATHER_16:
-      caps_sublane_gather<16><<<1, 1024, 0, s>>>(a, b, o);
+    case SUBLANE_GATHER_16:  // 8 blocks of 16 columns
+      caps_sublane_gather<16><<<16 * 128 / 256, 256, 0, s>>>(a, b, o);
       break;
     case ROLL_LANE:  // [16, 256], by 16 along axis 1
       caps_roll_smem<<<16, 256, 256 * 4, s>>>(a, o, 256, 1, 16);

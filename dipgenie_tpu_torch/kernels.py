@@ -202,6 +202,91 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# PyTorch's own read of the current stream's raw handle (what its generated
+# code passes to its launches); absent from a build without CUDA
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def raw_stream(index: int) -> int:
+    """Handle of PyTorch's current stream on CUDA device ``index``, read
+    without building a ``torch.cuda.Stream``."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)
+
+
+class Launch:
+    """The checks a wrapper of a kernel with fixed shapes makes on every
+    call, with what does not change between calls made once: the inputs'
+    ``(dtype, shape)`` tuples and the output's, and at first use the bound
+    C entry point ``entry``. ``check`` reads only tensor attributes (no
+    ``torch.device`` built); ``raw_stream`` gives the stream's handle."""
+
+    __slots__ = ("name", "entry", "ins", "out", "_like", "_stride", "_fn")
+
+    def __init__(self, name: str, entry: str, ins: tuple, out: tuple):
+        self.name, self.entry, self.ins, self.out = name, entry, ins, out
+        # the output comes from torch.empty_like of an input of its dtype
+        # and shape where there is one, else from torch.empty_strided at
+        # its contiguous strides: both allocate faster than torch.empty's
+        # keywords parse (1-3 us a call on an H100 host)
+        self._like = next((i for i, spec in enumerate(ins) if spec == out),
+                          None)
+        stride, n = [], 1
+        for size in reversed(out[1]):
+            stride.append(n)
+            n *= size
+        self._stride = tuple(reversed(stride))
+        self._fn = None
+
+    def fn(self):
+        """The bound C entry point (the library built and loaded first)."""
+        if self._fn is None:
+            self._fn = getattr(lib(), self.entry)
+        return self._fn
+
+    def check(self, ts) -> tuple[int, list[int]]:
+        """``(device index, data pointers)`` of ``ts``; raises
+        ``ValueError`` unless each is a contiguous CUDA tensor of its
+        dtype and shape, all on one device, each 16-byte aligned (the
+        kernels' 16-byte loads and bulk copies)."""
+        if len(ts) != len(self.ins):
+            raise ValueError(f"{self.name}: takes {len(self.ins)} tensors, "
+                             f"got {len(ts)}")
+        d = ts[0].get_device() if isinstance(ts[0], torch.Tensor) else -1
+        ptrs = []
+        for i, (t, (dtype, shape)) in enumerate(zip(ts, self.ins)):
+            if not isinstance(t, torch.Tensor) or not t.is_cuda:
+                raise ValueError(
+                    f"{self.name} input {i}: want a CUDA tensor, got "
+                    f"{type(t)} on {getattr(t, 'device', None)}")
+            if t.get_device() != d:
+                raise ValueError(f"{self.name} input {i}: on {t.device}, want "
+                                 f"cuda:{d}")
+            if t.dtype is not dtype:
+                raise ValueError(f"{self.name} input {i}: dtype {t.dtype}, "
+                                 f"want {dtype}")
+            if t.shape != shape:
+                raise ValueError(f"{self.name} input {i}: shape "
+                                 f"{tuple(t.shape)}, want {shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"{self.name} input {i}: not contiguous")
+            p = t.data_ptr()
+            if p & 15:
+                raise ValueError(f"{self.name} input {i}: not 16-byte "
+                                 "aligned")
+            ptrs.append(p)
+        return d, ptrs
+
+    def empty(self, d: int, ts) -> torch.Tensor:
+        """A new output tensor on CUDA device ``d``, where ``ts`` (the
+        checked inputs) lie."""
+        if self._like is not None:
+            return torch.empty_like(ts[self._like])
+        return torch.empty_strided(self.out[1], self._stride,
+                                   dtype=self.out[0], device=d)
+
+
 def check_tensor(t, name, dtype, shape=None, device=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
     ``shape`` / ``device`` when given)."""

@@ -16,9 +16,19 @@ check's inputs at the scripts' shapes and types (a ``uint32`` input as its
 output tensor. CUDA tensors launch the kernel (one launch per call,
 counted in ``wrapper.launches``) or raise; CPU tensors take the plain
 version. Every output is exact: the float products take small integers.
+
+A check's launches are ~1 us of device time each, so the host's work per
+call sets how fast a run of them goes. What does not change between
+calls is made once per check (``wrapper.record``: the id, the inputs' and
+output's ``(dtype, shape)``, the argument; ``wrapper.launch``, a
+``kernels.Launch``, binds ``dg_caps`` at first use); a call reads tensor
+attributes, allocates the output, and reads the current stream's raw
+handle.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -156,32 +166,65 @@ SPECS = {
 NAMES = tuple(SPECS)  # a check's id in csrc/caps.cuh is its index here
 
 
-def _wrapper(name):
-    check_id = NAMES.index(name)
-    ins, (out_dtype, out_shape), plain, arg = SPECS[name]
+class Record(NamedTuple):
+    """What every launch of a check shares, made once: its id in
+    ``csrc/caps.cuh``, its inputs' and output's ``(dtype, shape)``, and
+    the kernel's int argument."""
+    check: int
+    ins: tuple
+    out: tuple
+    arg: int
 
-    def wrapper(*ts):
-        if len(ts) != len(ins):
-            raise ValueError(f"{name}: takes {len(ins)} tensors, got "
-                             f"{len(ts)}")
-        if all(t.device.type == "cpu" for t in ts):
-            return plain(*ts)
-        dev = next(t.device for t in ts if t.device.type != "cpu")
-        for i, (t, (dtype, shape)) in enumerate(zip(ts, ins)):
-            kernels.check_tensor(t, f"{name} input {i}", dtype, shape, dev)
-            # the bulk copies and the vector loads want 16-byte alignment
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} input {i}: not 16-byte aligned")
-        out = torch.empty(out_shape, dtype=out_dtype, device=dev)
-        ptrs = [t.data_ptr() for t in ts] + [None]
-        rc = kernels.lib().dg_caps(check_id, ptrs[0], ptrs[1],
-                                   out.data_ptr(), arg,
-                                   kernels.stream_of(out))
-        kernels.raise_on_error(rc, name)
+
+def _wrapper(name):
+    ins, out_spec, plain, arg = SPECS[name]
+    record = Record(NAMES.index(name), ins, out_spec, arg)
+    launch = kernels.Launch(name, "dg_caps", ins, out_spec)
+    check_id, two = record.check, len(ins) == 2
+    (dt0, sh0), (dt1, sh1) = ins[0], ins[-1]
+    raw_stream = kernels.raw_stream
+
+    def run(d, ts, p0, p1):
+        out = launch.empty(d, ts)
+        rc = (launch._fn or launch.fn())(check_id, p0, p1, out.data_ptr(),
+                                         arg, raw_stream(d))
+        if rc:
+            kernels.raise_on_error(rc, name)
         wrapper.launches += 1
         return out
 
+    def checked(ts):
+        """The plain version for CPU tensors, else every check with its
+        message (``launch.check``), then the launch."""
+        try:
+            on_cpu = not ts[0].is_cuda and not (two and ts[-1].is_cuda)
+        except (IndexError, AttributeError):
+            on_cpu = False  # launch.check says what is wrong
+        if on_cpu:
+            if len(ts) != len(ins):
+                raise ValueError(f"{name}: takes {len(ins)} tensors, got "
+                                 f"{len(ts)}")
+            return plain(*ts)
+        d, ptrs = launch.check(ts)
+        return run(d, ts, ptrs[0], ptrs[1] if two else None)
+
+    def wrapper(*ts):
+        # what launch.check would find, as bare attribute reads; anything
+        # else (CPU tensors, a wrong input) takes the checked path
+        if len(ts) == len(ins):
+            a, b = ts[0], ts[-1]
+            if (a.is_cuda and a.dtype is dt0 and a.shape == sh0
+                    and a.is_contiguous() and not (p0 := a.data_ptr()) & 15):
+                d, p1 = a.get_device(), None
+                if not two or (
+                        b.is_cuda and b.dtype is dt1 and b.shape == sh1
+                        and b.is_contiguous() and b.get_device() == d
+                        and not (p1 := b.data_ptr()) & 15):
+                    return run(d, ts, p0, p1)
+        return checked(ts)
+
     wrapper.launches = 0
+    wrapper.record, wrapper.launch = record, launch
     wrapper.__name__ = wrapper.__qualname__ = name
     wrapper.__doc__ = (f"The {name} check: csrc/caps_*.cu on CUDA tensors, "
                        "its plain version on CPU tensors.")

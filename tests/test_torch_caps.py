@@ -55,6 +55,52 @@ def test_check_ids_match_the_kernels_header():
     ids = re.findall(r"^\s*([A-Z0-9_]+),?$", body, re.M)
     assert ids[-1] == "N_CHECKS"
     assert [i.lower() for i in ids[:-1]] == list(caps.NAMES)
+    assert _header_ids() == list(caps.NAMES)
+
+
+def _header_ids():
+    with open(os.path.join(REPO, "dipgenie_tpu_torch", "csrc",
+                           "caps.cuh")) as fh:
+        body = re.search(r"enum Check : int \{(.*?)\};", fh.read(), re.S)[1]
+    return [i.lower() for i in re.findall(r"^\s*([A-Z0-9_]+),?$", body,
+                                          re.M)[:-1]]
+
+
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_launch_record_is_the_spec_and_the_header_id(name):
+    """Each wrapper's launch record, made once: the check id of
+    ``csrc/caps.cuh``, the inputs' and output's ``(dtype, shape)`` and
+    the kernel's argument of ``SPECS``; its ``kernels.Launch`` checks
+    against the same tuples and binds ``dg_caps`` only at first use."""
+    kern = caps.CHECKS[name][0]
+    ins, out, plain, arg = caps.SPECS[name]
+    assert kern.record == (_header_ids().index(name), ins, out, arg)
+    assert kern.record.check == caps.NAMES.index(name)
+    assert caps.CHECKS[name][1] is plain
+    launch = kern.launch
+    assert (launch.name, launch.entry) == (name, "dg_caps")
+    assert launch.ins is kern.record.ins and launch.out is kern.record.out
+    assert launch._fn is None
+    for dtype, shape in (*ins, out):
+        assert isinstance(dtype, torch.dtype) and type(shape) is tuple
+        assert all(type(n) is int for n in shape)
+
+
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_launch_check_refuses_cpu_tensors(name):
+    """The launch path's checks take only CUDA tensors: on CPU tensors
+    (the wrapper sends those to the plain version) and on a wrong count
+    of tensors they raise ``ValueError`` before any launch."""
+    kern = caps.CHECKS[name][0]
+    ins, _ = caps_tables.make(name)
+    args = probe_caps.to_device(ins, "cpu")
+    with pytest.raises(ValueError, match="input 0: want a CUDA tensor"):
+        kern.launch.check(args)
+    with pytest.raises(ValueError, match=f"takes {len(args)} tensors"):
+        kern.launch.check(args + args[:1])
+    with pytest.raises(ValueError, match=f"takes {len(args)} tensors"):
+        kern(*args, *args[:1])
+    assert kern.launches == 0 and kern.launch._fn is None
 
 
 @pytest.mark.parametrize("name", caps.NAMES)

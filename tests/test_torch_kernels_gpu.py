@@ -898,6 +898,80 @@ def test_caps_wrappers_reject_bad_inputs(name, cuda):
     assert kern.launches == before
 
 
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_caps_launch_path_rejects_bad_inputs(name, cuda):
+    """The launch path (``kernels.Launch``) raises ``ValueError`` before
+    any launch on every input: a wrong dtype, a wrong shape, a
+    non-contiguous tensor, a CPU tensor among CUDA ones (two-input checks:
+    either input), and a copy 4 bytes past a 16-byte boundary. No check
+    gives way to its plain version on a CUDA tensor."""
+    kern = caps.CHECKS[name][0]
+    args, _ = _caps_inputs(name, None, cuda)
+    before = kern.launches
+    for i, a in enumerate(args):
+        def with_arg(t):
+            return [t if k == i else x for k, x in enumerate(args)]
+
+        other = torch.float32 if a.dtype != torch.float32 else torch.int32
+        with pytest.raises(ValueError, match=f"input {i}: dtype"):
+            kern(*with_arg(a.to(other)))
+        with pytest.raises(ValueError, match=f"input {i}: shape"):
+            kern(*with_arg(torch.cat([a.flatten()] * 2)))
+        if a.numel() > 1:  # one element is contiguous at any stride
+            strided = torch.empty((*a.shape, 2), dtype=a.dtype,
+                                  device=cuda)[..., 0]
+            strided.copy_(a)
+            with pytest.raises(ValueError,
+                               match=f"input {i}: not contiguous"):
+                kern(*with_arg(strided))
+        with pytest.raises(ValueError, match=f"input {i}: not 16-byte"):
+            kern(*with_arg(_misaligned(a)))
+        if len(args) == 2:
+            with pytest.raises(ValueError,
+                               match=f"input {i}: want a CUDA tensor"):
+                kern(*with_arg(a.cpu()))
+    assert kern.launches == before
+
+
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_caps_launch_path_takes_the_current_stream(name, cuda):
+    """A check launched under another current stream runs on that stream
+    (``kernels.raw_stream`` == ``torch.cuda.current_stream().cuda_stream``)
+    and gives the same output; a non-zero return of the C entry point
+    raises ``RuntimeError`` and counts no launch."""
+    kern = caps.CHECKS[name][0]
+    args, want = _caps_inputs(name, None, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert kernels.raw_stream(cuda.index or 0) == side.cuda_stream
+        got = kern(*args)
+    side.synchronize()
+    assert torch.equal(got.cpu(), want)
+    fn, before = kern.launch.fn(), kern.launches
+    kern.launch._fn = lambda *a: 1
+    try:
+        with pytest.raises(RuntimeError, match=f"{name}: CUDA error 1"):
+            kern(*args)
+    finally:
+        kern.launch._fn = fn
+    assert kern.launches == before
+
+
+@pytest.mark.parametrize("name", caps.NAMES)
+def test_caps_replaced_path_matches_the_new_one(name, cuda):
+    """The replaced launch path and kernels that phase H2 times beside
+    the new ones (``probes/caps_replaced.py``) give the same output, on
+    the script's inputs and the second inputs."""
+    from dipgenie_tpu_torch.probes import caps_replaced
+
+    for seed in (None, *caps_tables.SECOND_SEEDS):
+        args, want = _caps_inputs(name, seed, cuda)
+        got = caps_replaced.CHECKS[name](*args)
+        assert torch.equal(got, caps.CHECKS[name][0](*args))
+        assert torch.equal(got.cpu(), want)
+
+
 # ---------------- K10 sketch, K11 sketch_count, K12 grid_nll ----------------
 # (k, w) of the sketch kernel's checks: murmur's block and tail paths (17,
 # 31: one block and a 15-byte tail, 32), tail only (16), the CLI's default
