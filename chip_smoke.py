@@ -70,8 +70,8 @@ result line):
      its window limit with one [W::diploid_dp] line, the fused tier runs
      and equals the native tier; then the chunked tier on W, its peak
      memory beside the fused tier's;
-  E. the big-window DP (the same shape with wide levels 141-177, ~1.9e9
-     states, every wide run 31 windows): the same readings for its main
+  E. the big-window DP (the same shape on L_E levels, with wide levels
+     141-177, ~9.5e8 states, every wide run 31 windows): the same readings for its main
      path through K3 (K-T on the whole plan too), K3 beside its plain
      version and its bound on a prefix, K2 against K3 on the same big runs
      (equal V and traceback records, both times), and K3's device time a
@@ -180,6 +180,9 @@ SEED = 0
 R = 18
 L_MHC = 120_000
 N_BANDS = L_MHC // 400  # wide bands of 12 levels, as in the MHC graph
+# depth of phase E (and F1, on E's plan), cut to keep this script well
+# inside its time: its host planner alone took 106-130 s at L_MHC
+L_E = L_MHC // 2
 L_F2 = L_MHC // 4  # depth of phase F2, a prefix of phase E's plan
 PREFIX_TRANSITIONS = 5000
 BIG_WIDTHS = (141, 177)  # wide levels of phase E: NB 31 runs
@@ -1006,13 +1009,14 @@ class Smoke:
         return kern or None, (lib or None) if len(runs) > 1 else None
 
     def phase_h2(self):
-        """Each check's new launch path beside the replaced one (PR 5's
-        wrapper, and the replaced kernels where a kernel was redesigned:
-        probes/caps_replaced.py), its plain version and the library call,
-        on the scripts' inputs: per call by CUDA events over H_CALLS calls
-        (min of 2, in turns plain, replaced, new, library, library, new,
-        replaced, plain) and device time per launch by the profiler
-        (replaced and new in profiles of their own); and its bound."""
+        """Each check's launch path beside the replaced one (the wrapper
+        before the launch record, and the replaced kernel where a kernel
+        was redesigned: probes/caps_replaced.py), its plain version and
+        the library call, on the scripts' inputs: per call by CUDA events
+        over H_CALLS calls (min of 2, in turns plain, replaced, new,
+        library, library, new, replaced, plain) and device time per launch
+        by the profiler (replaced and new in profiles of their own); and
+        its bound."""
         from dipgenie_tpu_torch.ops.caps import NAMES
         from dipgenie_tpu_torch.probes import caps, caps_replaced, caps_tables
 
@@ -2046,7 +2050,7 @@ class Smoke:
         t_phase = time.time()
         wmin, wmax = BIG_WIDTHS
         plan, dplan, got = self.main_path(
-            "E", mhc_shaped_csr(L=L_MHC, seed=SEED, n_bands=N_BANDS,
+            "E", mhc_shaped_csr(L=L_E, seed=SEED, n_bands=L_E // 400,
                                 wmin=wmin, wmax=wmax))
         self.big = {"plan": plan, "dplan": dplan, "want": got,
                     # phase F2's reference: the single-device path (K1, K3)
