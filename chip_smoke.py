@@ -285,6 +285,7 @@ MAIN_PATH = {"narrow_run": "C", "narrow_run_global": "B",
              **{name: "G" for name in CHAINS}}
 TP_SHARDS = (1, 2, 3)  # the tp rank counts of phase B's K4 checks
 F_RANKS = 2  # ranks sharing the card in phases F2, F3 and F4
+TP_SPANS = ("chunked.tp_gather", "chunked.tp_wait")  # F4's gathers, waits
 # phase F4c: W's first bands, a prefix of W closed by a sink (each wide
 # transition's all-gather through gloo moves ~0.4 GB: V, SH and the words
 # at width 1,022, R = 18)
@@ -361,6 +362,14 @@ def log(msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def span_s(name: str) -> float:
+    """The seconds in span ``name`` so far in this process (the program's
+    registry, ``dipgenie_tpu_torch/utils/timing.py``)."""
+    from dipgenie_tpu_torch.utils import timing
+
+    return timing.total(name).ns / 1e9
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
@@ -1113,9 +1122,7 @@ class Smoke:
         import numpy as np
 
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
-        from dipgenie_tpu_torch.ops.plan import (
-            plan_pairs, plan_to_device, split_slices,
-        )
+        from dipgenie_tpu_torch.ops.plan import plan_pairs, plan_to_device
         from dipgenie_tpu_torch.ops.trace import trace
         from dipgenie_tpu_torch.solver.diploid import native_forward_csr
         from dipgenie_tpu_torch.utils.synth import dp_states
@@ -1129,18 +1136,19 @@ class Smoke:
         t0 = time.time()
         plan = plan_pairs(*arrs, R)
         plan_s = self.plan_s[tag] = time.time() - t0
-        split_slices.seconds = 0.0
+        slices0 = span_s("plan.split_slices")
         t0 = time.time()
         dplan = plan_to_device(plan, DEVICE)
         self.sync()
         ship_s = time.time() - t0
+        slices_s = span_s("plan.split_slices") - slices0
         kinds = [s.kind for s in dplan.segments]
         nbs = [s.host.NB for s in dplan.segments if s.kind != "narrow"]
         log(f"{tag} plan {plan_s:.3f}s ({kinds.count('narrow')} narrow, "
             f"{kinds.count('wide')} wide runs of <= 18 windows, "
             f"{kinds.count('wide_split')} of more, NB <= {max(nbs)}); "
-            f"ship {ship_s:.3f}s (of it K3's slices "
-            f"{split_slices.seconds:.3f}s, host clock)" + k2_slices(dplan))
+            f"ship {ship_s:.3f}s (of it K3's slices {slices_s:.3f}s, host "
+            "clock)" + k2_slices(dplan))
         dp = PairDiploidDP(dplan, DEVICE)
         # two warm passes: the card idled through the host planner, and the
         # first pass runs while its clocks come back up
@@ -2172,7 +2180,7 @@ class Smoke:
 
         runs = [s for s in dplan.segments if s.kind == "wide_split"]
         self.sync()
-        split_slices.seconds = 0.0
+        warm0 = span_s("plan.split_slices")
         for seg in runs:
             h = seg.host
             cuts, _, m = split_slices(
@@ -2181,7 +2189,7 @@ class Smoke:
                 h.NB * 1024, seg.k3_grid, 2)
             check(m == seg.k3_per_block and bool(self.torch.equal(
                 cuts, seg.k3_cuts)), "E: K3's slices cut again differ")
-        warm = split_slices.seconds
+        warm = span_s("plan.split_slices") - warm0
         log(f"E K3's slices cut again, warm: {warm:.3f}s for {len(runs)} "
             f"runs, {warm / len(runs) * 1e3:.3f} ms a run (host clock); "
             "equal to the shipped ones")
@@ -2193,9 +2201,8 @@ class Smoke:
         import torch.distributed as dist
 
         from dipgenie_tpu_torch.ops.diploid_pair import PairDiploidDP, assemble
-        from dipgenie_tpu_torch.ops.plan import plan_to_device, split_slices
+        from dipgenie_tpu_torch.ops.plan import plan_to_device
         from dipgenie_tpu_torch.ops.trace import trace
-        from dipgenie_tpu_torch.ops.wide_step import wide_tp_run
         from dipgenie_tpu_torch.parallel.mesh import make_mesh
 
         torch = self.torch
@@ -2204,12 +2211,12 @@ class Smoke:
                                 world_size=1, rank=0)
         try:
             mesh = make_mesh(n_tp=1)
-            split_slices.seconds = 0.0
+            slices0 = span_s("plan.split_slices")
             t0 = time.time()
             dplan = plan_to_device(plan, DEVICE, mesh=mesh)
             self.sync()
             ship_s = time.time() - t0
-            slices_s = split_slices.seconds
+            slices_s = span_s("plan.split_slices") - slices0
             kinds = [s.kind for s in dplan.segments]
             n_wide_tr = sum(s.t1 - s.t0 for s in dplan.segments
                             if s.kind == "wide_tp")
@@ -2219,7 +2226,7 @@ class Smoke:
             ev = self.events(3)
             torch.cuda.reset_peak_memory_stats()
             self.reset_counts()
-            wide_tp_run.merge_seconds = 0.0
+            merge0 = span_s("pair.tp_merge")
             ev[0].record()
             V, bps = dp.forward()
             ev[1].record()
@@ -2230,11 +2237,11 @@ class Smoke:
             launches = self.launches["F1"] = self.counts()
             fwd_s = ev[0].elapsed_time(ev[1]) / 1e3
             tb_s = ev[1].elapsed_time(ev[2]) / 1e3
-            merge_s = wide_tp_run.merge_seconds
+            merge_s = span_s("pair.tp_merge") - merge0
             log(f"F1 one-rank tp mesh (gloo): ship {ship_s:.3f}s (of it K4's "
                 f"slices {slices_s:.3f}s, host clock), forward "
                 f"{fwd_s:.4f}s, traceback {tb_s:.4f}s (CUDA events), of the "
-                f"forward {merge_s:.4f}s in {n_wide_tr} merges (host timer), "
+                f"forward {merge_s:.4f}s in {n_wide_tr} merges (spans), "
                 f"peak memory {torch.cuda.max_memory_allocated()} B, launches "
                 f"{launches}")
             want_l = {**dict.fromkeys(KERNELS, 0),
@@ -2501,8 +2508,8 @@ class Smoke:
                 f"{res['traceback_s']:.4f}s (CUDA events); {st['gathers']} "
                 f"all-gathers ({c['wide']} wide transitions, in the forward "
                 f"and the replay) of {st['gather_bytes']} B in "
-                f"{st['gather_seconds']:.4f}s, {st['wait_seconds']:.4f}s "
-                f"waiting for the card before them (host timer); launches "
+                f"{res['gather_s']:.4f}s, {res['wait_s']:.4f}s "
+                f"waiting for the card before them (spans); launches "
                 f"K15 runs {res['launches']['chunk_step']}, K15 shares "
                 f"{res['launches']['chunk_share']}, K16 "
                 f"{res['launches']['chunk_trace']}; peak memory "
@@ -3382,6 +3389,7 @@ def timed_chunked(torch):
         def forward(self, dev):
             self.ev = [torch.cuda.Event(enable_timing=True)
                        for _ in range(3)]
+            self.tp0 = [span_s(n) for n in TP_SPANS]
             self.ev[0].record()
             out = super().forward(dev)
             self.ev[1].record()
@@ -3400,6 +3408,8 @@ def timed_chunked(torch):
                 "forward_s": self.ev[0].elapsed_time(self.ev[1]) / 1e3,
                 "traceback_s": self.ev[1].elapsed_time(self.ev[2]) / 1e3,
                 "stats": dict(self.stats),
+                **{k: span_s(n) - s0 for k, n, s0 in
+                   zip(("gather_s", "wait_s"), TP_SPANS, self.tp0)},
                 "cuts": {"runs": int((cut[:, 2] > 0).sum()),
                          "wide": len(wide), "spans": len(self.spans),
                          "shares": sum(
@@ -3513,7 +3523,7 @@ def rank_dp(torch, mesh, job, out):
                 "trace": trace.trace, "wide_step": wide_step.wide_step}
     for w in wrappers.values():
         w.launches = 0
-    wide_step.wide_tp_run.merge_seconds = 0.0
+    merge0 = span_s("pair.tp_merge")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.reset_peak_memory_stats()
     ev[0].record()
@@ -3525,7 +3535,7 @@ def rank_dp(torch, mesh, job, out):
     return {"result": assemble(int(V[R, 0]), recs.cpu().numpy()),
             "ship_s": ship_s, "forward_s": ev[0].elapsed_time(ev[1]) / 1e3,
             "trace_s": ev[1].elapsed_time(ev[2]) / 1e3,
-            "merge_s": wide_step.wide_tp_run.merge_seconds,
+            "merge_s": span_s("pair.tp_merge") - merge0,
             "peak": torch.cuda.max_memory_allocated(),
             "launches": {k: w.launches for k, w in wrappers.items()}}
 

@@ -55,7 +55,6 @@ ported.
 
 from __future__ import annotations
 
-import time
 import zlib
 from dataclasses import dataclass
 
@@ -65,6 +64,7 @@ import torch
 from .. import kernels
 from ..device import resolve_device
 from ..parallel.mesh import all_gather_equal
+from ..utils import timing
 from .fused import check_free, check_tables, launch_cut, path_transitions
 from .vertex_plan import (
     K, K2, P, W, DevTables, VertexPlan, candidates, initial_state, ship,
@@ -299,23 +299,20 @@ def place(g: torch.Tensor, dest: torch.Tensor, kk2: int) -> None:
 
 def new_stats() -> dict:
     """The counters ``chunk_step_tp`` adds to: share launches (CPU or
-    card), all-gathers, their bytes (the gathered tensor's), the host
-    seconds in them, and the host seconds spent waiting for the card
-    before a gather staged through host memory."""
-    return {"shares": 0, "gathers": 0, "gather_bytes": 0,
-            "gather_seconds": 0.0, "wait_seconds": 0.0}
+    card), all-gathers and their bytes (the gathered tensor's). Each
+    gather is a span ``chunked.tp_gather``; the host's wait for the card
+    before a gather staged through host memory, ``chunked.tp_wait``."""
+    return {"shares": 0, "gathers": 0, "gather_bytes": 0}
 
 
 def _gather(out: torch.Tensor, mesh, stats: dict) -> torch.Tensor:
     import torch.distributed as dist
 
     if out.is_cuda and dist.get_backend(mesh.tp) == "gloo":
-        t0 = time.perf_counter()
-        torch.cuda.current_stream(out.device).synchronize()
-        stats["wait_seconds"] += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    g = all_gather_equal(out, mesh.tp)
-    stats["gather_seconds"] += time.perf_counter() - t0
+        with timing.span("chunked.tp_wait"):
+            torch.cuda.current_stream(out.device).synchronize()
+    with timing.span("chunked.tp_gather"):
+        g = all_gather_equal(out, mesh.tp)
     stats["gathers"] += 1
     stats["gather_bytes"] += g.numel() * g.element_size()
     return g

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..device import resolve_device
+from ..utils import timing
 from .narrow import narrow_run
 from .plan import DevPlan, PairPlan, initial_v, plan_to_device
 from .trace import trace
@@ -36,12 +37,14 @@ RUNS = {"narrow": narrow_run, "wide": wide_dense_run,
 
 
 def assemble(sink_value: int, recs: np.ndarray):
-    """(sink_value, s_het, transitions) from the ``[L - 1, 7]`` records."""
-    recs = np.asarray(recs, np.int64)
-    shet = int(recs[:, 6].sum()) if len(recs) else 0
-    transitions = [
-        (t + 1, *(int(x) for x in row[:6])) for t, row in enumerate(recs)
-    ]
+    """(sink_value, s_het, transitions) from the ``[L - 1, 7]`` records
+    (span ``pair.assemble``)."""
+    with timing.span("pair.assemble"):
+        recs = np.asarray(recs, np.int64)
+        shet = int(recs[:, 6].sum()) if len(recs) else 0
+        transitions = [
+            (t + 1, *(int(x) for x in row[:6])) for t, row in enumerate(recs)
+        ]
     return sink_value, shet, transitions
 
 
@@ -62,17 +65,19 @@ class PairDiploidDP:
         """``(V [R+1, 1024] at the last level, per-segment backpointers)``:
         ``(bp256, bp1024)`` of a narrow run, ``(bp,)`` of a wide one.
         ``on_segment(seg)``, if given, is called after each run is queued
-        (the stage probe stamps the stream there)."""
-        V = initial_v(self.R, self.device)
-        bps = []
-        for seg in self.dplan.segments:
-            if seg.kind == "wide_tp":
-                V, *bp = wide_tp_run(seg, V, self.mesh.tp)
-            else:
-                V, *bp = RUNS[seg.kind](seg, V)
-            bps.append(tuple(bp))
-            if on_segment is not None:
-                on_segment(seg)
+        (the stage probe stamps the stream there). Span ``pair.forward``:
+        the host's part, the launches queued."""
+        with timing.span("pair.forward"):
+            V = initial_v(self.R, self.device)
+            bps = []
+            for seg in self.dplan.segments:
+                if seg.kind == "wide_tp":
+                    V, *bp = wide_tp_run(seg, V, self.mesh.tp)
+                else:
+                    V, *bp = RUNS[seg.kind](seg, V)
+                bps.append(tuple(bp))
+                if on_segment is not None:
+                    on_segment(seg)
         return V, bps
 
     def run(self):

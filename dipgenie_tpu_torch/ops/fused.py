@@ -47,6 +47,7 @@ import torch
 
 from .. import kernels
 from ..device import resolve_device
+from ..utils import timing
 from .pair_plan import PlanLimit
 from .vertex_plan import (
     BP_OFF, K, K2, MASK_OFF, P, PRED_OFF, W, DevTables, VertexPlan,
@@ -141,11 +142,13 @@ def smem_budget(device) -> int:
 def launch_cut(dev: DevTables, t0: int, t1: int, R1: int,
                with_sh: bool) -> np.ndarray:
     """``plan_launches`` of transitions ``t0 .. t1 - 1`` on ``dev``'s card,
-    its rows' transitions absolute (``[n, 3]`` int64, contiguous)."""
-    cut = plan_launches(dev.desc[t0:t1], R1, with_sh,
-                        smem_budget(dev.device))
-    cut[:, :2] += t0
-    return np.ascontiguousarray(cut)
+    its rows' transitions absolute (``[n, 3]`` int64, contiguous). Span
+    ``fused.cut``."""
+    with timing.span("fused.cut"):
+        cut = plan_launches(dev.desc[t0:t1], R1, with_sh,
+                            smem_budget(dev.device))
+        cut[:, :2] += t0
+        return np.ascontiguousarray(cut)
 
 
 def check_tables(dev: DevTables) -> None:
@@ -252,24 +255,29 @@ def fused_trace(dev: DevTables, bp: torch.Tensor, R: int, cycles=None):
     rows and ``s_het`` of ``path_shet_ref``). With ``cycles`` (int32
     ``[T]`` on the card) the walker writes its clock cycles a transition
     ``<< 1 | 1`` where the transition's code was read from shared memory.
-    CPU tensors take the plain version."""
-    if bp.device.type == "cpu":
-        return fused_trace_ref(dev, bp, R)
-    kernels.check_tensor(bp, "bp", torch.uint8, None, dev.device)
-    T = dev.T
-    if cycles is not None:
-        kernels.check_tensor(cycles, "cycles", torch.int32, (T,), dev.device)
-    rows = torch.empty((max(T, 1), 4), dtype=torch.int32, device=bp.device)
-    sh = torch.empty(1, dtype=torch.int32, device=bp.device)
-    rc = kernels.lib().dg_fused_trace(
-        dev.desc_dev.data_ptr(), T, R, dev.pred.data_ptr(), dev.pred.numel(),
-        dev.masks.data_ptr(), bp.data_ptr(), bp.numel(), rows.data_ptr(),
-        sh.data_ptr(), cycles.data_ptr() if cycles is not None else None,
-        kernels.stream_of(bp))
-    kernels.raise_on_error(rc, "fused_trace")
-    if T:
-        fused_trace.launches += 1
-    return rows[:T], int(sh.item())
+    CPU tensors take the plain version. Span ``fused.trace``, which holds
+    the host's wait for ``s_het``."""
+    with timing.span("fused.trace"):
+        if bp.device.type == "cpu":
+            return fused_trace_ref(dev, bp, R)
+        kernels.check_tensor(bp, "bp", torch.uint8, None, dev.device)
+        T = dev.T
+        if cycles is not None:
+            kernels.check_tensor(cycles, "cycles", torch.int32, (T,),
+                                 dev.device)
+        rows = torch.empty((max(T, 1), 4), dtype=torch.int32,
+                           device=bp.device)
+        sh = torch.empty(1, dtype=torch.int32, device=bp.device)
+        rc = kernels.lib().dg_fused_trace(
+            dev.desc_dev.data_ptr(), T, R, dev.pred.data_ptr(),
+            dev.pred.numel(), dev.masks.data_ptr(), bp.data_ptr(),
+            bp.numel(), rows.data_ptr(), sh.data_ptr(),
+            cycles.data_ptr() if cycles is not None else None,
+            kernels.stream_of(bp))
+        kernels.raise_on_error(rc, "fused_trace")
+        if T:
+            fused_trace.launches += 1
+        return rows[:T], int(sh.item())
 
 
 fused_forward.launches = 0
@@ -278,15 +286,17 @@ fused_trace.launches = 0
 
 def path_transitions(rows: np.ndarray):
     """The ``(level, pi, pj, i2, j2, wu, wv)`` list of a path's ``[T, 4]``
-    rows, level ascending (the destination of the last is the sink pair)."""
-    rows = np.asarray(rows, np.int64)
-    T = len(rows)
-    out = []
-    for t in range(T):
-        i2, j2 = (0, 0) if t == T - 1 else (int(rows[t + 1, 0]),
-                                            int(rows[t + 1, 1]))
-        a, b, wu, wv = (int(x) for x in rows[t])
-        out.append((t + 1, a, b, i2, j2, wu, wv))
+    rows, level ascending (the destination of the last is the sink pair).
+    Span ``fused.assemble``."""
+    with timing.span("fused.assemble"):
+        rows = np.asarray(rows, np.int64)
+        T = len(rows)
+        out = []
+        for t in range(T):
+            i2, j2 = (0, 0) if t == T - 1 else (int(rows[t + 1, 0]),
+                                                int(rows[t + 1, 1]))
+            a, b, wu, wv = (int(x) for x in rows[t])
+            out.append((t + 1, a, b, i2, j2, wu, wv))
     return out
 
 
@@ -325,20 +335,25 @@ class FusedDiploidDP:
 
     def ship(self) -> DevTables:
         """The tables on the device; raises ``PlanLimit`` where the run
-        would not fit the card's free memory."""
-        dev = ship(self.plan.vplan, self.device, self.plan.desc)
-        check_free(self.need_bytes(), self.device,
-                   "fused tier's backpointers and states",
-                   "--dp-backend jax or native")
+        would not fit the card's free memory. Span ``fused.ship``: the
+        host's part, with no synchronise (a copy from pageable memory holds
+        the host until it is staged)."""
+        with timing.span("fused.ship"):
+            dev = ship(self.plan.vplan, self.device, self.plan.desc)
+            check_free(self.need_bytes(), self.device,
+                       "fused tier's backpointers and states",
+                       "--dp-backend jax or native")
         return dev
 
     def forward(self, dev: DevTables):
-        """K13 over every transition: ``(V of the last level, codes)``."""
-        p = self.plan
-        bp = torch.empty(max(p.bp_bytes, 1), dtype=torch.uint8,
-                         device=self.device)
-        V = initial_state(self.R, int(p.vplan.widths[0]), self.device)
-        return fused_forward(dev, 0, p.T, V, bp), bp
+        """K13 over every transition: ``(V of the last level, codes)``.
+        Span ``fused.forward``: the host's part, the launches queued."""
+        with timing.span("fused.forward"):
+            p = self.plan
+            bp = torch.empty(max(p.bp_bytes, 1), dtype=torch.uint8,
+                             device=self.device)
+            V = initial_state(self.R, int(p.vplan.widths[0]), self.device)
+            return fused_forward(dev, 0, p.T, V, bp), bp
 
     def run(self):
         if self.plan.T == 0:

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils import timing
+
 NEG = -(2**19)  # unreachable sentinel, re-pinned every level
 
 # packed chunk-table layout: tbl is [nchunks, 2, CHUNK]
@@ -297,35 +299,40 @@ def plan_pairs(
     het_colors,
     R: int,
 ) -> PairPlan:
-    level_ptr = np.asarray(level_ptr, np.int64)
-    adj_ptr = np.asarray(adj_ptr, np.int64)
-    adj_v = np.asarray(adj_v, np.int64)
-    adj_w = np.asarray(adj_w, np.int64)
-    hom_ptr = np.asarray(hom_ptr, np.int64)
-    het_ptr = np.asarray(het_ptr, np.int64)
-    L = len(level_ptr) - 1
-    L1 = L - 1
-    widths = np.diff(level_ptr)
+    """The plan in two spans: ``pair.plan.tables``, the inputs' conversion
+    and the native planner's one call (``dg_pair_tables``), and
+    ``pair.plan.layout``, the runs' layout (where the native planner is
+    off or missing, the numpy tables are made there, one a transition)."""
+    with timing.span("pair.plan.tables"):
+        level_ptr = np.asarray(level_ptr, np.int64)
+        adj_ptr = np.asarray(adj_ptr, np.int64)
+        adj_v = np.asarray(adj_v, np.int64)
+        adj_w = np.asarray(adj_w, np.int64)
+        hom_ptr = np.asarray(hom_ptr, np.int64)
+        het_ptr = np.asarray(het_ptr, np.int64)
+        L = len(level_ptr) - 1
+        L1 = L - 1
+        widths = np.diff(level_ptr)
 
-    # ---- per-transition raw pair tables ----
-    # Producer selection: the native OpenMP planner (dg_pair_tables,
-    # native/dgcore.cpp) computes every transition's sorted/scored pair
-    # arrays in one call (~20x faster than the numpy loop, which pays
-    # ~350 us of dispatch overhead per transition — 40+ s on MHC);
-    # the numpy closure below remains the reference implementation and
-    # the fallback, and tests assert array-exact agreement.
-    _nat = None
-    if _os.environ.get("DIPGENIE_NO_NATIVE_PLANNER") != "1":
-        try:
-            from .. import native as _native
+        # ---- per-transition raw pair tables ----
+        # Producer selection: the native OpenMP planner (dg_pair_tables,
+        # native/dgcore.cpp) computes every transition's sorted/scored pair
+        # arrays in one call (~20x faster than the numpy loop, which pays
+        # ~350 us of dispatch overhead per transition — 40+ s on MHC);
+        # the numpy closure below remains the reference implementation and
+        # the fallback, and tests assert array-exact agreement.
+        _nat = None
+        if _os.environ.get("DIPGENIE_NO_NATIVE_PLANNER") != "1":
+            try:
+                from .. import native as _native
 
-            if _native.available():
-                _nat = _native.pair_tables_all(
-                    level_ptr, adj_ptr, adj_v, adj_w,
-                    hom_ptr, hom_colors, het_ptr, het_colors, R,
-                )
-        except Exception:
-            _nat = None
+                if _native.available():
+                    _nat = _native.pair_tables_all(
+                        level_ptr, adj_ptr, adj_v, adj_w,
+                        hom_ptr, hom_colors, het_ptr, het_colors, R,
+                    )
+            except Exception:
+                _nat = None
 
     def pair_tables_numpy(l):
         """Sorted pair arrays for transition l -> l+1 (host layouts)."""
@@ -402,14 +409,6 @@ def plan_pairs(
         conv = np.convolve(c, c)
         return int(conv[: R + 1].sum())
 
-    narrow = np.zeros(L1, bool)
-    for l in range(L1):
-        narrow[l] = (
-            max(widths[l], widths[l + 1]) <= NARROW_W
-            # int16 bp ordinal limit: padded pair lanes must fit 2^15
-            and _pad_up(kept_pairs(l), CHUNK) <= _NARROW_MAX_PAIRS
-        )
-
     # value guard: |NEG| plus the sum of the per-level max scores, an
     # upper bound of every DP value plus |NEG| (see VALUE_MAX)
     bound = [abs(NEG)]
@@ -420,27 +419,38 @@ def plan_pairs(
         bound[0] += int(score.max(initial=0))
         return out
 
-    segments = []
-    l = 0
-    while l < L1:
-        if narrow[l]:
-            j = l
-            while j < L1 and narrow[j]:
-                j += 1
-            seg, _ = _plan_narrow_run(l, j, widths, pair_tables_g, R)
-            segments.append(seg)
-            l = j
-        else:
-            j = l
-            while j < L1 and not narrow[j]:
-                j += 1
-            segments.append(_plan_wide_run(l, j, widths, pair_tables_g, R))
-            l = j
-    if bound[0] + NEG > VALUE_MAX:
-        raise PlanLimit(
-            f"DP values may reach {bound[0] + NEG}, past {VALUE_MAX}, the "
-            "largest the 64-bit reduction key holds; use --dp-backend native"
-        )
+    with timing.span("pair.plan.layout"):
+        narrow = np.zeros(L1, bool)
+        for l in range(L1):
+            narrow[l] = (
+                max(widths[l], widths[l + 1]) <= NARROW_W
+                # int16 bp ordinal limit: padded pair lanes must fit 2^15
+                and _pad_up(kept_pairs(l), CHUNK) <= _NARROW_MAX_PAIRS
+            )
+
+        segments = []
+        l = 0
+        while l < L1:
+            if narrow[l]:
+                j = l
+                while j < L1 and narrow[j]:
+                    j += 1
+                seg, _ = _plan_narrow_run(l, j, widths, pair_tables_g, R)
+                segments.append(seg)
+                l = j
+            else:
+                j = l
+                while j < L1 and not narrow[j]:
+                    j += 1
+                segments.append(
+                    _plan_wide_run(l, j, widths, pair_tables_g, R))
+                l = j
+        if bound[0] + NEG > VALUE_MAX:
+            raise PlanLimit(
+                f"DP values may reach {bound[0] + NEG}, past {VALUE_MAX}, "
+                "the largest the 64-bit reduction key holds; use "
+                "--dp-backend native"
+            )
     return PairPlan(R=R, L=L, segments=segments, max_abs_value=bound[0])
 
 

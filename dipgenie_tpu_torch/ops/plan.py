@@ -139,12 +139,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..utils import timing
 from .pair_plan import (  # noqa: F401  (re-exported)
     CHUNK,
     DENSE_NB_LIMIT,
@@ -483,111 +483,108 @@ def split_slices(tbl, win, bounds: np.ndarray, ext: np.ndarray, full: int,
     the card at ship time), every transition of the run at once but those
     with a heavy destination (cut on the host, ``_cut_transition``).
     Raises unless each transition's real pairs ascend by destination
-    within its ``W``; ``PlanLimit`` where no slicing fits. Its host time
-    adds up in ``split_slices.seconds``."""
-    t_start = time.perf_counter()
-    tbl = torch.as_tensor(tbl)
-    dev = tbl.device
-    win = torch.as_tensor(win, device=dev)
-    T = len(bounds) - 1
-    E = np.asarray(ext, np.int64) * 1024
-    W = np.full(T, full, np.int64)
-    if T > buffers:
-        W[buffers:] = np.maximum(E[buffers:], E[:-buffers])
-    b = np.asarray(bounds, np.int64) - bounds[0]
-    c0, c1 = int(bounds[0]), int(bounds[-1])
-    # per transition its chunks, its first slot in the run and its W, in
-    # one copy
-    nch, base, Wt = torch.from_numpy(
-        np.stack([np.diff(b), b[:-1] * CHUNK, W])).to(dev)
-    base, Wt = base[:, None], Wt[:, None]
-    rel = ((tbl[c0:c1, 0] >> 2) & 2047) - 1
-    tr = torch.repeat_interleave(torch.arange(T, device=dev), nch,
-                                 output_size=c1 - c0)
-    # each real pair's key, its transition * full + its destination lane
-    # (ascending within a transition), and its slot in the run
-    key = (tr * full + win[c0:c1].long() * 1024)[:, None] + rel
-    slots = torch.nonzero(rel.reshape(-1) >= 0).reshape(-1)
-    keys = key.reshape(-1)[slots]
-    slots = torch.cat([slots, slots.new_zeros(1)])
-    unsorted = (keys[1:] < keys[:-1]).any().reshape(1)
-    row = torch.arange(T, device=dev)[:, None] * full
-    start = torch.searchsorted(keys, row)
-    past = torch.searchsorted(keys, row + full)
-    # one past each transition's last real slot (0 where it has none)
-    end = torch.where(past > start,
-                      slots[(past - 1).clamp(min=0)] + 1 - base, 0)
-    lane = torch.arange(full, device=dev)
-    # the run's transitions in blocks of at most 2^22 (transition, lane)
-    # cells, each cut at once (balanced_cuts, a row a transition); one
-    # read of the flags a slicing, one of its largest slice
-    step = max(1, (1 << 22) // full)
-    for m in range(-(-full // (grid * K2_SLICE_LANES)),
-                   K3_PER_BLOCK_MAX + 1):
-        S = grid * m
-        k = torch.arange(S + 1, device=dev)
-        at = torch.empty((T, S + 1), dtype=torch.int64, device=dev)
-        flags = [unsorted]
-        for t0 in range(0, T, step):
-            t1 = min(T, t0 + step)
-            cells = (t1 - t0) * full
-            idx = keys - t0 * full
-            mine = (idx >= 0) & (idx < cells)
-            counts = torch.zeros(cells, dtype=torch.int64, device=dev)
-            counts.index_add_(0, idx.clamp(0, cells - 1), mine.long())
-            counts = counts.view(t1 - t0, full)
-            inside = lane < Wt[t0:t1]
-            cum = torch.nn.functional.pad(
-                torch.cumsum(torch.where(inside, counts + 1, 0), 1), (1, 0))
-            # the first lane whose work before it reaches k / S of the
-            # row's total, in integers (cum * S >= total * k)
-            a = torch.minimum(torch.searchsorted(cum * S, cum[:, -1:] * k),
-                              Wt[t0:t1])
-            a[:, :1], a[:, -1:] = 0, Wt[t0:t1]
-            at[t0:t1] = a
-            flags += [(counts * ~inside).any().reshape(1),
-                      counts.amax(1) > K2_SLICE_PAIRS // 2,
-                      (torch.diff(a, dim=1) > K2_SLICE_LANES).any(1)]
-        f = torch.cat(flags).tolist()
-        if f[0]:
-            raise ValueError("split_slices: a transition's pairs do not "
-                             "ascend by destination")
-        heavy, wide, i = [], [], 1
-        for t0 in range(0, T, step):
-            n = min(T, t0 + step) - t0
-            if f[i]:
-                raise ValueError("split_slices: a pair lands past its "
-                                 "transition's W")
-            heavy += f[i + 1:i + 1 + n]
-            wide += f[i + 1 + n:i + 1 + 2 * n]
-            i += 1 + 2 * n
-        capped = [t for t in range(T) if wide[t] and not heavy[t]]
-        if capped:  # cap the widths, leaving room for the rest
-            at[capped] = torch.from_numpy(_cap_widths(
-                at[capped].cpu().numpy(), W[capped], S, K2_SLICE_LANES)
-                ).to(dev)
-        # each cut's slot: the first real pair at or past its lane (one
-        # past the transition's last where there is none)
-        idx = torch.searchsorted(keys, row + at)
-        cuts = torch.stack([at, torch.where(idx < past, slots[idx] - base,
-                                            end)], 2).to(torch.int32)
-        split = np.zeros(T, bool)
-        for t in (t for t in range(T) if heavy[t]):
-            p0, p1 = int(start[t]), int(past[t])
-            c, split[t] = _cut_transition(
-                (slots[p0:p1] - base[t]).cpu().numpy(),
-                (keys[p0:p1] - t * full).cpu().numpy(), int(W[t]), S)
-            cuts[t] = torch.from_numpy(c).to(dev)
-        if not T or int(torch.diff(cuts[:, :, 1], dim=1).max()
-                        ) <= K2_SLICE_PAIRS:
-            split_slices.seconds += time.perf_counter() - t_start
-            return cuts, split, m
-    raise PlanLimit(
-        f"split_slices: a run of {full // 1024} windows does not fit "
-        f"{K3_PER_BLOCK_MAX} slices a block of a grid of {grid}")
-
-
-split_slices.seconds = 0.0
+    within its ``W``; ``PlanLimit`` where no slicing fits. Span
+    ``plan.split_slices``."""
+    with timing.span("plan.split_slices"):
+        tbl = torch.as_tensor(tbl)
+        dev = tbl.device
+        win = torch.as_tensor(win, device=dev)
+        T = len(bounds) - 1
+        E = np.asarray(ext, np.int64) * 1024
+        W = np.full(T, full, np.int64)
+        if T > buffers:
+            W[buffers:] = np.maximum(E[buffers:], E[:-buffers])
+        b = np.asarray(bounds, np.int64) - bounds[0]
+        c0, c1 = int(bounds[0]), int(bounds[-1])
+        # per transition its chunks, its first slot in the run and its W, in
+        # one copy
+        nch, base, Wt = torch.from_numpy(
+            np.stack([np.diff(b), b[:-1] * CHUNK, W])).to(dev)
+        base, Wt = base[:, None], Wt[:, None]
+        rel = ((tbl[c0:c1, 0] >> 2) & 2047) - 1
+        tr = torch.repeat_interleave(torch.arange(T, device=dev), nch,
+                                     output_size=c1 - c0)
+        # each real pair's key, its transition * full + its destination lane
+        # (ascending within a transition), and its slot in the run
+        key = (tr * full + win[c0:c1].long() * 1024)[:, None] + rel
+        slots = torch.nonzero(rel.reshape(-1) >= 0).reshape(-1)
+        keys = key.reshape(-1)[slots]
+        slots = torch.cat([slots, slots.new_zeros(1)])
+        unsorted = (keys[1:] < keys[:-1]).any().reshape(1)
+        row = torch.arange(T, device=dev)[:, None] * full
+        start = torch.searchsorted(keys, row)
+        past = torch.searchsorted(keys, row + full)
+        # one past each transition's last real slot (0 where it has none)
+        end = torch.where(past > start,
+                          slots[(past - 1).clamp(min=0)] + 1 - base, 0)
+        lane = torch.arange(full, device=dev)
+        # the run's transitions in blocks of at most 2^22 (transition, lane)
+        # cells, each cut at once (balanced_cuts, a row a transition); one
+        # read of the flags a slicing, one of its largest slice
+        step = max(1, (1 << 22) // full)
+        for m in range(-(-full // (grid * K2_SLICE_LANES)),
+                       K3_PER_BLOCK_MAX + 1):
+            S = grid * m
+            k = torch.arange(S + 1, device=dev)
+            at = torch.empty((T, S + 1), dtype=torch.int64, device=dev)
+            flags = [unsorted]
+            for t0 in range(0, T, step):
+                t1 = min(T, t0 + step)
+                cells = (t1 - t0) * full
+                idx = keys - t0 * full
+                mine = (idx >= 0) & (idx < cells)
+                counts = torch.zeros(cells, dtype=torch.int64, device=dev)
+                counts.index_add_(0, idx.clamp(0, cells - 1), mine.long())
+                counts = counts.view(t1 - t0, full)
+                inside = lane < Wt[t0:t1]
+                cum = torch.nn.functional.pad(
+                    torch.cumsum(torch.where(inside, counts + 1, 0), 1),
+                    (1, 0))
+                # the first lane whose work before it reaches k / S of the
+                # row's total, in integers (cum * S >= total * k)
+                a = torch.minimum(torch.searchsorted(cum * S, cum[:, -1:] * k),
+                                  Wt[t0:t1])
+                a[:, :1], a[:, -1:] = 0, Wt[t0:t1]
+                at[t0:t1] = a
+                flags += [(counts * ~inside).any().reshape(1),
+                          counts.amax(1) > K2_SLICE_PAIRS // 2,
+                          (torch.diff(a, dim=1) > K2_SLICE_LANES).any(1)]
+            f = torch.cat(flags).tolist()
+            if f[0]:
+                raise ValueError("split_slices: a transition's pairs do not "
+                                 "ascend by destination")
+            heavy, wide, i = [], [], 1
+            for t0 in range(0, T, step):
+                n = min(T, t0 + step) - t0
+                if f[i]:
+                    raise ValueError("split_slices: a pair lands past its "
+                                     "transition's W")
+                heavy += f[i + 1:i + 1 + n]
+                wide += f[i + 1 + n:i + 1 + 2 * n]
+                i += 1 + 2 * n
+            capped = [t for t in range(T) if wide[t] and not heavy[t]]
+            if capped:  # cap the widths, leaving room for the rest
+                at[capped] = torch.from_numpy(_cap_widths(
+                    at[capped].cpu().numpy(), W[capped], S, K2_SLICE_LANES)
+                    ).to(dev)
+            # each cut's slot: the first real pair at or past its lane (one
+            # past the transition's last where there is none)
+            idx = torch.searchsorted(keys, row + at)
+            cuts = torch.stack([at, torch.where(idx < past, slots[idx] - base,
+                                                end)], 2).to(torch.int32)
+            split = np.zeros(T, bool)
+            for t in (t for t in range(T) if heavy[t]):
+                p0, p1 = int(start[t]), int(past[t])
+                c, split[t] = _cut_transition(
+                    (slots[p0:p1] - base[t]).cpu().numpy(),
+                    (keys[p0:p1] - t * full).cpu().numpy(), int(W[t]), S)
+                cuts[t] = torch.from_numpy(c).to(dev)
+            if not T or int(torch.diff(cuts[:, :, 1], dim=1).max()
+                            ) <= K2_SLICE_PAIRS:
+                return cuts, split, m
+        raise PlanLimit(
+            f"split_slices: a run of {full // 1024} windows does not fit "
+            f"{K3_PER_BLOCK_MAX} slices a block of a grid of {grid}")
 
 
 def _cut_transition(slots: np.ndarray, dst: np.ndarray, W: int, S: int

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import timing
 from .plan import CHUNK, DevPlan
 
 
@@ -133,27 +134,30 @@ def bases(dplan: DevPlan, bps: list) -> torch.Tensor:
 
 def trace(dplan: DevPlan, bps: list) -> torch.Tensor:
     """K-T. CUDA backpointers launch ``csrc/trace.cu`` (one launch for
-    the whole plan); backpointers on the CPU take ``trace_ref``."""
-    if all(b.device.type == "cpu" for blocks in bps for b in blocks):
-        return trace_ref(dplan, bps)
-    if len(bps) != len(dplan.segments):
-        raise ValueError(f"trace: {len(bps)} backpointer sets for "
-                         f"{len(dplan.segments)} segments")
-    T = max(dplan.L - 1, 0)
-    if dplan.desc.shape[0] != T:
-        raise ValueError(f"trace: {dplan.desc.shape[0]} transitions in the "
-                         f"plan's columns, want {T}")
-    base = bases(dplan, bps)
-    # whole blocks of 64 records leave shared memory in one bulk store each
-    recs = torch.empty((-(-T // 64) * 64, 7), dtype=torch.int32,
-                       device=dplan.device)
-    if T:
-        rc = kernels.lib().dg_trace(
-            dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R,
-            recs.data_ptr(), kernels.stream_of(recs))
-        kernels.raise_on_error(rc, "trace")
-        trace.launches += 1
-    return recs[:T]
+    the whole plan); backpointers on the CPU take ``trace_ref``. Span
+    ``pair.trace``."""
+    with timing.span("pair.trace"):
+        if all(b.device.type == "cpu" for blocks in bps for b in blocks):
+            return trace_ref(dplan, bps)
+        if len(bps) != len(dplan.segments):
+            raise ValueError(f"trace: {len(bps)} backpointer sets for "
+                             f"{len(dplan.segments)} segments")
+        T = max(dplan.L - 1, 0)
+        if dplan.desc.shape[0] != T:
+            raise ValueError(f"trace: {dplan.desc.shape[0]} transitions in "
+                             f"the plan's columns, want {T}")
+        base = bases(dplan, bps)
+        # whole blocks of 64 records leave shared memory in one bulk store
+        # each
+        recs = torch.empty((-(-T // 64) * 64, 7), dtype=torch.int32,
+                           device=dplan.device)
+        if T:
+            rc = kernels.lib().dg_trace(
+                dplan.desc.data_ptr(), base.data_ptr(), T, dplan.R,
+                recs.data_ptr(), kernels.stream_of(recs))
+            kernels.raise_on_error(rc, "trace")
+            trace.launches += 1
+        return recs[:T]
 
 
 trace.launches = 0

@@ -21,12 +21,11 @@ as ``bp [T, R+1, NB * 1024]`` with the unreached lanes' -1 committed as 0
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
 from .. import kernels
+from ..utils import timing
 from .narrow import transition_keys
 from .pair_plan import SPLIT_NB_MAX
 from .plan import CHUNK, NEG, REACH_T, DevSegment, _LOW32
@@ -124,9 +123,9 @@ def commit(part: torch.Tensor, present: torch.Tensor, bp_out: torch.Tensor):
 def wide_tp_run(seg: DevSegment, v_in: torch.Tensor, group):
     """One ``wide_tp`` run on this rank: ``(V_out [R+1, 1024], bp [T, R+1,
     NB * 1024])`` from ``V_in [R+1, 1024]``, the same on every rank of the
-    tp ``group``. Adds the host seconds spent in the merges to
-    ``wide_tp_run.merge_seconds`` (with gloo on a card they include the
-    wait for the transition's K4, which the host staging needs)."""
+    tp ``group``. Each merge is a span ``pair.tp_merge`` (with gloo on a
+    card it holds the wait for the transition's K4, which the host staging
+    needs)."""
     h = seg.host
     T = h.t1 - h.t0
     V = _state(seg, v_in)
@@ -138,11 +137,7 @@ def wide_tp_run(seg: DevSegment, v_in: torch.Tensor, group):
                              device=V.device))
     for ti in range(T):
         part = wide_step(seg, ti, V, part)
-        t0 = time.perf_counter()
-        dist.all_reduce(part, op=dist.ReduceOp.MAX, group=group)
-        wide_tp_run.merge_seconds += time.perf_counter() - t0
+        with timing.span("pair.tp_merge"):
+            dist.all_reduce(part, op=dist.ReduceOp.MAX, group=group)
         V = commit(part, seg.t["present"][ti], bp[ti])
     return V[:, :1024].contiguous(), bp
-
-
-wide_tp_run.merge_seconds = 0.0

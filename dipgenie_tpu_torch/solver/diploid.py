@@ -55,6 +55,7 @@ from ..ops.plan import (
 from ..ops.trace import trace
 from ..ops.vertex_plan import P, W, plan_vertices
 from ..utils.synth import dp_states
+from ..utils import timing
 from ..utils.timing import log_stage
 from .haploid import _fmt
 
@@ -340,6 +341,8 @@ def vertex_forward(arrs, R: int, device, backend: str, mesh=None):
         f"{int(desc[:, W].max(initial=0))}; {shape}",
     )
     before = [w.launches for w in wrappers]
+    tp_spans = ("chunked.tp_gather", "chunked.tp_wait")
+    tp_before = [timing.total(n).ns for n in tp_spans]
     t0 = time.time()
     on_card = dp.device.type == "cuda"
     if on_card:
@@ -351,10 +354,12 @@ def vertex_forward(arrs, R: int, device, backend: str, mesh=None):
     tp = ""
     if backend == "jax" and mesh is not None:
         st = dp.stats
+        gather_s, wait_s = ((timing.total(n).ns - b) / 1e9
+                            for n, b in zip(tp_spans, tp_before))
         tp = (f"; over a tp mesh of {mesh.n_tp} ranks: {st['shares']} wide "
               f"transitions split, {st['gathers']} all-gathers of "
-              f"{st['gather_bytes']} B in {st['gather_seconds']:.3f}s, "
-              f"{st['wait_seconds']:.3f}s waiting for the card before them "
+              f"{st['gather_bytes']} B in {gather_s:.3f}s, "
+              f"{wait_s:.3f}s waiting for the card before them "
               "(host clock)")
     log_stage(
         "diploid_dp",
