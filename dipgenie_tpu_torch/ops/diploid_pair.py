@@ -40,11 +40,11 @@ def assemble(sink_value: int, recs: np.ndarray):
     """(sink_value, s_het, transitions) from the ``[L - 1, 7]`` records
     (span ``pair.assemble``)."""
     with timing.span("pair.assemble"):
-        recs = np.asarray(recs, np.int64)
-        shet = int(recs[:, 6].sum()) if len(recs) else 0
-        transitions = [
-            (t + 1, *(int(x) for x in row[:6])) for t, row in enumerate(recs)
-        ]
+        recs = np.asarray(recs)
+        shet = int(recs[:, 6].sum(dtype=np.int64))
+        # the columns as lists of Python ints, zipped into rows in C
+        transitions = list(zip(range(1, len(recs) + 1),
+                               *recs[:, :6].T.tolist()))
     return sink_value, shet, transitions
 
 

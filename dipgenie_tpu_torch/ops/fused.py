@@ -289,14 +289,11 @@ def path_transitions(rows: np.ndarray):
     rows, level ascending (the destination of the last is the sink pair).
     Span ``fused.assemble``."""
     with timing.span("fused.assemble"):
-        rows = np.asarray(rows, np.int64)
-        T = len(rows)
-        out = []
-        for t in range(T):
-            i2, j2 = (0, 0) if t == T - 1 else (int(rows[t + 1, 0]),
-                                                int(rows[t + 1, 1]))
-            a, b, wu, wv = (int(x) for x in rows[t])
-            out.append((t + 1, a, b, i2, j2, wu, wv))
+        # the columns as lists of Python ints, zipped into rows in C; a
+        # transition's destination is the next row's source
+        a, b, wu, wv = np.asarray(rows).T.tolist()
+        out = list(zip(range(1, len(a) + 1), a, b, a[1:] + [0], b[1:] + [0],
+                       wu, wv))
     return out
 
 

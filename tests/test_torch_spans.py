@@ -188,6 +188,30 @@ def test_one_record_per_span_per_run(csr, card_cut, tier):
     assert all(a.end_ns <= b.start_ns for a, b in zip(ends, ends[1:]))
 
 
+@pytest.mark.parametrize("tier", ["pair", "fused", "chunked"])
+def test_assemble_span_once_per_solve(csr, tier):
+    """The columnar build of the transitions stays inside its span: one
+    top-level ``<tier>.assemble`` a solve, after the traceback's span (the
+    chunked tier, with no span of its own there, records the fused one from
+    ``path_transitions``), around a list the native tier agrees with."""
+    if tier == "chunked":
+        dp = chunked.DeviceDiploidDP(plan_vertices(*csr), R, "cpu")
+        name = "fused.assemble"
+    else:
+        dp = solver(tier, csr)
+        name = f"{tier}.assemble"
+    want = native_forward_csr(csr, R)
+    timing.reset()
+    for n in (1, 2, 3):
+        assert dp.run() == want
+        recs = timing.recent(name)
+        assert len(recs) == n and recs[-1].parent is None
+        assert recs[-1].ns > 0
+        if tier != "chunked":
+            (trace,) = timing.recent(f"{tier}.trace", 1)
+            assert trace.end_ns <= recs[-1].start_ns
+
+
 @pytest.mark.parametrize("tier", ["pair", "fused"])
 def test_run_results_unchanged_with_tracing(csr, tier):
     want = native_forward_csr(csr, R)
